@@ -1,0 +1,101 @@
+"""The train step that ``bench.py`` measures, set up once for every script that runs it.
+
+Counterpart of ``bench.py``'s train loop (``bench.py:73-119``): gpt2-small
+with flash attention, the fused CE head, no remat, AdamW (lr 3e-4, weight
+decay 0.01), B=32, T=1024, tokens drawn as ``bench.py``'s pipeline draws
+them. ``chip_smoke.py`` and ``profile_train_step`` both take their model,
+optimizer and batches from ``setup``, so they run the same step.
+
+Also the agreement rule that ``chip_smoke.py`` and the CUDA tests hold a
+kernel to against its plain version (``disagreement``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, NamedTuple
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.device import DeviceLike, resolve_device
+from ray_tpu_torch.models import gpt2
+
+MODEL, BATCH, SEQ = "gpt2-small", 32, 1024
+
+
+def config(model: str = MODEL) -> gpt2.GPT2Config:
+    """bench.py's training configuration of ``model`` (bench.py:73-77).
+    Its TPU-tuned ``loss_chunk=256`` and ``scan_unroll`` are not carried
+    over: the port keeps the default chunk of 128."""
+    return dataclasses.replace(gpt2.CONFIGS[model], attn_impl="flash", loss_impl="fused",
+                               remat=False)
+
+
+def batch_tokens(step: int, vocab: int, batch: int = BATCH, seq: int = SEQ) -> np.ndarray:
+    """Rows step*batch .. step*batch+batch-1 as bench.py's token pipeline
+    draws them (bench.py:50-53): one generator per block of rows, seeded
+    with the block's first row id + 1."""
+    rng = np.random.default_rng(step * batch + 1)
+    return rng.integers(0, vocab, (batch, seq + 1), dtype=np.int32)
+
+
+class TrainRun(NamedTuple):
+    cfg: gpt2.GPT2Config
+    model: gpt2.GPT2
+    step: Callable[[torch.Tensor], torch.Tensor]  # one AdamW step on the model
+    batches: List[torch.Tensor]
+
+
+def setup(n_batches: int, model: str = MODEL, batch: int = BATCH, seq: int = SEQ,
+          device: DeviceLike = None) -> TrainRun:
+    """A model from the port's random init (a generator on ``device``
+    seeded with 0), its AdamW train step, and the first ``n_batches`` token
+    batches [batch, seq+1] on ``device``."""
+    device = resolve_device(device)
+    cfg = config(model)
+    net = gpt2.init(torch.Generator(device=device).manual_seed(0), cfg, device)
+    opt = torch.optim.AdamW(net.parameters(), lr=3e-4, weight_decay=0.01,
+                            betas=(0.9, 0.999), eps=1e-8)
+    batches = [torch.from_numpy(batch_tokens(i, cfg.vocab_size, batch, seq)).to(device)
+               for i in range(n_batches)]
+    return TrainRun(cfg, net, gpt2.make_train_step(net, opt), batches)
+
+
+# ---------------------------------------------------------------------------
+# Agreement of a kernel with its plain version
+# ---------------------------------------------------------------------------
+
+# The kernels and their plain versions take the same bf16 inputs and round
+# to bf16 at the same places (p and dS before their products, the outputs),
+# but sum in other orders and round p against a running max rather than the
+# final one. So an output element may differ by a few bf16 roundings (bf16
+# keeps 8 bits: 2^-8 = 3.9e-3 per rounding) of the terms it sums, whose
+# scale is that of its row: the rows of a causal output differ in scale by
+# far more than that (row 0 of o is v_0; late rows average ~T values). Every
+# element is held to
+#     |got - want| <= RTOL |want| + ATOL_RMS rms(row of want) + ABS_FLOOR,
+# a row being the last axis (one query's or one key's head vector); the
+# absolute part covers elements that cancel to near zero, and ABS_FLOOR
+# outputs that are zero in exact arithmetic (dS at T = 1). The whole tensor
+# is held to ||got - want|| <= RELNORM_TOL ||want||.
+RTOL = 2.0 ** -6
+ATOL_RMS = 2e-2
+RELNORM_TOL = 1e-2
+ABS_FLOOR = 1e-5
+
+
+def disagreement(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """How far ``got`` is from ``want``: ``max_abs`` (max |got - want|),
+    ``atol_rms`` (the least ATOL_RMS under which every element would pass
+    the rule above), ``relnorm`` (||got - want|| / ||want||) and ``ok``
+    (both within their limits; False on any NaN)."""
+    g, w = got.detach().float(), want.detach().float()
+    err = (g - w).abs()
+    row_rms = w.square().mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    atol_rms = ((err - RTOL * w.abs() - ABS_FLOOR) / row_rms).max().item()
+    norm = w.norm().item()
+    relnorm = (g - w).norm().item() / norm if norm > 0 else 0.0
+    max_abs = err.max().item()
+    ok = bool(atol_rms <= ATOL_RMS and (relnorm <= RELNORM_TOL or max_abs <= ABS_FLOOR))
+    return {"max_abs": max_abs, "atol_rms": atol_rms, "relnorm": relnorm, "ok": ok}

@@ -1,0 +1,240 @@
+"""Flash attention: CUDA kernels for Hopper behind a torch.autograd.Function.
+
+Counterpart of ``ray_tpu/ops/flash_attention.py``. The three Pallas TPU
+kernels there (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) are
+CUDA C++ kernels here (``csrc/flash_attention.cu``, built by ``_build``):
+
+  - forward: one block per (bh, 64-row q tile), online softmax over 64-key
+    tiles in registers, writes o and the row lse;
+  - dq: one block per (bh, q tile), looping over key tiles;
+  - dkv: one block per (bh, key tile), looping over q tiles from the
+    diagonal on.
+
+Neither backward kernel uses atomics, so the gradients do not depend on
+run order. Each kernel has a plain PyTorch version of the same function
+in this module (``flash_fwd_reference``, ``flash_bwd_reference``): the CPU
+runs it, because the tensors given lie on the CPU, and the card checks
+the kernels against it. A CUDA tensor always goes to a kernel or raises.
+
+Layout: the public entry takes and returns [B, T, H, Dh] (the JAX
+package's model layout) and folds to [B*H, T, Dh] for the kernels. lse and
+delta are [B*H, T] f32; the JAX kernel's [BH, 8, T] sublane layout is a
+TPU tiling artefact and is not carried over.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import torch
+
+from ray_tpu_torch.ops import _build
+
+_NEG_INF = -1e30
+HEAD_DIMS = (16, 64)  # gpt2-tiny has 16; every GPT-2 size in CONFIGS has 64
+_MAX_BH = 65535       # the kernels put B*H on the grid's y axis
+
+# Kernel launches on CUDA tensors, one count per kernel (the plain versions
+# are not counted). chip_smoke.py zeroes these before the train step and
+# reads them after, to show the step went through the kernels.
+launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the JAX kernels' math, on whole [BH, T, Dh] tensors.
+# ---------------------------------------------------------------------------
+
+
+def _scores(q: Tensor, k: Tensor, causal: bool) -> Tensor:
+    """S = QK^T / sqrt(Dh) in f32 (scaled after the product), the causal
+    mask written as -1e30, as in the JAX kernel (flash_attention.py:58-84)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        Tq, Tk = q.shape[-2], k.shape[-2]
+        mask = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, _NEG_INF)
+    return s
+
+
+def flash_fwd_reference(q: Tensor, k: Tensor, v: Tensor, causal: bool) -> Tuple[Tensor, Tensor]:
+    """q [BH, Tq, Dh], k/v [BH, Tk, Dh] -> (o [BH, Tq, Dh] in q's dtype,
+    lse [BH, Tq] f32). p is cast to the input dtype before p@v."""
+    s = _scores(q, k, causal)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def flash_dq_reference(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor,
+                       delta: Tensor, causal: bool) -> Tensor:
+    """dQ = dS K with P = exp(S - lse), dP = dO V^T, dS = P (dP - delta) / sqrt(Dh);
+    dS is cast to k's dtype before the product (flash_attention.py:153-160)."""
+    _, ds = _p_and_ds(q, k, v, do, lse, delta, causal)
+    return torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype)
+
+
+def flash_dkv_reference(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor,
+                        delta: Tensor, causal: bool) -> Tuple[Tensor, Tensor]:
+    """dK = dS^T Q and dV = P^T dO, P and dS cast to the input dtype before
+    the products (flash_attention.py:187-200)."""
+    p, ds = _p_and_ds(q, k, v, do, lse, delta, causal)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_reference(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor,
+                        delta: Tensor, causal: bool) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dq, dk, dv): the plain versions of both backward kernels."""
+    dq = flash_dq_reference(q, k, v, do, lse, delta, causal)
+    return (dq, *flash_dkv_reference(q, k, v, do, lse, delta, causal))
+
+
+def _p_and_ds(q, k, v, do, lse, delta, causal):
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, causal) - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta[..., None]) * scale
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: CPU tensors -> plain version; CUDA tensors -> kernel (or raise).
+# ---------------------------------------------------------------------------
+
+
+def _check(q: Tensor, k: Tensor, v: Tensor, causal: bool, *more: Tensor) -> None:
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("expected folded [B*H, T, Dh] operands")
+    BH, Tq, D = q.shape
+    if k.shape != v.shape or k.shape[0] != BH or k.shape[2] != D:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not supported (kernels take {HEAD_DIMS})")
+    if causal and k.shape[1] != Tq:
+        raise ValueError("causal flash attention requires Tq == Tk")
+    for t in more:  # dO like q; lse and delta [B*H, Tq]
+        if t.shape != (q.shape if t.dim() == 3 else (BH, Tq)):
+            raise ValueError(f"dO must match q and lse/delta must be [B*H, Tq], got {tuple(t.shape)}")
+    devs = {t.device for t in (q, k, v, *more)}
+    if len(devs) != 1:
+        raise ValueError(f"operands on several devices: {devs}")
+    if q.is_cuda:
+        if BH > _MAX_BH:
+            raise ValueError(f"B*H = {BH} exceeds {_MAX_BH}")
+        for t in (q, k, v, *more):
+            want = torch.float32 if t.dim() == 2 else torch.bfloat16  # lse/delta vs operands
+            if t.dtype != want:
+                raise ValueError(f"the CUDA kernels take bf16 operands and f32 lse/delta, got {t.dtype}")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError("kernel operands must be contiguous and 16-byte aligned")
+
+
+def _launch(entry: str, counter: str, *args) -> None:
+    """Call C entry point ``entry`` of the kernel library on the current
+    stream: tensors go as device pointers, floats as float, the rest as int.
+    Counts the launch once the entry point has reported no error."""
+    lib = _build.load("flash_attention")
+    fn = getattr(lib, entry)
+    types, vals = [], []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            types.append(ctypes.c_void_p)
+            vals.append(a.data_ptr())
+        elif isinstance(a, float):
+            types.append(ctypes.c_float)
+            vals.append(a)
+        else:
+            types.append(ctypes.c_int)
+            vals.append(int(a))
+    fn.argtypes = types + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(lib, fn(*vals, torch.cuda.current_stream().cuda_stream), entry)
+    launches[counter] += 1
+
+
+@torch.no_grad()
+def flash_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool) -> Tuple[Tensor, Tensor]:
+    """Folded forward: q [BH, Tq, Dh], k/v [BH, Tk, Dh] -> (o, lse [BH, Tq] f32)."""
+    _check(q, k, v, causal)
+    if not q.is_cuda:
+        return flash_fwd_reference(q, k, v, causal)
+    (BH, Tq, D), Tk = q.shape, k.shape[1]
+    o = torch.empty_like(q)
+    lse = torch.empty(BH, Tq, dtype=torch.float32, device=q.device)
+    _launch("rt_flash_fwd", "flash_fwd", q, k, v, o, lse, BH, Tq, Tk, D, 1.0 / math.sqrt(D), causal)
+    return o, lse
+
+
+@torch.no_grad()
+def flash_dq(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor, delta: Tensor,
+             causal: bool) -> Tensor:
+    """Folded dQ against the row lse and delta = rowsum(dO * O)."""
+    _check(q, k, v, causal, do, lse, delta)
+    if not q.is_cuda:
+        return flash_dq_reference(q, k, v, do, lse, delta, causal)
+    (BH, Tq, D), Tk = q.shape, k.shape[1]
+    dq = torch.empty_like(q)
+    _launch("rt_flash_dq", "flash_dq", q, k, v, do, lse, delta, dq,
+            BH, Tq, Tk, D, 1.0 / math.sqrt(D), causal)
+    return dq
+
+
+@torch.no_grad()
+def flash_dkv(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor, delta: Tensor,
+              causal: bool) -> Tuple[Tensor, Tensor]:
+    """Folded (dK, dV) against the row lse and delta = rowsum(dO * O)."""
+    _check(q, k, v, causal, do, lse, delta)
+    if not q.is_cuda:
+        return flash_dkv_reference(q, k, v, do, lse, delta, causal)
+    (BH, Tq, D), Tk = q.shape, k.shape[1]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("rt_flash_dkv", "flash_dkv", q, k, v, do, lse, delta, dk, dv,
+            BH, Tq, Tk, D, 1.0 / math.sqrt(D), causal)
+    return dk, dv
+
+
+def _fold(x: Tensor) -> Tensor:  # [B, T, H, D] -> [B*H, T, D], contiguous
+    B, T, H, D = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B * H, T, D).contiguous()
+
+
+def _unfold(x: Tensor, B: int, H: int) -> Tensor:  # [B*H, T, D] -> [B, T, H, D]
+    BH, T, D = x.shape
+    return x.view(B, H, T, D).permute(0, 2, 1, 3)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        B, _, H, _ = q.shape
+        qf, kf, vf = _fold(q), _fold(k), _fold(v)
+        o, lse = flash_fwd(qf, kf, vf, causal)
+        ctx.save_for_backward(qf, kf, vf, o, lse)
+        ctx.causal, ctx.B, ctx.H = causal, B, H
+        return _unfold(o, B, H)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qf, kf, vf, o, lse = ctx.saved_tensors
+        B, H = ctx.B, ctx.H
+        dof = _fold(dout)
+        # delta = rowsum(dO * O) in f32, outside the kernels (flash_attention.py:359)
+        delta = (dof.float() * o.float()).sum(-1)
+        dq = flash_dq(qf, kf, vf, dof, lse, delta, ctx.causal)
+        dk, dv = flash_dkv(qf, kf, vf, dof, lse, delta, ctx.causal)
+        return _unfold(dq, B, H), _unfold(dk, B, H), _unfold(dv, B, H), None
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True) -> Tensor:
+    """softmax(QK^T / sqrt(Dh)) V for q [B, Tq, H, Dh], k/v [B, Tk, H, Dh]
+    (Tq == Tk when causal) -> [B, Tq, H, Dh], differentiable in q, k, v."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("expected [B, T, H, Dh] operands")
+    return _FlashAttention.apply(q, k, v, causal)

@@ -25,6 +25,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: excluded from the tier-1 run (-m 'not slow')"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips without one"
+    )
     # Reap debris from SIGKILLed prior runs (orphaned node_main/worker
     # daemons + /dev/shm/rtshm_* segments): leaked daemons hold CPU and
     # cascade-fail serve tests late in the suite. Safe concurrently —
