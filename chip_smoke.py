@@ -4,10 +4,14 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. name the card and its power limit (nvidia-smi); build the CUDA kernels
-     from ray_tpu_torch/ops/csrc with nvcc;
+     from ray_tpu_torch/ops/csrc with nvcc; count each kernel's wgmma
+     (HGMMA) and TMA load (UTMALDG) instructions in the library's SASS
+     (cuobjdump -sass), and fail if the forward or dK/dV kernel lacks either;
   2. hold each kernel against its plain PyTorch version on the card, on bf16
      inputs from a seeded generator, at the train step's shape, at head dim
-     16, at a ragged T and non-causal with Tk != Tq, element by element
+     16, at a ragged T, non-causal with Tk != Tq, and non-causal with Tk
+     spanning more key tiles than the ring has stages (the ring wraps) and a
+     ragged last tile, element by element
      (ray_tpu_torch.bench.disagreement); hold the autograd Function at the
      train step's [B, T, H, Dh] against reference attention; time each
      kernel at the train step's shape beside its bound, its plain version
@@ -19,7 +23,9 @@ Phases (any failure exits non-zero and prints no result):
      loss and every parameter's gradient against the same model and batch
      with reference attention, then take a few steps: losses finite, step 0
      near ln(vocab), 12 launches of each kernel per step;
-  4. print the kernel line (one JSON object);
+  4. print the kernel line (one JSON object; beside the contract's keys,
+     each kernel's SASS counts from phase 1: every number in it was
+     measured or, for bound_ms, computed in this run);
   5. print the contract line (one JSON object, the last line).
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -30,6 +36,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -47,7 +55,7 @@ PEAK_BYTES = 3.35e12
 # (B, T, Tk, H, Dh, causal): the train step's shape first.
 MAIN_CASE = (32, 1024, 1024, 12, 64, True)
 CASES = [MAIN_CASE, (4, 512, 512, 4, 16, True), (2, 1000, 1000, 12, 64, True),
-         (2, 200, 333, 4, 64, False)]
+         (2, 200, 333, 4, 64, False), (2, 300, 1100, 4, 64, False)]
 # Kernels vs plain versions: every output element by the rule of
 # ray_tpu_torch.bench (RTOL relative, ATOL_RMS x the row's rms absolute,
 # RELNORM_TOL on the whole tensor). On an H100 the cases below need at most
@@ -72,27 +80,19 @@ KERNELS = {
     "flash_dkv": "ray_tpu/ops/flash_attention.py:168",
 }
 SOURCE = "ray_tpu_torch/ops/csrc/flash_attention.cu"
+# The kernels that must issue wgmma and load through TMA (the Hopper
+# redesign); flash_dq is still the mma.sync version.
+HOPPER_KERNELS = ("flash_fwd", "flash_dkv")
+# The first versions' times at the train step's shape, before the Hopper
+# redesign (chip_smoke.py phase 2, median of 20 calls; PERF.md section 6,
+# NVIDIA H100 80GB HBM3 at 700 W). Recorded, not measured here: printed as
+# text beside this run's times, and kept out of the kernel line.
+BEFORE_REDESIGN_MS = {"flash_fwd": 0.5302, "flash_dkv": 1.0951}
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
-
-
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, CUDA events around each call."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(iters):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        pairs.append((a, b))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +112,9 @@ def identify() -> str:
     return smi
 
 
-def build() -> None:
+def build() -> dict:
+    """Build the kernels, print nvcc's register and spill report, and return
+    each kernel's SASS instruction counts (``sass_counts``)."""
     import ray_tpu_torch
     from ray_tpu_torch.ops import _build
 
@@ -123,8 +125,37 @@ def build() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     log = path.with_name(path.name + ".log")
     for line in log.read_text().splitlines() if log.exists() else []:
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling entry", "warning", "setmaxnreg")):
             print(f"  {line.strip()}")
+    counts = sass_counts(path)
+    for name, c in counts.items():
+        print(f"sass {name}: HGMMA {c['hgmma']}, UTMALDG {c['utmaldg']}", flush=True)
+    for name in HOPPER_KERNELS:
+        if not (counts[name]["hgmma"] > 0 and counts[name]["utmaldg"] > 0):
+            fail(f"{name} issues no wgmma or no TMA load in its SASS: {counts[name]}")
+    return counts
+
+
+SASS_OPS = {"hgmma": "HGMMA", "utmaldg": "UTMALDG"}
+
+
+def sass_counts(lib: Path) -> dict:
+    """HGMMA and UTMALDG instructions per kernel (all head-dim instances
+    summed) in the SASS of the built library, read with cuobjdump."""
+    from ray_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts = {name: dict.fromkeys(SASS_OPS, 0) for name in KERNELS}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = next((n for n in KERNELS if f"{n}_kernel" in line), None)
+        elif current is not None:
+            for key, op in SASS_OPS.items():
+                counts[current][key] += bool(re.search(rf"\b{op}\b", line))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -194,23 +225,23 @@ def check_kernels(card: str) -> dict:
             continue
         bnd = bounds(*case)
         ms = {
-            "flash_fwd": time_ms(lambda: fa.flash_fwd(q, k, v, causal)),
-            "flash_dq": time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, causal)),
-            "flash_dkv": time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal)),
+            "flash_fwd": bench.time_ms(lambda: fa.flash_fwd(q, k, v, causal)),
+            "flash_dq": bench.time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, causal)),
+            "flash_dkv": bench.time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal)),
         }
         plain_ms = {
-            "flash_fwd": time_ms(lambda: fa.flash_fwd_reference(q, k, v, causal), iters=5),
-            "flash_dq": time_ms(lambda: fa.flash_dq_reference(q, k, v, do, lse, delta, causal), iters=5),
-            "flash_dkv": time_ms(lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta, causal), iters=5),
+            "flash_fwd": bench.time_ms(lambda: fa.flash_fwd_reference(q, k, v, causal), iters=5),
+            "flash_dq": bench.time_ms(lambda: fa.flash_dq_reference(q, k, v, do, lse, delta, causal), iters=5),
+            "flash_dkv": bench.time_ms(lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta, causal), iters=5),
         }
         # The library's attention on the same inputs, [B, H, T, Dh] views.
         qs, ks, vs = (x.view(B, H, -1, D).detach().requires_grad_() for x in (q, k, v))
         dos = do.view(B, H, T, D)
         with torch.no_grad():
-            sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal))
+            sdpa_fwd = bench.time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal))
         out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
-        sdpa_bwd = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True))
-        sdpa_both = time_ms(lambda: torch.autograd.grad(
+        sdpa_bwd = bench.time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True))
+        sdpa_both = bench.time_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal), (qs, ks, vs), dos))
         library = {"flash_fwd": sdpa_fwd, "flash_dq": sdpa_bwd, "flash_dkv": sdpa_bwd}
         err_of = {"flash_fwd": errs["o"], "flash_dq": errs["dq"],
@@ -222,7 +253,10 @@ def check_kernels(card: str) -> dict:
             }
             print(f"time {name} at B={B} T={T} H={H} Dh={D} causal: kernel {ms[name]:.4f} ms, "
                   f"bound {bnd[name][0]:.4f} ms ({bnd[name][1]}), plain {plain_ms[name]:.4f} ms, "
-                  f"library {library[name]:.4f} ms [{card}]", flush=True)
+                  f"library {library[name]:.4f} ms"
+                  + (f", before the redesign {BEFORE_REDESIGN_MS[name]:.4f} ms "
+                     "(PERF.md, not this run)" if name in BEFORE_REDESIGN_MS else "")
+                  + f" [{card}]", flush=True)
         print(f"library: sdpa forward {sdpa_fwd:.4f} ms, backward (dq, dk and dv in one call) "
               f"{sdpa_bwd:.4f} ms, forward+backward {sdpa_both:.4f} ms [{card}]", flush=True)
         del qs, ks, vs, out
@@ -354,11 +388,11 @@ def train(card: str) -> dict:
 
 def main() -> None:
     card = identify()
-    build()
+    sass = build()
     results = check_kernels(card)
     counts = train(card)
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
-                    launches=counts[name], **results[name]) for name in KERNELS]
+                    launches=counts[name], **results[name], **sass[name]) for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,12 +7,14 @@ them. ``chip_smoke.py`` and ``profile_train_step`` both take their model,
 optimizer and batches from ``setup``, so they run the same step.
 
 Also the agreement rule that ``chip_smoke.py`` and the CUDA tests hold a
-kernel to against its plain version (``disagreement``).
+kernel to against its plain version (``disagreement``), and the timer of a
+call on the card (``time_ms``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import statistics
 from typing import Callable, List, NamedTuple
 
 import numpy as np
@@ -99,3 +101,20 @@ def disagreement(got: torch.Tensor, want: torch.Tensor) -> dict:
     max_abs = err.max().item()
     ok = bool(atol_rms <= ATOL_RMS and (relnorm <= RELNORM_TOL or max_abs <= ABS_FLOOR))
     return {"max_abs": max_abs, "atol_rms": atol_rms, "relnorm": relnorm, "ok": ok}
+
+
+def time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> float:
+    """Median device time of one call of ``fn`` on the card, CUDA events
+    around each call, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)

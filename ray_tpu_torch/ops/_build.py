@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/<name>-<hash>.so``: a shared library
 with a plain C interface, compiled for ``sm_90a`` by nvcc at first use. The
-hash covers the source and the flags, so a stale library is never loaded.
+hash covers the source, every header beside it (``csrc/*.cuh``) and the
+flags, so a stale library is never loaded after an edit to any of them.
 A lock file in the build directory guards concurrent builds (several test
 or training processes starting at once). No PyTorch header is compiled,
 which keeps a build to seconds.
@@ -23,6 +24,7 @@ import shutil
 import subprocess
 from contextlib import contextmanager
 from pathlib import Path
+from typing import Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -43,12 +45,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's kernels need the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    """Where ``build`` puts the library of ``csrc/<name>.cu`` compiled with
+    the macro definitions ``defines`` ("NAME=VALUE"; the tile sweep's
+    overrides, none in use)."""
     cu = CSRC / f"{name}.cu"
     if not cu.exists():
         raise FileNotFoundError(cu)
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(cu.read_bytes())
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
+    for src in [cu, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -63,16 +73,16 @@ def _build_lock():
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: Tuple[str, ...] = ()) -> Path:
     """Compile ``csrc/<name>.cu`` unless it is built already; returns the
     library's path. The compiler's output (registers, shared memory and
     spills per kernel) is kept beside the library as ``<lib>.log``."""
-    path = library_path(name)
+    path = library_path(name, defines)
     with _build_lock():
         if path.exists():
             return path
         tmp = path.with_suffix(f".tmp{os.getpid()}")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        proc = subprocess.run([_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         Path(f"{path}.log").write_text(proc.stdout)
         if proc.returncode != 0:
@@ -83,9 +93,9 @@ def build(name: str) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The kernel library ``name``, built first if needed."""
-    return ctypes.CDLL(str(build(name)))
+    return ctypes.CDLL(str(build(name, defines)))
 
 
 def check(lib: ctypes.CDLL, status: int, what: str) -> None:

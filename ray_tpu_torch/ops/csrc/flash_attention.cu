@@ -1,19 +1,24 @@
 // Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
 //
 // Operands are folded to [BH, T, D] row-major bf16 (D = head dim, 16 or 64),
-// lse and delta are [BH, Tq] f32. Scores and all accumulators are f32; the
-// products run on the tensor cores through mma.sync m16n8k16 (bf16 in, f32
-// accumulate). One thread block = 4 warps; each warp owns 16 rows of its
-// block's 64-row tile, and the softmax of a row lives in the registers of
-// the four lanes that hold it (no score tile ever goes to memory).
+// lse and delta are [BH, Tq] f32. Scores and all accumulators are f32.
 //
-// Layout of one m16n8k16 product, per lane (g = lane / 4, t = lane % 4):
+// Forward and dK/dV are warp-specialised (hopper.cuh): a producer warp
+// streams tiles by TMA into a ring of shared-memory stages, and two consumer
+// warpgroups run wgmma on them, the score tile never leaving registers (the
+// f32 accumulator of one product, packed to bf16, is the register A operand
+// of the next).
+//
+// dQ is the first version: one block of 4 warps, each owning 16 rows of its
+// block's 64-row tile, products through mma.sync m16n8k16 (bf16 in, f32
+// accumulate), tiles staged in shared memory by plain loads. The layout of
+// one m16n8k16 product, per lane (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
 //                         a2 = A[g][2t+8..+9],   a3 = A[g+8][2t+8..+9]
 //   B (16x8, "col"):      b0 = B[2t..2t+1][g],   b1 = B[2t+8..+9][g]
 //   C (16x8 f32):         c0,c1 = C[g][2t..2t+1], c2,c3 = C[g+8][2t..2t+1]
 // Two neighbouring C tiles of a score row are therefore exactly one A
-// fragment of the next product (P@V, dS@K, ...) once packed to bf16.
+// fragment of the next product (dS@K) once packed to bf16.
 //
 // Every C entry point launches on the caller's stream and returns
 // cudaGetLastError(); nothing here allocates or synchronises.
@@ -22,10 +27,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "hopper.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
+// dQ tiles
 constexpr int BQ = 64;        // query rows per tile (4 warps x 16 rows)
 constexpr int BK = 64;        // key rows per tile
 constexpr int NTHREADS = 128;
@@ -146,125 +156,739 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float a
 }
 
 // ---------------------------------------------------------------------------
+// Shared by the forward and dK/dV kernels: warp-specialised persistent
+// blocks. Warpgroup 0 is the producer (TMA loads; it gives its registers up
+// with setmaxnreg), warpgroups 1..N consume with wgmma. One block per SM
+// walks over a static list of work tiles, so the next tile's loads overlap
+// the last one's epilogue.
+// ---------------------------------------------------------------------------
+constexpr int WG_THREADS = 128;
+template <int N>  // consumer warpgroups
+struct Roles {
+  static constexpr int THREADS = (N + 1) * WG_THREADS;
+  static constexpr int CONSUMER_WARPS = N * WG_THREADS / 32;
+  static constexpr int PRODUCER_REGS = 24;
+  // The rest of the SM's 65,536 registers, split among the consumers (a
+  // multiple of 8, at most 240): 240 for two consumer warpgroups, 160 for
+  // three. The block starts with 65,536 / THREADS each (168 or 128).
+  static constexpr int CONSUMER_REGS_FIT =
+      (65536 - WG_THREADS * PRODUCER_REGS) / (N * WG_THREADS) / 8 * 8;
+  static constexpr int CONSUMER_REGS = CONSUMER_REGS_FIT < 240 ? CONSUMER_REGS_FIT : 240;
+};
+// Each block keeps one SM to itself: the register split above assumes all
+// of the SM's registers, and the dynamic shared memory is raised to this
+// floor so a second block never shares the SM.
+constexpr int ONE_BLOCK_PER_SM_SMEM = 120 * 1024;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Tile sizes and ring depths, chosen by sweeps on the card (PERF.md section
+// 6). The ring depths are re-timed by python3 -m
+// ray_tpu_torch.sweep_flash_tiles, which rebuilds the library with -D
+// overrides of the two RT_ macros; nothing else sets them.
+// tests/test_torch_flash_tiles.py reads this block.
+#ifndef RT_FWD_STAGES
+#define RT_FWD_STAGES 3
+#endif
+#ifndef RT_DKV_STAGES
+#define RT_DKV_STAGES 4
+#endif
+constexpr int FWD_WGS = 2;                 // consumer warpgroups of the forward, 64 q rows each
+constexpr int FWD_BQ = 64 * FWD_WGS;       // q rows per work tile
+constexpr int FWD_BK = 128;                // keys per K/V stage
+constexpr int FWD_STAGES = RT_FWD_STAGES;  // K/V ring depth
+constexpr int DKV_BK = 128;                // keys per work tile (two consumer warpgroups x 64)
+constexpr int DKV_BQ = 64;                 // q rows per Q/dO stage
+constexpr int DKV_STAGES = RT_DKV_STAGES;  // Q/dO ring depth
+static_assert(FWD_STAGES >= 2 && DKV_STAGES >= 2, "a ring of at least two stages");
+
+// The 1024-byte aligned start of dynamic shared memory (the 128B swizzle
+// repeats every 1024 bytes, and TMA and wgmma agree on it from there).
+__device__ __forceinline__ uint8_t* smem_base(uint8_t* raw) {
+  return raw + ((1024 - (hopper::smem_u32(raw) & 1023)) & 1023);
+}
+
+// The work tiles of one persistent block, in order: units u = blockIdx.x,
+// blockIdx.x + gridDim.x, ... of n_units = per_head * bh. Without causal
+// masking every tile of a head costs the same and a unit is one tile. With
+// it, tile j of n costs in proportion to j + 1 (forward: q tile j sees j + 1
+// key tiles) or to n - j (dK/dV: key tile j is seen by the q tiles from j
+// on), so a unit pairs tiles p and n - 1 - p, whose costs add up to the
+// same for every unit, and runs the longer one first. Units of one head are
+// adjacent, so the blocks that share a head's K/V (or Q/dO) run together
+// and find it in L2.
+struct WorkList {
+  int n, per_head, n_units, causal, longest_high, u, second;
+
+  __device__ WorkList(int n_tiles, int bh, int causal_, int longest_is_high)
+      : n(n_tiles), causal(causal_), longest_high(longest_is_high), u(blockIdx.x), second(0) {
+    per_head = causal ? (n + 1) / 2 : n;
+    n_units = per_head * bh;
+  }
+
+  // The next (bh, tile) of this block, or false when it has none left.
+  __device__ bool next(int& bh, int& tile) {
+    if (u >= n_units) return false;
+    bh = u / per_head;
+    const int p = u % per_head;
+    if (!causal) {
+      tile = p;
+      u += gridDim.x;
+      return true;
+    }
+    const int hi = n - 1 - p, longer = longest_high ? hi : p, shorter = longest_high ? p : hi;
+    if (second) {
+      tile = shorter;
+      second = 0;
+      u += gridDim.x;
+    } else {
+      tile = longer;
+      if (hi != p) second = 1;
+      else u += gridDim.x;
+    }
+    return true;
+  }
+};
+
+inline int units_of(int n_tiles, int bh, int causal) {
+  return (causal ? (n_tiles + 1) / 2 : n_tiles) * bh;
+}
+
+// The N consumer warpgroups take turns at the tensor cores, in order: each
+// issues its products between begin() and end(), and end() hands the turn
+// to the next, so one warpgroup's softmax runs while another's products
+// do. Warpgroup 0 starts; every begin() is matched by the previous one's
+// end(), and finish() takes the one turn left over, so no barrier is left
+// half arrived (each warpgroup takes the same number of turns). Named
+// barriers 1..N, 256 threads each.
+template <int N>
+struct TakeTurns {
+  int c;  // this consumer warpgroup, 0 .. N-1
+  __device__ __forceinline__ void start() const {
+    if (c == N - 1) hopper::bar_arrive(1, 2 * WG_THREADS);
+  }
+  __device__ __forceinline__ void begin() const {
+    hopper::bar_sync(1 + c, 2 * WG_THREADS);
+  }
+  __device__ __forceinline__ void end() const {
+    hopper::bar_arrive(1 + (c + 1) % N, 2 * WG_THREADS);
+  }
+  __device__ __forceinline__ void finish() const {
+    if (c == 0) hopper::bar_sync(1, 2 * WG_THREADS);
+  }
+  __device__ __forceinline__ void skip() const {  // a turn without products
+    begin();
+    end();
+  }
+};
+
+// One arrival per consumer warp on an "empty" barrier (when `pred`), from
+// lane 0 once the whole warp is here. Branch-free: code between a wgmma's
+// issue and its wait must not branch, or the compiler waits for the wgmma
+// at the branch.
+__device__ __forceinline__ void warp_release(uint64_t* bar, bool pred = true) {
+  __syncwarp();
+  hopper::mbar_arrive_if(bar, pred && threadIdx.x % 32 == 0);
+}
+
+// Store a warpgroup's [64 x D] f32 accumulator, scaled per row and cast to
+// bf16, to rows [row0, row0 + 64) of head bh by TMA (rows past T are not
+// written): each thread writes its pairs into the warpgroup's swizzled
+// staging tile in shared memory, one thread issues the store. Named barrier
+// `bar` (this warpgroup's 128 threads) guards the staging tile, which the
+// previous store must have finished reading.
+template <int D>
+__device__ __forceinline__ void store_tile(bf16* stage, const CUtensorMap* map,
+                                           const float (&acc)[D / 2], float mul_a, float mul_b,
+                                           int row0, int bh, int tid, int bar) {
+  const int lane = tid % 32, r = 16 * (tid / 32) + (lane >> 2), t = lane & 3;
+  if (tid == 0) hopper::tma_store_wait_read();
+  hopper::bar_sync(bar, WG_THREADS);
+  uint8_t* base = reinterpret_cast<uint8_t*>(stage);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    *reinterpret_cast<uint32_t*>(base + hopper::swizzled_offset<D>(r, col)) =
+        hopper::pack_bf16x2(acc[4 * j] * mul_a, acc[4 * j + 1] * mul_a);
+    *reinterpret_cast<uint32_t*>(base + hopper::swizzled_offset<D>(r + 8, col)) =
+        hopper::pack_bf16x2(acc[4 * j + 2] * mul_b, acc[4 * j + 3] * mul_b);
+  }
+  hopper::fence_proxy_async();
+  hopper::bar_sync(bar, WG_THREADS);
+  if (tid == 0) hopper::tma_store_rows(map, stage, row0, bh);
+}
+
+// Chunks 2kk, 2kk + 1 of an m64nN accumulator as the bf16 A fragments of
+// the next product (see hopper.cuh).
+template <int N>
+__device__ __forceinline__ void pack_a_frags(uint32_t (&a)[N / 16][4], const float (&c)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = hopper::pack_bf16x2(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = hopper::pack_bf16x2(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = hopper::pack_bf16x2(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = hopper::pack_bf16x2(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Forward. Replaces _fwd_kernel (ray_tpu/ops/flash_attention.py:72-132).
 //
 // Bound on an H100 SXM at the train step's shapes (BH 384, T 1024, D 64,
 // causal): 4*BH*T*T*D/2 = 51.5 GFLOP against 989 TFLOP/s bf16 (52 us) and
 // 3 inputs + o + lse = 203 MB against 3.35 TB/s (61 us): bytes by a little,
 // and the two are close, so the kernel has to keep both the tensor cores
-// and the loads busy.
-// Design: one block per (bh, 64-row q tile) -- 6144 blocks at the train
-// shape, so every SM holds several. The q tile stays in registers as mma A
-// fragments; an in-block loop over 64-key tiles (staged in shared memory)
-// replaces the TPU's sequential "arbitrary" grid axis, with the running
-// max, normaliser and output accumulator in f32 registers. Causal: the loop
-// stops at the diagonal tile, and only tiles that cross the diagonal or the
-// ragged end of the keys are masked. Each Q/K/V byte is read from device
-// memory once per (q tile, k tile) pair that needs it; K/V reuse across q
-// tiles is left to L2 (50 MB holds a whole head's K/V many times over).
-// Not yet done: cp.async/TMA double buffering and wgmma (later work).
+// and the loads busy. At head dim 64 the softmax's exponentials (one MUFU
+// op per score, 16 per clock per SM) take as long as the products.
+// Design: a work tile is (bh, FWD_BQ q rows), 64 per consumer warpgroup.
+// The producer loads the tile's Q once and streams 128-key K and V tiles
+// through TMA into a ring of FWD_STAGES stages (full and empty mbarriers
+// per stage). Q has two buffers of its own, so the producer runs on into
+// the next work tile (its Q and first K/V tiles) while this one finishes.
+// Each consumer warpgroup computes S = Q K^T by wgmma (both operands in
+// shared memory, K-major), the online softmax in registers with exp2 and
+// scale * log2(e) folded into one FFMA, and O += P V by wgmma with P as the
+// register A operand (the S accumulator packed to bf16) and V read MN-major
+// through the transpose bit. S of key tile i and P V of key tile i - 1 go
+// out together, one turn per key tile, and the warpgroups take turns at
+// issuing (TakeTurns), so one warpgroup's softmax runs while the other's
+// products do. Both consumers read the same K/V stage and release it with
+// one arrival per warp. Causal: the key loop stops at the diagonal, only
+// tiles crossing the diagonal or the ragged end are masked, and a
+// warpgroup whose rows all lie past Tq skips its tiles. The output goes out
+// by TMA from a staging tile.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                 bf16* __restrict__ o, float* __restrict__ lse, int Tq, int Tk, float scale,
-                 int causal) {
-  __shared__ __align__(16) bf16 Qs[BQ][D + PAD];
-  __shared__ __align__(16) bf16 Ks[BK][D + PAD];
-  __shared__ __align__(16) bf16 Vt[D][BK + PAD];
+struct FwdSmem {
+  static constexpr int Q_BYTES = FWD_BQ * D * 2, KV_BYTES = FWD_BK * D * 2;
+  // Q twice (this work tile's and the next one's), the K/V ring, and the
+  // output staging tiles (one per consumer warpgroup).
+  static constexpr int K_OFF = 2 * Q_BYTES, V_OFF = K_OFF + FWD_STAGES * KV_BYTES;
+  static constexpr int O_OFF = V_OFF + FWD_STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = O_OFF + Q_BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (4 + 3 * FWD_STAGES);  // + alignment slack
+  static constexpr int LAUNCH = BYTES > ONE_BLOCK_PER_SM_SMEM ? BYTES : ONE_BLOCK_PER_SM_SMEM;
+};
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  q += (size_t)bh * Tq * D;
-  k += (size_t)bh * Tk * D;
-  v += (size_t)bh * Tk * D;
-  o += (size_t)bh * Tq * D;
-  lse += (size_t)bh * Tq;
+// Key tiles a q range [first, last] needs (causal: up to its last row).
+__device__ __forceinline__ int fwd_key_tiles(int last_row, int Tk, int causal) {
+  return ((causal ? min(Tk, last_row + 1) : Tk) + FWD_BK - 1) / FWD_BK;
+}
 
-  load_rows<D>(Qs, q, q0, Tq);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-  load_a_frags<D>(qa, Qs, warp * 16, g, t);
+// The leading key tiles that need no mask for q rows from `first_row` on:
+// past them a tile crosses the diagonal (causal) or the ragged end of the
+// keys, and so do all later tiles.
+__device__ __forceinline__ int fwd_plain_tiles(int first_row, int Tk, int causal) {
+  return causal ? min(Tk / FWD_BK, (first_row + 1) / FWD_BK) : Tk / FWD_BK;
+}
 
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;  // this lane's two query rows
-  float m_a = NEG_INF, m_b = NEG_INF;  // running row max
-  float l_a = 0.f, l_b = 0.f;          // this lane's share of the normaliser
-  float acc[D / 8][4];
+// The online softmax of one key tile (starting at k0) for this thread's
+// rows a and b. fwd_max masks the tile (kMask: causal, ragged end), takes
+// the new running max m (of s * scale * log2 e) across the four lanes that
+// hold a row, and returns in alpha the factor that rescales what was
+// accumulated against the old max. fwd_exp turns sc into P = 2^(s sl2 - m)
+// in place and adds its row sums to l.
+template <bool kMask>
+__device__ __forceinline__ void fwd_max(float (&sc)[FWD_BK / 2], float& m_a, float& m_b,
+                                        float& alpha_a, float& alpha_b, int k0, int Tk, int row_a,
+                                        int t, float sl2, int causal) {
+  const int row_b = row_a + 8;
+  if constexpr (kMask) {
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
-  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<D>(Ks, k, k0, Tk);
-    load_rows_t<D>(Vt, v, k0, Tk);
-    __syncthreads();
-
-    float s[8][4];
-    rows_times_tile_t<D>(s, qa, Ks, g, t);
-    const bool masked = (k0 + BK > Tk) || (causal && k0 + BK - 1 > q0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < FWD_BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = k0 + j * 8 + 2 * t + e;
-        s[j][e] *= scale;
-        s[j][2 + e] *= scale;
-        if (masked) {
-          if (col >= Tk || (causal && col > row_a)) s[j][e] = NEG_INF;
-          if (col >= Tk || (causal && col > row_b)) s[j][2 + e] = NEG_INF;
+        const int col = k0 + 8 * j + 2 * t + e;
+        if (col >= Tk || (causal && col > row_a)) sc[4 * j + e] = -INFINITY;
+        if (col >= Tk || (causal && col > row_b)) sc[4 * j + 2 + e] = -INFINITY;
+      }
+    }
+  }
+  // Four partial maxima per row: short dependency chains. The first tile
+  // holds key 0, which every row sees, so the running max is finite from
+  // the first tile on.
+  float pm_a[4], pm_b[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) pm_a[u] = pm_b[u] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < FWD_BK / 8; ++j) {
+    pm_a[j % 4] = fmaxf(pm_a[j % 4], fmaxf(sc[4 * j], sc[4 * j + 1]));
+    pm_b[j % 4] = fmaxf(pm_b[j % 4], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  float mx_a = fmaxf(fmaxf(pm_a[0], pm_a[1]), fmaxf(pm_a[2], pm_a[3]));
+  float mx_b = fmaxf(fmaxf(pm_b[0], pm_b[1]), fmaxf(pm_b[2], pm_b[3]));
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+  }
+  const float mn_a = fmaxf(m_a, mx_a * sl2), mn_b = fmaxf(m_b, mx_b * sl2);
+  alpha_a = hopper::ex2(m_a - mn_a);
+  alpha_b = hopper::ex2(m_b - mn_b);
+  m_a = mn_a;
+  m_b = mn_b;
+}
+
+__device__ __forceinline__ void fwd_exp(float (&sc)[FWD_BK / 2], float m_a, float m_b, float& l_a,
+                                        float& l_b, float alpha_a, float alpha_b, float sl2) {
+  float ps_a[4] = {0.f, 0.f, 0.f, 0.f}, ps_b[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < FWD_BK / 8; ++j) {
+    sc[4 * j + 0] = hopper::ex2(fmaf(sc[4 * j + 0], sl2, -m_a));
+    sc[4 * j + 1] = hopper::ex2(fmaf(sc[4 * j + 1], sl2, -m_a));
+    sc[4 * j + 2] = hopper::ex2(fmaf(sc[4 * j + 2], sl2, -m_b));
+    sc[4 * j + 3] = hopper::ex2(fmaf(sc[4 * j + 3], sl2, -m_b));
+    ps_a[j % 4] += sc[4 * j] + sc[4 * j + 1];
+    ps_b[j % 4] += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  l_a = l_a * alpha_a + ((ps_a[0] + ps_a[1]) + (ps_a[2] + ps_a[3]));
+  l_b = l_b * alpha_b + ((ps_b[0] + ps_b[1]) + (ps_b[2] + ps_b[3]));
+}
+
+template <int D>
+__global__ void __launch_bounds__(Roles<FWD_WGS>::THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                 float* __restrict__ lse, int bh_count, int Tq, int Tk, float scale, int causal) {
+  using S = FwdSmem<D>;
+  using R = Roles<FWD_WGS>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_base(smem_raw);
+  bf16* sq = reinterpret_cast<bf16*>(base);  // [2][FWD_BQ * D]
+  bf16* sk = reinterpret_cast<bf16*>(base + S::K_OFF);
+  bf16* sv = reinterpret_cast<bf16*>(base + S::V_OFF);
+  bf16* so = reinterpret_cast<bf16*>(base + S::O_OFF);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(base + S::BAR_OFF);  // [2]
+  uint64_t* empty_q = full_q + 2;                                     // [2]
+  uint64_t* full_k = empty_q + 2;
+  uint64_t* full_v = full_k + FWD_STAGES;
+  uint64_t* empty = full_v + FWD_STAGES;
+  const int n_qt = (Tq + FWD_BQ - 1) / FWD_BQ;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      hopper::mbar_init(&full_q[b], 1);
+      hopper::mbar_init(&empty_q[b], R::CONSUMER_WARPS);
+    }
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      hopper::mbar_init(&full_k[s], 1);
+      hopper::mbar_init(&full_v[s], 1);
+      hopper::mbar_init(&empty[s], R::CONSUMER_WARPS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  WorkList works(n_qt, bh_count, causal, /*longest_is_high=*/1);
+  int bh, qt, wc = 0, it = 0;  // work tiles and K/V stages this block has gone through
+  if (wg == 0) {  // producer
+    hopper::setmaxnreg_dec<R::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      for (; works.next(bh, qt); ++wc) {
+        const int q0 = qt * FWD_BQ, n_k = fwd_key_tiles(q0 + FWD_BQ - 1, Tk, causal);
+        const int b = wc & 1;
+        hopper::mbar_wait(&empty_q[b], ((wc >> 1) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full_q[b], S::Q_BYTES);
+        hopper::tma_load_rows(sq + b * FWD_BQ * D, &tm_q, &full_q[b], q0, bh);
+        for (int i = 0; i < n_k; ++i, ++it) {
+          const int s = it % FWD_STAGES;
+          hopper::mbar_wait(&empty[s], ((it / FWD_STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full_k[s], S::KV_BYTES);
+          hopper::tma_load_rows(sk + s * FWD_BK * D, &tm_k, &full_k[s], i * FWD_BK, bh);
+          hopper::mbar_arrive_expect_tx(&full_v[s], S::KV_BYTES);
+          hopper::tma_load_rows(sv + s * FWD_BK * D, &tm_v, &full_v[s], i * FWD_BK, bh);
         }
       }
     }
+  } else {  // consumers: 64 q rows each
+    hopper::setmaxnreg_inc<R::CONSUMER_REGS>();
+    const int c = wg - 1, tid = threadIdx.x - wg * WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+    const float sl2 = scale * LOG2E;
+    const TakeTurns<FWD_WGS> turns{c};
+    turns.start();
+    for (; works.next(bh, qt); ++wc) {
+      const int q0 = qt * FWD_BQ, wq0 = q0 + 64 * c;  // this warpgroup's first row
+      const int row_a = wq0 + 16 * warp + g, row_b = row_a + 8;
+      const int n_k = fwd_key_tiles(q0 + FWD_BQ - 1, Tk, causal);
+      // The key tiles its rows see (none for rows all past Tq).
+      const int n_own = wq0 < Tq ? fwd_key_tiles(wq0 + 63, Tk, causal) : 0;
+      float m_a = -INFINITY, m_b = -INFINITY;  // running max of s * scale * log2(e)
+      float l_a = 0.f, l_b = 0.f;              // this thread's share of the normaliser
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-    // Online softmax. The first tile always holds key 0, which every row
-    // sees, so the running max is a real score from the first tile on.
-    float mx_a = m_a, mx_b = m_b;
+      const int b = wc & 1;
+      const uint64_t desc_q = hopper::desc_rows<D>(sq + b * FWD_BQ * D + 64 * c * D);
+      hopper::mbar_wait(&full_q[b], (wc >> 1) & 1);
+      // Pipelined: S of key tile i and P V of key tile i - 1 go out in one
+      // turn; P V runs on while this warpgroup takes the row maxima of tile
+      // i (the compiler waits for it at their lane shuffles). The tiles that
+      // need a mask run in a loop of their own: a branch between a wgmma's
+      // issue and its wait makes the compiler wait for the wgmma there.
+      const int it0 = it, n_plain = fwd_plain_tiles(wq0, Tk, causal);
+      uint32_t pa[FWD_BK / 16][4];  // P of the last tile, bf16 (cast before p@v, as in JAX)
+      auto stage = [&](int i) { return (it0 + i) % FWD_STAGES; };
+      auto parity = [&](int i) { return ((it0 + i) / FWD_STAGES) & 1; };
+      auto issue_pv = [&](int i) {  // O += P V of key tile i, not waited for
+        const bf16* vs = sv + stage(i) * FWD_BK * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
-    }
+        for (int kk = 0; kk < FWD_BK / 16; ++kk)
+          hopper::Wgmma<D>::rs(acc, pa[kk], hopper::desc_rows<D>(vs + kk * 16 * D));
+        hopper::wgmma_commit();
+      };
+      auto tile = [&](auto masked, auto after_first, int i) {
+        constexpr bool kAfterFirst = decltype(after_first)::value;  // a P V to issue with S
+        float sc[FWD_BK / 2], alpha_a, alpha_b;
+        hopper::mbar_wait(&full_k[stage(i)], parity(i));
+        if constexpr (kAfterFirst) hopper::mbar_wait(&full_v[stage(i - 1)], parity(i - 1));
+        hopper::fence_regs(acc);
+        hopper::fence_regs(pa);
+        turns.begin();
+        hopper::wgmma_fence();
+        const uint64_t desc_k = hopper::desc_rows<D>(sk + stage(i) * FWD_BK * D);
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-    }
-    const float alpha_a = expf(m_a - mx_a), alpha_b = expf(m_b - mx_b);
-    m_a = mx_a;
-    m_b = mx_b;
-    float rs_a = 0.f, rs_b = 0.f;
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::Wgmma<FWD_BK>::ss(sc, desc_q + 2 * kk, desc_k + 2 * kk, kk > 0);
+        hopper::wgmma_commit();
+        if constexpr (kAfterFirst) issue_pv(i - 1);
+        turns.end();
+        if constexpr (kAfterFirst)
+          hopper::wgmma_wait<1>();  // S is in; P V may still run
+        else
+          hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+        fwd_max<decltype(masked)::value>(sc, m_a, m_b, alpha_a, alpha_b, i * FWD_BK, Tk, row_a, t,
+                                         sl2, causal);
+        fwd_exp(sc, m_a, m_b, l_a, l_b, alpha_a, alpha_b, sl2);
+        hopper::fence_regs(sc);  // the exponentials stay before the wait
+        if constexpr (kAfterFirst) {
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(acc);
+          hopper::fence_regs(pa);
+          warp_release(&empty[stage(i - 1)]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = expf(s[j][0] - m_a);
-      s[j][1] = expf(s[j][1] - m_a);
-      s[j][2] = expf(s[j][2] - m_b);
-      s[j][3] = expf(s[j][3] - m_b);
-      rs_a += s[j][0] + s[j][1];
-      rs_b += s[j][2] + s[j][3];
-    }
-    l_a = l_a * alpha_a + rs_a;
-    l_b = l_b * alpha_b + rs_b;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      acc[dn][0] *= alpha_a;
-      acc[dn][1] *= alpha_a;
-      acc[dn][2] *= alpha_b;
-      acc[dn][3] *= alpha_b;
-    }
-    tile_times_rows<D>(acc, s, Vt, g, t);  // p cast to bf16 before p@v, as the JAX kernel does
-  }
+          for (int j = 0; j < D / 8; ++j) {
+            acc[4 * j] *= alpha_a;
+            acc[4 * j + 1] *= alpha_a;
+            acc[4 * j + 2] *= alpha_b;
+            acc[4 * j + 3] *= alpha_b;
+          }
+        }
+        pack_a_frags<FWD_BK>(pa, sc);
+      };
+      // Each warpgroup takes n_k + 1 turns per work tile: one per key tile
+      // and one for the last P V.
+      if (n_own > 0) {
+        if (n_plain > 0)
+          tile(std::false_type{}, std::false_type{}, 0);
+        else
+          tile(std::true_type{}, std::false_type{}, 0);
+        int i = 1;
+        for (; i < min(n_plain, n_own); ++i) tile(std::false_type{}, std::true_type{}, i);
+        for (; i < n_own; ++i) tile(std::true_type{}, std::true_type{}, i);
+        hopper::mbar_wait(&full_v[stage(n_own - 1)], parity(n_own - 1));
+        hopper::fence_regs(acc);
+        hopper::fence_regs(pa);
+        turns.begin();
+        hopper::wgmma_fence();
+        issue_pv(n_own - 1);
+        turns.end();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+        warp_release(&empty[stage(n_own - 1)]);
+      } else {
+        turns.skip();
+      }
+      it += n_own;
+      // Key tiles past this warpgroup's rows (causal, the other warpgroup's
+      // diagonal): release them once they have landed.
+      for (int i = n_own; i < n_k; ++i, ++it) {
+        const int s = it % FWD_STAGES;
+        hopper::mbar_wait(&full_v[s], (it / FWD_STAGES) & 1);
+        warp_release(&empty[s]);
+        turns.skip();
+      }
+      warp_release(&empty_q[b]);  // the producer may load Q of the work tile after next
 
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+      for (int off = 1; off < 4; off <<= 1) {
+        l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+        l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+      }
+      store_tile<D>(so + 64 * c * D, &tm_o, acc, 1.f / l_a, 1.f / l_b, wq0, bh, tid,
+                    1 + FWD_WGS + c);
+      if (t == 0) {  // lse in natural log: (m + log2 l) ln 2
+        float* lse_bh = lse + (size_t)bh * Tq;
+        if (row_a < Tq) lse_bh[row_a] = (m_a + log2f(l_a)) * LN2;
+        if (row_b < Tq) lse_bh[row_b] = (m_b + log2f(l_b)) * LN2;
+      }
+    }
+    turns.finish();
+    if (tid == 0) hopper::tma_store_wait();
   }
-  store_rows<D>(o, acc, row_a, Tq, t, 1.f / l_a, 1.f / l_b);
-  if (t == 0) {
-    if (row_a < Tq) lse[row_a] = m_a + logf(l_a);
-    if (row_b < Tq) lse[row_b] = m_b + logf(l_b);
+}
+
+// ---------------------------------------------------------------------------
+// dK/dV. Replaces _dkv_kernel (ray_tpu/ops/flash_attention.py:168-205).
+//
+// Bound on an H100 SXM at the train step's shapes (causal): four products
+// (S^T, dP^T, dV = P^T dO, dK = dS^T Q) = 103 GFLOP against 989 TFLOP/s
+// (104 us); q, k, v, dO, lse, delta in and dk, dv out = 305 MB against
+// 3.35 TB/s (91 us): operations.
+// Design: a work tile is (bh, 128 keys), the transposed problem of dQ. The
+// producer warp loads the tile's K and V once by TMA (the consumers copy
+// their rows into registers at once and release the buffer, so the next
+// work tile's K and V load while this one runs), then
+// streams 64-row Q and dO tiles by TMA into a ring of
+// DKV_STAGES stages, with the tiles' lse and delta copied beside them by
+// cp.async (their rows are not 16-byte strided, so TMA cannot take them):
+// the stage's full barrier waits for the bytes and for the 32 lanes' copy
+// arrivals. Each consumer warpgroup owns 64 keys: S^T = K Q^T and
+// dP^T = V dO^T by wgmma with its K and V rows as register A operands
+// (read from shared memory once per work tile, which leaves the ring's
+// tiles the only operands the products stream from shared memory) and Q
+// and dO K-major from shared memory, P^T =
+// exp2(S^T scale log2 e - lse log2 e) and dS^T in registers, then
+// dV += P^T dO and dK += dS^T Q by wgmma with P^T and dS^T as register A
+// operands and dO and Q read MN-major through the transpose bit -- the
+// same shared-memory tiles the first two products read K-major. The
+// gradient products of one q tile are left running while the next tile's
+// first two are issued. dK and dV accumulate in f32 registers of the block
+// that owns the keys: no atomics, no dependence on run order. Causal: q
+// tiles from the diagonal on; a warpgroup whose keys all lie after a tile's
+// rows skips it. (Taking turns at the tensor cores, as the forward does,
+// made this kernel slower on the card.)
+// ---------------------------------------------------------------------------
+template <int D>
+struct DkvSmem {
+  static constexpr int KV_BYTES = DKV_BK * D * 2, QS_BYTES = DKV_BQ * D * 2;
+  // K and V, the Q/dO ring, the ring's lse and delta, and the dK/dV
+  // staging tiles.
+  static constexpr int K_OFF = 0, V_OFF = KV_BYTES, Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + DKV_STAGES * QS_BYTES;
+  static constexpr int LSE_OFF = DO_OFF + DKV_STAGES * QS_BYTES;
+  static constexpr int DELTA_OFF = LSE_OFF + DKV_STAGES * DKV_BQ * 4;
+  static constexpr int DK_OFF = (DELTA_OFF + DKV_STAGES * DKV_BQ * 4 + 1023) / 1024 * 1024;
+  static constexpr int DV_OFF = DK_OFF + KV_BYTES;
+  static constexpr int BAR_OFF = DV_OFF + KV_BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + 2 * DKV_STAGES);
+  static constexpr int LAUNCH = BYTES > ONE_BLOCK_PER_SM_SMEM ? BYTES : ONE_BLOCK_PER_SM_SMEM;
+};
+
+// The first q tile (of DKV_BQ rows) that can see key k0 (causal, Tq == Tk).
+__device__ __forceinline__ int dkv_first_q_tile(int k0, int causal) {
+  return causal ? k0 / DKV_BQ : 0;
+}
+
+template <int D>
+__global__ void __launch_bounds__(Roles<2>::THREADS, 1)
+flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                 const __grid_constant__ CUtensorMap tm_dk, const __grid_constant__ CUtensorMap tm_dv,
+                 const float* __restrict__ lse, const float* __restrict__ delta, int bh_count,
+                 int Tq, int Tk, float scale, int causal) {
+  using S = DkvSmem<D>;
+  using R = Roles<2>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_base(smem_raw);
+  bf16* sk = reinterpret_cast<bf16*>(base + S::K_OFF);  // [DKV_BK * D]
+  bf16* sv = reinterpret_cast<bf16*>(base + S::V_OFF);  // [DKV_BK * D]
+  bf16* sq = reinterpret_cast<bf16*>(base + S::Q_OFF);
+  bf16* sdo = reinterpret_cast<bf16*>(base + S::DO_OFF);
+  float* slse = reinterpret_cast<float*>(base + S::LSE_OFF);
+  float* sdelta = reinterpret_cast<float*>(base + S::DELTA_OFF);
+  bf16* sdk = reinterpret_cast<bf16*>(base + S::DK_OFF);
+  bf16* sdv = reinterpret_cast<bf16*>(base + S::DV_OFF);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(base + S::BAR_OFF);
+  uint64_t* empty_kv = full_kv + 1;
+  uint64_t* full = empty_kv + 1;
+  uint64_t* empty = full + DKV_STAGES;
+  const int n_kt = (Tk + DKV_BK - 1) / DKV_BK, n_qs = (Tq + DKV_BQ - 1) / DKV_BQ;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_kv, 1);
+    hopper::mbar_init(empty_kv, R::CONSUMER_WARPS);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1 + 32);  // the TMA arrival + the producer lanes' cp.async arrivals
+      hopper::mbar_init(&empty[s], R::CONSUMER_WARPS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  WorkList works(n_kt, bh_count, causal, /*longest_is_high=*/0);
+  int bh, kt, wc = 0, it = 0;  // work tiles and Q/dO stages this block has gone through
+  if (wg == 0) {  // producer: warp 0
+    hopper::setmaxnreg_dec<R::PRODUCER_REGS>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      for (; works.next(bh, kt); ++wc) {
+        const int k0 = kt * DKV_BK;
+        const float* lse_bh = lse + (size_t)bh * Tq;
+        const float* delta_bh = delta + (size_t)bh * Tq;
+        hopper::mbar_wait(empty_kv, (wc & 1) ^ 1);
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(full_kv, 2 * S::KV_BYTES);
+          hopper::tma_load_rows(sk, &tm_k, full_kv, k0, bh);
+          hopper::tma_load_rows(sv, &tm_v, full_kv, k0, bh);
+        }
+        for (int i = dkv_first_q_tile(k0, causal); i < n_qs; ++i, ++it) {
+          const int s = it % DKV_STAGES, q0 = i * DKV_BQ;
+          hopper::mbar_wait(&empty[s], ((it / DKV_STAGES) & 1) ^ 1);
+          if (lane == 0) {
+            hopper::mbar_arrive_expect_tx(&full[s], 2 * S::QS_BYTES);
+            hopper::tma_load_rows(sq + s * DKV_BQ * D, &tm_q, &full[s], q0, bh);
+            hopper::tma_load_rows(sdo + s * DKV_BQ * D, &tm_do, &full[s], q0, bh);
+          }
+          for (int r = lane; r < DKV_BQ; r += 32) {
+            const bool in = q0 + r < Tq;
+            hopper::cp_async_4(&slse[s * DKV_BQ + r], lse_bh + (in ? q0 + r : 0), in);
+            hopper::cp_async_4(&sdelta[s * DKV_BQ + r], delta_bh + (in ? q0 + r : 0), in);
+          }
+          hopper::cp_async_arrive(&full[s]);
+        }
+      }
+    }
+  } else {  // consumers: 64 keys each
+    hopper::setmaxnreg_inc<R::CONSUMER_REGS>();
+    const int c = wg - 1, tid = threadIdx.x - wg * WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+    const float sl2 = scale * LOG2E;
+    for (; works.next(bh, kt); ++wc) {
+      const int k0 = kt * DKV_BK, wk0 = k0 + 64 * c;  // wk0: this warpgroup's first key
+      const int key_a = wk0 + 16 * warp + g, key_b = key_a + 8;
+      const int i_begin = dkv_first_q_tile(k0, causal);
+      // Causal: the first q tile with a row at or after this warpgroup's
+      // first key; the tiles before it see none of its keys.
+      const int i_own = dkv_first_q_tile(wk0, causal);
+      float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+      hopper::mbar_wait(full_kv, wc & 1);
+      // K and V of this warpgroup's keys as register A operands, for the
+      // whole work tile; the producer may load the next work tile's.
+      uint32_t ka[D / 16][4], va[D / 16][4];
+      hopper::load_a_rows<D>(ka, sk + 64 * c * D, warp, lane);
+      hopper::load_a_rows<D>(va, sv + 64 * c * D, warp, lane);
+      warp_release(empty_kv);
+      for (int i = i_begin; i < i_own; ++i, ++it) {  // release them once landed
+        const int s = it % DKV_STAGES;
+        hopper::mbar_wait(&full[s], (it / DKV_STAGES) & 1);
+        warp_release(&empty[s]);
+      }
+      // Pipelined: the gradient products of q tile i (dV += P^T dO, dK +=
+      // dS^T Q) are issued without a wait; the wait for S^T of tile i + 1
+      // covers them, so the tensor cores run them while this warpgroup
+      // takes the next stage and issues its products. The tiles that need
+      // a mask (the diagonal's, the ragged last one) run in loops of their
+      // own: no branch may sit between a wgmma's issue and its wait.
+      uint32_t pa[DKV_BQ / 16][4], da[DKV_BQ / 16][4];  // P^T and dS^T cast to bf16 first
+      int prev = -1;  // the stage whose gradient products may still run
+      auto qtile = [&](auto masked, int i) {
+        const int s = (it + i - i_own) % DKV_STAGES, q0 = i * DKV_BQ;
+        const bf16* qs = sq + s * DKV_BQ * D;
+        const bf16* dos = sdo + s * DKV_BQ * D;
+        const float* ls = slse + s * DKV_BQ;
+        const float* ds = sdelta + s * DKV_BQ;
+        hopper::mbar_wait(&full[s], ((it + i - i_own) / DKV_STAGES) & 1);
+
+        float st[DKV_BQ / 2], dpt[DKV_BQ / 2];  // S^T and dP^T, [64 keys x 64 q]
+        hopper::fence_regs(dv_acc);
+        hopper::fence_regs(dk_acc);
+        hopper::fence_regs(pa);
+        hopper::fence_regs(da);
+        hopper::wgmma_fence();
+        const uint64_t desc_qs = hopper::desc_rows<D>(qs), desc_dos = hopper::desc_rows<D>(dos);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::Wgmma<DKV_BQ>::rsk(st, ka[kk], desc_qs + 2 * kk, kk > 0);
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::Wgmma<DKV_BQ>::rsk(dpt, va[kk], desc_dos + 2 * kk, kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the last tile's gradients and S^T are in; dP^T may still run
+        hopper::fence_regs(st);
+        hopper::fence_regs(dv_acc);
+        hopper::fence_regs(dk_acc);
+        hopper::fence_regs(pa);
+        hopper::fence_regs(da);
+
+#pragma unroll
+        for (int j = 0; j < DKV_BQ / 8; ++j) {
+          const float2 L2 = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int qcol = q0 + 8 * j + 2 * t + e;
+            const float L = (e ? L2.y : L2.x) * LOG2E;
+            float pa_ = hopper::ex2(fmaf(st[4 * j + e], sl2, -L));
+            float pb_ = hopper::ex2(fmaf(st[4 * j + 2 + e], sl2, -L));
+            if constexpr (decltype(masked)::value) {
+              if (qcol >= Tq || (causal && key_a > qcol)) pa_ = 0.f;
+              if (qcol >= Tq || (causal && key_b > qcol)) pb_ = 0.f;
+            }
+            st[4 * j + e] = pa_;
+            st[4 * j + 2 + e] = pb_;
+          }
+        }
+        hopper::fence_regs(st);  // P^T stays before the wait (the compiler may not sink it)
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dpt);
+        // (released only now: the release's warp barrier would make the
+        // compiler wait for dP^T before P^T)
+        warp_release(&empty[prev < 0 ? 0 : prev], prev >= 0);
+#pragma unroll
+        for (int j = 0; j < DKV_BQ / 8; ++j) {
+          const float2 dl2 = *reinterpret_cast<const float2*>(ds + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float dl = e ? dl2.y : dl2.x;
+            dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dl);  // dS / scale
+            dpt[4 * j + 2 + e] = st[4 * j + 2 + e] * (dpt[4 * j + 2 + e] - dl);
+          }
+        }
+        pack_a_frags<DKV_BQ>(pa, st);
+        pack_a_frags<DKV_BQ>(da, dpt);
+        hopper::fence_regs(dv_acc);
+        hopper::fence_regs(dk_acc);
+        hopper::fence_regs(pa);
+        hopper::fence_regs(da);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+          hopper::Wgmma<D>::rs(dv_acc, pa[kk], hopper::desc_rows<D>(dos + kk * 16 * D));
+#pragma unroll
+        for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+          hopper::Wgmma<D>::rs(dk_acc, da[kk], hopper::desc_rows<D>(qs + kk * 16 * D));
+        hopper::wgmma_commit();
+        prev = s;
+      };
+      // Masks: causal, the tiles whose first row is before this warpgroup's
+      // last key; then the tile that holds the ragged end of the q rows.
+      const int diag_end = causal ? max(i_own, min(n_qs, (wk0 + 63) / DKV_BQ + 1)) : i_own;
+      const int plain_end = max(diag_end, Tq / DKV_BQ);
+      int i = i_own;
+      for (; i < diag_end; ++i) qtile(std::true_type{}, i);
+      for (; i < plain_end; ++i) qtile(std::false_type{}, i);
+      for (; i < n_qs; ++i) qtile(std::true_type{}, i);
+      it += n_qs - i_own;
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dv_acc);
+      hopper::fence_regs(dk_acc);
+      hopper::fence_regs(pa);
+      hopper::fence_regs(da);
+      warp_release(&empty[prev < 0 ? 0 : prev], prev >= 0);
+      // dS = P (dP - delta) scale: the scale (1/8 or 1/4, a power of two, so
+      // the bf16 rounding of dS is the same before and after it) comes in here.
+      store_tile<D>(sdk + 64 * c * D, &tm_dk, dk_acc, scale, scale, wk0, bh, tid, 3 + c);
+      store_tile<D>(sdv + 64 * c * D, &tm_dv, dv_acc, 1.f, 1.f, wk0, bh, tid, 3 + c);
+    }
+    if (tid == 0) hopper::tma_store_wait();
   }
 }
 
@@ -351,107 +975,6 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf
   store_rows<D>(dq, acc, row_a, Tq, t, 1.f, 1.f);
 }
 
-// ---------------------------------------------------------------------------
-// dK/dV. Replaces _dkv_kernel (ray_tpu/ops/flash_attention.py:168-205).
-//
-// Bound on an H100 SXM at the train step's shapes (causal): four products
-// (S^T, dP^T, dV = P^T dO, dK = dS^T Q) = 103 GFLOP against 989 TFLOP/s
-// (104 us); q, k, v, dO, lse, delta in and dk, dv out = 305 MB against
-// 3.35 TB/s (91 us): operations.
-// Design: one block per (bh, 64-row key tile), the transposed problem of
-// dQ: K and V stay in registers as A fragments and the block loops over
-// 64-row q tiles from the diagonal on (causal), recomputing S^T = K Q^T and
-// P^T = exp(S^T - lse) with lse and delta staged per q tile in shared
-// memory. dK and dV accumulate in f32 registers of the block that owns the
-// key rows: no atomics, no dependence on run order.
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                 const bf16* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                 int Tq, int Tk, float scale, int causal) {
-  __shared__ __align__(16) bf16 Qs[BQ][D + PAD];   // K tile at the start
-  __shared__ __align__(16) bf16 Ds[BQ][D + PAD];   // V tile at the start
-  __shared__ __align__(16) bf16 Qt[D][BQ + PAD];
-  __shared__ __align__(16) bf16 Dt[D][BQ + PAD];
-  __shared__ float lse_s[BQ], delta_s[BQ];
-
-  const int bh = blockIdx.y, k0 = blockIdx.x * BK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  q += (size_t)bh * Tq * D;
-  k += (size_t)bh * Tk * D;
-  v += (size_t)bh * Tk * D;
-  dout += (size_t)bh * Tq * D;
-  dk += (size_t)bh * Tk * D;
-  dv += (size_t)bh * Tk * D;
-  lse += (size_t)bh * Tq;
-  delta += (size_t)bh * Tq;
-
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_rows<D>(Qs, k, k0, Tk);
-  load_rows<D>(Ds, v, k0, Tk);
-  __syncthreads();
-  load_a_frags<D>(ka, Qs, warp * 16, g, t);
-  load_a_frags<D>(va, Ds, warp * 16, g, t);
-
-  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;  // this lane's two key rows
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    dk_acc[dn][0] = dk_acc[dn][1] = dk_acc[dn][2] = dk_acc[dn][3] = 0.f;
-    dv_acc[dn][0] = dv_acc[dn][1] = dv_acc[dn][2] = dv_acc[dn][3] = 0.f;
-  }
-
-  // Causal (Tq == Tk): q rows below k0 see none of this block's keys.
-  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
-  for (int q0 = q_begin; q0 < Tq; q0 += BQ) {
-    __syncthreads();
-    load_rows<D>(Qs, q, q0, Tq);
-    load_rows<D>(Ds, dout, q0, Tq);
-    load_rows_t<D>(Qt, q, q0, Tq);
-    load_rows_t<D>(Dt, dout, q0, Tq);
-    for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-      lse_s[i] = q0 + i < Tq ? lse[q0 + i] : 0.f;
-      delta_s[i] = q0 + i < Tq ? delta[q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    float p[8][4], dp[8][4];
-    rows_times_tile_t<D>(p, ka, Qs, g, t);  // S^T [keys, q]
-    const bool masked = (q0 + BQ > Tq) || (causal && k0 + BK - 1 > q0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int ql = j * 8 + 2 * t + e, qcol = q0 + ql;
-        float sa = p[j][e] * scale, sb = p[j][2 + e] * scale;
-        if (masked) {
-          if (qcol >= Tq || (causal && key_a > qcol)) sa = NEG_INF;
-          if (qcol >= Tq || (causal && key_b > qcol)) sb = NEG_INF;
-        }
-        p[j][e] = expf(sa - lse_s[ql]);
-        p[j][2 + e] = expf(sb - lse_s[ql]);
-      }
-    }
-    tile_times_rows<D>(dv_acc, p, Dt, g, t);  // dV += P^T dO, P cast to bf16 first
-    rows_times_tile_t<D>(dp, va, Ds, g, t);   // dP^T [keys, q]
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int ql = j * 8 + 2 * t + e;
-        dp[j][e] = p[j][e] * (dp[j][e] - delta_s[ql]) * scale;
-        dp[j][2 + e] = p[j][2 + e] * (dp[j][2 + e] - delta_s[ql]) * scale;
-      }
-    }
-    tile_times_rows<D>(dk_acc, dp, Qt, g, t);  // dK += dS^T Q
-  }
-  store_rows<D>(dk, dk_acc, key_a, Tk, t, 1.f, 1.f);
-  store_rows<D>(dv, dv_acc, key_a, Tk, t, 1.f, 1.f);
-}
-
 inline dim3 grid_of(int rows, int bh) { return dim3((rows + 63) / 64, bh); }
 
 }  // namespace
@@ -459,28 +982,47 @@ inline dim3 grid_of(int rows, int bh) { return dim3((rows + 63) / 64, bh); }
 // ---------------------------------------------------------------------------
 // C entry points (loaded with ctypes). Pointers are device pointers of
 // contiguous bf16 [bh, T, d] tensors and f32 [bh, Tq] lse/delta; the stream is
-// the caller's cudaStream_t. Each returns cudaGetLastError() after the launch.
+// the caller's cudaStream_t. Each returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a head dim the kernels do not take, or a tensor
+// map the driver refuses).
 // ---------------------------------------------------------------------------
 extern "C" const char* rt_cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
+// Persistent grids: one block per SM of the current device, or fewer when
+// there is less work.
+static int persistent_grid(int n_units) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return n_units < sms ? n_units : sms;
+}
+
+template <int D>
+static int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                      int tq, int tk, float scale, int causal, cudaStream_t st) {
+  CUtensorMap tq_map, tk_map, tv_map, to_map;
+  if (!hopper::rows_map(&tq_map, q, bh, tq, D, FWD_BQ) ||
+      !hopper::rows_map(&tk_map, k, bh, tk, D, FWD_BK) ||
+      !hopper::rows_map(&tv_map, v, bh, tk, D, FWD_BK) ||
+      !hopper::rows_map(&to_map, o, bh, tq, D, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = FwdSmem<D>::LAUNCH, threads = Roles<FWD_WGS>::THREADS;
+  cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int grid = persistent_grid(units_of((tq + FWD_BQ - 1) / FWD_BQ, bh, causal));
+  flash_fwd_kernel<D><<<grid, threads, smem, st>>>(tq_map, tk_map, tv_map, to_map,
+                                                      static_cast<float*>(lse), bh, tq, tk, scale,
+                                                      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                             int tq, int tk, int d, float scale, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
-             *V = static_cast<const bf16*>(v);
-  if (d == 16)
-    flash_fwd_kernel<16><<<grid_of(tq, bh), NTHREADS, 0, st>>>(Q, K, V, static_cast<bf16*>(o),
-                                                               static_cast<float*>(lse), tq, tk,
-                                                               scale, causal);
-  else if (d == 64)
-    flash_fwd_kernel<64><<<grid_of(tq, bh), NTHREADS, 0, st>>>(Q, K, V, static_cast<bf16*>(o),
-                                                               static_cast<float*>(lse), tq, tk,
-                                                               scale, causal);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (d == 16) return launch_fwd<16>(q, k, v, o, lse, bh, tq, tk, scale, causal, st);
+  if (d == 64) return launch_fwd<64>(q, k, v, o, lse, bh, tq, tk, scale, causal, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -503,20 +1045,32 @@ extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+static int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                      const void* delta, void* dk, void* dv, int bh, int tq, int tk, float scale,
+                      int causal, cudaStream_t st) {
+  CUtensorMap tq_map, tk_map, tv_map, tdo_map, tdk_map, tdv_map;
+  if (!hopper::rows_map(&tq_map, q, bh, tq, D, DKV_BQ) ||
+      !hopper::rows_map(&tk_map, k, bh, tk, D, DKV_BK) ||
+      !hopper::rows_map(&tv_map, v, bh, tk, D, DKV_BK) ||
+      !hopper::rows_map(&tdo_map, dout, bh, tq, D, DKV_BQ) ||
+      !hopper::rows_map(&tdk_map, dk, bh, tk, D, 64) || !hopper::rows_map(&tdv_map, dv, bh, tk, D, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = DkvSmem<D>::LAUNCH, threads = Roles<2>::THREADS;
+  cudaFuncSetAttribute(flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int grid = persistent_grid(units_of((tk + DKV_BK - 1) / DKV_BK, bh, causal));
+  flash_dkv_kernel<D><<<grid, threads, smem, st>>>(
+      tq_map, tk_map, tv_map, tdo_map, tdk_map, tdv_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), bh, tq, tk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
                             int tk, int d, float scale, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
-             *V = static_cast<const bf16*>(v), *DO = static_cast<const bf16*>(dout);
-  const float *L = static_cast<const float*>(lse), *DL = static_cast<const float*>(delta);
-  if (d == 16)
-    flash_dkv_kernel<16><<<grid_of(tk, bh), NTHREADS, 0, st>>>(
-        Q, K, V, DO, L, DL, static_cast<bf16*>(dk), static_cast<bf16*>(dv), tq, tk, scale, causal);
-  else if (d == 64)
-    flash_dkv_kernel<64><<<grid_of(tk, bh), NTHREADS, 0, st>>>(
-        Q, K, V, DO, L, DL, static_cast<bf16*>(dk), static_cast<bf16*>(dv), tq, tk, scale, causal);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (d == 16) return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal, st);
+  if (d == 64) return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
+

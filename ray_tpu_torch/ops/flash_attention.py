@@ -2,13 +2,16 @@
 
 Counterpart of ``ray_tpu/ops/flash_attention.py``. The three Pallas TPU
 kernels there (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) are
-CUDA C++ kernels here (``csrc/flash_attention.cu``, built by ``_build``):
+CUDA C++ kernels here (``csrc/flash_attention.cu`` with the Hopper helpers
+of ``csrc/hopper.cuh``, built by ``_build``):
 
-  - forward: one block per (bh, 64-row q tile), online softmax over 64-key
-    tiles in registers, writes o and the row lse;
-  - dq: one block per (bh, q tile), looping over key tiles;
-  - dkv: one block per (bh, key tile), looping over q tiles from the
-    diagonal on.
+  - forward: persistent warp-specialised blocks (one per SM), a TMA-fed
+    ring of K/V tiles and wgmma, online softmax over 128-key tiles in
+    registers for 128 q rows at a time; writes o and the row lse;
+  - dq: one block per (bh, 64-row q tile), looping over key tiles
+    (mma.sync, the first version);
+  - dkv: persistent warp-specialised blocks, 128 keys at a time, a TMA-fed
+    ring of Q/dO tiles from the diagonal on, wgmma.
 
 Neither backward kernel uses atomics, so the gradients do not depend on
 run order. Each kernel has a plain PyTorch version of the same function

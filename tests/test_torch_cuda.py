@@ -45,9 +45,11 @@ def _close(got, want):
     assert gap["ok"], gap
 
 
-# (BH, Tq, Tk, D, causal): tile-aligned, ragged, a single row, Tk != Tq.
+# (BH, Tq, Tk, D, causal): tile-aligned, ragged, a single row, Tk != Tq, and
+# Tk over more key tiles than the forward's ring has stages (it wraps).
 CASES = [(3, 128, 128, 64, True), (2, 65, 65, 16, True), (2, 1, 1, 64, True),
-         (3, 100, 37, 64, False), (1, 64, 200, 16, False), (2, 257, 257, 64, False)]
+         (3, 100, 37, 64, False), (1, 64, 200, 16, False), (2, 257, 257, 64, False),
+         (2, 300, 1100, 64, False)]
 
 
 @pytest.mark.parametrize("case", CASES, ids=str)
