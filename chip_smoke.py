@@ -6,13 +6,15 @@ Phases (any failure exits non-zero and prints no result):
   1. name the card and its power limit (nvidia-smi); build the CUDA kernels
      from ray_tpu_torch/ops/csrc with nvcc; count each kernel's wgmma
      (HGMMA) and TMA load (UTMALDG) instructions in the library's SASS
-     (cuobjdump -sass), and fail if the forward or dK/dV kernel lacks either;
+     (cuobjdump -sass), and fail if any of the three kernels lacks either;
   2. hold each kernel against its plain PyTorch version on the card, on bf16
      inputs from a seeded generator, at the train step's shape, at head dim
      16, at a ragged T, non-causal with Tk != Tq, and non-causal with Tk
      spanning more key tiles than the ring has stages (the ring wraps) and a
      ragged last tile, element by element
-     (ray_tpu_torch.bench.disagreement); hold the autograd Function at the
+     (ray_tpu_torch.bench.disagreement); call dQ twice at the train step's
+     shape and fail unless both give the same bits (no atomics, no
+     dependence on run order); hold the autograd Function at the
      train step's [B, T, H, Dh] against reference attention; time each
      kernel at the train step's shape beside its bound, its plain version
      and the library's attention (F.scaled_dot_product_attention, a
@@ -80,14 +82,11 @@ KERNELS = {
     "flash_dkv": "ray_tpu/ops/flash_attention.py:168",
 }
 SOURCE = "ray_tpu_torch/ops/csrc/flash_attention.cu"
-# The kernels that must issue wgmma and load through TMA (the Hopper
-# redesign); flash_dq is still the mma.sync version.
-HOPPER_KERNELS = ("flash_fwd", "flash_dkv")
 # The first versions' times at the train step's shape, before the Hopper
 # redesign (chip_smoke.py phase 2, median of 20 calls; PERF.md section 6,
 # NVIDIA H100 80GB HBM3 at 700 W). Recorded, not measured here: printed as
 # text beside this run's times, and kept out of the kernel line.
-BEFORE_REDESIGN_MS = {"flash_fwd": 0.5302, "flash_dkv": 1.0951}
+BEFORE_REDESIGN_MS = {"flash_fwd": 0.5302, "flash_dq": 0.6775, "flash_dkv": 1.0951}
 
 
 def fail(msg: str) -> None:
@@ -130,7 +129,7 @@ def build() -> dict:
     counts = sass_counts(path)
     for name, c in counts.items():
         print(f"sass {name}: HGMMA {c['hgmma']}, UTMALDG {c['utmaldg']}", flush=True)
-    for name in HOPPER_KERNELS:
+    for name in KERNELS:  # every kernel is a Hopper one: wgmma fed by TMA
         if not (counts[name]["hgmma"] > 0 and counts[name]["utmaldg"] > 0):
             fail(f"{name} issues no wgmma or no TMA load in its SASS: {counts[name]}")
     return counts
@@ -223,6 +222,12 @@ def check_kernels(card: str) -> dict:
 
         if case != MAIN_CASE:
             continue
+        again = fa.flash_dq(q, k, v, do, lse_ref, delta, causal)
+        if not torch.equal(dq, again):
+            fail(f"two flash_dq calls at {where} differ: "
+                 f"{(dq.float() - again.float()).abs().max().item():.3e} max abs")
+        print(f"flash_dq at {where}: two calls give the same bits", flush=True)
+        del again
         bnd = bounds(*case)
         ms = {
             "flash_fwd": bench.time_ms(lambda: fa.flash_fwd(q, k, v, causal)),

@@ -3,22 +3,15 @@
 // Operands are folded to [BH, T, D] row-major bf16 (D = head dim, 16 or 64),
 // lse and delta are [BH, Tq] f32. Scores and all accumulators are f32.
 //
-// Forward and dK/dV are warp-specialised (hopper.cuh): a producer warp
-// streams tiles by TMA into a ring of shared-memory stages, and two consumer
+// All three kernels are persistent and warp-specialised (hopper.cuh): one
+// block per SM walks a static list of work tiles; a producer warp streams
+// tiles by TMA into a ring of shared-memory stages, and two consumer
 // warpgroups run wgmma on them, the score tile never leaving registers (the
 // f32 accumulator of one product, packed to bf16, is the register A operand
-// of the next).
-//
-// dQ is the first version: one block of 4 warps, each owning 16 rows of its
-// block's 64-row tile, products through mma.sync m16n8k16 (bf16 in, f32
-// accumulate), tiles staged in shared memory by plain loads. The layout of
-// one m16n8k16 product, per lane (g = lane / 4, t = lane % 4):
-//   A (16x16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
-//                         a2 = A[g][2t+8..+9],   a3 = A[g+8][2t+8..+9]
-//   B (16x8, "col"):      b0 = B[2t..2t+1][g],   b1 = B[2t+8..+9][g]
-//   C (16x8 f32):         c0,c1 = C[g][2t..2t+1], c2,c3 = C[g+8][2t..2t+1]
-// Two neighbouring C tiles of a score row are therefore exactly one A
-// fragment of the next product (dS@K) once packed to bf16.
+// of the next). A tile in shared memory is read K-major or, through the
+// transpose bit, MN-major, so no transposed copy is made. The backward
+// kernels use no atomics: each block owns the rows of the gradient it
+// writes, so the result does not depend on run order.
 //
 // Every C entry point launches on the caller's stream and returns
 // cudaGetLastError(); nothing here allocates or synchronises.
@@ -35,129 +28,8 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-// dQ tiles
-constexpr int BQ = 64;        // query rows per tile (4 warps x 16 rows)
-constexpr int BK = 64;        // key rows per tile
-constexpr int NTHREADS = 128;
-constexpr int PAD = 8;        // row padding (bf16): keeps fragment loads free of bank conflicts
-constexpr float NEG_INF = -1e30f;  // the JAX kernel's mask value
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two f32 -> one register of two bf16, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + 64) of a [T, D] matrix into smem dst[64][D + PAD];
-// rows past T are zero. 16-byte loads, neighbouring threads on
-// neighbouring addresses.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16 (*dst)[D + PAD], const bf16* __restrict__ src,
-                                          int row0, int T) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < 64 * CPR; c += NTHREADS) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + col);
-    *reinterpret_cast<uint4*>(&dst[r][col]) = val;
-  }
-}
-
-// The same rows, stored transposed: dst[D][64 + PAD], dst[d][r] = src[row0 + r][d].
-// A product whose contraction runs over rows (P@V, dS@K, P^T@dO, dS^T@Q)
-// reads its B fragments from this copy.
-template <int D>
-__device__ __forceinline__ void load_rows_t(bf16 (*dst)[64 + PAD], const bf16* __restrict__ src,
-                                            int row0, int T) {
-  constexpr int CPR = D / 8;
-  for (int c = threadIdx.x; c < 64 * CPR; c += NTHREADS) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + col);
-    const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[col + i][r] = e[i];
-  }
-}
-
-// A fragments of this warp's 16 rows (starting at smem row r0) of a
-// [64][D + PAD] tile, one per 16-wide chunk of D.
-template <int D>
-__device__ __forceinline__ void load_a_frags(uint32_t a[D / 16][4], bf16 (*src)[D + PAD], int r0,
-                                             int g, int t) {
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    a[kc][0] = lds32(&src[r0 + g][kc * 16 + 2 * t]);
-    a[kc][1] = lds32(&src[r0 + g + 8][kc * 16 + 2 * t]);
-    a[kc][2] = lds32(&src[r0 + g][kc * 16 + 8 + 2 * t]);
-    a[kc][3] = lds32(&src[r0 + g + 8][kc * 16 + 8 + 2 * t]);
-  }
-}
-
-// acc[16 x 64] = A[16 x D] . B^T where B is a [64][D + PAD] tile: the
-// 16x64 score (or dP) tile of one warp, 8 C tiles of 16x8.
-template <int D>
-__device__ __forceinline__ void rows_times_tile_t(float acc[8][4], const uint32_t a[D / 16][4],
-                                                  bf16 (*b)[D + PAD], int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-      mma16816(acc[j], a[kc], lds32(&b[j * 8 + g][kc * 16 + 2 * t]),
-               lds32(&b[j * 8 + g][kc * 16 + 8 + 2 * t]));
-  }
-}
-
-// acc[16 x D] += P[16 x 64] . X[64 x D], P given as this warp's 8 C tiles
-// (rounded to bf16 here), X as its transposed tile xt[D][64 + PAD].
-template <int D>
-__device__ __forceinline__ void tile_times_rows(float acc[D / 8][4], const float p[8][4],
-                                                bf16 (*xt)[64 + PAD], int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t pa[4] = {
-        pack_bf16(p[2 * kk][0], p[2 * kk][1]), pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-        pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]), pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      mma16816(acc[dn], pa, lds32(&xt[dn * 8 + g][kk * 16 + 2 * t]),
-               lds32(&xt[dn * 8 + g][kk * 16 + 8 + 2 * t]));
-  }
-}
-
-// Write this warp's [16 x D] f32 accumulator rows (row_a = row g, row_b =
-// row g + 8, both global) to out[T, D] as bf16, dropping rows past T.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float acc[D / 8][4],
-                                           int row_a, int T, int t, float mul_a, float mul_b) {
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (row_a < T)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row_a * D + col) =
-          __floats2bfloat162_rn(acc[dn][0] * mul_a, acc[dn][1] * mul_a);
-    if (row_a + 8 < T)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row_a + 8) * D + col) =
-          __floats2bfloat162_rn(acc[dn][2] * mul_b, acc[dn][3] * mul_b);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Shared by the forward and dK/dV kernels: warp-specialised persistent
-// blocks. Warpgroup 0 is the producer (TMA loads; it gives its registers up
+// Shared by the three kernels: warp-specialised persistent blocks. Warpgroup 0 is the producer (TMA loads; it gives its registers up
 // with setmaxnreg), warpgroups 1..N consume with wgmma. One block per SM
 // walks over a static list of work tiles, so the next tile's loads overlap
 // the last one's epilogue.
@@ -185,13 +57,16 @@ constexpr float LN2 = 0.6931471805599453f;
 // Tile sizes and ring depths, chosen by sweeps on the card (PERF.md section
 // 6). The ring depths are re-timed by python3 -m
 // ray_tpu_torch.sweep_flash_tiles, which rebuilds the library with -D
-// overrides of the two RT_ macros; nothing else sets them.
+// overrides of the three RT_ macros; nothing else sets them.
 // tests/test_torch_flash_tiles.py reads this block.
 #ifndef RT_FWD_STAGES
 #define RT_FWD_STAGES 3
 #endif
 #ifndef RT_DKV_STAGES
 #define RT_DKV_STAGES 4
+#endif
+#ifndef RT_DQ_STAGES
+#define RT_DQ_STAGES 4
 #endif
 constexpr int FWD_WGS = 2;                 // consumer warpgroups of the forward, 64 q rows each
 constexpr int FWD_BQ = 64 * FWD_WGS;       // q rows per work tile
@@ -200,7 +75,11 @@ constexpr int FWD_STAGES = RT_FWD_STAGES;  // K/V ring depth
 constexpr int DKV_BK = 128;                // keys per work tile (two consumer warpgroups x 64)
 constexpr int DKV_BQ = 64;                 // q rows per Q/dO stage
 constexpr int DKV_STAGES = RT_DKV_STAGES;  // Q/dO ring depth
-static_assert(FWD_STAGES >= 2 && DKV_STAGES >= 2, "a ring of at least two stages");
+constexpr int DQ_WGS = 2;                  // consumer warpgroups of dQ, 64 q rows each
+constexpr int DQ_BQ = 64 * DQ_WGS;         // q rows per work tile
+constexpr int DQ_BK = 64;                  // keys per K/V stage
+constexpr int DQ_STAGES = RT_DQ_STAGES;    // K/V ring depth
+static_assert(FWD_STAGES >= 2 && DKV_STAGES >= 2 && DQ_STAGES >= 2, "a ring of at least two stages");
 
 // The 1024-byte aligned start of dynamic shared memory (the 128B swizzle
 // repeats every 1024 bytes, and TMA and wgmma agree on it from there).
@@ -211,8 +90,8 @@ __device__ __forceinline__ uint8_t* smem_base(uint8_t* raw) {
 // The work tiles of one persistent block, in order: units u = blockIdx.x,
 // blockIdx.x + gridDim.x, ... of n_units = per_head * bh. Without causal
 // masking every tile of a head costs the same and a unit is one tile. With
-// it, tile j of n costs in proportion to j + 1 (forward: q tile j sees j + 1
-// key tiles) or to n - j (dK/dV: key tile j is seen by the q tiles from j
+// it, tile j of n costs in proportion to j + 1 (forward and dQ: q tile j sees j
+// + 1 key tiles) or to n - j (dK/dV: key tile j is seen by the q tiles from j
 // on), so a unit pairs tiles p and n - 1 - p, whose costs add up to the
 // same for every unit, and runs the longer one first. Units of one head are
 // adjacent, so the blocks that share a head's K/V (or Q/dO) run together
@@ -370,16 +249,19 @@ struct FwdSmem {
   static constexpr int LAUNCH = BYTES > ONE_BLOCK_PER_SM_SMEM ? BYTES : ONE_BLOCK_PER_SM_SMEM;
 };
 
-// Key tiles a q range [first, last] needs (causal: up to its last row).
-__device__ __forceinline__ int fwd_key_tiles(int last_row, int Tk, int causal) {
-  return ((causal ? min(Tk, last_row + 1) : Tk) + FWD_BK - 1) / FWD_BK;
+// Key tiles of BK keys that a q range [first, last] needs (causal: up to
+// its last row); forward and dQ.
+template <int BK>
+__device__ __forceinline__ int key_tiles(int last_row, int Tk, int causal) {
+  return ((causal ? min(Tk, last_row + 1) : Tk) + BK - 1) / BK;
 }
 
 // The leading key tiles that need no mask for q rows from `first_row` on:
 // past them a tile crosses the diagonal (causal) or the ragged end of the
 // keys, and so do all later tiles.
-__device__ __forceinline__ int fwd_plain_tiles(int first_row, int Tk, int causal) {
-  return causal ? min(Tk / FWD_BK, (first_row + 1) / FWD_BK) : Tk / FWD_BK;
+template <int BK>
+__device__ __forceinline__ int plain_tiles(int first_row, int Tk, int causal) {
+  return causal ? min(Tk / BK, (first_row + 1) / BK) : Tk / BK;
 }
 
 // The online softmax of one key tile (starting at k0) for this thread's
@@ -486,7 +368,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     hopper::setmaxnreg_dec<R::PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       for (; works.next(bh, qt); ++wc) {
-        const int q0 = qt * FWD_BQ, n_k = fwd_key_tiles(q0 + FWD_BQ - 1, Tk, causal);
+        const int q0 = qt * FWD_BQ, n_k = key_tiles<FWD_BK>(q0 + FWD_BQ - 1, Tk, causal);
         const int b = wc & 1;
         hopper::mbar_wait(&empty_q[b], ((wc >> 1) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&full_q[b], S::Q_BYTES);
@@ -511,9 +393,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     for (; works.next(bh, qt); ++wc) {
       const int q0 = qt * FWD_BQ, wq0 = q0 + 64 * c;  // this warpgroup's first row
       const int row_a = wq0 + 16 * warp + g, row_b = row_a + 8;
-      const int n_k = fwd_key_tiles(q0 + FWD_BQ - 1, Tk, causal);
+      const int n_k = key_tiles<FWD_BK>(q0 + FWD_BQ - 1, Tk, causal);
       // The key tiles its rows see (none for rows all past Tq).
-      const int n_own = wq0 < Tq ? fwd_key_tiles(wq0 + 63, Tk, causal) : 0;
+      const int n_own = wq0 < Tq ? key_tiles<FWD_BK>(wq0 + 63, Tk, causal) : 0;
       float m_a = -INFINITY, m_b = -INFINITY;  // running max of s * scale * log2(e)
       float l_a = 0.f, l_b = 0.f;              // this thread's share of the normaliser
       float acc[D / 2];
@@ -528,7 +410,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       // i (the compiler waits for it at their lane shuffles). The tiles that
       // need a mask run in a loop of their own: a branch between a wgmma's
       // issue and its wait makes the compiler wait for the wgmma there.
-      const int it0 = it, n_plain = fwd_plain_tiles(wq0, Tk, causal);
+      const int it0 = it, n_plain = plain_tiles<FWD_BK>(wq0, Tk, causal);
       uint32_t pa[FWD_BK / 16][4];  // P of the last tile, bf16 (cast before p@v, as in JAX)
       auto stage = [&](int i) { return (it0 + i) % FWD_STAGES; };
       auto parity = [&](int i) { return ((it0 + i) / FWD_STAGES) & 1; };
@@ -895,87 +777,233 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 // ---------------------------------------------------------------------------
 // dQ. Replaces _dq_kernel (ray_tpu/ops/flash_attention.py:135-165).
 //
-// Bound on an H100 SXM at the train step's shapes (causal): three products
-// (S = QK^T, dP = dO V^T, dQ = dS K) = 77 GFLOP against 989 TFLOP/s (78 us);
-// q, k, v, dO, lse, delta in and dq out = 255 MB against 3.35 TB/s (76 us):
-// operations by a little.
-// Design: one block per (bh, 64-row q tile); Q and dO stay in registers as A
-// fragments, lse and delta as two scalars per lane. A loop over 64-key
-// tiles (to the diagonal when causal) recomputes P = exp(S - lse) and dS in
-// registers and accumulates dQ in f32 registers, so each block owns its
-// rows of dQ: no atomics, and the result does not depend on run order.
+// Bound on an H100 SXM at the train step's shapes (BH 384, T 1024, D 64,
+// causal): three products (S = QK^T, dP = dO V^T, dQ = dS K) = 77 GFLOP
+// against 989 TFLOP/s (78 us); q, k, v, dO, lse, delta in and dq out = 255
+// MB against 3.35 TB/s (76 us): operations by a little.
+// Design: the forward's structure with one more product. A work tile is (bh,
+// DQ_BQ q rows), 64 per consumer warpgroup; causal units pair tiles p and
+// n - 1 - p as the forward's do. The producer warp loads the tile's Q and dO
+// once by TMA (the consumers copy their rows into registers at once and
+// release the buffer, so the next work tile's Q and dO load while this one
+// runs), then streams 64-key K and V tiles into a ring of DQ_STAGES stages.
+// Each consumer warpgroup reads its rows' lse and delta once per work tile
+// and, per key tile, computes S = Q K^T and dP = dO V^T by wgmma with Q and
+// dO as register A operands and K and V K-major from shared memory, P =
+// exp2(S scale log2 e - lse log2 e) in one FFMA and one MUFU op per score,
+// and dS = P (dP - delta) packed to bf16 A fragments; dQ += dS K by wgmma
+// reads the same K tile MN-major through the transpose bit. S of key tile i,
+// dQ of tile i - 1 and dP of tile i go out together, so the exponentials
+// of tile i can start while dQ(i - 1) and dP(i) run; the stage of tile
+// i - 1 is released after the wait that covers its dQ. dQ accumulates in f32
+// registers of the block that owns the rows, and takes its scale (1/8 or
+// 1/4, a power of two, so the bf16 rounding of dS is the same before and
+// after it) once in the epilogue. Causal: the key loop stops at the
+// diagonal; the warpgroup whose rows end earlier releases the key tile past
+// its rows without computing, and one whose rows all lie past Tq skips its
+// tiles. Only the diagonal and ragged-end tiles are masked, in a loop of
+// their own. dQ goes out by TMA from a staging tile.
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                const bf16* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dq, int Tq, int Tk,
-                float scale, int causal) {
-  __shared__ __align__(16) bf16 Qs[BQ][D + PAD];   // Q tile, then dO tile
-  __shared__ __align__(16) bf16 Ks[BK][D + PAD];
-  __shared__ __align__(16) bf16 Vs[BK][D + PAD];
-  __shared__ __align__(16) bf16 Kt[D][BK + PAD];
+struct DqSmem {
+  static constexpr int Q_BYTES = DQ_BQ * D * 2, KV_BYTES = DQ_BK * D * 2;
+  // Q and dO of one work tile, the K/V ring, and the dQ staging tiles (one
+  // per consumer warpgroup).
+  static constexpr int DO_OFF = Q_BYTES, K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + DQ_STAGES * KV_BYTES;
+  static constexpr int DQ_OFF = V_OFF + DQ_STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = DQ_OFF + Q_BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + 2 * DQ_STAGES);  // + alignment slack
+  static constexpr int LAUNCH = BYTES > ONE_BLOCK_PER_SM_SMEM ? BYTES : ONE_BLOCK_PER_SM_SMEM;
+};
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  q += (size_t)bh * Tq * D;
-  k += (size_t)bh * Tk * D;
-  v += (size_t)bh * Tk * D;
-  dout += (size_t)bh * Tq * D;
-  dq += (size_t)bh * Tq * D;
-  lse += (size_t)bh * Tq;
-  delta += (size_t)bh * Tq;
+template <int D>
+__global__ void __launch_bounds__(Roles<DQ_WGS>::THREADS, 1)
+flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
+                const float* __restrict__ delta, int bh_count, int Tq, int Tk, float scale,
+                int causal) {
+  using S = DqSmem<D>;
+  using R = Roles<DQ_WGS>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_base(smem_raw);
+  bf16* sq = reinterpret_cast<bf16*>(base);  // [DQ_BQ * D]
+  bf16* sdo = reinterpret_cast<bf16*>(base + S::DO_OFF);
+  bf16* sk = reinterpret_cast<bf16*>(base + S::K_OFF);
+  bf16* sv = reinterpret_cast<bf16*>(base + S::V_OFF);
+  bf16* sdq = reinterpret_cast<bf16*>(base + S::DQ_OFF);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(base + S::BAR_OFF);
+  uint64_t* empty_q = full_q + 1;
+  uint64_t* full = empty_q + 1;
+  uint64_t* empty = full + DQ_STAGES;
+  const int n_qt = (Tq + DQ_BQ - 1) / DQ_BQ;
 
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  load_rows<D>(Qs, q, q0, Tq);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_q, 1);
+    hopper::mbar_init(empty_q, R::CONSUMER_WARPS);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], R::CONSUMER_WARPS);
+    }
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
-  load_a_frags<D>(qa, Qs, warp * 16, g, t);
-  __syncthreads();
-  load_rows<D>(Qs, dout, q0, Tq);
-  __syncthreads();
-  load_a_frags<D>(da, Qs, warp * 16, g, t);
 
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  const float lse_a = row_a < Tq ? lse[row_a] : 0.f, lse_b = row_b < Tq ? lse[row_b] : 0.f;
-  const float dl_a = row_a < Tq ? delta[row_a] : 0.f, dl_b = row_b < Tq ? delta[row_b] : 0.f;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
-  const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    load_rows<D>(Ks, k, k0, Tk);
-    load_rows<D>(Vs, v, k0, Tk);
-    load_rows_t<D>(Kt, k, k0, Tk);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    rows_times_tile_t<D>(s, qa, Ks, g, t);
-    rows_times_tile_t<D>(dp, da, Vs, g, t);
-    const bool masked = (k0 + BK > Tk) || (causal && k0 + BK - 1 > q0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = k0 + j * 8 + 2 * t + e;
-        float sa = s[j][e] * scale, sb = s[j][2 + e] * scale;
-        if (masked) {
-          if (col >= Tk || (causal && col > row_a)) sa = NEG_INF;
-          if (col >= Tk || (causal && col > row_b)) sb = NEG_INF;
+  const int wg = threadIdx.x / WG_THREADS;
+  WorkList works(n_qt, bh_count, causal, /*longest_is_high=*/1);
+  int bh, qt, wc = 0, it = 0;  // work tiles and K/V stages this block has gone through
+  if (wg == 0) {  // producer
+    hopper::setmaxnreg_dec<R::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      for (; works.next(bh, qt); ++wc) {
+        const int q0 = qt * DQ_BQ, n_k = key_tiles<DQ_BK>(q0 + DQ_BQ - 1, Tk, causal);
+        hopper::mbar_wait(empty_q, (wc & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(full_q, 2 * S::Q_BYTES);
+        hopper::tma_load_rows(sq, &tm_q, full_q, q0, bh);
+        hopper::tma_load_rows(sdo, &tm_do, full_q, q0, bh);
+        for (int i = 0; i < n_k; ++i, ++it) {
+          const int s = it % DQ_STAGES;
+          hopper::mbar_wait(&empty[s], ((it / DQ_STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[s], 2 * S::KV_BYTES);
+          hopper::tma_load_rows(sk + s * DQ_BK * D, &tm_k, &full[s], i * DQ_BK, bh);
+          hopper::tma_load_rows(sv + s * DQ_BK * D, &tm_v, &full[s], i * DQ_BK, bh);
         }
-        const float pa = expf(sa - lse_a), pb = expf(sb - lse_b);
-        s[j][e] = pa * (dp[j][e] - dl_a) * scale;  // dS, cast to bf16 before dS@K
-        s[j][2 + e] = pb * (dp[j][2 + e] - dl_b) * scale;
       }
     }
-    tile_times_rows<D>(acc, s, Kt, g, t);
-  }
-  store_rows<D>(dq, acc, row_a, Tq, t, 1.f, 1.f);
-}
+  } else {  // consumers: 64 q rows each
+    hopper::setmaxnreg_inc<R::CONSUMER_REGS>();
+    const int c = wg - 1, tid = threadIdx.x - wg * WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+    const float sl2 = scale * LOG2E;
+    for (; works.next(bh, qt); ++wc) {
+      const int q0 = qt * DQ_BQ, wq0 = q0 + 64 * c;  // this warpgroup's first row
+      const int row_a = wq0 + 16 * warp + g, row_b = row_a + 8;
+      const int n_k = key_tiles<DQ_BK>(q0 + DQ_BQ - 1, Tk, causal);
+      // The key tiles its rows see (none for rows all past Tq).
+      const int n_own = wq0 < Tq ? key_tiles<DQ_BK>(wq0 + 63, Tk, causal) : 0;
+      // This thread's two rows' lse (in log2 units) and delta; zero past Tq,
+      // where Q and dO are zero-filled, so dS is zero there.
+      const float* lse_bh = lse + (size_t)bh * Tq;
+      const float* delta_bh = delta + (size_t)bh * Tq;
+      const float l2_a = row_a < Tq ? lse_bh[row_a] * LOG2E : 0.f;
+      const float l2_b = row_b < Tq ? lse_bh[row_b] * LOG2E : 0.f;
+      const float dl_a = row_a < Tq ? delta_bh[row_a] : 0.f;
+      const float dl_b = row_b < Tq ? delta_bh[row_b] : 0.f;
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-inline dim3 grid_of(int rows, int bh) { return dim3((rows + 63) / 64, bh); }
+      // Q and dO of this warpgroup's rows as register A operands, for the
+      // whole work tile; the producer may load the next work tile's.
+      hopper::mbar_wait(full_q, wc & 1);
+      uint32_t qa[D / 16][4], doa[D / 16][4];
+      hopper::load_a_rows<D>(qa, sq + 64 * c * D, warp, lane);
+      hopper::load_a_rows<D>(doa, sdo + 64 * c * D, warp, lane);
+      warp_release(empty_q);
+
+      // Pipelined: S of key tile i, dQ of tile i - 1 and dP of tile i go out
+      // together; the wait for S leaves the other two running while the
+      // exponentials start (ptxas waits for them after the first few, at
+      // the first use of dP). The tiles that need a mask (the diagonal's,
+      // the ragged last one) run in a loop of their own: no branch may sit
+      // between a wgmma's issue and its wait.
+      uint32_t da[DQ_BK / 16][4];  // dS of the last tile, cast to bf16 first
+      auto stage = [&](int i) { return (it + i) % DQ_STAGES; };
+      auto parity = [&](int i) { return ((it + i) / DQ_STAGES) & 1; };
+      auto issue_dq = [&](int i) {  // dQ += dS K of key tile i, not waited for
+        const bf16* ks = sk + stage(i) * DQ_BK * D;
+#pragma unroll
+        for (int kk = 0; kk < DQ_BK / 16; ++kk)
+          hopper::Wgmma<D>::rs(acc, da[kk], hopper::desc_rows<D>(ks + kk * 16 * D));
+        hopper::wgmma_commit();
+      };
+      auto ktile = [&](auto masked, auto after_first, int i) {
+        constexpr bool kAfterFirst = decltype(after_first)::value;  // a dQ product to issue
+        const int s = stage(i), k0 = i * DQ_BK;
+        hopper::mbar_wait(&full[s], parity(i));
+        float sc[DQ_BK / 2], dp[DQ_BK / 2];  // S (then P) and dP, [64 q x 64 keys]
+        hopper::fence_regs(acc);
+        hopper::fence_regs(da);
+        hopper::wgmma_fence();
+        const uint64_t desc_k = hopper::desc_rows<D>(sk + s * DQ_BK * D);
+        const uint64_t desc_v = hopper::desc_rows<D>(sv + s * DQ_BK * D);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::Wgmma<DQ_BK>::rsk(sc, qa[kk], desc_k + 2 * kk, kk > 0);
+        hopper::wgmma_commit();
+        if constexpr (kAfterFirst) issue_dq(i - 1);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::Wgmma<DQ_BK>::rsk(dp, doa[kk], desc_v + 2 * kk, kk > 0);
+        hopper::wgmma_commit();
+        if constexpr (kAfterFirst)
+          hopper::wgmma_wait<2>();  // S is in; dQ(i - 1) and dP may still run
+        else
+          hopper::wgmma_wait<1>();
+        hopper::fence_regs(sc);
+#pragma unroll
+        for (int j = 0; j < DQ_BK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = k0 + 8 * j + 2 * t + e;
+            float pa_ = hopper::ex2(fmaf(sc[4 * j + e], sl2, -l2_a));
+            float pb_ = hopper::ex2(fmaf(sc[4 * j + 2 + e], sl2, -l2_b));
+            if constexpr (decltype(masked)::value) {
+              if (col >= Tk || (causal && col > row_a)) pa_ = 0.f;
+              if (col >= Tk || (causal && col > row_b)) pb_ = 0.f;
+            }
+            sc[4 * j + e] = pa_;
+            sc[4 * j + 2 + e] = pb_;
+          }
+        }
+        hopper::fence_regs(sc);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dp);
+        hopper::fence_regs(acc);
+        hopper::fence_regs(da);
+        if constexpr (kAfterFirst) warp_release(&empty[stage(i - 1)]);
+#pragma unroll
+        for (int j = 0; j < DQ_BK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dl_a);  // dS / scale
+            dp[4 * j + 2 + e] = sc[4 * j + 2 + e] * (dp[4 * j + 2 + e] - dl_b);
+          }
+        }
+        pack_a_frags<DQ_BK>(da, dp);
+      };
+      // Each warpgroup takes its n_own key tiles, then the last dQ product.
+      const int n_plain = min(plain_tiles<DQ_BK>(wq0, Tk, causal), n_own);
+      if (n_own > 0) {
+        if (n_plain > 0)
+          ktile(std::false_type{}, std::false_type{}, 0);
+        else
+          ktile(std::true_type{}, std::false_type{}, 0);
+        int i = 1;
+        for (; i < n_plain; ++i) ktile(std::false_type{}, std::true_type{}, i);
+        for (; i < n_own; ++i) ktile(std::true_type{}, std::true_type{}, i);
+        hopper::fence_regs(acc);
+        hopper::fence_regs(da);
+        hopper::wgmma_fence();
+        issue_dq(n_own - 1);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(acc);
+        warp_release(&empty[stage(n_own - 1)]);
+      }
+      it += n_own;
+      // Key tiles past this warpgroup's rows (causal, the other warpgroup's
+      // diagonal): release them once they have landed.
+      for (int i = n_own; i < n_k; ++i, ++it) {
+        const int s = it % DQ_STAGES;
+        hopper::mbar_wait(&full[s], (it / DQ_STAGES) & 1);
+        warp_release(&empty[s]);
+      }
+      store_tile<D>(sdq + 64 * c * D, &tm_dq, acc, scale, scale, wq0, bh, tid, 1 + c);
+    }
+    if (tid == 0) hopper::tma_store_wait();
+  }
+}
 
 }  // namespace
 
@@ -1025,24 +1053,34 @@ extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <int D>
+static int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                     const void* delta, void* dq, int bh, int tq, int tk, float scale, int causal,
+                     cudaStream_t st) {
+  CUtensorMap tq_map, tk_map, tv_map, tdo_map, tdq_map;
+  if (!hopper::rows_map(&tq_map, q, bh, tq, D, DQ_BQ) ||
+      !hopper::rows_map(&tk_map, k, bh, tk, D, DQ_BK) ||
+      !hopper::rows_map(&tv_map, v, bh, tk, D, DQ_BK) ||
+      !hopper::rows_map(&tdo_map, dout, bh, tq, D, DQ_BQ) ||
+      !hopper::rows_map(&tdq_map, dq, bh, tq, D, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = DqSmem<D>::LAUNCH, threads = Roles<DQ_WGS>::THREADS;
+  cudaFuncSetAttribute(flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int grid = persistent_grid(units_of((tq + DQ_BQ - 1) / DQ_BQ, bh, causal));
+  flash_dq_kernel<D><<<grid, threads, smem, st>>>(tq_map, tk_map, tv_map, tdo_map, tdq_map,
+                                                     static_cast<const float*>(lse),
+                                                     static_cast<const float*>(delta), bh, tq, tk,
+                                                     scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
                            int d, float scale, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16 *Q = static_cast<const bf16*>(q), *K = static_cast<const bf16*>(k),
-             *V = static_cast<const bf16*>(v), *DO = static_cast<const bf16*>(dout);
-  const float *L = static_cast<const float*>(lse), *DL = static_cast<const float*>(delta);
-  if (d == 16)
-    flash_dq_kernel<16><<<grid_of(tq, bh), NTHREADS, 0, st>>>(Q, K, V, DO, L, DL,
-                                                              static_cast<bf16*>(dq), tq, tk,
-                                                              scale, causal);
-  else if (d == 64)
-    flash_dq_kernel<64><<<grid_of(tq, bh), NTHREADS, 0, st>>>(Q, K, V, DO, L, DL,
-                                                              static_cast<bf16*>(dq), tq, tk,
-                                                              scale, causal);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (d == 16) return launch_dq<16>(q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, st);
+  if (d == 64) return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int D>

@@ -8,8 +8,9 @@ of ``csrc/hopper.cuh``, built by ``_build``):
   - forward: persistent warp-specialised blocks (one per SM), a TMA-fed
     ring of K/V tiles and wgmma, online softmax over 128-key tiles in
     registers for 128 q rows at a time; writes o and the row lse;
-  - dq: one block per (bh, 64-row q tile), looping over key tiles
-    (mma.sync, the first version);
+  - dq: the forward's structure, 128 q rows at a time, a TMA-fed ring of
+    64-key K/V tiles (to the diagonal when causal), wgmma for S, dP and
+    dQ = dS K with K read a second time through the transpose bit;
   - dkv: persistent warp-specialised blocks, 128 keys at a time, a TMA-fed
     ring of Q/dO tiles from the diagonal on, wgmma.
 
@@ -37,7 +38,6 @@ from ray_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 HEAD_DIMS = (16, 64)  # gpt2-tiny has 16; every GPT-2 size in CONFIGS has 64
-_MAX_BH = 65535       # the kernels put B*H on the grid's y axis
 
 # Kernel launches on CUDA tensors, one count per kernel (the plain versions
 # are not counted). chip_smoke.py zeroes these before the train step and
@@ -129,8 +129,6 @@ def _check(q: Tensor, k: Tensor, v: Tensor, causal: bool, *more: Tensor) -> None
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
     if q.is_cuda:
-        if BH > _MAX_BH:
-            raise ValueError(f"B*H = {BH} exceeds {_MAX_BH}")
         for t in (q, k, v, *more):
             want = torch.float32 if t.dim() == 2 else torch.bfloat16  # lse/delta vs operands
             if t.dtype != want:

@@ -45,11 +45,13 @@ def _close(got, want):
     assert gap["ok"], gap
 
 
-# (BH, Tq, Tk, D, causal): tile-aligned, ragged, a single row, Tk != Tq, and
-# Tk over more key tiles than the forward's ring has stages (it wraps).
+# (BH, Tq, Tk, D, causal): tile-aligned, ragged, a single row, Tk != Tq,
+# Tk over more key tiles than the forward's and dQ's rings have stages (they
+# wrap), and more causal work units (70 heads x 2) than an H100 has SMs, so
+# some persistent blocks take several.
 CASES = [(3, 128, 128, 64, True), (2, 65, 65, 16, True), (2, 1, 1, 64, True),
          (3, 100, 37, 64, False), (1, 64, 200, 16, False), (2, 257, 257, 64, False),
-         (2, 300, 1100, 64, False)]
+         (2, 300, 1100, 64, False), (70, 512, 512, 64, True)]
 
 
 @pytest.mark.parametrize("case", CASES, ids=str)

@@ -1,13 +1,14 @@
 """The tiling of the port's Hopper flash kernels, modelled in plain PyTorch on the CPU.
 
-The forward and dK/dV kernels of ``ray_tpu_torch/ops/csrc/flash_attention.cu``
+The forward, dQ and dK/dV kernels of ``ray_tpu_torch/ops/csrc/flash_attention.cu``
 run only on the card. This file writes their schedules out in PyTorch at
 the tile sizes the ``.cu`` settles on: which work tiles each persistent
 block takes and in what order, which (q tile, key tile) pairs each
 consumer warpgroup visits, which of those it masks, and the arithmetic in
 that order (the forward's exp2 with scale * log2 e folded in and P rounded
-to bf16 against the running max; dK/dV from the diagonal on, dS scaled
-after its product). The model is held by ``bench.disagreement`` to the
+to bf16 against the running max; dQ to the diagonal and dK/dV from it on,
+P as exp2 with the scale folded in, dS rounded to bf16 before its product
+and scaled after it). The model is held by ``bench.disagreement`` to the
 port's plain versions and to the JAX package's functions (run as
 ``tests/test_torch_flash_attention.py`` runs them: Pallas in interpret
 mode, one tile per call), and the schedules to covering every pair the mask
@@ -36,7 +37,7 @@ def cu_tiles(source: str) -> dict:
     <int or RT_ macro>;``, a macro read from its ``#define`` default."""
     macros = dict(re.findall(r"^#define (RT_\w+) (\d+)$", source, re.M))
     return {name: int(macros.get(value, value)) for name, value in
-            re.findall(r"^constexpr int ((?:FWD|DKV)_(?:WGS|BK|BQ|STAGES)) = (\w+);", source, re.M)}
+            re.findall(r"^constexpr int ((?:FWD|DKV|DQ)_(?:WGS|BK|BQ|STAGES)) = (\w+);", source, re.M)}
 
 
 # The tile sizes the .cu settles on, read from its source, so the model
@@ -44,8 +45,10 @@ def cu_tiles(source: str) -> dict:
 _TILES = cu_tiles(CU.read_text())
 FWD_WGS, FWD_BK, FWD_STAGES = _TILES["FWD_WGS"], _TILES["FWD_BK"], _TILES["FWD_STAGES"]
 DKV_BK, DKV_BQ, DKV_STAGES = _TILES["DKV_BK"], _TILES["DKV_BQ"], _TILES["DKV_STAGES"]
-WG_ROWS = 64  # q rows (forward) or keys (dK/dV) of one consumer warpgroup
+DQ_WGS, DQ_BK, DQ_STAGES = _TILES["DQ_WGS"], _TILES["DQ_BK"], _TILES["DQ_STAGES"]
+WG_ROWS = 64  # q rows (forward, dQ) or keys (dK/dV) of one consumer warpgroup
 FWD_BQ = WG_ROWS * FWD_WGS
+DQ_BQ = WG_ROWS * DQ_WGS
 GRID = 132    # one persistent block per SM of an H100 SXM
 
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
@@ -89,19 +92,27 @@ def work_list(n_tiles, bh, causal, longest_high, grid=GRID):
     return blocks
 
 
-def fwd_visits(qt, Tq, Tk, causal):
-    """For work tile qt: per consumer warpgroup, its first row and the key
-    tiles it multiplies, in order, each with whether it is masked."""
-    q0 = qt * FWD_BQ
+def _q_tile_visits(qt, Tq, Tk, causal, bq, bk):
+    """For q work tile qt of bq rows: per consumer warpgroup, its first row
+    and the key tiles (of bk keys) it multiplies, in order, each with
+    whether it is masked (to the diagonal when causal)."""
+    q0 = qt * bq
     out = []
-    for c in range(FWD_BQ // WG_ROWS):
+    for c in range(bq // WG_ROWS):
         wq0 = q0 + WG_ROWS * c
         # no tiles for a warpgroup whose rows all lie past Tq
-        n_own = _ceil(min(Tk, wq0 + WG_ROWS) if causal else Tk, FWD_BK) if wq0 < Tq else 0
-        tiles = [(i, i * FWD_BK + FWD_BK > Tk or (causal and i * FWD_BK + FWD_BK - 1 > wq0))
-                 for i in range(n_own)]
+        n_own = _ceil(min(Tk, wq0 + WG_ROWS) if causal else Tk, bk) if wq0 < Tq else 0
+        tiles = [(i, i * bk + bk > Tk or (causal and i * bk + bk - 1 > wq0)) for i in range(n_own)]
         out.append((wq0, tiles))
     return out
+
+
+def fwd_visits(qt, Tq, Tk, causal):
+    return _q_tile_visits(qt, Tq, Tk, causal, FWD_BQ, FWD_BK)
+
+
+def dq_visits(qt, Tq, Tk, causal):
+    return _q_tile_visits(qt, Tq, Tk, causal, DQ_BQ, DQ_BK)
 
 
 def dkv_visits(kt, Tq, Tk, causal):
@@ -159,6 +170,40 @@ def fwd_model(q, k, v, causal):
                 o[bh, rows[live]] = (acc / l)[live]
                 lse[bh, rows[live]] = ((m + torch.log2(l)) * LN2).squeeze(-1)[live]
     return o.bfloat16(), lse
+
+
+def dq_model(q, k, v, do, lse, delta, causal):
+    """dq by the dQ kernel's schedule: P = 2^(S sl2 - lse log2 e), dS = P (dP -
+    delta) rounded to bf16 before its product, scaled after it."""
+    BHn, Tq, D = q.shape
+    Tk = k.shape[1]
+    scale = 1.0 / math.sqrt(D)
+    sl2 = scale * LOG2E
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dq = torch.zeros(BHn, Tq, D)
+    for works in work_list(_ceil(Tq, DQ_BQ), BHn, causal, longest_high=True):
+        for bh, qt in works:
+            for wq0, tiles in dq_visits(qt, Tq, Tk, causal):
+                rows = torch.arange(wq0, wq0 + WG_ROWS)
+                live = rows < Tq
+                qr, dor = torch.zeros(WG_ROWS, D), torch.zeros(WG_ROWS, D)
+                qr[live], dor[live] = qf[bh, rows[live]], dof[bh, rows[live]]
+                l2, dl = torch.zeros(WG_ROWS, 1), torch.zeros(WG_ROWS, 1)
+                l2[live, 0], dl[live, 0] = lse[bh, rows[live]] * LOG2E, delta[bh, rows[live]]
+                acc = torch.zeros(WG_ROWS, D)
+                for i, masked in tiles:
+                    cols = torch.arange(i * DQ_BK, (i + 1) * DQ_BK)
+                    inc = cols < Tk
+                    kt, vt = torch.zeros(DQ_BK, D), torch.zeros(DQ_BK, D)
+                    kt[inc], vt[inc] = kf[bh, cols[inc]], vf[bh, cols[inc]]
+                    p = torch.exp2(qr @ kt.T * sl2 - l2)
+                    if masked:
+                        off = (cols[None] >= Tk) | (causal & (cols[None] > rows[:, None]))
+                        p = p.masked_fill(off, 0.0)
+                    ds = p * (dor @ vt.T - dl)
+                    acc += ds.bfloat16().float() @ kt
+                dq[bh, rows[live]] = (acc * scale)[live]
+    return dq.bfloat16()
 
 
 def dkv_model(q, k, v, do, lse, delta, causal):
@@ -277,7 +322,27 @@ def test_dkv_tiles_match_plain_and_jax(cpu_mesh_devices, one_jax_tile, case):
     _close(dv, torch.from_numpy(np.array(dv_j)))
 
 
-@pytest.mark.parametrize("kernel", ["forward", "dkv"])
+@pytest.mark.parametrize("case", CASES, ids=_id)
+def test_dq_tiles_match_plain_and_jax(cpu_mesh_devices, one_jax_tile, case):
+    Tq, Tk, causal, D = case
+    q, k, v, do = _inputs(Tq, Tk, D, seed=2)
+    o_ref, lse = tfa.flash_fwd_reference(q, k, v, causal)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    dq = dq_model(q, k, v, do, lse, delta, causal)
+    _close(dq, tfa.flash_dq_reference(q, k, v, do, lse, delta, causal))
+
+    one_jax_tile(Tq, Tk)
+    fold = jfa._fold
+    dq_j, _, _ = jfa._bwd_kernels(
+        *(fold(jnp.asarray(_to_model_layout(x))) for x in (q, k, v, do)),
+        jnp.broadcast_to(jnp.asarray(lse.numpy())[:, None], (BH, 8, Tq)),
+        jnp.broadcast_to(jnp.asarray(delta.numpy())[:, None], (BH, 8, Tq)),
+        causal, jnp.float32, jnp.float32, jnp.float32,
+    )
+    _close(dq, torch.from_numpy(np.array(dq_j)))
+
+
+@pytest.mark.parametrize("kernel", ["forward", "dq", "dkv"])
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: _id((*s, 0))[:-3])
 def test_schedule_covers_each_kept_pair_once(kernel, shape):
     """Over all blocks, warpgroups and visited tiles, every (q, key) pair
@@ -288,6 +353,8 @@ def test_schedule_covers_each_kept_pair_once(kernel, shape):
     seen = torch.zeros(Tq, Tk, dtype=torch.int32)
     if kernel == "forward":
         n, tile_rows, longest_high, visits = _ceil(Tq, FWD_BQ), FWD_BQ, True, fwd_visits
+    elif kernel == "dq":
+        n, tile_rows, longest_high, visits = _ceil(Tq, DQ_BQ), DQ_BQ, True, dq_visits
     else:
         n, tile_rows, longest_high, visits = _ceil(Tk, DKV_BK), DKV_BK, False, dkv_visits
     blocks = work_list(n, 1, causal, longest_high)
@@ -296,16 +363,17 @@ def test_schedule_covers_each_kept_pair_once(kernel, shape):
     for tile in range(n):
         for first, tiles in visits(tile, Tq, Tk, causal):
             for i, masked in tiles:
-                if kernel == "forward":
-                    rows, cols = range(first, first + WG_ROWS), range(i * FWD_BK, (i + 1) * FWD_BK)
+                if kernel != "dkv":
+                    bk = FWD_BK if kernel == "forward" else DQ_BK
+                    rows, cols = range(first, first + WG_ROWS), range(i * bk, (i + 1) * bk)
                 else:
                     rows, cols = range(i * DKV_BQ, (i + 1) * DKV_BQ), range(first, first + WG_ROWS)
                 block = [(r, c) for r in rows for c in cols]
                 # The kernels mask what would change a kept result: keys past
-                # Tk in the forward, q rows past Tq in dK/dV, and the causal
-                # upper triangle; rows (forward) or keys (dK/dV) past T are
-                # computed and never stored.
-                dropped = [(c >= Tk if kernel == "forward" else r >= Tq) or (causal and c > r)
+                # Tk in the forward and dQ, q rows past Tq in dK/dV, and the
+                # causal upper triangle; rows (forward, dQ) or keys (dK/dV)
+                # past T are computed and never stored.
+                dropped = [(c >= Tk if kernel != "dkv" else r >= Tq) or (causal and c > r)
                            for r, c in block]
                 assert masked == any(dropped)
                 kept = [(r, c) for r, c in block if r < Tq and c < Tk and not (causal and c > r)]
@@ -336,12 +404,17 @@ def test_schedule_covers_each_kept_pair_once(kernel, shape):
 def test_tile_block_is_read_from_the_cu():
     """The model's tile sizes come from the .cu's block, a macro's default
     included; the non-causal Tq 300, Tk 1100 case spans more key tiles than
-    the forward's ring has stages and more q tiles than dK/dV's, so both
-    rings wrap."""
+    the forward's and dQ's rings have stages and more q tiles than dK/dV's,
+    so all three rings wrap."""
     source = CU.read_text()
-    assert set(_TILES) == {"FWD_WGS", "FWD_BK", "FWD_STAGES", "DKV_BK", "DKV_BQ", "DKV_STAGES"}
+    assert set(_TILES) == {"FWD_WGS", "FWD_BK", "FWD_STAGES", "DKV_BK", "DKV_BQ", "DKV_STAGES",
+                           "DQ_WGS", "DQ_BK", "DQ_STAGES"}
     assert f"constexpr int FWD_BQ = {WG_ROWS} * FWD_WGS;" in source
-    deeper = re.sub(r"^#define RT_FWD_STAGES \d+$", "#define RT_FWD_STAGES 7", source, flags=re.M)
-    assert cu_tiles(deeper)["FWD_STAGES"] == 7
-    assert FWD_BK in (64, 128) and min(FWD_STAGES, DKV_STAGES) >= 2
+    assert f"constexpr int DQ_BQ = {WG_ROWS} * DQ_WGS;" in source
+    for macro, name in (("RT_FWD_STAGES", "FWD_STAGES"), ("RT_DQ_STAGES", "DQ_STAGES")):
+        deeper = re.sub(rf"^#define {macro} \d+$", f"#define {macro} 7", source, flags=re.M)
+        assert cu_tiles(deeper)[name] == 7
+    assert FWD_BK in (64, 128) and DQ_BK in (64, 128)
+    assert min(FWD_STAGES, DKV_STAGES, DQ_STAGES) >= 2
     assert _ceil(1100, FWD_BK) > FWD_STAGES and _ceil(300, DKV_BQ) > DKV_STAGES
+    assert _ceil(1100, DQ_BK) > DQ_STAGES
