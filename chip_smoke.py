@@ -25,10 +25,31 @@ Phases (any failure exits non-zero and prints no result):
      loss and every parameter's gradient against the same model and batch
      with reference attention, then take a few steps: losses finite, step 0
      near ln(vocab), 12 launches of each kernel per step;
-  4. print the kernel line (one JSON object; beside the contract's keys,
+  4. serve gpt2-small at full width and depth (bf16, random init from a
+     seeded generator) through the port's LLMServer with the engine's
+     default flags (paged KV, async decode, chunked prefill; pages of 64
+     tokens, max_batch_size 8: 129 pages, 32 decode rows). First hold
+     prefill plus 32 decode steps (slot and paged functions) against
+     GPT2.forward at the same positions, in bf16 and in f32, and check
+     that the f32 limit sees a planted fault (one paged step through a
+     page table reversed after prefill). Then 24 requests at once from
+     threads (prompts of 64-896 tokens from a seeded generator, 8 sharing a
+     512-token prefix, 64 new tokens each, 4 at temperature 0.8, 2
+     streaming): every answer has 64 tokens in the vocabulary, and every
+     greedy token is within a margin of its position's maximum logit under
+     GPT2.forward on the same sequence. Then, request by request on fresh
+     engines: sync and async streams equal, paged and slot greedy streams
+     equal (or a near tie under the same margin at the first divergence),
+     a prefix hit equal to the cold run with no block copy; the drained
+     pool holds only sealed prefix pages before unload. Prints TTFT p50
+     and p95, output tokens/s, the decode step's wall, CUDA-event and
+     device-busy times (torch.profiler) and peak memory. Serving launches
+     none of the three kernels: the phase checks that their counts stay 0;
+  5. print the kernel line (one JSON object; beside the contract's keys,
      each kernel's SASS counts from phase 1: every number in it was
-     measured or, for bound_ms, computed in this run);
-  5. print the contract line (one JSON object, the last line).
+     measured or, for bound_ms, computed in this run, and launches come
+     from phase 3);
+  6. print the contract line (one JSON object, the last line).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -44,8 +65,10 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -391,11 +414,332 @@ def train(card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 4
+# ---------------------------------------------------------------------------
+
+SERVE_MODEL, SERVE_SEED = "gpt2-small", 0
+SERVE_BATCH = 8  # LLMConfig.max_batch_size: 8 x 16 pages + scratch, 32 decode rows
+N_REQUESTS, MAX_NEW = 24, 64
+SHARED_PREFIX, N_SHARED = 512, 8
+N_SAMPLED, SAMPLED_TEMP, N_STREAMING = 4, 0.8, 2
+CHECK_PROMPT, CHECK_STEPS = 200, 32
+# Decode functions vs GPT2.forward at the same positions, held per position
+# in relative norm over the vocabulary's logits, on the same weights in each
+# compute dtype. In bf16 the decode attention rounds its scores to bf16 and
+# the forward's reference attention keeps them in f32: on an H100 the slot
+# and the paged functions both read 1.21e-2. In f32 only the order of the
+# sums differs, so the limit can be tight enough to see a wrong KV read,
+# which moves the logits of the random init little: the f32 pass also
+# decodes one step through the page table reversed after prefill (a planted
+# fault) and fails unless that reading exceeds the limit.
+LOGITS_RELNORM_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+# A greedy token's logit under GPT2.forward on the same sequence may fall
+# below its position's maximum by at most this much (absolute; the logits
+# of the random init are of order 1): the two paths round differently, so
+# a near tie may resolve either way. On an H100, 4 of 1280 greedy tokens
+# were not the forward's argmax, the largest margin 8.97e-3. The same
+# margin decides whether a paged/slot divergence was a near tie.
+GREEDY_MARGIN = 3e-2
+DECODE_TIMED_STEPS, DECODE_PROFILED_STEPS = 20, 5
+
+
+def serving_traffic(vocab: int) -> list:
+    """The phase's 24 requests, from a seeded generator, in submission
+    order."""
+    rng = np.random.default_rng(SERVE_SEED)
+    prefix = rng.integers(0, vocab, SHARED_PREFIX).tolist()
+    reqs = []
+    for i in range(N_REQUESTS):
+        if i < N_SHARED:
+            n = int(rng.integers(SHARED_PREFIX + 1, 897))
+            prompt = prefix + rng.integers(0, vocab, n - SHARED_PREFIX).tolist()
+        else:
+            prompt = rng.integers(0, vocab, int(rng.integers(64, 897))).tolist()
+        reqs.append({"prompt_tokens": prompt, "max_new_tokens": MAX_NEW, "temperature": 0.0})
+    for i in rng.choice(N_REQUESTS, N_SAMPLED, replace=False):
+        reqs[i]["temperature"] = SAMPLED_TEMP
+    for i in rng.choice(N_REQUESTS, N_STREAMING, replace=False):
+        reqs[i]["stream"] = True
+    return [reqs[i] for i in rng.permutation(N_REQUESTS)]
+
+
+def ask(srv, req: dict) -> list:
+    res = srv(dict(req))
+    return [ev["token"] for ev in res] if req.get("stream") else res["tokens"]
+
+
+def make_server(**kw):
+    from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
+
+    return LLMServer(LLMConfig(model_id=SERVE_MODEL, max_batch_size=SERVE_BATCH, **kw))
+
+
+def stop_server(srv) -> None:
+    srv.unload()
+    srv._thread.join(timeout=60)
+    if srv._thread.is_alive():
+        fail("the engine thread did not stop after unload")
+
+
+def check_decode_functions(model, cfg, card: str) -> None:
+    """prefill plus CHECK_STEPS decode steps, through the slot functions and
+    the paged ones (two prefill chunks), against GPT2.forward's logits at
+    the same positions, in bf16 and in f32; and a planted fault, one paged
+    step through a wrong page table, that the f32 limit must see."""
+    from ray_tpu_torch.models import gpt2_decode as dec
+
+    P, N = CHECK_PROMPT, CHECK_STEPS
+    seq = torch.from_numpy(np.random.default_rng(SERVE_SEED + 1).integers(
+        0, cfg.vocab_size, P + N)).cuda()
+    padded = torch.zeros(1, 256, dtype=torch.long, device="cuda")
+    padded[0, :P] = seq[:P]
+
+    def relnorm(got, want):  # per position, the largest
+        return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+    for dt, limit in LOGITS_RELNORM_TOL.items():
+        dcfg = dataclasses.replace(cfg, dtype=dt, remat=False)
+        with torch.inference_mode():
+            want = model(seq[None], dcfg)[0, P - 1:, :cfg.vocab_size]  # positions P-1 .. P+N-1
+            ck, cv = dec.init_cache(dcfg, 1, cfg.n_positions, "cuda")
+            slot = [dec.prefill(dcfg, model, padded, P, ck, cv, 0)[None]]
+            B, max_pages = 64, cfg.n_positions // 64
+            pk, pv = dec.init_paged_cache(dcfg, max_pages + 1, B, "cuda")
+            table = torch.arange(max_pages, 0, -1, device="cuda")  # pages in reverse order
+            paged = [None]
+            for start, n in ((0, 128), (128, P - 128)):
+                chunk = torch.zeros(1, 128, dtype=torch.long, device="cuda")
+                chunk[0, :n] = seq[start:start + n]
+                paged[0] = dec.prefill_paged(dcfg, model, chunk, start, n, pk, pv, table)[None]
+            # the planted fault: step 0 reads the prefill's pages through the
+            # table reversed (the prompt's KV comes from empty pages)
+            planted = dec._decode_paged_impl(dcfg, model, seq[P:P + 1],
+                                             torch.full((1,), P, device="cuda"), pk.clone(),
+                                             pv.clone(), table.flip(0)[None])
+            for i in range(N):
+                last, length = seq[P + i:P + i + 1], torch.full((1,), P + i, device="cuda")
+                slot.append(dec.decode_step(dcfg, model, last, length, ck, cv))
+                paged.append(dec._decode_paged_impl(dcfg, model, last, length, pk, pv,
+                                                    table[None]))
+        for name, got in (("slot", slot), ("paged", paged)):
+            rel = relnorm(torch.cat(got), want)
+            print(f"decode functions ({name}, {dt}: prefill of {P} tokens + {N} decode steps) "
+                  f"vs GPT2.forward: max relnorm over positions {rel:.3e} (limit {limit}) "
+                  f"[{card}]", flush=True)
+            if not rel <= limit:
+                fail(f"{name} decode logits disagree with GPT2.forward in {dt}: "
+                     f"relnorm {rel:.3e}")
+        rel = relnorm(planted, want[1:2])
+        print(f"  planted fault ({dt}: page table reversed after prefill): relnorm {rel:.3e} "
+              f"(limit {limit}; the f32 check must exceed it)", flush=True)
+        if dt == torch.float32 and not rel > limit:
+            fail(f"the f32 decode check misses a wrong page table: relnorm {rel:.3e}")
+
+
+def greedy_margins(model, cfg, prompt: list, gen: list) -> torch.Tensor:
+    """max logit - logit of each generated token, GPT2.forward teacher-forced
+    on prompt + gen."""
+    fwd = dataclasses.replace(cfg, remat=False)
+    seq = torch.tensor([prompt + gen[:-1]], device="cuda")
+    with torch.inference_mode():
+        logits = model(seq, fwd)[0, len(prompt) - 1:, :cfg.vocab_size]
+    g = torch.tensor(gen, device="cuda")
+    return logits.max(-1).values - logits.gather(1, g[:, None])[:, 0]
+
+
+def time_decode_step(model, cfg, lengths: list, card: str) -> None:
+    """decode_paged_and_sample at the engine's shape (32 rows over a
+    129-page pool, virtual rows of 1024): host clock over back-to-back
+    steps, CUDA events per step, and the device's busy time per step from
+    torch.profiler, whose share of the wall time says how far the host holds
+    the card back (eager PyTorch, one launch per op)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import gpt2_decode as dec
+    from ray_tpu_torch.profile_train_step import _busy_us
+
+    S, B, max_pages = 4 * SERVE_BATCH, 64, cfg.n_positions // 64
+    pk, pv = dec.init_paged_cache(cfg, SERVE_BATCH * max_pages + 1, B, "cuda")
+    tables = (torch.arange(S * max_pages, device="cuda") % (SERVE_BATCH * max_pages) + 1).view(
+        S, max_pages)
+    lens = torch.tensor((lengths * S)[:S], device="cuda")
+    last = torch.zeros(S, dtype=torch.long, device="cuda")
+    temps = torch.full((S,), 1e-6, device="cuda")
+    greedy = torch.ones(S, dtype=torch.bool, device="cuda")
+
+    def step():
+        return dec.decode_paged_and_sample(cfg, model, last, lens, pk, pv, tables, temps, greedy,
+                                           1, 0)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_TIMED_STEPS):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / DECODE_TIMED_STEPS
+    event_ms = bench.time_ms(step, iters=DECODE_TIMED_STEPS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DECODE_PROFILED_STEPS):
+            step()
+        torch.cuda.synchronize()
+        traced_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    host_names = {ev.name for ev in events if ev.device_type == DeviceType.CPU}
+    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA and ev.name not in host_names]
+    if not kernels:
+        fail("the profiler recorded no device time for the decode step")
+    busy_ms = _busy_us([(ev.time_range.start, ev.time_range.end) for ev in kernels]) / 1e3
+    busy_ms /= DECODE_PROFILED_STEPS
+    print(f"decode step ({SERVE_MODEL}, {S} rows, virtual rows of {max_pages * B}): wall "
+          f"{wall_ms:.3f} ms ({S / wall_ms * 1e3:.1f} decode tokens/s), CUDA events "
+          f"{event_ms:.3f} ms, device busy {busy_ms:.3f} ms ({100 * (1 - busy_ms / wall_ms):.1f}% "
+          f"of the wall idle; the profiled steps took {traced_us / DECODE_PROFILED_STEPS / 1e3:.3f} "
+          f"ms each), {len(kernels) / DECODE_PROFILED_STEPS:.0f} kernels per step [{card}]",
+          flush=True)
+    by_name = {}
+    for ev in kernels:
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print("  largest kernels (ms per step): " + "; ".join(
+        f"{us / DECODE_PROFILED_STEPS / 1e3:.3f} {name[:70]}" for name, us in top), flush=True)
+
+
+def compare_streams(name_a: str, a: list, name_b: str, b: list, reqs: list, model, cfg,
+                    near_ties: bool) -> None:
+    """Fail unless the streams are equal; with ``near_ties``, a greedy
+    stream may diverge where GPT2.forward puts both tokens within
+    GREEDY_MARGIN of the maximum."""
+    for req, x, y in zip(reqs, a, b):
+        if x == y:
+            continue
+        j = next(i for i, (p, q) in enumerate(zip(x, y)) if p != q) if len(x) == len(y) else 0
+        where = (f"{name_a} vs {name_b}, prompt of {len(req['prompt_tokens'])} tokens, "
+                 f"temperature {req['temperature']}: first divergence at token {j} "
+                 f"({x[j:j + 4]} vs {y[j:j + 4]})")
+        if not (near_ties and req["temperature"] == 0 and len(x) == len(y)):
+            fail(where)
+        gaps = [greedy_margins(model, cfg, req["prompt_tokens"], s[:j + 1])[-1].item()
+                for s in (x, y)]
+        print(f"  {where}: margins {gaps[0]:.3e} and {gaps[1]:.3e} under GPT2.forward "
+              f"(limit {GREEDY_MARGIN})", flush=True)
+        if not max(gaps) <= GREEDY_MARGIN:
+            fail(f"{where} is not a near tie")
+    print(f"streams {name_a} and {name_b}: {sum(x == y for x, y in zip(a, b))} of {len(a)} "
+          "equal", flush=True)
+
+
+def serve(card: str) -> None:
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.serve import prefix_cache
+
+    for name in fa.launches:
+        fa.launches[name] = 0
+    from ray_tpu_torch.models import gpt2
+
+    reqs = serving_traffic(gpt2.CONFIGS[SERVE_MODEL].vocab_size)
+
+    torch.cuda.reset_peak_memory_stats()
+    srv = make_server()
+    model, cfg = srv.model, srv.model_cfg
+    check_decode_functions(model, cfg, card)
+
+    with ThreadPoolExecutor(max_workers=N_REQUESTS) as pool:
+        t0 = time.perf_counter()
+        outs = list(pool.map(lambda r: ask(srv, r), reqs))
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = srv.batch_stats()
+    bad = [i for i, o in enumerate(outs)
+           if len(o) != MAX_NEW or not all(0 <= t < cfg.vocab_size for t in o)]
+    if bad:
+        fail(f"requests {bad} did not return {MAX_NEW} tokens in the vocabulary")
+    n_tok = sum(len(o) for o in outs)
+    pst = st["prefix"]
+    print(f"serve {SERVE_MODEL} ({sum(p.numel() for p in model.parameters())} params, bf16, "
+          f"{pst['pages_total']} pages of {pst['block_tokens']} tokens + scratch): "
+          f"{N_REQUESTS} requests at once, {n_tok} tokens in {wall:.3f} s, {n_tok / wall:.1f} "
+          f"output tokens/s; TTFT p50 {st['ttft_s']['p50'] * 1e3:.2f} ms, p95 "
+          f"{st['ttft_s']['p95'] * 1e3:.2f} ms; {st['batches']} decode dispatches, mean batch "
+          f"{st['mean_batch']:.2f}, max {st['max_batch']}; prefix hits {pst['hits']}, misses "
+          f"{pst['misses']}, copies {pst['copies']}; peak memory {peak:.2f} GiB [{card}]",
+          flush=True)
+
+    margins = torch.cat([greedy_margins(model, cfg, r["prompt_tokens"], o)
+                         for r, o in zip(reqs, outs) if r["temperature"] == 0])
+    print(f"greedy tokens vs GPT2.forward teacher-forced: {margins.numel()} tokens, "
+          f"{(margins == 0).sum().item()} the argmax, largest margin {margins.max().item():.3e} "
+          f"(limit {GREEDY_MARGIN})", flush=True)
+    if not margins.max().item() <= GREEDY_MARGIN:
+        fail("a greedy token is not within the margin of its position's maximum")
+
+    pst = srv.batch_stats()["prefix"]
+    with srv._prefix_pool._lock:
+        pinned = sum(pg.refs for pg in srv._prefix_pool._pages)
+    print(f"drained pool: {pst['pages_free']} pages free, {pst['pages_occupied']} occupied, "
+          f"{pst['prefix_resident']} sealed prefix pages, {pinned} pins", flush=True)
+    if pinned or pst["pages_occupied"] != pst["prefix_resident"]:
+        fail("the drained engine still holds pages beyond its sealed prefix pages")
+    stop_server(srv)
+    if srv._prefix_pool in prefix_cache.live_pools():
+        fail("the pool outlived unload")
+    time_decode_step(model, cfg, [len(r["prompt_tokens"]) + MAX_NEW // 2 for r in reqs], card)
+
+    # request by request on fresh engines: the same step numbers in each
+    plain = [i for i, r in enumerate(reqs) if r["temperature"] == 0 and not r.get("stream")]
+    sample = [r for i, r in enumerate(reqs)
+              if r.get("stream") or r["temperature"] > 0 or i in plain[:2]]
+    streams = {}
+    for name, kw in (("async", {}), ("sync", {"async_decode": False}),
+                     ("slot", {"paged_kv": False})):
+        eng = make_server(**kw)
+        streams[name] = [ask(eng, r) for r in sample]
+        if name == "sync":
+            check_prefix_hit(eng, cfg, card)
+        stop_server(eng)
+    compare_streams("async", streams["async"], "sync", streams["sync"], sample, model, cfg,
+                    near_ties=False)
+    greedy = [i for i, r in enumerate(sample) if r["temperature"] == 0]
+    compare_streams("paged", [streams["async"][i] for i in greedy], "slot",
+                    [streams["slot"][i] for i in greedy], [sample[i] for i in greedy], model,
+                    cfg, near_ties=True)
+    if any(fa.launches.values()):
+        fail(f"serving launched flash kernels: {dict(fa.launches)}")
+    print(f"serving launched no flash kernel: {dict(fa.launches)}", flush=True)
+
+
+def check_prefix_hit(srv, cfg, card: str) -> None:
+    """A cold prompt of 512 + 50 tokens and the same prompt again, admitted
+    from the 8 pages the first sealed: the same tokens, 8 more hits, no
+    block copy. The hit prefills the 50-token tail at position 512, where
+    the cold run's second prefill chunk started, so both compute it alike."""
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    req = {"prompt_tokens": rng.integers(0, cfg.vocab_size, SHARED_PREFIX + 50).tolist(),
+           "max_new_tokens": MAX_NEW, "temperature": 0.0}
+    pool = srv._prefix_pool
+    cold = ask(srv, req)
+    before = pool.stats()
+    hot = ask(srv, req)
+    after = pool.stats()
+    hits = after["hits"] - before["hits"]
+    print(f"prefix hit vs cold ({len(req['prompt_tokens'])}-token prompt): equal {hot == cold}, "
+          f"{hits} pages hit, {after['copies'] - before['copies']} block copies [{card}]",
+          flush=True)
+    if hot != cold or hits != SHARED_PREFIX // 64 or after["copies"] != before["copies"]:
+        fail("the prefix hit differs from the cold run or copied blocks")
+
+
 def main() -> None:
     card = identify()
     sass = build()
     results = check_kernels(card)
     counts = train(card)
+    serve(card)
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
                     launches=counts[name], **results[name], **sass[name]) for name in KERNELS]
     print(json.dumps({"kernels": kernels}))

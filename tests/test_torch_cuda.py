@@ -14,6 +14,7 @@ f32 in both, within 1e-4.
 """
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -146,3 +147,52 @@ def test_tiny_train_step_on_card(cuda):
     assert abs(losses[0] - want) <= 1e-2
     assert {n: fa.launches[n] - before[n] for n in before} == {
         n: 2 * cfg.n_layer for n in before}
+
+
+def test_serving_engine_on_card(cuda, monkeypatch, tmp_path):
+    """A few requests through the paged engine on the card (gpt2-tiny in
+    f32, four at once, one streaming): each answer equals the same engine's
+    on the CPU with the same weights (a checkpoint both load; the CPU and
+    CUDA generators draw different inits), the pool drains to its sealed
+    prefix pages, and serving launches none of the flash kernels."""
+    import pickle
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
+
+    monkeypatch.setitem(gpt2.CONFIGS, "gpt2-tiny", dataclasses.replace(
+        gpt2.CONFIGS["gpt2-tiny"], dtype=torch.float32))
+    ckpt = tmp_path / "gpt2_tiny.pkl"
+    weights = gpt2.init(torch.Generator().manual_seed(0), gpt2.CONFIGS["gpt2-tiny"], "cpu")
+    ckpt.write_bytes(pickle.dumps(gpt2.to_jax(weights)))
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(0, 256, n)] for n in (10, 64, 100, 70)]
+    answers = {}
+    before = dict(fa.launches)
+    for dev in ("cpu", "cuda"):
+        srv = LLMServer(LLMConfig(model_id="gpt2-tiny", max_batch_size=4, device=dev,
+                                  checkpoint_path=str(ckpt)))
+        try:
+            assert srv.model.wte.device.type == dev
+            out = [None] * len(prompts)
+
+            def call(i):
+                req = {"prompt_tokens": prompts[i], "max_new_tokens": 12, "stream": i == 3}
+                res = srv(req)
+                out[i] = [ev["token"] for ev in res] if i == 3 else res["tokens"]
+
+            threads = [threading.Thread(target=call, args=(i,)) for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+                assert not t.is_alive()
+            answers[dev] = out
+            st = srv.batch_stats()["prefix"]
+            assert st["pages_occupied"] == st["prefix_resident"]
+        finally:
+            srv.unload()
+            srv._thread.join(timeout=30)
+    assert answers["cuda"] == answers["cpu"]
+    assert all(len(a) == 12 for a in answers["cuda"])
+    assert dict(fa.launches) == before

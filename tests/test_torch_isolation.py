@@ -41,7 +41,10 @@ def test_port_files_are_found():
     files = _port_files()
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {"chip_smoke.py", "ray_tpu_torch/models/gpt2.py",
-            "ray_tpu_torch/ops/flash_attention.py", "ray_tpu_torch/ops/attention.py"} <= names
+            "ray_tpu_torch/ops/flash_attention.py", "ray_tpu_torch/ops/attention.py",
+            "ray_tpu_torch/models/gpt2_decode.py", "ray_tpu_torch/serve/llm.py",
+            "ray_tpu_torch/serve/prefix_cache.py", "ray_tpu_torch/serve/kv_transfer.py",
+            "ray_tpu_torch/utils/config.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -77,3 +80,27 @@ def test_default_device_raises_without_cuda(monkeypatch):
         resolve_device("meta")
     model = gpt2.GPT2(gpt2.CONFIGS["gpt2-tiny"], device="cpu")
     assert model.wte.device.type == "cpu"
+
+
+def test_serving_engines_raise_without_cuda(monkeypatch):
+    """LLMServer and PrefillEngine run on cuda unless given device="cpu"."""
+    from ray_tpu_torch.models import gpt2, gpt2_decode
+    from ray_tpu_torch.serve.kv_transfer import PrefillEngine
+    from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (LLMServer, PrefillEngine):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(LLMConfig(model_id="gpt2-tiny"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gpt2_decode.init_paged_cache(gpt2.CONFIGS["gpt2-tiny"], 3, 64)
+    srv = LLMServer(LLMConfig(model_id="gpt2-tiny", device="cpu"))
+    try:
+        assert srv.model.wte.device.type == "cpu"
+        assert srv({"prompt_tokens": [1, 2], "max_new_tokens": 2})["tokens"]
+    finally:
+        srv.unload()
+        srv._thread.join(timeout=30)
+    pre = PrefillEngine(LLMConfig(model_id="gpt2-tiny", device="cpu"))
+    assert pre.prefill([1, 2, 3], 0.0)["prompt_len"] == 3
+    pre.unload()
