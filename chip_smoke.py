@@ -6,7 +6,8 @@ Phases (any failure exits non-zero and prints no result):
   1. name the card and its power limit (nvidia-smi); build the CUDA kernels
      from ray_tpu_torch/ops/csrc with nvcc; count each kernel's wgmma
      (HGMMA) and TMA load (UTMALDG) instructions in the library's SASS
-     (cuobjdump -sass), and fail if any of the three kernels lacks either;
+     (cuobjdump -sass), for each output type it is built for (bf16, f32),
+     and fail if any of the three kernels lacks either in either;
   2. hold each kernel against its plain PyTorch version on the card, on bf16
      inputs from a seeded generator, at the train step's shape, at head dim
      16, at a ragged T, non-causal with Tk != Tq, and non-causal with Tk
@@ -45,11 +46,28 @@ Phases (any failure exits non-zero and prints no result):
      and p95, output tokens/s, the decode step's wall, CUDA-event and
      device-busy times (torch.profiler) and peak memory. Serving launches
      none of the three kernels: the phase checks that their counts stay 0;
-  5. print the kernel line (one JSON object; beside the contract's keys,
-     each kernel's SASS counts from phase 1: every number in it was
-     measured or, for bound_ms, computed in this run, and launches come
-     from phase 3);
-  6. print the contract line (one JSON object, the last line).
+  5. context and expert parallelism: each kernel's f32-output instantiation
+     (ring attention's block entries) against its plain version at the
+     ring's block shapes (B 2, 4,096 q rows, H 12: the causal diagonal
+     block, an earlier non-causal block, a ragged one with 1,000 keys, and
+     Dh 16), timed beside the bf16 instantiation; ring attention over 4
+     ranks emulated on the card at gpt2-small's attention widths (B 2, T
+     16,384, H 12, Dh 64, bf16, causal) through the ring's step functions,
+     held against the monolithic flash attention, with 10 f32 launches of
+     each kernel (4 diagonal + 6 earlier blocks); attention(impl="ring") on
+     a real NCCL group of one rank; moe_block on that group against
+     moe_block_local at gpt2-small's MLP widths (D 768, F 3,072, 8 experts,
+     top-2, 4,096 tokens, capacity 1,280), forward and the gradients of all
+     four inputs. Prints the ring's forward and backward times (CUDA
+     events), their device time in and outside the kernels (torch.profiler),
+     the monolithic flash attention's and SDPA's at T 16,384, and
+     moe_block's;
+  6. print the kernel line (one JSON object; beside the contract's keys,
+     each kernel's SASS counts from phase 1 for both output types, and its
+     f32 instantiation's gap, times and ring launches from phase 5: every
+     number in it was measured or, for bound_ms, computed in this run, and
+     launches come from phase 3);
+  7. print the contract line (one JSON object, the last line).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -117,6 +135,22 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def _zero_launches() -> None:
+    """Set every kernel launch count to 0: just before a path is driven."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    for counts in (fa.launches, fa.launches_f32):
+        for name in counts:
+            counts[name] = 0
+
+
+def _launch_counts() -> tuple:
+    """(launches, f32 launches) per kernel: read just after the path."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    return dict(fa.launches), dict(fa.launches_f32)
+
+
 # ---------------------------------------------------------------------------
 # Phase 1
 # ---------------------------------------------------------------------------
@@ -150,33 +184,40 @@ def build() -> dict:
         if any(w in line for w in ("registers", "spill", "Compiling entry", "warning", "setmaxnreg")):
             print(f"  {line.strip()}")
     counts = sass_counts(path)
-    for name, c in counts.items():
-        print(f"sass {name}: HGMMA {c['hgmma']}, UTMALDG {c['utmaldg']}", flush=True)
-    for name in KERNELS:  # every kernel is a Hopper one: wgmma fed by TMA
-        if not (counts[name]["hgmma"] > 0 and counts[name]["utmaldg"] > 0):
-            fail(f"{name} issues no wgmma or no TMA load in its SASS: {counts[name]}")
+    for name, by_type in counts.items():
+        for out, c in by_type.items():
+            print(f"sass {name} ({out} output): HGMMA {c['hgmma']}, UTMALDG {c['utmaldg']}",
+                  flush=True)
+    for name in KERNELS:  # every kernel is a Hopper one: wgmma fed by TMA, in both instantiations
+        for out, c in counts[name].items():
+            if not (c["hgmma"] > 0 and c["utmaldg"] > 0):
+                fail(f"{name} ({out} output) issues no wgmma or no TMA load in its SASS: {c}")
     return counts
 
 
 SASS_OPS = {"hgmma": "HGMMA", "utmaldg": "UTMALDG"}
+OUT_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32"}  # the output type's mangled name
 
 
 def sass_counts(lib: Path) -> dict:
-    """HGMMA and UTMALDG instructions per kernel (all head-dim instances
-    summed) in the SASS of the built library, read with cuobjdump."""
+    """HGMMA and UTMALDG instructions per kernel and output type (both
+    head-dim instances summed) in the SASS of the built library, read with
+    cuobjdump: {name: {"bf16": {...}, "f32": {...}}}."""
     from ray_tpu_torch.ops import _build
 
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120,
                           check=True).stdout
-    counts = {name: dict.fromkeys(SASS_OPS, 0) for name in KERNELS}
+    counts = {name: {out: dict.fromkeys(SASS_OPS, 0) for out in OUT_TYPES.values()}
+              for name in KERNELS}
     current = None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = next((n for n in KERNELS if f"{n}_kernel" in line), None)
+            found = re.search(rf"({'|'.join(KERNELS)})_kernelILi\d+E({'|'.join(OUT_TYPES)})E", line)
+            current = counts[found[1]][OUT_TYPES[found[2]]] if found else None
         elif current is not None:
             for key, op in SASS_OPS.items():
-                counts[current][key] += bool(re.search(rf"\b{op}\b", line))
+                current[key] += bool(re.search(rf"\b{op}\b", line))
     return counts
 
 
@@ -189,16 +230,18 @@ def _visible_pairs(Tq: int, Tk: int, causal: bool) -> int:
     return Tq * (Tq + 1) // 2 if causal else Tq * Tk
 
 
-def bounds(B, T, Tk, H, D, causal):
+def bounds(B, T, Tk, H, D, causal, out_bytes=2):
     """Least time (ms) for each kernel's work on this card's published
-    peaks: (ms, "bytes" | "operations"). Each input read once, each output
-    written once; products counted over the (q, k) pairs the mask keeps."""
+    peaks: (ms, "bytes" | "operations"). Each input (bf16) read once, each
+    output (``out_bytes`` per element: 2 for bf16, 4 for f32) written once;
+    products counted over the (q, k) pairs the mask keeps."""
     BH, pairs = B * H, _visible_pairs(T, Tk, causal)
     q_bytes, kv_bytes, row_bytes = BH * T * D * 2, BH * Tk * D * 2, BH * T * 4
+    q_out, kv_out = q_bytes * out_bytes // 2, kv_bytes * out_bytes // 2
     work = {  # name: (flops, bytes)
-        "flash_fwd": (4 * BH * pairs * D, 2 * q_bytes + 2 * kv_bytes + row_bytes),
-        "flash_dq": (6 * BH * pairs * D, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
-        "flash_dkv": (8 * BH * pairs * D, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
+        "flash_fwd": (4 * BH * pairs * D, q_bytes + 2 * kv_bytes + q_out + row_bytes),
+        "flash_dq": (6 * BH * pairs * D, 2 * q_bytes + 2 * kv_bytes + q_out + 2 * row_bytes),
+        "flash_dkv": (8 * BH * pairs * D, 2 * q_bytes + 2 * kv_bytes + 2 * kv_out + 2 * row_bytes),
     }
     out = {}
     for name, (flops, nbytes) in work.items():
@@ -375,7 +418,6 @@ def check_gradients(run, card: str) -> float:
 
 def train(card: str) -> dict:
     from ray_tpu_torch import bench
-    from ray_tpu_torch.ops import flash_attention as fa
 
     run = bench.setup(N_STEPS)
     cfg, B, T = run.cfg, bench.BATCH, bench.SEQ
@@ -383,8 +425,7 @@ def train(card: str) -> dict:
     flash_loss = check_gradients(run, card)
 
     torch.cuda.reset_peak_memory_stats()
-    for name in fa.launches:
-        fa.launches[name] = 0
+    _zero_launches()
     losses, times = [], []
     for tokens in run.batches:
         torch.cuda.synchronize()
@@ -393,7 +434,7 @@ def train(card: str) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(loss.item())
-    counts = dict(fa.launches)
+    counts, counts_f32 = _launch_counts()
 
     print(f"train {bench.MODEL} B={B} T={T} ({n_params} params): losses "
           + ", ".join(f"{x:.5f}" for x in losses)
@@ -406,6 +447,8 @@ def train(card: str) -> dict:
     for name, n in counts.items():
         if n != want:
             fail(f"{name} launched {n} times in {N_STEPS} steps, expected {want}")
+    if any(counts_f32.values()):
+        fail(f"the train step launched f32 instances: {counts_f32}")
     step_ms = statistics.median(times[1:]) * 1e3
     tok_s = B * T / (step_ms / 1e3)
     print(f"train step: median {step_ms:.2f} ms over steps 1..{N_STEPS - 1} (step 0 "
@@ -638,8 +681,7 @@ def serve(card: str) -> None:
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.serve import prefix_cache
 
-    for name in fa.launches:
-        fa.launches[name] = 0
+    _zero_launches()
     from ray_tpu_torch.models import gpt2
 
     reqs = serving_traffic(gpt2.CONFIGS[SERVE_MODEL].vocab_size)
@@ -734,14 +776,294 @@ def check_prefix_hit(srv, cfg, card: str) -> None:
         fail("the prefix hit differs from the cold run or copied blocks")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: context and expert parallelism
+# ---------------------------------------------------------------------------
+
+# The f32 block kernels at the ring's block shapes, one rank's quarter of
+# gpt2-small's attention over 16,384 tokens (B, Tq, Tk, H, Dh, causal): the
+# diagonal block, an earlier block, a ragged earlier block and Dh 16.
+BLOCK_CASES = [(2, 4096, 4096, 12, 64, True), (2, 4096, 4096, 12, 64, False),
+               (2, 4096, 1000, 12, 64, False), (2, 4096, 4096, 12, 16, True)]
+RING_RANKS = 4
+RING_SHAPE = (2, 16384, 12, 64)  # B, T, H, Dh of the whole sequence; bf16, causal
+RING_LAUNCHES = RING_RANKS * (RING_RANKS + 1) // 2  # 4 diagonal + 6 earlier blocks, per kernel
+# gpt2-small's MLP widths as 8 experts, top-2 routing, bf16 tokens, f32 weights
+MOE_TOKENS, MOE_D, MOE_F, MOE_E, MOE_TOP_K, MOE_CAPACITY = 4096, 768, 3072, 8, 2, 1280
+# moe_block on a group of one against moe_block_local: the dryrun leg's 1e-3
+# on the loss (relative); each gradient within 1e-3 in relative norm (the
+# same f32 arithmetic, the exchange a copy).
+MOE_LOSS_RTOL, MOE_GRAD_RELNORM = 1e-3, 1e-3
+
+
+def _bf16(gen, *shape):
+    return torch.randn(*shape, device="cuda", dtype=torch.bfloat16, generator=gen)
+
+
+def check_f32_blocks(card: str) -> dict:
+    """Each kernel's f32 instantiation against its plain version (f32
+    outputs, the same bf16 operands) at the ring's block shapes, by phase
+    2's rule, lse within LSE_TOL; then both instantiations timed at the
+    diagonal and the earlier block. Returns the kernel line's "f32" entries."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    info = {name: {"max_abs_err": 0.0, "ms": {}, "bf16_ms": {}, "bound_ms": {}} for name in KERNELS}
+    for B, T, Tk, H, D, causal in BLOCK_CASES:
+        g = torch.Generator(device="cuda").manual_seed(4321)
+        q, k, v, do = _bf16(g, B * H, T, D), _bf16(g, B * H, Tk, D), _bf16(g, B * H, Tk, D), \
+            _bf16(g, B * H, T, D)
+        o, lse = fa.flash_fwd(q, k, v, causal, out_f32=True)
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, out_f32=True)
+        delta = (do.float() * o_ref.to(torch.bfloat16).float()).sum(-1)
+        dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, out_f32=True)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal, out_f32=True)
+        refs = fa.flash_bwd_reference(q, k, v, do, lse_ref, delta, causal, out_f32=True)
+        torch.cuda.synchronize()
+        where = f"B={B} Tq={T} Tk={Tk} H={H} Dh={D} causal={causal}, f32 outputs"
+        if any(t.dtype != torch.float32 for t in (o, dq, dk, dv)):
+            fail(f"an f32 instantiation returned {[t.dtype for t in (o, dq, dk, dv)]} at {where}")
+        gaps = {name: bench.disagreement(got, ref) for name, got, ref in
+                [("o", o, o_ref), ("dq", dq, refs[0]), ("dk", dk, refs[1]), ("dv", dv, refs[2])]}
+        lse_err = (lse - lse_ref).abs().max().item()
+        print(f"f32 kernels vs plain at {where}: " + _gap_text(gaps)
+              + f"; lse max abs {lse_err:.3e}", flush=True)
+        bad = [name for name, gap in gaps.items() if not gap["ok"]]
+        if bad:
+            fail(f"{', '.join(bad)} (f32) disagree with the plain version at {where} "
+                 f"(limits: {_rule()})")
+        if not lse_err <= LSE_TOL:
+            fail(f"lse disagrees at {where}: max abs err {lse_err:.3e} > {LSE_TOL}")
+        for name, err in (("flash_fwd", gaps["o"]["max_abs"]), ("flash_dq", gaps["dq"]["max_abs"]),
+                          ("flash_dkv", max(gaps["dk"]["max_abs"], gaps["dv"]["max_abs"]))):
+            info[name]["max_abs_err"] = max(info[name]["max_abs_err"], err)
+        del o_ref, refs
+        if D != 64 or Tk != T:
+            continue
+        block = "diagonal" if causal else "earlier"
+        calls = {
+            "flash_fwd": lambda f32: fa.flash_fwd(q, k, v, causal, out_f32=f32),
+            "flash_dq": lambda f32: fa.flash_dq(q, k, v, do, lse, delta, causal, out_f32=f32),
+            "flash_dkv": lambda f32: fa.flash_dkv(q, k, v, do, lse, delta, causal, out_f32=f32),
+        }
+        bnd = bounds(B, T, Tk, H, D, causal, out_bytes=4)
+        for name, call in calls.items():
+            f32_ms = bench.time_ms(lambda: call(True))
+            bf16_ms = bench.time_ms(lambda: call(False))
+            info[name]["ms"][block], info[name]["bf16_ms"][block] = f32_ms, bf16_ms
+            info[name]["bound_ms"][block] = bnd[name][0]
+            print(f"time {name} at the ring's {block} block ({where}): f32 output {f32_ms:.4f} ms, "
+                  f"bf16 output {bf16_ms:.4f} ms ({100 * (f32_ms / bf16_ms - 1):+.1f}%), bound "
+                  f"{bnd[name][0]:.4f} ms ({bnd[name][1]}) [{card}]", flush=True)
+    return info
+
+
+def _device_split(fn) -> tuple:
+    """One profiled call of ``fn``: device ms in the three flash kernels, and
+    in everything else (the merges, accumulations, folds and casts), with the
+    largest of the rest by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = {ev.name for ev in events if ev.device_type == DeviceType.CPU}
+    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA and ev.name not in host]
+    if not kernels:
+        fail("the profiler recorded no device time for the ring")
+    ours = lambda ev: any(f"{name}_kernel" in ev.name for name in KERNELS)
+    flash = sum(ev.time_range.elapsed_us() for ev in kernels if ours(ev)) / 1e3
+    by_name = {}
+    for ev in kernels:
+        if not ours(ev):
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return flash, sum(by_name.values()), top
+
+
+def check_ring(card: str) -> tuple:
+    """The ring of RING_RANKS ranks emulated on the card at RING_SHAPE,
+    forward and backward through ring_attention's step functions, against
+    the monolithic flash attention (the train path's bf16 kernels) by phase
+    2's rule; every block through an f32 kernel. Then the world-1 NCCL ring,
+    MoE, and the times. Returns the ring's launch counts and its inputs."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops.ring_attention import ring_attention_emulated
+
+    B, T, H, D = RING_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = {name: _bf16(g, B, T, H, D) for name in ("q", "k", "v", "do")}
+    shards = {name: list(t.chunk(RING_RANKS, dim=1)) for name, t in x.items()}
+    _zero_launches()
+    ring = ring_attention_emulated(shards["q"], shards["k"], shards["v"], shards["do"], causal=True)
+    torch.cuda.synchronize()
+    counts, counts_f32 = _launch_counts()
+    want = dict.fromkeys(KERNELS, RING_LAUNCHES)
+    print(f"emulated ring ({RING_RANKS} ranks, [B, T, H, Dh] = {list(RING_SHAPE)}, bf16, causal): "
+          f"launches {counts}, of them f32 {counts_f32}", flush=True)
+    if counts != want or counts_f32 != want:
+        fail(f"the emulated ring launched {counts} (f32: {counts_f32}); expected {want}, all f32")
+
+    leaves = [x[name].clone().requires_grad_() for name in ("q", "k", "v")]
+    mono_out = fa.flash_attention(*leaves, True)
+    mono_out.backward(x["do"])
+    mono = [mono_out.detach()] + [t.grad for t in leaves]
+    gaps = {name: bench.disagreement(torch.cat(parts, dim=1), want_t) for name, parts, want_t in
+            zip(("o", "dq", "dk", "dv"), ring, mono)}
+    print("emulated ring vs monolithic flash attention: " + _gap_text(gaps), flush=True)
+    bad = [name for name, gap in gaps.items() if not gap["ok"]]
+    if bad:
+        fail(f"the emulated ring's {', '.join(bad)} disagree with flash attention ({_rule()})")
+    del ring
+    time_ring(x, shards, leaves, card)
+    return counts_f32, x, mono
+
+
+def time_ring(x: dict, shards: dict, leaves: list, card: str) -> None:
+    """Median of 20 calls (CUDA events) of the emulated ring's forward and
+    forward+backward, the monolithic flash attention's and SDPA's on the
+    same inputs; one profiled call of each ring pass splits its device
+    time between the kernels and the rest."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops.ring_attention import ring_attention_emulated
+
+    B, T, H, D = RING_SHAPE
+    ring_fwd = lambda: ring_attention_emulated(shards["q"], shards["k"], shards["v"], causal=True)
+    ring_all = lambda: ring_attention_emulated(shards["q"], shards["k"], shards["v"], shards["do"],
+                                               causal=True)
+    mono_fwd = lambda: fa.flash_attention(*leaves, True)
+    mono_all = lambda: torch.autograd.grad(fa.flash_attention(*leaves, True), leaves, x["do"])
+    sq, sk, sv = (t.detach().transpose(1, 2).requires_grad_() for t in leaves)  # [B, H, T, Dh]
+    sdo = x["do"].transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+    sdpa_all = lambda: torch.autograd.grad(sdpa(), (sq, sk, sv), sdo)
+    ms = {name: bench.time_ms(fn) for name, fn in (
+        ("ring_fwd", ring_fwd), ("ring_all", ring_all), ("mono_fwd", mono_fwd),
+        ("mono_all", mono_all), ("sdpa_fwd", sdpa), ("sdpa_all", sdpa_all))}
+    bnd = bounds(B, T, T, H, D, True)
+    bound_fwd, bound_bwd = bnd["flash_fwd"][0], bnd["flash_dq"][0] + bnd["flash_dkv"][0]
+    for label, fn, wall, bound in (("forward", ring_fwd, ms["ring_fwd"], bound_fwd),
+                                   ("forward+backward", ring_all, ms["ring_all"],
+                                    bound_fwd + bound_bwd)):
+        flash, rest, top = _device_split(fn)
+        print(f"emulated ring {label}: {wall:.3f} ms (CUDA events), device time in the flash "
+              f"kernels {flash:.3f} ms, outside them {rest:.3f} ms ({100 * rest / (flash + rest):.1f}% "
+              f"of the device time; merges, accumulations, folds, casts), bound {bound:.3f} ms "
+              f"[{card}]", flush=True)
+        print("  largest outside the kernels (ms): " + "; ".join(
+            f"{t:.3f} {name[:60]}" for name, t in top), flush=True)
+    print(f"monolithic flash attention at T={T}: forward {ms['mono_fwd']:.3f} ms, forward+backward "
+          f"{ms['mono_all']:.3f} ms; SDPA (library, not called by the port): forward "
+          f"{ms['sdpa_fwd']:.3f} ms, forward+backward {ms['sdpa_all']:.3f} ms; emulated ring "
+          f"backward {ms['ring_all'] - ms['ring_fwd']:.3f} ms, monolithic "
+          f"{ms['mono_all'] - ms['mono_fwd']:.3f} ms [{card}]", flush=True)
+
+
+def check_group_paths(x: dict, mono: list, card: str) -> None:
+    """attention(impl="ring") and moe_block on a real NCCL group of one
+    rank (this card), initialised from a file store in a temporary
+    directory and destroyed after."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops.attention import attention
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            group = dist.group.WORLD
+            leaves = [x[name].clone().requires_grad_() for name in ("q", "k", "v")]
+            _zero_launches()
+            out = attention(*leaves, causal=True, impl="ring", group=group)
+            out.backward(x["do"])
+            torch.cuda.synchronize()
+            counts, counts_f32 = _launch_counts()
+            one = dict.fromkeys(KERNELS, 1)
+            gaps = {name: bench.disagreement(got, want) for name, got, want in
+                    zip(("o", "dq", "dk", "dv"), [out] + [t.grad for t in leaves], mono)}
+            print(f"attention(impl='ring') on an NCCL group of 1 ({dist.get_backend(group)}), "
+                  f"[B, T, H, Dh] = {list(RING_SHAPE)}: launches {counts}, f32 {counts_f32}; vs "
+                  f"monolithic flash attention: " + _gap_text(gaps), flush=True)
+            if counts != one or counts_f32 != one:
+                fail(f"the world-1 ring launched {counts} (f32: {counts_f32}); expected {one}")
+            bad = [name for name, gap in gaps.items() if not gap["ok"]]
+            if bad:
+                fail(f"the world-1 ring's {', '.join(bad)} disagree with flash attention")
+            del out, leaves
+            check_moe(group, card)
+        finally:
+            dist.destroy_process_group()
+
+
+def check_moe(group, card: str) -> None:
+    """moe_block on ``group`` (one rank: the exchanges are copies) against
+    moe_block_local, forward and the gradients of all four inputs, then
+    moe_block's times."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops.moe import moe_block, moe_block_local, router_dispatch
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    f32 = dict(device="cuda", generator=g)
+    inputs = [_bf16(g, MOE_TOKENS, MOE_D), torch.randn(MOE_D, MOE_E, **f32) * 0.02,
+              torch.randn(MOE_E, MOE_D, MOE_F, **f32) * 0.02,
+              torch.randn(MOE_E, MOE_F, MOE_D, **f32) * 0.02]
+    fns = {"moe_block": lambda *a: moe_block(*a, MOE_CAPACITY, group, MOE_TOP_K),
+           "moe_block_local": lambda *a: moe_block_local(*a, MOE_CAPACITY, MOE_TOP_K)}
+    res = {}
+    for name, fn in fns.items():
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        loss = (out.float() ** 2).sum()
+        loss.backward()
+        res[name] = (out.detach(), loss.item(), [t.grad for t in leaves])
+    (out, loss, grads), (out_l, loss_l, grads_l) = res["moe_block"], res["moe_block_local"]
+    gap = bench.disagreement(out, out_l)
+    rel = [((a.float() - b.float()).norm() / b.float().norm()).item() for a, b in zip(grads, grads_l)]
+    dispatch, _ = router_dispatch(inputs[0], inputs[1], MOE_CAPACITY, MOE_TOP_K)
+    kept = dispatch.sum().item() / (MOE_TOKENS * MOE_TOP_K)
+    print(f"moe_block on an NCCL group of 1 vs moe_block_local ({MOE_TOKENS} tokens, D {MOE_D}, "
+          f"F {MOE_F}, E {MOE_E}, top-{MOE_TOP_K}, capacity {MOE_CAPACITY}; {100 * kept:.1f}% of "
+          f"the choices kept): out max abs {gap['max_abs']:.3e} relnorm {gap['relnorm']:.2e}; loss "
+          f"{loss:.6f} vs {loss_l:.6f}; gradient relnorm x {rel[0]:.2e}, wg {rel[1]:.2e}, w_in "
+          f"{rel[2]:.2e}, w_out {rel[3]:.2e}", flush=True)
+    if not gap["ok"] or not abs(loss - loss_l) <= MOE_LOSS_RTOL * max(1.0, abs(loss_l)):
+        fail("moe_block's output or loss disagrees with moe_block_local")
+    if not all(r <= MOE_GRAD_RELNORM for r in rel):
+        fail(f"moe_block's gradients disagree with moe_block_local's (relnorm > {MOE_GRAD_RELNORM})")
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    fwd = lambda: fns["moe_block"](*leaves)
+    both = lambda: torch.autograd.grad((fns["moe_block"](*leaves).float() ** 2).sum(), leaves)
+    fwd_ms, both_ms = bench.time_ms(fwd), bench.time_ms(both)
+    print(f"moe_block: forward {fwd_ms:.3f} ms, forward+backward {both_ms:.3f} ms (CUDA events, "
+          f"median of 20) [{card}]", flush=True)
+
+
+def parallel(card: str) -> dict:
+    """Phase 5. Returns the kernel line's "f32" entry of each kernel."""
+    info = check_f32_blocks(card)
+    ring_launches, x, mono = check_ring(card)
+    for name in KERNELS:
+        info[name]["ring_launches"] = ring_launches[name]
+    check_group_paths(x, mono, card)
+    return info
+
+
 def main() -> None:
     card = identify()
     sass = build()
     results = check_kernels(card)
     counts = train(card)
     serve(card)
+    f32 = parallel(card)
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
-                    launches=counts[name], **results[name], **sass[name]) for name in KERNELS]
+                    launches=counts[name], **results[name], held_at=["bf16", "f32"],
+                    f32=f32[name], sass=sass[name]) for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,12 @@
 impl="reference": plain PyTorch attention, the numerics oracle.
 impl="flash":     the hand-written Hopper kernels (ops/flash_attention.py);
                   the T x T score matrix never reaches device memory.
-impl="ring" (context parallelism over a mesh axis) is not ported yet.
+impl="ring":      ring attention over the ranks of ``group``, a
+                  ``torch.distributed`` process group (ops/ring_attention.py;
+                  ``axis_name`` in JAX): q, k, v are this rank's slice of the
+                  sequence. The model does not run it yet: the mesh that
+                  would supply the group is not ported (ROADMAP.md, Queue A
+                  item 8), so without a group it raises.
 """
 
 from __future__ import annotations
@@ -16,8 +21,9 @@ _NEG_INF = -1e30
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
-              impl: str = "reference") -> torch.Tensor:
-    """q [B, T, H, Dh], k/v [B, S, H, Dh] -> [B, T, H, Dh]."""
+              impl: str = "reference", group=None) -> torch.Tensor:
+    """q [B, T, H, Dh], k/v [B, S, H, Dh] -> [B, T, H, Dh]; ``group`` is the
+    process group of impl="ring"."""
     if impl == "reference":
         return _reference_attention(q, k, v, causal)
     if impl == "flash":
@@ -25,9 +31,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
 
         return flash_attention(q, k, v, causal=causal)
     if impl == "ring":
-        raise NotImplementedError(
-            "ring attention is not ported yet (ROADMAP.md, Queue A: ring attention)"
-        )
+        if group is None:
+            raise NotImplementedError(
+                "ring attention needs a process group (group=...): the model-level ring waits "
+                "for the mesh port (ROADMAP.md, Queue A item 8)"
+            )
+        from ray_tpu_torch.ops.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, group, causal=causal)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 

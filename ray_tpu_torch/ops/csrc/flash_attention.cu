@@ -1,7 +1,10 @@
 // Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
 //
 // Operands are folded to [BH, T, D] row-major bf16 (D = head dim, 16 or 64),
-// lse and delta are [BH, Tq] f32. Scores and all accumulators are f32.
+// lse and delta are [BH, Tq] f32. Scores and all accumulators are f32. Each
+// kernel is instantiated for two output types (OutRows): bf16, the train
+// path's, and f32, for ring attention's block entries; only the store of
+// the output rows differs.
 //
 // All three kernels are persistent and warp-specialised (hopper.cuh): one
 // block per SM walks a static list of work tiles; a producer warp streams
@@ -197,6 +200,46 @@ __device__ __forceinline__ void store_tile(bf16* stage, const CUtensorMap* map,
   if (tid == 0) hopper::tma_store_rows(map, stage, row0, bh);
 }
 
+// Where a kernel writes its output rows, by output type (each kernel is
+// instantiated for both). bf16, the train path's outputs: by TMA from the
+// warpgroup's staging tile (store_tile). f32, the outputs of ring
+// attention's block entries (ops/flash_attention.py flash_fwd_block,
+// flash_bwd_block), which the ring merges in f32: plain float2 stores from
+// the accumulator registers, rows past T not written. Each warp's store
+// fills eight whole 32-byte sectors, and the f32 instantiation leaves the
+// shared-memory layout, the tensor maps and the code of the bf16 one as
+// they are (its staging tile goes unused).
+template <int D, typename OutT>
+struct OutRows;
+
+template <int D>
+struct OutRows<D, bf16> {
+  CUtensorMap map;  // rows_map over [bh, T, D], boxes of 64 rows
+  __device__ __forceinline__ void store(bf16* stage, const float (&acc)[D / 2], float mul_a,
+                                        float mul_b, int row0, int bh, int tid, int bar) const {
+    store_tile<D>(stage, &map, acc, mul_a, mul_b, row0, bh, tid, bar);
+  }
+};
+
+template <int D>
+struct OutRows<D, float> {
+  float* ptr;  // contiguous [bh, T, D]
+  int T;
+  __device__ __forceinline__ void store(bf16*, const float (&acc)[D / 2], float mul_a, float mul_b,
+                                        int row0, int bh, int tid, int) const {
+    const int lane = tid % 32, r = row0 + 16 * (tid / 32) + (lane >> 2);
+    float* dst = ptr + ((size_t)bh * T + r) * D + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (r < T)
+        *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[4 * j] * mul_a, acc[4 * j + 1] * mul_a);
+      if (r + 8 < T)
+        *reinterpret_cast<float2*>(dst + 8 * D + 8 * j) =
+            make_float2(acc[4 * j + 2] * mul_b, acc[4 * j + 3] * mul_b);
+    }
+  }
+};
+
 // Chunks 2kk, 2kk + 1 of an m64nN accumulator as the bf16 A fragments of
 // the next product (see hopper.cuh).
 template <int N>
@@ -327,10 +370,10 @@ __device__ __forceinline__ void fwd_exp(float (&sc)[FWD_BK / 2], float m_a, floa
   l_b = l_b * alpha_b + ((ps_b[0] + ps_b[1]) + (ps_b[2] + ps_b[3]));
 }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(Roles<FWD_WGS>::THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ OutRows<D, OutT> out_o,
                  float* __restrict__ lse, int bh_count, int Tq, int Tk, float scale, int causal) {
   using S = FwdSmem<D>;
   using R = Roles<FWD_WGS>;
@@ -500,8 +543,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
         l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
       }
-      store_tile<D>(so + 64 * c * D, &tm_o, acc, 1.f / l_a, 1.f / l_b, wq0, bh, tid,
-                    1 + FWD_WGS + c);
+      out_o.store(so + 64 * c * D, acc, 1.f / l_a, 1.f / l_b, wq0, bh, tid, 1 + FWD_WGS + c);
       if (t == 0) {  // lse in natural log: (m + log2 l) ln 2
         float* lse_bh = lse + (size_t)bh * Tq;
         if (row_a < Tq) lse_bh[row_a] = (m_a + log2f(l_a)) * LN2;
@@ -565,11 +607,12 @@ __device__ __forceinline__ int dkv_first_q_tile(int k0, int causal) {
   return causal ? k0 / DKV_BQ : 0;
 }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(Roles<2>::THREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                 const __grid_constant__ CUtensorMap tm_dk, const __grid_constant__ CUtensorMap tm_dv,
+                 const __grid_constant__ OutRows<D, OutT> out_dk,
+                 const __grid_constant__ OutRows<D, OutT> out_dv,
                  const float* __restrict__ lse, const float* __restrict__ delta, int bh_count,
                  int Tq, int Tk, float scale, int causal) {
   using S = DkvSmem<D>;
@@ -767,8 +810,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       warp_release(&empty[prev < 0 ? 0 : prev], prev >= 0);
       // dS = P (dP - delta) scale: the scale (1/8 or 1/4, a power of two, so
       // the bf16 rounding of dS is the same before and after it) comes in here.
-      store_tile<D>(sdk + 64 * c * D, &tm_dk, dk_acc, scale, scale, wk0, bh, tid, 3 + c);
-      store_tile<D>(sdv + 64 * c * D, &tm_dv, dv_acc, 1.f, 1.f, wk0, bh, tid, 3 + c);
+      out_dk.store(sdk + 64 * c * D, dk_acc, scale, scale, wk0, bh, tid, 3 + c);
+      out_dv.store(sdv + 64 * c * D, dv_acc, 1.f, 1.f, wk0, bh, tid, 3 + c);
     }
     if (tid == 0) hopper::tma_store_wait();
   }
@@ -817,11 +860,11 @@ struct DqSmem {
   static constexpr int LAUNCH = BYTES > ONE_BLOCK_PER_SM_SMEM ? BYTES : ONE_BLOCK_PER_SM_SMEM;
 };
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(Roles<DQ_WGS>::THREADS, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
+                const __grid_constant__ OutRows<D, OutT> out_dq, const float* __restrict__ lse,
                 const float* __restrict__ delta, int bh_count, int Tq, int Tk, float scale,
                 int causal) {
   using S = DqSmem<D>;
@@ -999,7 +1042,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         hopper::mbar_wait(&full[s], (it / DQ_STAGES) & 1);
         warp_release(&empty[s]);
       }
-      store_tile<D>(sdq + 64 * c * D, &tm_dq, acc, scale, scale, wq0, bh, tid, 1 + c);
+      out_dq.store(sdq + 64 * c * D, acc, scale, scale, wq0, bh, tid, 1 + c);
     }
     if (tid == 0) hopper::tma_store_wait();
   }
@@ -1009,8 +1052,9 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 
 // ---------------------------------------------------------------------------
 // C entry points (loaded with ctypes). Pointers are device pointers of
-// contiguous bf16 [bh, T, d] tensors and f32 [bh, Tq] lse/delta; the stream is
-// the caller's cudaStream_t. Each returns cudaGetLastError() after the launch
+// contiguous [bh, T, d] tensors (bf16 operands; outputs bf16, or f32 when
+// out_f32 is set) and f32 [bh, Tq] lse/delta; the stream is the caller's
+// cudaStream_t. Each returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a head dim the kernels do not take, or a tensor
 // map the driver refuses).
 // ---------------------------------------------------------------------------
@@ -1027,88 +1071,115 @@ static int persistent_grid(int n_units) {
   return n_units < sms ? n_units : sms;
 }
 
+// The output rows of a [bh, T, D] tensor at p, as OutRows describes them.
 template <int D>
+static bool out_rows(OutRows<D, bf16>& out, void* p, int bh, int T) {
+  return hopper::rows_map(&out.map, p, bh, T, D, 64);
+}
+template <int D>
+static bool out_rows(OutRows<D, float>& out, void* p, int, int T) {
+  out.ptr = static_cast<float*>(p);
+  out.T = T;
+  return true;
+}
+
+template <int D, typename OutT>
 static int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                       int tq, int tk, float scale, int causal, cudaStream_t st) {
-  CUtensorMap tq_map, tk_map, tv_map, to_map;
+  CUtensorMap tq_map, tk_map, tv_map;
+  OutRows<D, OutT> o_rows;
   if (!hopper::rows_map(&tq_map, q, bh, tq, D, FWD_BQ) ||
       !hopper::rows_map(&tk_map, k, bh, tk, D, FWD_BK) ||
-      !hopper::rows_map(&tv_map, v, bh, tk, D, FWD_BK) ||
-      !hopper::rows_map(&to_map, o, bh, tq, D, 64))
+      !hopper::rows_map(&tv_map, v, bh, tk, D, FWD_BK) || !out_rows(o_rows, o, bh, tq))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = FwdSmem<D>::LAUNCH, threads = Roles<FWD_WGS>::THREADS;
-  cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(flash_fwd_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int grid = persistent_grid(units_of((tq + FWD_BQ - 1) / FWD_BQ, bh, causal));
-  flash_fwd_kernel<D><<<grid, threads, smem, st>>>(tq_map, tk_map, tv_map, to_map,
-                                                      static_cast<float*>(lse), bh, tq, tk, scale,
-                                                      causal);
+  flash_fwd_kernel<D, OutT><<<grid, threads, smem, st>>>(tq_map, tk_map, tv_map, o_rows,
+                                                            static_cast<float*>(lse), bh, tq, tk,
+                                                            scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                            int tq, int tk, int d, float scale, int causal, void* stream) {
+                            int tq, int tk, int d, float scale, int causal, int out_f32,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 16) return launch_fwd<16>(q, k, v, o, lse, bh, tq, tk, scale, causal, st);
-  if (d == 64) return launch_fwd<64>(q, k, v, o, lse, bh, tq, tk, scale, causal, st);
+  if (d == 16)
+    return out_f32 ? launch_fwd<16, float>(q, k, v, o, lse, bh, tq, tk, scale, causal, st)
+                   : launch_fwd<16, bf16>(q, k, v, o, lse, bh, tq, tk, scale, causal, st);
+  if (d == 64)
+    return out_f32 ? launch_fwd<64, float>(q, k, v, o, lse, bh, tq, tk, scale, causal, st)
+                   : launch_fwd<64, bf16>(q, k, v, o, lse, bh, tq, tk, scale, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D>
+template <int D, typename OutT>
 static int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                      const void* delta, void* dq, int bh, int tq, int tk, float scale, int causal,
                      cudaStream_t st) {
-  CUtensorMap tq_map, tk_map, tv_map, tdo_map, tdq_map;
+  CUtensorMap tq_map, tk_map, tv_map, tdo_map;
+  OutRows<D, OutT> dq_rows;
   if (!hopper::rows_map(&tq_map, q, bh, tq, D, DQ_BQ) ||
       !hopper::rows_map(&tk_map, k, bh, tk, D, DQ_BK) ||
       !hopper::rows_map(&tv_map, v, bh, tk, D, DQ_BK) ||
-      !hopper::rows_map(&tdo_map, dout, bh, tq, D, DQ_BQ) ||
-      !hopper::rows_map(&tdq_map, dq, bh, tq, D, 64))
+      !hopper::rows_map(&tdo_map, dout, bh, tq, D, DQ_BQ) || !out_rows(dq_rows, dq, bh, tq))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = DqSmem<D>::LAUNCH, threads = Roles<DQ_WGS>::THREADS;
-  cudaFuncSetAttribute(flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(flash_dq_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int grid = persistent_grid(units_of((tq + DQ_BQ - 1) / DQ_BQ, bh, causal));
-  flash_dq_kernel<D><<<grid, threads, smem, st>>>(tq_map, tk_map, tv_map, tdo_map, tdq_map,
-                                                     static_cast<const float*>(lse),
-                                                     static_cast<const float*>(delta), bh, tq, tk,
-                                                     scale, causal);
+  flash_dq_kernel<D, OutT><<<grid, threads, smem, st>>>(tq_map, tk_map, tv_map, tdo_map, dq_rows,
+                                                           static_cast<const float*>(lse),
+                                                           static_cast<const float*>(delta), bh, tq,
+                                                           tk, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
-                           int d, float scale, int causal, void* stream) {
+                           int d, float scale, int causal, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 16) return launch_dq<16>(q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, st);
-  if (d == 64) return launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, st);
+  if (d == 16)
+    return out_f32 ? launch_dq<16, float>(q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, st)
+                   : launch_dq<16, bf16>(q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, st);
+  if (d == 64)
+    return out_f32 ? launch_dq<64, float>(q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, st)
+                   : launch_dq<64, bf16>(q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D>
+template <int D, typename OutT>
 static int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                       const void* delta, void* dk, void* dv, int bh, int tq, int tk, float scale,
                       int causal, cudaStream_t st) {
-  CUtensorMap tq_map, tk_map, tv_map, tdo_map, tdk_map, tdv_map;
+  CUtensorMap tq_map, tk_map, tv_map, tdo_map;
+  OutRows<D, OutT> dk_rows, dv_rows;
   if (!hopper::rows_map(&tq_map, q, bh, tq, D, DKV_BQ) ||
       !hopper::rows_map(&tk_map, k, bh, tk, D, DKV_BK) ||
       !hopper::rows_map(&tv_map, v, bh, tk, D, DKV_BK) ||
-      !hopper::rows_map(&tdo_map, dout, bh, tq, D, DKV_BQ) ||
-      !hopper::rows_map(&tdk_map, dk, bh, tk, D, 64) || !hopper::rows_map(&tdv_map, dv, bh, tk, D, 64))
+      !hopper::rows_map(&tdo_map, dout, bh, tq, D, DKV_BQ) || !out_rows(dk_rows, dk, bh, tk) ||
+      !out_rows(dv_rows, dv, bh, tk))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = DkvSmem<D>::LAUNCH, threads = Roles<2>::THREADS;
-  cudaFuncSetAttribute(flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(flash_dkv_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int grid = persistent_grid(units_of((tk + DKV_BK - 1) / DKV_BK, bh, causal));
-  flash_dkv_kernel<D><<<grid, threads, smem, st>>>(
-      tq_map, tk_map, tv_map, tdo_map, tdk_map, tdv_map, static_cast<const float*>(lse),
+  flash_dkv_kernel<D, OutT><<<grid, threads, smem, st>>>(
+      tq_map, tk_map, tv_map, tdo_map, dk_rows, dv_rows, static_cast<const float*>(lse),
       static_cast<const float*>(delta), bh, tq, tk, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
-                            int tk, int d, float scale, int causal, void* stream) {
+                            int tk, int d, float scale, int causal, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 16) return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal, st);
-  if (d == 64) return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal, st);
+  if (d == 16)
+    return out_f32
+               ? launch_dkv<16, float>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal, st)
+               : launch_dkv<16, bf16>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal, st);
+  if (d == 64)
+    return out_f32
+               ? launch_dkv<64, float>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal, st)
+               : launch_dkv<64, bf16>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
-

@@ -24,6 +24,13 @@ Layout: the public entry takes and returns [B, T, H, Dh] (the JAX
 package's model layout) and folds to [B*H, T, Dh] for the kernels. lse and
 delta are [B*H, T] f32; the JAX kernel's [BH, 8, T] sublane layout is a
 TPU tiling artefact and is not carried over.
+
+Output type: the kernels write their outputs in the operands' bf16, or in
+f32 with ``out_f32=True`` (a second instantiation of each kernel; the
+operands stay bf16). Ring attention merges and accumulates its blocks in
+f32 (``ops/ring_attention.py``), as the JAX package's block entries
+``flash_fwd_block`` and ``flash_bwd_block`` do (flash_attention.py:376-398);
+their counterparts here take the model layout and always return f32.
 """
 
 from __future__ import annotations
@@ -40,9 +47,11 @@ _NEG_INF = -1e30
 HEAD_DIMS = (16, 64)  # gpt2-tiny has 16; every GPT-2 size in CONFIGS has 64
 
 # Kernel launches on CUDA tensors, one count per kernel (the plain versions
-# are not counted). chip_smoke.py zeroes these before the train step and
-# reads them after, to show the step went through the kernels.
+# are not counted), and of those the launches of the f32-output
+# instantiation. chip_smoke.py zeroes these before a path and reads them
+# after, to show the path went through the kernels.
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+launches_f32 = dict.fromkeys(launches, 0)
 
 Tensor = torch.Tensor
 
@@ -64,40 +73,47 @@ def _scores(q: Tensor, k: Tensor, causal: bool) -> Tensor:
     return s
 
 
-def flash_fwd_reference(q: Tensor, k: Tensor, v: Tensor, causal: bool) -> Tuple[Tensor, Tensor]:
-    """q [BH, Tq, Dh], k/v [BH, Tk, Dh] -> (o [BH, Tq, Dh] in q's dtype,
-    lse [BH, Tq] f32). p is cast to the input dtype before p@v."""
+def _out(x: Tensor, like: Tensor, out_f32: bool) -> Tensor:
+    return x if out_f32 else x.to(like.dtype)  # x is f32
+
+
+def flash_fwd_reference(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                        out_f32: bool = False) -> Tuple[Tensor, Tensor]:
+    """q [BH, Tq, Dh], k/v [BH, Tk, Dh] -> (o [BH, Tq, Dh] in q's dtype, or
+    f32 with ``out_f32``, lse [BH, Tq] f32). p is cast to the input dtype
+    before p@v."""
     s = _scores(q, k, causal)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     o = torch.matmul(p.to(v.dtype).float(), v.float()) / l
-    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+    return _out(o, q, out_f32), (m + torch.log(l)).squeeze(-1)
 
 
 def flash_dq_reference(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor,
-                       delta: Tensor, causal: bool) -> Tensor:
+                       delta: Tensor, causal: bool, out_f32: bool = False) -> Tensor:
     """dQ = dS K with P = exp(S - lse), dP = dO V^T, dS = P (dP - delta) / sqrt(Dh);
     dS is cast to k's dtype before the product (flash_attention.py:153-160)."""
     _, ds = _p_and_ds(q, k, v, do, lse, delta, causal)
-    return torch.matmul(ds.to(k.dtype).float(), k.float()).to(q.dtype)
+    return _out(torch.matmul(ds.to(k.dtype).float(), k.float()), q, out_f32)
 
 
 def flash_dkv_reference(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor,
-                        delta: Tensor, causal: bool) -> Tuple[Tensor, Tensor]:
+                        delta: Tensor, causal: bool, out_f32: bool = False) -> Tuple[Tensor, Tensor]:
     """dK = dS^T Q and dV = P^T dO, P and dS cast to the input dtype before
     the products (flash_attention.py:187-200)."""
     p, ds = _p_and_ds(q, k, v, do, lse, delta, causal)
     dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
     dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return _out(dk, k, out_f32), _out(dv, v, out_f32)
 
 
 def flash_bwd_reference(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor,
-                        delta: Tensor, causal: bool) -> Tuple[Tensor, Tensor, Tensor]:
+                        delta: Tensor, causal: bool,
+                        out_f32: bool = False) -> Tuple[Tensor, Tensor, Tensor]:
     """(dq, dk, dv): the plain versions of both backward kernels."""
-    dq = flash_dq_reference(q, k, v, do, lse, delta, causal)
-    return (dq, *flash_dkv_reference(q, k, v, do, lse, delta, causal))
+    dq = flash_dq_reference(q, k, v, do, lse, delta, causal, out_f32)
+    return (dq, *flash_dkv_reference(q, k, v, do, lse, delta, causal, out_f32))
 
 
 def _p_and_ds(q, k, v, do, lse, delta, causal):
@@ -137,14 +153,15 @@ def _check(q: Tensor, k: Tensor, v: Tensor, causal: bool, *more: Tensor) -> None
                 raise ValueError("kernel operands must be contiguous and 16-byte aligned")
 
 
-def _launch(entry: str, counter: str, *args) -> None:
+def _launch(entry: str, counter: str, out_f32: bool, *args) -> None:
     """Call C entry point ``entry`` of the kernel library on the current
-    stream: tensors go as device pointers, floats as float, the rest as int.
-    Counts the launch once the entry point has reported no error."""
+    stream with ``args`` and ``out_f32`` last: tensors go as device
+    pointers, floats as float, the rest as int. Counts the launch once the
+    entry point has reported no error."""
     lib = _build.load("flash_attention")
     fn = getattr(lib, entry)
     types, vals = [], []
-    for a in args:
+    for a in (*args, out_f32):
         if isinstance(a, torch.Tensor):
             types.append(ctypes.c_void_p)
             vals.append(a.data_ptr())
@@ -158,45 +175,56 @@ def _launch(entry: str, counter: str, *args) -> None:
     fn.restype = ctypes.c_int
     _build.check(lib, fn(*vals, torch.cuda.current_stream().cuda_stream), entry)
     launches[counter] += 1
+    launches_f32[counter] += bool(out_f32)
+
+
+def _empty_out(like: Tensor, out_f32: bool) -> Tensor:
+    dtype = torch.float32 if out_f32 else like.dtype
+    return torch.empty(like.shape, dtype=dtype, device=like.device)
 
 
 @torch.no_grad()
-def flash_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool) -> Tuple[Tensor, Tensor]:
-    """Folded forward: q [BH, Tq, Dh], k/v [BH, Tk, Dh] -> (o, lse [BH, Tq] f32)."""
+def flash_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+              out_f32: bool = False) -> Tuple[Tensor, Tensor]:
+    """Folded forward: q [BH, Tq, Dh], k/v [BH, Tk, Dh] -> (o in q's dtype,
+    or f32 with ``out_f32``, lse [BH, Tq] f32)."""
     _check(q, k, v, causal)
     if not q.is_cuda:
-        return flash_fwd_reference(q, k, v, causal)
+        return flash_fwd_reference(q, k, v, causal, out_f32)
     (BH, Tq, D), Tk = q.shape, k.shape[1]
-    o = torch.empty_like(q)
+    o = _empty_out(q, out_f32)
     lse = torch.empty(BH, Tq, dtype=torch.float32, device=q.device)
-    _launch("rt_flash_fwd", "flash_fwd", q, k, v, o, lse, BH, Tq, Tk, D, 1.0 / math.sqrt(D), causal)
+    _launch("rt_flash_fwd", "flash_fwd", out_f32, q, k, v, o, lse, BH, Tq, Tk, D,
+            1.0 / math.sqrt(D), causal)
     return o, lse
 
 
 @torch.no_grad()
 def flash_dq(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor, delta: Tensor,
-             causal: bool) -> Tensor:
-    """Folded dQ against the row lse and delta = rowsum(dO * O)."""
+             causal: bool, out_f32: bool = False) -> Tensor:
+    """Folded dQ against the row lse and delta = rowsum(dO * O), in q's
+    dtype or f32."""
     _check(q, k, v, causal, do, lse, delta)
     if not q.is_cuda:
-        return flash_dq_reference(q, k, v, do, lse, delta, causal)
+        return flash_dq_reference(q, k, v, do, lse, delta, causal, out_f32)
     (BH, Tq, D), Tk = q.shape, k.shape[1]
-    dq = torch.empty_like(q)
-    _launch("rt_flash_dq", "flash_dq", q, k, v, do, lse, delta, dq,
+    dq = _empty_out(q, out_f32)
+    _launch("rt_flash_dq", "flash_dq", out_f32, q, k, v, do, lse, delta, dq,
             BH, Tq, Tk, D, 1.0 / math.sqrt(D), causal)
     return dq
 
 
 @torch.no_grad()
 def flash_dkv(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor, delta: Tensor,
-              causal: bool) -> Tuple[Tensor, Tensor]:
-    """Folded (dK, dV) against the row lse and delta = rowsum(dO * O)."""
+              causal: bool, out_f32: bool = False) -> Tuple[Tensor, Tensor]:
+    """Folded (dK, dV) against the row lse and delta = rowsum(dO * O), in
+    k's and v's dtype or f32."""
     _check(q, k, v, causal, do, lse, delta)
     if not q.is_cuda:
-        return flash_dkv_reference(q, k, v, do, lse, delta, causal)
+        return flash_dkv_reference(q, k, v, do, lse, delta, causal, out_f32)
     (BH, Tq, D), Tk = q.shape, k.shape[1]
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("rt_flash_dkv", "flash_dkv", q, k, v, do, lse, delta, dk, dv,
+    dk, dv = _empty_out(k, out_f32), _empty_out(v, out_f32)
+    _launch("rt_flash_dkv", "flash_dkv", out_f32, q, k, v, do, lse, delta, dk, dv,
             BH, Tq, Tk, D, 1.0 / math.sqrt(D), causal)
     return dk, dv
 
@@ -239,3 +267,30 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True) -> Ten
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("expected [B, T, H, Dh] operands")
     return _FlashAttention.apply(q, k, v, causal)
+
+
+# ---------------------------------------------------------------------------
+# Block entries for ring attention (flash_attention.py:376-398): one visiting
+# K/V block at the model layout, f32 outputs; the ring merges blocks through
+# their lse and accumulates their gradients in f32.
+# ---------------------------------------------------------------------------
+
+
+def flash_fwd_block(q: Tensor, k: Tensor, v: Tensor, causal: bool) -> Tuple[Tensor, Tensor]:
+    """One (q shard, K/V block) forward: q [B, Tq, H, Dh], k/v [B, Tk, H, Dh]
+    (Tk may differ from Tq when not causal) -> (o [B, Tq, H, Dh] f32,
+    normalised within the block, lse [B*H, Tq] f32)."""
+    B, _, H, _ = q.shape
+    o, lse = flash_fwd(_fold(q), _fold(k), _fold(v), causal, out_f32=True)
+    return _unfold(o, B, H), lse
+
+
+def flash_bwd_block(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor, delta: Tensor,
+                    causal: bool) -> Tuple[Tensor, Tensor, Tensor]:
+    """One block's (dq contribution, dk, dv), f32 [B, T, H, Dh], against the
+    GLOBAL lse and delta [B*H, Tq] of the q rows."""
+    B, _, H, _ = q.shape
+    qf, kf, vf, dof = _fold(q), _fold(k), _fold(v), _fold(do)
+    dq = flash_dq(qf, kf, vf, dof, lse, delta, causal, out_f32=True)
+    dk, dv = flash_dkv(qf, kf, vf, dof, lse, delta, causal, out_f32=True)
+    return _unfold(dq, B, H), _unfold(dk, B, H), _unfold(dv, B, H)

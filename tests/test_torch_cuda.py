@@ -196,3 +196,87 @@ def test_serving_engine_on_card(cuda, monkeypatch, tmp_path):
     assert answers["cuda"] == answers["cpu"]
     assert all(len(a) == 12 for a in answers["cuda"])
     assert dict(fa.launches) == before
+
+
+# Ring attention's f32 block entries, the emulated and the distributed ring,
+# and the MoE block (ops/flash_attention.py, ops/ring_attention.py,
+# ops/moe.py).
+
+
+@pytest.mark.parametrize("case", [(2, 256, 256, 3, 64, True), (2, 200, 333, 2, 16, False)], ids=str)
+def test_f32_block_entries_match_plain_versions(cuda, case):
+    """flash_fwd_block / flash_bwd_block (the f32 instantiations) against the
+    plain versions' f32 outputs; one f32 launch of each kernel."""
+    B, Tq, Tk, H, D, causal = case
+    q, do = _bf16(20, B, Tq, H, D).to(cuda), _bf16(21, B, Tq, H, D).to(cuda)
+    k, v = _bf16(22, B, Tk, H, D).to(cuda), _bf16(23, B, Tk, H, D).to(cuda)
+    before = dict(fa.launches_f32)
+    o, lse = fa.flash_fwd_block(q, k, v, causal)
+    qf, kf, vf, dof = (fa._fold(x) for x in (q, k, v, do))
+    o_ref, lse_ref = fa.flash_fwd_reference(qf, kf, vf, causal, out_f32=True)
+    delta = (dof.float() * o_ref.to(torch.bfloat16).float()).sum(-1)
+    grads = fa.flash_bwd_block(q, k, v, do, lse_ref, delta, causal)
+    refs = fa.flash_bwd_reference(qf, kf, vf, dof, lse_ref, delta, causal, out_f32=True)
+    torch.cuda.synchronize()
+    assert {n: fa.launches_f32[n] - before[n] for n in before} == dict.fromkeys(before, 1)
+    assert o.dtype == torch.float32
+    _close(fa._fold(o), o_ref)
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+    for got, want in zip(grads, refs):
+        assert got.dtype == torch.float32
+        _close(fa._fold(got), want)
+
+
+def test_emulated_ring_on_card(cuda):
+    """4 ranks emulated on the card against the monolithic flash attention;
+    every visible block (4 diagonal + 6 earlier) through the f32 kernels."""
+    from ray_tpu_torch.ops.ring_attention import ring_attention_emulated
+
+    x = {n: _bf16(30 + i, 2, 512, 3, 64).to(cuda) for i, n in enumerate(("q", "k", "v", "do"))}
+    before = dict(fa.launches_f32)
+    res = ring_attention_emulated(*(list(x[n].chunk(4, dim=1)) for n in ("q", "k", "v", "do")))
+    torch.cuda.synchronize()
+    assert {n: fa.launches_f32[n] - before[n] for n in before} == dict.fromkeys(before, 10)
+    q, k, v = (x[n].clone().requires_grad_() for n in ("q", "k", "v"))
+    out = fa.flash_attention(q, k, v, True)
+    out.backward(x["do"])
+    for parts, want in zip(res, (out, q.grad, k.grad, v.grad)):
+        _close(torch.cat(parts, dim=1), want)
+
+
+def test_ring_and_moe_on_a_group_of_one(cuda, tmp_path):
+    """attention(impl="ring") and moe_block on an NCCL group of this card
+    alone: the ring is one causal f32 block (the flash kernels' answer), the
+    MoE exchanges are copies (moe_block_local's answer)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.ops.attention import attention
+    from ray_tpu_torch.ops.moe import moe_block, moe_block_local
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0)
+    try:
+        group = dist.group.WORLD
+        xs = [_bf16(40 + i, 2, 256, 3, 64).to(cuda) for i in range(4)]
+        outs = {}
+        for impl, kw in (("ring", {"group": group}), ("flash", {})):
+            q, k, v = (x.clone().requires_grad_() for x in xs[:3])
+            out = attention(q, k, v, causal=True, impl=impl, **kw)
+            out.backward(xs[3])
+            outs[impl] = (out, q.grad, k.grad, v.grad)
+        for got, want in zip(outs["ring"], outs["flash"]):
+            _close(got, want)
+
+        rng = np.random.default_rng(5)
+        args = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32) * sc).to(cuda)
+                for s, sc in (((64, 32), 1.0), ((32, 8), 0.1), ((8, 32, 64), 0.1), ((8, 64, 32), 0.1))]
+        res = {}
+        for name, fn in (("ep", lambda *a: moe_block(*a, 20, group)),
+                         ("local", lambda *a: moe_block_local(*a, 20))):
+            leaves = [a.clone().requires_grad_() for a in args]
+            out = fn(*leaves)
+            (out ** 2).sum().backward()
+            res[name] = [out] + [t.grad for t in leaves]
+        for got, want in zip(res["ep"], res["local"]):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    finally:
+        dist.destroy_process_group()
