@@ -25,7 +25,15 @@ Phases (any failure exits non-zero and prints no result):
      AdamW, flash attention, fused CE, B=32, T=1024): first hold step 0's
      loss and every parameter's gradient against the same model and batch
      with reference attention, then take a few steps: losses finite, step 0
-     near ln(vocab), 12 launches of each kernel per step;
+     near ln(vocab), 12 launches of each kernel per step. Then the remat
+     policies: the same model (fresh, the same seed) with no remat and under
+     each of the four policies (full, dots, dots_saveable, attn_out): step
+     0's loss and every gradient against no remat's (bitwise equal or not,
+     and within the gradient limit), the median of 3 steps after a warm-up
+     step, the device busy time of one more step (torch.profiler), peak
+     memory and each kernel's launches per step, which must be the design's
+     (12 of each without remat; under every policy the forward runs again
+     in the backward: 24 forward, 12 dQ, 12 dK/dV);
   4. serve gpt2-small at full width and depth (bf16, random init from a
      seeded generator) through the port's LLMServer with the engine's
      default flags (paged KV, async decode, chunked prefill; pages of 64
@@ -62,12 +70,21 @@ Phases (any failure exits non-zero and prints no result):
      events), their device time in and outside the kernels (torch.profiler),
      the monolithic flash attention's and SDPA's at T 16,384, and
      moe_block's;
-  6. print the kernel line (one JSON object; beside the contract's keys,
+  6. the sharded train step: gpt2-small at full width (phase 3's model,
+     batch and optimizer) through build_mesh, shard_model (gpt_rules) and
+     make_train_step on a mesh of one rank over NCCL (every axis of size 1;
+     a file store in a temporary directory, destroyed after): step 0's loss
+     and every parameter after one AdamW step against the unsharded step on
+     the same init and batch, then 3 steps: the median, device busy time and
+     peak memory beside phase 3's unsharded figures, and 12 launches of each
+     kernel per step. One card takes one NCCL rank, so dp, fsdp and tp above 1 are
+     held only by the CPU tests (tests/test_torch_sharded_step.py, gloo);
+  7. print the kernel line (one JSON object; beside the contract's keys,
      each kernel's SASS counts from phase 1 for both output types, and its
      f32 instantiation's gap, times and ring launches from phase 5: every
      number in it was measured or, for bound_ms, computed in this run, and
      launches come from phase 3);
-  7. print the contract line (one JSON object, the last line).
+  8. print the contract line (one JSON object, the last line).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -149,6 +166,17 @@ def _launch_counts() -> tuple:
     from ray_tpu_torch.ops import flash_attention as fa
 
     return dict(fa.launches), dict(fa.launches_f32)
+
+
+def _device_kernels(prof, what: str) -> list:
+    """The kernels, copies and fills of a torch.profiler trace
+    (``bench.device_kernels``); fails if there are none."""
+    from ray_tpu_torch import bench
+
+    kernels = bench.device_kernels(prof)
+    if not kernels:
+        fail(f"the profiler recorded no device time for {what}")
+    return kernels
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +414,7 @@ def check_gradients(run, card: str) -> float:
     """Step 0's loss and every parameter's gradient through the flash
     kernels against the same model and batch with reference attention.
     Leaves the model's gradients unset. Returns the flash path's loss."""
+    from ray_tpu_torch import bench
     from ray_tpu_torch.models import gpt2
 
     model, tokens = run.model, run.batches[0]
@@ -397,8 +426,7 @@ def check_gradients(run, card: str) -> float:
         losses[impl] = loss.item()
         grads[impl] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    rel = {n: ((grads["flash"][n] - g).norm() / g.norm()).item()
-           for n, g in grads["reference"].items() if g.norm().item() > 0}
+    rel = bench.relnorms(grads["flash"], grads["reference"])
     worst = sorted(rel.items(), key=lambda kv: -kv[1])
     print(f"step 0 flash vs reference attention: loss {losses['flash']:.6f} vs "
           f"{losses['reference']:.6f} (gap {abs(losses['flash'] - losses['reference']):.3e}); "
@@ -455,6 +483,65 @@ def train(card: str) -> dict:
           f"{times[0] * 1e3:.2f} ms), {tok_s:.1f} tokens/s, launches {counts}, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
     return counts
+
+
+# The remat runs: None is no remat. Each takes a fresh model (the same seed)
+# through a gradient check on batch 0, a warm-up step (the optimizer's state
+# is made at its first step) and REMAT_STEPS timed steps.
+REMAT_RUNS = (None, "full", "dots", "dots_saveable", "attn_out")
+REMAT_STEPS = 3
+
+
+def design_launches(cfg, remat: bool) -> dict:
+    """Each kernel's launches per train step by the port's design: one
+    forward, dQ and dK/dV per layer, and under every remat policy the
+    forward once more in the backward (no policy keeps its lse)."""
+    L = cfg.n_layer
+    return {"flash_fwd": 2 * L if remat else L, "flash_dq": L, "flash_dkv": L}
+
+
+def remat_policies(card: str) -> dict:
+    """Phase 3's remat table. Returns {run: (median step ms, peak GiB, busy ms)}."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.models import gpt2
+
+    base, table = None, {}
+    for policy in REMAT_RUNS:
+        label = policy or "no remat"
+        run = bench.setup(REMAT_STEPS + 2, remat=policy is not None, remat_policy=policy or "full")
+        loss = gpt2.loss_fn(run.model, run.batches[0])
+        loss.backward()
+        grads = {n: p.grad for n, p in run.model.named_parameters()}
+        run.model.zero_grad(set_to_none=True)
+        loss = loss.item()
+        if base is None:
+            base = (loss, grads)
+            check = "the reference"
+        else:
+            rel = bench.relnorms(grads, base[1])
+            bitwise = loss == base[0] and all(torch.equal(grads[n], g) for n, g in base[1].items())
+            worst = max(rel.items(), key=lambda kv: kv[1])
+            check = (f"vs no remat: loss gap {abs(loss - base[0]):.3e}, gradients bitwise equal "
+                     f"{bitwise}, largest relnorm {worst[1]:.3e} ({worst[0]})")
+            if not abs(loss - base[0]) <= LOSS_REF_TOL:
+                fail(f"remat {label}: step-0 loss {loss} vs no remat {base[0]}")
+            bad = [n for n, r in rel.items() if not r <= GRAD_RELNORM_TOL]
+            if bad or len(rel) != len(base[1]):
+                fail(f"remat {label}: gradients of {bad} disagree with no remat's "
+                     f"(relnorm > {GRAD_RELNORM_TOL})")
+        times, per_step, peak, busy = bench.timed_steps(run, run.batches[1:], warmup=1)
+        want = design_launches(run.cfg, policy is not None)
+        med = statistics.median(times)
+        print(f"remat {label}: step 0 loss {loss:.6f} ({check}); median of {REMAT_STEPS} steps "
+              f"{med:.2f} ms ({', '.join(f'{t:.2f}' for t in times)}); device busy {busy:.2f} ms "
+              f"of a profiled step ({100 * (1 - busy / med):.1f}% of the median idle); peak memory "
+              f"{peak:.2f} GiB; launches per step {per_step} [{card}]", flush=True)
+        if per_step != want:
+            fail(f"remat {label} launched {per_step} per step; the design says {want}")
+        table[label] = (med, peak, busy)
+        del run, grads
+        torch.cuda.empty_cache()
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -597,12 +684,10 @@ def time_decode_step(model, cfg, lengths: list, card: str) -> None:
     steps, CUDA events per step, and the device's busy time per step from
     torch.profiler, whose share of the wall time says how far the host holds
     the card back (eager PyTorch, one launch per op)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch import bench
     from ray_tpu_torch.models import gpt2_decode as dec
-    from ray_tpu_torch.profile_train_step import _busy_us
 
     S, B, max_pages = 4 * SERVE_BATCH, 64, cfg.n_positions // 64
     pk, pv = dec.init_paged_cache(cfg, SERVE_BATCH * max_pages + 1, B, "cuda")
@@ -632,12 +717,8 @@ def time_decode_step(model, cfg, lengths: list, card: str) -> None:
             step()
         torch.cuda.synchronize()
         traced_us = (time.perf_counter() - t0) * 1e6
-    events = prof.events()
-    host_names = {ev.name for ev in events if ev.device_type == DeviceType.CPU}
-    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA and ev.name not in host_names]
-    if not kernels:
-        fail("the profiler recorded no device time for the decode step")
-    busy_ms = _busy_us([(ev.time_range.start, ev.time_range.end) for ev in kernels]) / 1e3
+    kernels = _device_kernels(prof, "the decode step")
+    busy_ms = bench.union_us([(ev.time_range.start, ev.time_range.end) for ev in kernels]) / 1e3
     busy_ms /= DECODE_PROFILED_STEPS
     print(f"decode step ({SERVE_MODEL}, {S} rows, virtual rows of {max_pages * B}): wall "
           f"{wall_ms:.3f} ms ({S / wall_ms * 1e3:.1f} decode tokens/s), CUDA events "
@@ -862,17 +943,12 @@ def _device_split(fn) -> tuple:
     """One profiled call of ``fn``: device ms in the three flash kernels, and
     in everything else (the merges, accumulations, folds and casts), with the
     largest of the rest by name."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = prof.events()
-    host = {ev.name for ev in events if ev.device_type == DeviceType.CPU}
-    kernels = [ev for ev in events if ev.device_type == DeviceType.CUDA and ev.name not in host]
-    if not kernels:
-        fail("the profiler recorded no device time for the ring")
+    kernels = _device_kernels(prof, "the ring")
     ours = lambda ev: any(f"{name}_kernel" in ev.name for name in KERNELS)
     flash = sum(ev.time_range.elapsed_us() for ev in kernels if ours(ev)) / 1e3
     by_name = {}
@@ -1054,13 +1130,85 @@ def parallel(card: str) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the sharded train step on a mesh of one
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 3
+# The sharded step on a mesh of one against the unsharded step, on the same
+# init and batch: the JAX package's limits for its sharded step against one
+# device (tests/test_parallel.py): the loss within 1e-5 relative, every
+# parameter after one AdamW step within rtol 2e-4 and atol 2e-5.
+SHARD_LOSS_RTOL, SHARD_PARAM_RTOL, SHARD_PARAM_ATOL = 1e-5, 2e-4, 2e-5
+
+
+def sharded_step(card: str, unsharded: tuple) -> None:
+    """``unsharded``: phase 3's (median step ms, peak GiB, busy ms) without remat."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh, shard_model
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
+    from ray_tpu_torch.parallel.sharding import full_parameters, gpt_rules
+
+    ref = bench.setup(1)
+    ref_loss = ref.step(ref.batches[0]).item()
+    want = {n: p.detach().clone() for n, p in ref.model.named_parameters()}
+    del ref
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            mesh = build_mesh(MeshConfig(dp=1))
+            run = bench.setup(SHARD_STEPS + 1, place=lambda m: shard_model(m, mesh, gpt_rules()))
+            _zero_launches()
+            loss = run.step(run.batches[0]).item()
+            torch.cuda.synchronize()
+            counts, _ = _launch_counts()
+            got = full_parameters(run.model)
+            close = {n: torch.isclose(got[n], w, rtol=SHARD_PARAM_RTOL,
+                                      atol=SHARD_PARAM_ATOL).all().item() for n, w in want.items()}
+            gap = max((got[n] - w).abs().max().item() for n, w in want.items())
+            bitwise = loss == ref_loss and all(torch.equal(got[n], w) for n, w in want.items())
+            sizes = dict(zip(AXIS_ORDER, mesh.shape))
+            print(f"sharded step on a mesh of one ({dist.get_backend()}, {sizes}, gpt_rules): step 0 "
+                  f"loss {loss:.6f} vs unsharded {ref_loss:.6f}; parameters after one AdamW step: "
+                  f"max abs gap {gap:.3e}, all within rtol {SHARD_PARAM_RTOL} atol "
+                  f"{SHARD_PARAM_ATOL}: {all(close.values())}; bitwise equal {bitwise}; launches "
+                  f"{counts} [{card}]", flush=True)
+            if not abs(loss - ref_loss) <= SHARD_LOSS_RTOL * abs(ref_loss):
+                fail(f"sharded step-0 loss {loss} vs unsharded {ref_loss}")
+            if not all(close.values()):
+                fail(f"parameters {[n for n, ok in close.items() if not ok]} after the sharded "
+                     "step disagree with the unsharded step's")
+            design = design_launches(run.cfg, remat=False)
+            if counts != design:
+                fail(f"the sharded step launched {counts}; the design says {design}")
+            del got
+            times, per_step, peak, busy = bench.timed_steps(run, run.batches[1:], warmup=0)
+            print(f"sharded step: median of {SHARD_STEPS} steps {statistics.median(times):.2f} ms "
+                  f"({', '.join(f'{t:.2f}' for t in times)}), device busy {busy:.2f} ms, peak memory "
+                  f"{peak:.2f} GiB; unsharded (phase 3, no remat): {unsharded[0]:.2f} ms, device busy "
+                  f"{unsharded[2]:.2f} ms, {unsharded[1]:.2f} GiB; launches per step {per_step} "
+                  f"[{card}]", flush=True)
+            if per_step != design:
+                fail(f"the sharded step launched {per_step} per step; the design says {design}")
+            del run
+        finally:
+            dist.destroy_process_group()
+
+
 def main() -> None:
     card = identify()
     sass = build()
     results = check_kernels(card)
     counts = train(card)
+    remat = remat_policies(card)
     serve(card)
     f32 = parallel(card)
+    sharded_step(card, remat["no remat"])
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
                     launches=counts[name], **results[name], held_at=["bf16", "f32"],
                     f32=f32[name], sass=sass[name]) for name in KERNELS]

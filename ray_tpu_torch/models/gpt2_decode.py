@@ -68,7 +68,7 @@ def _embed(model: GPT2, cfg: GPT2Config, tokens: Tensor, pos: Tensor) -> Tensor:
 
 def _qkv(h: Tensor, blk, cfg: GPT2Config):
     B, T, D = h.shape
-    qkv = blk.attn["qkv"](h, D, cfg.dtype).view(B, T, 3, cfg.n_head, cfg.head_dim)
+    qkv = blk.attn["qkv"](h, cfg.dtype).view(B, T, 3, cfg.n_head, cfg.head_dim)
     return qkv.unbind(2)  # [B, T, H, Dh] each
 
 
@@ -85,9 +85,9 @@ def _attend(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, cfg: GPT2Config) -> T
 def _proj_mlp(x: Tensor, att: Tensor, blk, cfg: GPT2Config) -> Tensor:
     B, T, D = x.shape
     dt = cfg.dtype
-    x = x + blk.attn["proj"](att.reshape(B, T, D), D, dt)
-    h = F.gelu(blk.mlp["fc_in"](blk.ln2(x), D, dt), approximate="tanh")
-    return x + blk.mlp["fc_out"](h, cfg.d_ff, dt)
+    x = x + blk.attn["proj"](att.reshape(B, T, D), dt)
+    h = F.gelu(blk.mlp["fc_in"](blk.ln2(x), dt), approximate="tanh")
+    return x + blk.mlp["fc_out"](h, dt)
 
 
 def _logits(model: GPT2, cfg: GPT2Config, x: Tensor) -> Tensor:

@@ -6,9 +6,11 @@ impl="flash":     the hand-written Hopper kernels (ops/flash_attention.py);
 impl="ring":      ring attention over the ranks of ``group``, a
                   ``torch.distributed`` process group (ops/ring_attention.py;
                   ``axis_name`` in JAX): q, k, v are this rank's slice of the
-                  sequence. The model does not run it yet: the mesh that
-                  would supply the group is not ported (ROADMAP.md, Queue A
-                  item 8), so without a group it raises.
+                  sequence. On a mesh, ``ring_attention_sharded`` takes the
+                  group from its cp axis. The model does not run the ring:
+                  the JAX model does not either (under a cp mesh its jitted
+                  loss raises ``NameError: unbound axis name: cp``), so
+                  without a group it raises.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = 
     if impl == "ring":
         if group is None:
             raise NotImplementedError(
-                "ring attention needs a process group (group=...): the model-level ring waits "
-                "for the mesh port (ROADMAP.md, Queue A item 8)"
+                "ring attention needs a process group (group=...), or a mesh through "
+                "ring_attention_sharded; the model does not run the ring"
             )
         from ray_tpu_torch.ops.ring_attention import ring_attention
 

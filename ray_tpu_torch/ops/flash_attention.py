@@ -134,8 +134,6 @@ def _check(q: Tensor, k: Tensor, v: Tensor, causal: bool, *more: Tensor) -> None
     BH, Tq, D = q.shape
     if k.shape != v.shape or k.shape[0] != BH or k.shape[2] != D:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not supported (kernels take {HEAD_DIMS})")
     if causal and k.shape[1] != Tq:
         raise ValueError("causal flash attention requires Tq == Tk")
     for t in more:  # dO like q; lse and delta [B*H, Tq]
@@ -144,7 +142,9 @@ def _check(q: Tensor, k: Tensor, v: Tensor, causal: bool, *more: Tensor) -> None
     devs = {t.device for t in (q, k, v, *more)}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
-    if q.is_cuda:
+    if q.is_cuda:  # the plain versions that serve CPU tensors take any head dim
+        if D not in HEAD_DIMS:
+            raise ValueError(f"head dim {D} not supported (kernels take {HEAD_DIMS})")
         for t in (q, k, v, *more):
             want = torch.float32 if t.dim() == 2 else torch.bfloat16  # lse/delta vs operands
             if t.dtype != want:
@@ -239,12 +239,26 @@ def _unfold(x: Tensor, B: int, H: int) -> Tensor:  # [B*H, T, D] -> [B, T, H, D]
     return x.view(B, H, T, D).permute(0, 2, 1, 3)
 
 
+# The forward as one dispatched op: a selective-checkpoint policy
+# (models/gpt2.py) sees ops, not the ctypes launch inside, and on the CPU it
+# would otherwise see the plain version's products. So the op, kernel or
+# plain version alike, is what a remat policy decides on.
+@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, causal: bool) -> Tuple[Tensor, Tensor]:
+    return flash_fwd(q, k, v, causal)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
         B, _, H, _ = q.shape
         qf, kf, vf = _fold(q), _fold(k), _fold(v)
-        o, lse = flash_fwd(qf, kf, vf, causal)
+        o, lse = _flash_fwd_op(qf, kf, vf, causal)
         ctx.save_for_backward(qf, kf, vf, o, lse)
         ctx.causal, ctx.B, ctx.H = causal, B, H
         return _unfold(o, B, H)

@@ -118,3 +118,14 @@ def moe_block(x: Tensor, wg: Tensor, w_in: Tensor, w_out: Tensor, capacity: int,
     # the reverse exchange: each rank's tokens' outputs go back to it
     back = _AllToAll.apply(out.reshape(El, n, capacity, D).transpose(0, 1), group)  # [n, El, C, D]
     return torch.einsum("bec,ecd->bd", combine, back.reshape(n * El, capacity, D)).to(x.dtype)
+
+
+def moe_block_sharded(x: Tensor, wg: Tensor, w_in: Tensor, w_out: Tensor, mesh, capacity: int,
+                      ep_axis: str = "ep", top_k: int = 2) -> Tensor:
+    """The expert-parallel MoE block on a mesh from
+    ``ray_tpu_torch.parallel.build_mesh`` (moe.py:118), local shards in and
+    out, as ``shard_map``'s body sees them in JAX: this rank's tokens
+    x [B / ep, D] (rows by its ep coordinate), the router wg [D, E] whole,
+    its experts w_in [E / ep, D, F] and w_out [E / ep, F, D]; returns its
+    tokens' outputs [B / ep, D]. The exchange runs over ``mesh[ep_axis]``."""
+    return moe_block(x, wg, w_in, w_out, capacity, mesh[ep_axis].get_group(), top_k)

@@ -274,3 +274,27 @@ def ring_attention_einsum(q: Tensor, k: Tensor, v: Tensor, group, causal: bool =
         if arrived is not None:
             kk, vv = arrived()
     return (acc / l_run.clamp_min(1e-30).transpose(1, 2)).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# On the mesh (ring_attention.py:247)
+# ---------------------------------------------------------------------------
+
+
+def ring_attention_sharded(q: Tensor, k: Tensor, v: Tensor, mesh, causal: bool = True,
+                           cp_axis: str = "cp", batch_axes: Sequence[str] = ("dcn", "dp", "fsdp"),
+                           head_axis: Optional[str] = "tp") -> Tensor:
+    """Ring attention on a mesh from ``ray_tpu_torch.parallel.build_mesh``,
+    local shards in and out: q, k, v are this rank's block of the global
+    [B, T, H, Dh] arrays (what ``shard_map``'s body sees in JAX under the
+    spec (batch_axes, cp_axis, head_axis, None)), its rows of the batch
+    from its data coordinates, its T / cp rows of the sequence from its cp
+    coordinate and its heads from its tp coordinate; returns its block of
+    the output, differentiable in q, k, v. Batch and heads split nothing
+    the attention mixes, so only the cp group exchanges: the ring runs over
+    ``mesh[cp_axis]``. The axes named must be the mesh's."""
+    names = mesh.mesh_dim_names
+    missing = [a for a in (cp_axis, *batch_axes, head_axis) if a is not None and a not in names]
+    if missing:
+        raise ValueError(f"axes {missing} are not the mesh's {names}")
+    return ring_attention(q, k, v, mesh[cp_axis].get_group(), causal=causal)

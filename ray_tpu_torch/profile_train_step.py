@@ -46,19 +46,6 @@ def _group(name: str) -> str:
     return "other"
 
 
-def _busy_us(intervals) -> float:
-    """Length of the union of [start, end) intervals (microseconds)."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
-
-
 WARMUP, STEPS = 2, 3
 
 
@@ -96,7 +83,7 @@ def main() -> None:
 
     n = STEPS
     device_us = sum(by_name.values())
-    busy = _busy_us(intervals)
+    busy = bench.union_us(intervals)
     print(f"{torch.cuda.get_device_name(0)}; {bench.MODEL} B={bench.BATCH} T={bench.SEQ}, "
           f"{n} traced steps")
     print(f"step wall {wall_us / n / 1e3:.3f} ms, device busy {busy / n / 1e3:.3f} ms "

@@ -107,3 +107,19 @@ def test_setup_is_seeded():
     b = bench.setup(1, model="gpt2-tiny", batch=2, seq=16, device="cpu")
     for (name, pa), pb in zip(a.model.named_parameters(), b.model.parameters()):
         assert torch.equal(pa, pb), name
+
+
+def test_timed_steps_counts_from_zero_on_the_cpu():
+    """Warm-up steps, then the timed ones: a time for each, the launch
+    counts set to 0 first (the plain versions launch nothing), and the
+    card's peak memory and busy time nan on the CPU."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    run = bench.setup(4, model="gpt2-tiny", batch=2, seq=16, device="cpu")
+    fa.launches["flash_fwd"] += 5
+    before = [p.detach().clone() for p in run.model.parameters()]
+    times, per_step, peak, busy = bench.timed_steps(run, run.batches, warmup=1)
+    assert len(times) == 3 and all(t > 0 for t in times)
+    assert per_step == dict.fromkeys(fa.launches, 0.0)
+    assert math.isnan(peak) and math.isnan(busy)
+    assert not any(torch.equal(a, p) for a, p in zip(before, run.model.parameters()))

@@ -60,7 +60,8 @@ def _close(a, b, tol):
 # (B, Tq, Tk, H, D, causal). JAX's default tiles (1024) cover these T in
 # one block, so the JAX side runs its one-shot softmax path, except for
 # Tk = 96 (tiles of 32: online softmax over three K blocks) and T = 40
-# (tiles of 8: the ragged T falls back to the largest divisor).
+# (tiles of 8: the ragged T falls back to the largest divisor). Dh 32 is a
+# head dim the CUDA kernels do not take: the plain versions do.
 CASES = [
     (2, 64, 64, 2, 16, True),
     (2, 64, 64, 2, 64, True),
@@ -68,6 +69,7 @@ CASES = [
     (1, 64, 64, 2, 64, False),
     (1, 64, 96, 2, 64, False),
     (1, 40, 40, 2, 16, True),
+    (1, 64, 64, 2, 32, True),
 ]
 
 
@@ -179,12 +181,23 @@ def test_cpu_runs_plain_versions_and_counts_no_launch(monkeypatch):
     assert tfa.launches == before
 
 
+class _ReportsCuda(torch.Tensor):
+    """A CPU tensor that the wrappers' checks take for a CUDA one."""
+
+    is_cuda = True
+
+
 @pytest.mark.parametrize("bad", ["head_dim", "causal_tq_ne_tk", "rank", "lse_shape"])
 def test_wrapper_rejects_what_the_kernels_do_not_take(bad):
     x = torch.zeros(2, 32, 16)
     if bad == "head_dim":
+        # the kernels take HEAD_DIMS only; the plain versions that serve CPU
+        # tensors take any head dim, as the Pallas kernels do
+        y = torch.zeros(2, 32, 32)
+        assert tfa.flash_fwd(y, y, y, True)[0].shape == y.shape
+        cuda_like = torch.Tensor._make_subclass(_ReportsCuda, y)
         with pytest.raises(ValueError, match="head dim"):
-            tfa.flash_fwd(torch.zeros(2, 32, 32), torch.zeros(2, 32, 32), torch.zeros(2, 32, 32), True)
+            tfa.flash_fwd(cuda_like, cuda_like, cuda_like, True)
     elif bad == "causal_tq_ne_tk":
         with pytest.raises(ValueError, match="Tq == Tk"):
             tfa.flash_fwd(x, torch.zeros(2, 48, 16), torch.zeros(2, 48, 16), True)

@@ -64,7 +64,8 @@ def test_configs_match_jax():
     for name, jcfg in jg.CONFIGS.items():
         tcfg = tg.CONFIGS[name]
         for field in ("vocab_size", "n_positions", "d_model", "n_layer", "n_head", "remat",
-                      "loss_chunk", "loss_impl", "attn_impl", "head_dim", "padded_vocab", "d_ff"):
+                      "remat_policy", "loss_chunk", "loss_impl", "attn_impl", "head_dim",
+                      "padded_vocab", "d_ff"):
             assert getattr(tcfg, field) == getattr(jcfg, field), (name, field)
         assert tcfg.num_params() == jcfg.num_params()
         assert tcfg.dtype == torch.bfloat16 and tcfg.param_dtype == torch.float32
@@ -72,9 +73,10 @@ def test_configs_match_jax():
 
 def test_config_rejects_what_is_not_ported():
     cfg = tg.CONFIGS["gpt2-tiny"]
-    with pytest.raises(ValueError):
-        dataclasses.replace(cfg, loss_impl="bogus")
-    for knob in ("remat_policy", "scan_unroll", "cp_axis"):  # not ported
+    for knob in ("loss_impl", "remat_policy"):
+        with pytest.raises(ValueError):
+            dataclasses.replace(cfg, **{knob: "bogus"})
+    for knob in ("scan_unroll", "cp_axis"):  # not ported
         with pytest.raises(TypeError):
             dataclasses.replace(cfg, **{knob: 2})
     model = tg.GPT2(dataclasses.replace(cfg, attn_impl="ring"), "cpu")
@@ -152,6 +154,96 @@ def test_remat_matches_jax(jax_params, params_np):
     loss_j, grads_j, loss_t, grads_t = _loss_and_grads(jax_params, params_np, tok, jcfg, tcfg)
     assert abs(loss_t - loss_j) <= LOSS_TOL * abs(loss_j)
     _leaves_close(grads_t, grads_j, GRAD_RTOL, GRAD_ATOL)
+
+
+POLICIES = ["full", "dots", "dots_saveable", "attn_out"]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_remat_policy_matches_jax(jax_params, params_np, policy, dtype):
+    """Each remat policy on both sides (flash attention, fused CE): the
+    loss and every gradient of the JAX model under the same policy, at the
+    tolerances of test_loss_and_grads_match_jax (f32) and
+    test_bf16_matches_jax (bf16)."""
+    jcfg, tcfg = _cfgs(dtype, remat=True, remat_policy=policy, loss_impl="fused",
+                       attn_impl="flash")
+    (tok,) = _tokens(6)
+    loss_j, grads_j, loss_t, grads_t = _loss_and_grads(jax_params, params_np, tok, jcfg, tcfg)
+    if dtype == "f32":
+        assert abs(loss_t - loss_j) <= LOSS_TOL * abs(loss_j)
+        _leaves_close(grads_t, grads_j, GRAD_RTOL, GRAD_ATOL)
+        return
+    assert math.isfinite(loss_t) and abs(loss_t - loss_j) <= 1e-3
+    for (path, want), got in zip(jax.tree_util.tree_flatten_with_path(grads_j)[0],
+                                 jax.tree.leaves(grads_t)):
+        want = np.asarray(want, dtype=np.float32)
+        err = np.abs(got - want).max()
+        assert err <= 5e-2 * np.abs(want).max(), (jax.tree_util.keystr(path), err)
+
+
+def _jax_kept_per_layer(jax_params, tok, jcfg):
+    """(dtype, size) of each activation JAX keeps per layer for the
+    backward: the residuals the layer scan stacks (print_saved_residuals),
+    less their layer axis."""
+    import contextlib
+    import io
+    import re
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        jax.ad_checkpoint.print_saved_residuals(
+            lambda p: jg.loss_fn(p, jnp.asarray(tok), jcfg), jax_params)
+    kept = []
+    for line in out.getvalue().splitlines():
+        found = re.match(r"(\w+)\[([\d,]*)\] output of scan .*\(backbone\)", line)
+        if found:
+            shape = [int(n) for n in found[2].split(",")]
+            assert shape[0] == jcfg.n_layer, line
+            kept.append((found[1], math.prod(shape[1:])))
+    return sorted(kept)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_remat_policy_keeps_what_jax_keeps(jax_params, params_np, monkeypatch, policy):
+    """What each layer keeps for the backward under each policy (bf16,
+    flash attention): the layer input x, which checkpoint holds, and the
+    outputs the selective policy keeps in the forward. Held to the JAX
+    model's residuals under the same policy, by dtype and size (the port's
+    products are [B*T, N] matrices where JAX's are [B, T, ...]): x alone
+    under "full"; x and the qkv, proj and fc_in products under "dots";
+    those and the attention output under "dots_saveable"; x and the
+    attention output under "attn_out"."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    jcfg, tcfg = _cfgs("bf16", remat=True, remat_policy=policy, loss_impl="fused",
+                       attn_impl="flash")
+    (tok,) = _tokens(7)
+    names = {torch.bfloat16: "bf16", torch.float32: "f32"}
+    regions = []
+
+    class Recording(tg._KeepPolicy):
+        def __init__(self, name):
+            super().__init__(name)
+            self.kept = []
+            regions.append(self.kept)
+
+        def __call__(self, ctx, op, *args, **kwargs):
+            decision = super().__call__(ctx, op, *args, **kwargs)
+            if decision == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+                a = args[0]
+                size = a.shape[0] * args[1].shape[1] if op is torch.ops.aten.mm.default else a.numel()
+                self.kept.append((names[a.dtype], size))
+            return decision
+
+    monkeypatch.setattr(tg, "_KeepPolicy", Recording)
+    model = tg.from_jax(params_np, tcfg, "cpu")
+    tg.loss_fn(model, torch.from_numpy(tok)).backward()
+    assert len(regions) == (0 if policy == "full" else tcfg.n_layer)
+    x = (names[tcfg.dtype], B * T * tcfg.d_model)  # the layer input
+    want = _jax_kept_per_layer(jax_params, tok, jcfg)
+    for kept in regions or [[]] * tcfg.n_layer:
+        assert sorted([x] + kept) == want, (policy, kept, want)
 
 
 @pytest.mark.parametrize("attn_impl", ["reference", "flash"])

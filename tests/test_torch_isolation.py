@@ -45,7 +45,9 @@ def test_port_files_are_found():
             "ray_tpu_torch/models/gpt2_decode.py", "ray_tpu_torch/serve/llm.py",
             "ray_tpu_torch/serve/prefix_cache.py", "ray_tpu_torch/serve/kv_transfer.py",
             "ray_tpu_torch/utils/config.py", "ray_tpu_torch/ops/ring_attention.py",
-            "ray_tpu_torch/ops/moe.py"} <= names
+            "ray_tpu_torch/ops/moe.py", "ray_tpu_torch/parallel/__init__.py",
+            "ray_tpu_torch/parallel/mesh.py", "ray_tpu_torch/parallel/sharding.py",
+            "ray_tpu_torch/parallel/context.py", "ray_tpu_torch/parallel/tensor_parallel.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -13,6 +13,8 @@ router's gradient over the group (the router is replicated, so JAX's
 gradient is the sum). The JAX side is ``moe_block_sharded`` on an ep mesh
 of the same size, its loss and gradients as in the dryrun's MoE leg
 (``__graft_entry__.py:279-342``). A rank that hangs fails the module.
+The same ranks run ``moe_block_sharded`` on meshes from ``build_mesh``
+(ep 4, and dp 2 x ep 2), held to the same JAX results.
 
 Inputs: f32 from a seeded numpy generator, handed to both. Tolerances: the
 dryrun leg's, 1e-3 on the loss (relative) and 1e-2 on every gradient (max
@@ -56,27 +58,36 @@ def _t(a):
 def _rank_main(rank: int, workdir: Path) -> None:
     import torch.distributed as dist
 
-    from ray_tpu_torch.ops.moe import moe_block
+    from ray_tpu_torch.ops.moe import moe_block, moe_block_sharded
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{workdir / 'store'}",
                             world_size=RANKS, rank=rank)
     pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]  # every rank builds both
     groups = {4: dist.group.WORLD, 2: pairs[rank // 2]}
+    meshes = {world: build_mesh(MeshConfig(dp=RANKS // world, ep=world), device_type="cpu")
+              for world in WORLDS}
     x = dict(np.load(workdir / "inputs.npz"))
     res = {}
     for world in WORLDS:
-        group = groups[world]
-        r, bl, el = dist.get_rank(group), N_TOKENS // world, E // world
-        args = {"x": _t(x["x"][r * bl:(r + 1) * bl]), "wg": _t(x["wg"]),
-                "w_in": _t(x["w_in"][r * el:(r + 1) * el]), "w_out": _t(x["w_out"][r * el:(r + 1) * el])}
-        for a in args.values():
-            a.requires_grad_()
-        out = moe_block(args["x"], args["wg"], args["w_in"], args["w_out"], CAPACITY, group)
-        (out.float() ** 2).sum().backward()
-        res[f"ep{world}_out"] = out.detach().numpy()
-        for name in GRADS:
-            res[f"ep{world}_d{name}"] = args[name].grad.numpy()
+        group, mesh = groups[world], meshes[world]
+        for kind, r in (("group", dist.get_rank(group)), ("mesh", mesh.get_local_rank("ep"))):
+            bl, el = N_TOKENS // world, E // world
+            args = {"x": _t(x["x"][r * bl:(r + 1) * bl]), "wg": _t(x["wg"]),
+                    "w_in": _t(x["w_in"][r * el:(r + 1) * el]),
+                    "w_out": _t(x["w_out"][r * el:(r + 1) * el])}
+            for a in args.values():
+                a.requires_grad_()
+            a = [args[n] for n in GRADS]
+            out = (moe_block(*a, CAPACITY, group) if kind == "group"
+                   else moe_block_sharded(*a, mesh, capacity=CAPACITY))
+            (out.float() ** 2).sum().backward()
+            key = f"{kind}_ep{world}"
+            res[f"{key}_out"] = out.detach().numpy()
+            res[f"{key}_rank"] = np.array(r)
+            for name in GRADS:
+                res[f"{key}_d{name}"] = args[name].grad.numpy()
     np.savez(workdir / f"rank{rank}.npz", **res)
     dist.destroy_process_group()
 
@@ -94,10 +105,12 @@ def torch_moe(tmp_path_factory):
     np.savez(workdir / "inputs.npz", **_inputs())
     shards = run_ranks(__file__, workdir)
 
-    def get(world):
+    def get(world, kind="group"):
         groups = []
         for members in np.arange(RANKS).reshape(-1, world):
-            part = lambda key: [shards[r][f"ep{world}_{key}"] for r in members]
+            # in ep rank order (moe_block_sharded's from the mesh coordinate)
+            members = sorted(members, key=lambda r: int(shards[r][f"{kind}_ep{world}_rank"]))
+            part = lambda key: [shards[r][f"{kind}_ep{world}_{key}"] for r in members]
             res = {k: np.concatenate(part(k)) for k in ("out", "dx", "dw_in", "dw_out")}
             res["dwg"] = np.sum(part("dwg"), axis=0)
             groups.append(res)
@@ -133,17 +146,28 @@ def jax_moe(cpu_mesh_devices):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("world", WORLDS, ids=lambda w: f"ep{w}")
-def test_moe_block_matches_jax(torch_moe, jax_moe, world):
+def _hold_to_jax(torch_moe, jax_moe, world, kind):
     want = jax_moe[world]
-    for i, got in enumerate(torch_moe(world)):
-        where = f"ep {world}, group {i}"
+    for i, got in enumerate(torch_moe(world, kind)):
+        where = f"ep {world} ({kind}), group {i}"
         np.testing.assert_allclose(got["out"], want["out"], rtol=TOL, atol=TOL, err_msg=where)
         loss = float((got["out"].astype(np.float64) ** 2).sum())
         assert abs(loss - want["loss"]) <= LOSS_RTOL * max(1.0, abs(want["loss"])), where
         for name in GRADS:
             gap = np.abs(got[f"d{name}"] - want[f"d{name}"]).max()
             assert gap <= GRAD_ATOL, f"{where}: d{name} max abs {gap:.2e}"
+
+
+@pytest.mark.parametrize("world", WORLDS, ids=lambda w: f"ep{w}")
+def test_moe_block_matches_jax(torch_moe, jax_moe, world):
+    _hold_to_jax(torch_moe, jax_moe, world, "group")
+
+
+@pytest.mark.parametrize("world", WORLDS, ids=lambda w: f"ep{w}")
+def test_moe_block_sharded_matches_jax(torch_moe, jax_moe, world):
+    """moe_block_sharded on a mesh from build_mesh (ep 4; dp 2 x ep 2)
+    against JAX's moe_block_sharded on an ep mesh of the same size."""
+    _hold_to_jax(torch_moe, jax_moe, world, "mesh")
 
 
 @pytest.mark.parametrize("top_k", [1, 2])

@@ -21,6 +21,18 @@ gradients, whose sums run in other orders.
 
 The ring emulated in one process (``ring_attention_emulated``, what
 chip_smoke.py runs on the card) is held to the same JAX results.
+
+The same ranks run two more cases on inputs of B 2, T 64, H 4, Dh 32 (the
+JAX package's own ring tests' shape, f32):
+  - the twin of tests/test_ring_attention.py's test_ring_matches_reference
+    and test_ring_gradients_match: the ring over all four ranks against
+    JAX's reference attention, outputs within 2e-5 (rtol and atol),
+    causal and not, and the gradients of sum(out^2) within 5e-4 rtol and
+    5e-5 atol, causal: that file's tolerances;
+  - ``ring_attention_sharded`` on a dp 2 x cp 2 mesh (``build_mesh``),
+    each rank its batch row and its half of the sequence, against JAX's
+    ``ring_attention_sharded`` on a dp 2 x cp 2 mesh: output and
+    gradients at this file's tolerances.
 """
 
 import os
@@ -41,11 +53,18 @@ CASES = [(2, True), (4, True), (4, False)]
 FWD_TOL, GRAD_TOL = 1e-5, 1e-4
 JOIN_TIMEOUT_S = 120
 NAMES = ("out", "dq", "dk", "dv")
+SHAPE32 = (2, 64, 4, 32)  # B, T, H, Dh of tests/test_ring_attention.py
+TWIN_FWD_TOL, TWIN_GRAD_RTOL, TWIN_GRAD_ATOL = 2e-5, 5e-4, 5e-5
+MESH_DP, MESH_CP = 2, 2
 
 
 def _inputs():
     rng = np.random.default_rng(0)
-    return {n: rng.standard_normal((B, T, H, D), dtype=np.float32) for n in ("q", "k", "v", "do")}
+    x = {n: rng.standard_normal((B, T, H, D), dtype=np.float32) for n in ("q", "k", "v", "do")}
+    rng = np.random.default_rng(1)
+    x.update({f"{n}32": rng.standard_normal(SHAPE32, dtype=np.float32)
+              for n in ("q", "k", "v", "do")})
+    return x
 
 
 def _tag(causal):
@@ -72,6 +91,39 @@ def _flash_ring(x, rows, group, causal):
     return [t.detach().numpy() for t in (out, q.grad, k.grad, v.grad)]
 
 
+def _dh32_cases(x, rank, res) -> None:
+    """The Dh-32 twin over all four ranks, and ring_attention_sharded on
+    the dp x cp mesh: this rank's blocks of out (and dq, dk, dv)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.ops.attention import attention
+    from ray_tpu_torch.ops.ring_attention import ring_attention_sharded
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
+
+    Tl = SHAPE32[1] // RANKS
+    rows = slice(rank * Tl, (rank + 1) * Tl)
+    for causal in (True, False):
+        q, k, v = (torch.from_numpy(np.ascontiguousarray(x[f"{n}32"][:, rows])).requires_grad_()
+                   for n in ("q", "k", "v"))
+        out = attention(q, k, v, causal=causal, impl="ring", group=dist.group.WORLD)
+        res[f"twin_{_tag(causal)}_out"] = out.detach().numpy()
+        if causal:  # the gradients of sum(out^2)
+            (out ** 2).sum().backward()
+            for name, t in zip(NAMES[1:], (q, k, v)):
+                res[f"twin_causal_{name}"] = t.grad.numpy()
+    mesh = build_mesh(MeshConfig(dp=MESH_DP, cp=MESH_CP), device_type="cpu")
+    dp, cp = (mesh.get_local_rank(a) for a in ("dp", "cp"))
+    Bl, Tl = SHAPE32[0] // MESH_DP, SHAPE32[1] // MESH_CP
+    block = (slice(dp * Bl, (dp + 1) * Bl), slice(cp * Tl, (cp + 1) * Tl))
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(x[f"{n}32"][block])).requires_grad_()
+               for n in ("q", "k", "v"))
+    out = ring_attention_sharded(q, k, v, mesh, causal=True)
+    out.backward(torch.from_numpy(np.ascontiguousarray(x["do32"][block])))
+    for name, t in zip(NAMES, (out, q.grad, k.grad, v.grad)):
+        res[f"sharded_{name}"] = t.detach().numpy()
+    res["sharded_coords"] = np.array([dp, cp])
+
+
 def _rank_main(rank: int, workdir: Path) -> None:
     import torch.distributed as dist
 
@@ -96,6 +148,7 @@ def _rank_main(rank: int, workdir: Path) -> None:
         if world > 1:
             q, k, v = (torch.from_numpy(np.ascontiguousarray(x[n][:, rows])) for n in ("q", "k", "v"))
             res[f"einsum_{key}_out"] = ring_attention_einsum(q, k, v, group, causal=causal).numpy()
+    _dh32_cases(x, rank, res)
     np.savez(workdir / f"rank{rank}.npz", **res)
     dist.destroy_process_group()
 
@@ -105,17 +158,18 @@ def _rank_main(rank: int, workdir: Path) -> None:
 # ---------------------------------------------------------------------------
 
 
-def run_ranks(script: str, workdir: Path) -> list:
-    """Run ``python script RANK workdir`` for the RANKS ranks at once (the
+def run_ranks(script: str, workdir: Path, ranks: int = RANKS) -> list:
+    """Run ``python script RANK workdir`` for ``ranks`` ranks at once (the
     port's package on the path, one thread each, gloo on the loopback) and
     fail the calling test if a rank exits non-zero or outlives
     JOIN_TIMEOUT_S. Returns each rank's ``workdir/rank{r}.npz`` as a dict.
-    tests/test_torch_moe.py runs its ranks through it too."""
+    tests/test_torch_moe.py and tests/test_torch_sharded_step.py run their
+    ranks through it too."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")]),
                OMP_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo")
     procs = [subprocess.Popen([sys.executable, script, str(r), str(workdir)], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(RANKS)]
+             for r in range(ranks)]
     logs = []
     try:
         for p in procs:
@@ -129,7 +183,7 @@ def run_ranks(script: str, workdir: Path) -> list:
                 p.wait()
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log}"
-    return [dict(np.load(workdir / f"rank{r}.npz")) for r in range(RANKS)]
+    return [dict(np.load(workdir / f"rank{r}.npz")) for r in range(ranks)]
 
 
 @pytest.fixture(scope="module")
@@ -140,8 +194,22 @@ def torch_ring(tmp_path_factory):
     np.savez(workdir / "inputs.npz", **_inputs())
     shards = run_ranks(__file__, workdir)
 
-    def get(kind, world, causal):
-        """[one list of NAMES' arrays per group of this world size]"""
+    def get(kind, world=RANKS, causal=True):
+        """[one list of NAMES' arrays per group of this world size]; for
+        kind "twin", the four ranks' rows joined; for "sharded", the ranks'
+        blocks put back in the global arrays by their mesh coordinates."""
+        if kind == "twin":
+            names = NAMES if causal else NAMES[:1]
+            return [np.concatenate([shards[r][f"twin_{_tag(causal)}_{n}"] for r in range(RANKS)],
+                                   axis=1) for n in names]
+        if kind == "sharded":
+            full = [np.zeros(SHAPE32, np.float32) for _ in NAMES]
+            Bl, Tl = SHAPE32[0] // MESH_DP, SHAPE32[1] // MESH_CP
+            for shard in shards:
+                dp, cp = shard["sharded_coords"]
+                for arr, n in zip(full, NAMES):
+                    arr[dp * Bl:(dp + 1) * Bl, cp * Tl:(cp + 1) * Tl] = shard[f"sharded_{n}"]
+            return full
         names = NAMES if kind == "flash" else NAMES[:1]
         key = f"{kind}_world{world}_{_tag(causal)}"
         return [[np.concatenate([shards[r][f"{key}_{n}"] for r in members], axis=1)
@@ -229,11 +297,61 @@ def test_emulated_ring_matches_jax(jax_rings, case):
     assert all(torch.equal(a, b) for a, b in zip(fwd_only, res[0]))
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=_tag)
+def test_ring_matches_reference(torch_ring, cpu_mesh_devices, causal):
+    """The twin of tests/test_ring_attention.py's test: the gloo ring over
+    four ranks at B 2, T 64, H 4, Dh 32 against JAX's reference attention
+    on the whole sequence, within that test's 2e-5."""
+    import jax.numpy as jnp
+
+    from ray_tpu.ops.attention import _reference_attention
+
+    x = _inputs()
+    want = _reference_attention(*(jnp.asarray(x[f"{n}32"]) for n in ("q", "k", "v")), causal)
+    got = torch_ring("twin", causal=causal)[0]
+    np.testing.assert_allclose(got, np.asarray(want), rtol=TWIN_FWD_TOL, atol=TWIN_FWD_TOL)
+
+
+def test_ring_gradients_match(torch_ring, cpu_mesh_devices):
+    """The twin of tests/test_ring_attention.py's gradient test: the
+    gradients of sum(out^2) through the causal ring against those through
+    JAX's reference attention, within its 5e-4 rtol and 5e-5 atol."""
+    import jax
+    import jax.numpy as jnp
+
+    from ray_tpu.ops.attention import _reference_attention
+
+    x = _inputs()
+    want = jax.grad(lambda q, k, v: (_reference_attention(q, k, v, True) ** 2).sum(),
+                    argnums=(0, 1, 2))(*(jnp.asarray(x[f"{n}32"]) for n in ("q", "k", "v")))
+    for name, got, w in zip(NAMES[1:], torch_ring("twin")[1:], want):
+        np.testing.assert_allclose(got, np.asarray(w), rtol=TWIN_GRAD_RTOL, atol=TWIN_GRAD_ATOL,
+                                   err_msg=name)
+
+
+def test_ring_attention_sharded_matches_jax(torch_ring, cpu_mesh_devices):
+    """ring_attention_sharded on the dp 2 x cp 2 mesh of the four ranks
+    against JAX's ring_attention_sharded on a dp 2 x cp 2 mesh (flash
+    blocks), output and gradients."""
+    import jax
+    import jax.numpy as jnp
+
+    from ray_tpu.ops.ring_attention import ring_attention_sharded
+    from ray_tpu.parallel import MeshConfig, build_mesh
+
+    mesh = build_mesh(MeshConfig(dp=MESH_DP, cp=MESH_CP), devices=cpu_mesh_devices[:RANKS])
+    x = {n: jnp.asarray(a) for n, a in _inputs().items()}
+    fn = jax.jit(lambda q, k, v: ring_attention_sharded(q, k, v, mesh, causal=True))
+    out, vjp = jax.vjp(fn, x["q32"], x["k32"], x["v32"])
+    want = [np.asarray(out)] + [np.asarray(g) for g in vjp(x["do32"])]
+    _close(torch_ring("sharded"), want, "ring_attention_sharded, dp 2 x cp 2")
+
+
 def test_ring_needs_a_group():
     from ray_tpu_torch.ops.attention import attention
 
     x = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+    with pytest.raises(NotImplementedError, match="process group"):
         attention(x, x, x, impl="ring")
 
 
