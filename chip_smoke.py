@@ -95,12 +95,34 @@ Phases (any failure exits non-zero and prints no result):
      the median step, the host's wait in next() per step (median and max)
      beside phase 3's median step; after shutdown() no worker process of
      the session is alive and none of its shm or spill files remain;
-  8. print the kernel line (one JSON object; beside the contract's keys,
-     each kernel's SASS counts from phase 1 for both output types, and its
-     f32 instantiation's gap, times and ring launches from phase 5: every
-     number in it was measured or, for bound_ms, computed in this run, and
-     launches come from phase 3);
-  9. print the contract line (one JSON object, the last line).
+  8. pipeline parallelism: gpt2-small (phase 3's init and batches, 4
+     microbatches of 8) in two PipelineStage actors of six blocks each
+     (stage 0: wte, wpe, blocks 0-5; stage 1: blocks 6-11, ln_f and a head
+     that starts as a copy of wte), both stage processes on this card,
+     through ray_tpu_torch.parallel.pipeline after ray_tpu_torch.init: one
+     SGD step (RPC tier, GPipe) held to the unsharded model (step 0's loss
+     within LOSS_REF_TOL of GPT2.loss's mean over the microbatches, each
+     gradient read as (p - p')/lr, the two wte copies summed, within
+     GRAD_RELNORM_TOL); a compiled graph of inference (InputNode ->
+     stage0.predict -> stage1.predict) against GPT2.backbone on 8 rows;
+     the same step under the compiled tier, GPipe and 1F1B, bitwise equal
+     to it; then AdamW, a warm-up step and 5 timed steps under each of
+     RPC/GPipe, compiled/GPipe and compiled/1F1B: step ms and tokens/s
+     beside phase 3's, each stage's busy ms and bubble fraction (the stage
+     loop's own tracing slices), peak memory, 24 launches of each kernel a
+     step in each stage process (read there, by the stage functions), the
+     loss on batch 0 lower 12 steps later; one 12 MiB activation's hop
+     from process to process (off the card, the channel, onto the card);
+     test_dag's per-call ratio of the RPC path to a compiled graph; after
+     teardown() and shutdown() no stage process, shm segment or channel
+     segment is left;
+  9. print the kernel line (one JSON object; beside the contract's keys,
+     each kernel's SASS counts from phase 1 for both output types, its
+     f32 instantiation's gap, times and ring launches from phase 5, and its
+     launches a step in each stage process from phase 8: every number in it
+     was measured or, for bound_ms, computed in this run, and launches come
+     from phase 3);
+ 10. print the contract line (one JSON object, the last line).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -110,6 +132,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -128,10 +151,12 @@ import torch.nn.functional as F
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
-# (B, T, Tk, H, Dh, causal): the train step's shape first.
+# (B, T, Tk, H, Dh, causal): the train step's shape first, then a pipeline
+# stage's microbatch (phase 8: 8 rows, BH 96).
 MAIN_CASE = (32, 1024, 1024, 12, 64, True)
-CASES = [MAIN_CASE, (4, 512, 512, 4, 16, True), (2, 1000, 1000, 12, 64, True),
-         (2, 200, 333, 4, 64, False), (2, 300, 1100, 4, 64, False)]
+CASES = [MAIN_CASE, (8, 1024, 1024, 12, 64, True), (4, 512, 512, 4, 16, True),
+         (2, 1000, 1000, 12, 64, True), (2, 200, 333, 4, 64, False),
+         (2, 300, 1100, 4, 64, False)]
 # Kernels vs plain versions: every output element by the rule of
 # ray_tpu_torch.bench (RTOL relative, ATOL_RMS x the row's rms absolute,
 # RELNORM_TOL on the whole tensor). On an H100 the cases below need at most
@@ -1354,6 +1379,424 @@ def pipeline_train(card: str, phase3: tuple) -> None:
         fail(f"the session left worker processes {pids} and files {files}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: pipeline parallelism, gpt2-small in two stage actors on one card
+# ---------------------------------------------------------------------------
+
+PP_MB = 4  # bench.py's 32 rows as 4 microbatches of 8
+PP_SPLIT = 6  # stage 0: wte, wpe, blocks 0-5; stage 1: blocks 6-11, ln_f, head
+# The SGD step of the parity and bitwise checks. (p - p') / lr is then the
+# gradient to well under the limit: p's f32 rounding is ~1e-7 of |p|.
+PP_SGD_LR = 1.0
+PP_TIMED = 5  # AdamW steps timed per tier, after one warm-up step
+PP_TIERS = (("rpc", "gpipe"), ("compiled", "gpipe"), ("compiled", "1f1b"))
+# A channel slot holds one activation, [8, 1024, 768] bf16 = 12,582,912
+# bytes, plus its pickle header; the compiled graph's default of 4 MiB
+# holds none.
+PP_CAPACITY = 16 << 20
+# The first step of a stage loads the kernel library (phase 1 built it).
+PP_STEP_TIMEOUT_S = 300.0
+PP_HOPS, PP_PINGS = 12, 200  # hop rounds (the first 2 not counted); test_dag's 200 calls
+
+
+def pipeline_stage_fns(cfg, split: int):
+    """The two stages' functions and the loss. Stage 0 maps tokens [b, T+1]
+    to the hidden state after block split-1; stage 1 runs the other blocks
+    and ln_f and returns (ln_f(x), head), or ln_f(x) alone with no grad
+    (inference: the head is the loss's operand, not an output); the loss is
+    the port's fused CE on that pair against tokens[:, 1:]. Both compute as
+    GPT2.backbone and GPT2.loss do, through the port's Block. A string in
+    place of the tokens or the activation is the smoke's probe of the stage
+    process: "reset" zeroes its kernel launch counts and its peak memory,
+    and either string returns them."""
+    skeleton = {}
+
+    def probe(what):
+        import os
+
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        if what == "reset":
+            for counts in (fa.launches, fa.launches_f32):
+                counts.update(dict.fromkeys(counts, 0))
+            torch.cuda.reset_peak_memory_stats()
+        return {"launches": dict(fa.launches), "f32": dict(fa.launches_f32), "pid": os.getpid(),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    def blocks(params, x, lo, hi):
+        from ray_tpu_torch.models import gpt2
+
+        if "block" not in skeleton:
+            skeleton["block"] = gpt2.Block(cfg, "meta")
+        for i in range(lo, hi):
+            pre = f"blocks.{i}."
+            own = {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
+            x = torch.func.functional_call(skeleton["block"], own, (x, cfg))
+        return x
+
+    def stage0(params, tokens):
+        if isinstance(tokens, str):
+            return probe(tokens)
+        tokens = tokens[:, :-1].long()
+        dt = cfg.dtype
+        x = (F.embedding(tokens, params["wte"]).to(dt)
+             + params["wpe"][:tokens.shape[1]].to(dt)[None])
+        return blocks(params, x, 0, split)
+
+    def stage1(params, x):
+        if isinstance(x, str):
+            return probe(x)
+        x = blocks(params, x, split, cfg.n_layer)
+        h = F.layer_norm(x.float(), (x.shape[-1],), params["ln_f.scale"].float(),
+                         params["ln_f.bias"].float(), 1e-5).to(x.dtype)
+        return (h, params["head"]) if torch.is_grad_enabled() else h
+
+    def loss(pred, targets):
+        from ray_tpu_torch.models import gpt2
+
+        h, head = pred
+        return gpt2.head_loss(h, head.to(cfg.dtype), targets.long(), cfg)
+
+    return stage0, stage1, loss
+
+
+def split_stage_params(named: dict, split: int) -> list:
+    """GPT2.named_parameters' arrays as the two stages' dicts; the head
+    starts as a copy of wte (the tied embedding held twice)."""
+    s0 = {k: v for k, v in named.items() if k in ("wte", "wpe")
+          or (k.startswith("blocks.") and int(k.split(".")[1]) < split)}
+    s1 = {k: v for k, v in named.items() if k not in s0}
+    s1["head"] = named["wte"]
+    return [s0, s1]
+
+
+def microbatches(tokens: np.ndarray) -> tuple:
+    mbs = np.split(tokens, PP_MB)
+    return mbs, [mb[:, 1:] for mb in mbs]
+
+
+def stage_probe(pipe, what: str) -> list:
+    import ray_tpu_torch
+
+    return ray_tpu_torch.get([s.predict.remote(what) for s in pipe.stages], timeout=120)
+
+
+def stage_slices(addresses: list) -> list:
+    """Each stage's pipeline slices from its worker's event ring (emitted by
+    _stage_exec_loop), cleared as they are read."""
+    from ray_tpu_torch.core import worker as worker_mod
+
+    w = worker_mod.global_worker()
+    return [w.workers.get(a).call("get_task_events", types=["pipeline"], clear=True,
+                                  timeout_s=30.0)["events"] for a in addresses]
+
+
+def busy_and_bubble(events: list) -> tuple:
+    """(median busy ms a step, median bubble fraction) over the timed steps
+    (the loop's step 0 is the warm-up)."""
+    steps = [e for e in events if e["kind"] == "step" and e["step"] >= 1]
+    busy = [sum(e["dur_us"] for e in events if e["kind"] in ("fwd", "bwd")
+                and e["step"] == s["step"]) / 1e3 for s in steps]
+    if len(steps) != PP_TIMED:
+        fail(f"the stage loop emitted {len(steps)} timed step slices, expected {PP_TIMED}")
+    return statistics.median(busy), statistics.median(e["bubble_frac"] for e in steps)
+
+
+def channel_paths(compiled) -> list:
+    """The shm channel segments a compiled graph or pipeline created (the
+    driver creates and unlinks every one of them)."""
+    chans = getattr(compiled, "_shm_channels", None)
+    if chans is None:
+        chans = compiled._input_channels + compiled._output_channels + compiled._edge_channels
+    return [ch.path for ch in chans]
+
+
+def run_tier(pipe, tier: str, schedule: str, batches: list, lr: float,
+             channels: list) -> tuple:
+    """A step on each of ``batches`` under one tier: (losses, step seconds,
+    each stage's slices or None for the RPC tier). The compiled tier is
+    compiled first and torn down after; its channel paths go to
+    ``channels``."""
+    import ray_tpu_torch
+
+    times, losses = [], []
+    if tier == "rpc":
+        for tokens in batches:
+            t0 = time.perf_counter()
+            losses.append(pipe.train_step(*microbatches(tokens), lr=lr))
+            times.append(time.perf_counter() - t0)
+        return losses, times, None
+    addresses = [i["address"] for i in ray_tpu_torch.get(
+        [s.transport_info.remote() for s in pipe.stages], timeout=60)]
+    stage_slices(addresses)  # drop what earlier loops left
+    cp = pipe.compile(schedule=schedule, channel_capacity=PP_CAPACITY,
+                      step_timeout_s=PP_STEP_TIMEOUT_S)
+    channels.extend(channel_paths(cp))
+    try:
+        for tokens in batches:
+            t0 = time.perf_counter()
+            losses.append(cp.train_step(*microbatches(tokens), lr=lr))
+            times.append(time.perf_counter() - t0)
+    finally:
+        cp.teardown()
+    return losses, times, stage_slices(addresses)
+
+
+def sgd_step(stage_fns: tuple, init: list, tier: str, schedule: str, tokens: np.ndarray,
+             channels: list):
+    """One SGD step of a fresh pipeline from ``init``: (loss, parameters of
+    each stage after it, the pipeline, still up)."""
+    from ray_tpu_torch.parallel.pipeline import Pipeline
+
+    stage0, stage1, loss_fn = stage_fns
+    pipe = Pipeline([stage0, stage1], init, loss_fn)
+    (loss,), _, _ = run_tier(pipe, tier, schedule, [tokens], PP_SGD_LR, channels)
+    return loss, pipe.get_params(), pipe
+
+
+def hop_and_ping(card: str, channels: list) -> None:
+    """One 12 MiB activation from one process's card to another's, as a
+    stage ships it (HostTensor off the card, a compiled graph's channel,
+    onto the card), and test_dag's per-call ratio of the RPC path to the
+    compiled path. The graphs' channel paths go to ``channels``."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode
+
+    @ray_tpu_torch.remote
+    class Hop:
+        def __init__(self):
+            self.x = torch.randn(8, 1024, 768, device="cuda").to(torch.bfloat16)
+
+        def ping(self, i):
+            return i + 1
+
+        def send(self, i):
+            from ray_tpu_torch.parallel.pipeline import HostTensor
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = HostTensor.of(self.x)
+            return t0, time.perf_counter(), h
+
+        def recv(self, msg):
+            t0, t1, h = msg
+            t2 = time.perf_counter()
+            y = h.to("cuda")
+            torch.cuda.synchronize()
+            return t0, t1, t2, time.perf_counter(), y.numel() * y.element_size()
+
+    a, b = Hop.remote(), Hop.remote()
+    try:
+        ray_tpu_torch.get([a.ping.remote(0), b.ping.remote(0)], timeout=120)
+        t0 = time.perf_counter()
+        for i in range(PP_PINGS):
+            ray_tpu_torch.get(a.ping.remote(i))
+        rpc_s = (time.perf_counter() - t0) / PP_PINGS
+        with InputNode() as inp:
+            ping = a.ping.bind(inp)
+        cdag = ping.experimental_compile()
+        channels.extend(channel_paths(cdag))
+        try:
+            cdag.execute(0).get()
+            t0 = time.perf_counter()
+            for i in range(PP_PINGS):
+                cdag.execute(i).get()
+            compiled_s = (time.perf_counter() - t0) / PP_PINGS
+        finally:
+            cdag.teardown()
+        print(f"compiled graph vs RPC path, one actor call ({PP_PINGS} calls each, as "
+              f"test_dag.py::test_compiled_path_beats_rpc_path): compiled {compiled_s * 1e6:.1f} us, "
+              f"rpc {rpc_s * 1e6:.1f} us, ratio {rpc_s / compiled_s:.2f}x [{card}]", flush=True)
+
+        with InputNode() as inp:
+            hop = b.recv.bind(a.send.bind(inp))
+        cdag = hop.experimental_compile(channel_capacity=PP_CAPACITY)
+        channels.extend(channel_paths(cdag))
+        try:
+            rounds = [cdag.execute(i).get(timeout_s=120) for i in range(PP_HOPS)][2:]
+        finally:
+            cdag.teardown()
+    finally:
+        for actor in (a, b):
+            ray_tpu_torch.kill(actor)
+    nbytes = rounds[0][4]
+    med = {name: statistics.median((r[j + 1] - r[j]) * 1e3 for r in rounds)
+           for j, name in enumerate(("off the card", "the channel", "onto the card"))}
+    total = statistics.median((r[3] - r[0]) * 1e3 for r in rounds)
+    print(f"one activation ({nbytes} bytes, bf16 [8, 1024, 768]) from stage to stage, median of "
+          f"{len(rounds)}: {total:.3f} ms = "
+          + ", ".join(f"{name} {ms:.3f}" for name, ms in med.items())
+          + f" (the channel: pickle-5 into a {PP_CAPACITY >> 20} MiB shm slot, the exec loops' "
+          f"handoff, the copy out and unpickle) [{card}]", flush=True)
+
+
+def pipeline_parallel(card: str, phase3_step_ms: float) -> dict:
+    """Phase 8. Returns each kernel's launches a step in each stage process
+    (compiled, 1F1B)."""
+    import functools
+
+    import ray_tpu_torch
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.core import worker as worker_mod
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.parallel.pipeline import Pipeline
+
+    torch.cuda.empty_cache()  # phase 3-7's cached blocks: the stage processes share the card
+    B, T = bench.BATCH, bench.SEQ
+    cfg = bench.config()
+    batches = [bench.batch_tokens(i, cfg.vocab_size, B, T) for i in range(PP_TIMED + 1)]
+    mbs, targets = microbatches(batches[0])
+
+    # the unsharded reference: phase 3's init, the mean loss and gradient
+    # over batch 0's four microbatches
+    ref = bench.setup(0).model
+    ref_losses = []
+    for mb in mbs:
+        loss = ref.loss(torch.from_numpy(mb).cuda())
+        (loss / PP_MB).backward()
+        ref_losses.append(loss.item())
+    ref_loss = sum(ref_losses) / PP_MB
+    ref_grads = {n: p.grad.detach().cpu() for n, p in ref.named_parameters()}
+    named = {n: p.detach().to("cpu", copy=True).numpy() for n, p in ref.named_parameters()}
+    init = split_stage_params(named, PP_SPLIT)
+    ref.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    fns = pipeline_stage_fns(cfg, PP_SPLIT)
+    channels = []  # every shm channel segment this phase creates
+
+    ray_tpu_torch.init(num_cpus=4, object_store_memory_mb=4096)
+    session = worker_mod.global_worker().session_id
+    try:
+        # (a) parity, and (e) a compiled graph of inference on those stages
+        t0 = time.perf_counter()
+        loss_a, params_a, pipe = sgd_step(fns, init, "rpc", "gpipe", batches[0], channels)
+        try:
+            print(f"pipeline: two stages started and one SGD step (RPC, GPipe) in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            with InputNode() as inp:
+                dag = pipe.stages[1].predict.bind(pipe.stages[0].predict.bind(inp))
+            cdag = dag.experimental_compile(channel_capacity=PP_CAPACITY)
+            channels.extend(channel_paths(cdag))
+            try:
+                rows = batches[0][:B // PP_MB]
+                out = cdag.execute(rows).get(timeout_s=PP_STEP_TIMEOUT_S).to("cuda")
+            finally:
+                cdag.teardown()
+        finally:
+            pipe.shutdown()
+        after = {**params_a[0], **params_a[1]}
+        got = {n: (named[n] - p) / PP_SGD_LR for n, p in after.items() if n != "head"}
+        got["wte"] = got["wte"] + (named["wte"] - after["head"]) / PP_SGD_LR
+        rel = bench.relnorms({n: torch.from_numpy(g) for n, g in got.items()}, ref_grads)
+        worst = max(rel.items(), key=lambda kv: kv[1])
+        print(f"pipeline step 0 (4 microbatches of {B // PP_MB}, RPC, GPipe, SGD lr {PP_SGD_LR}): "
+              f"loss {loss_a:.6f} vs unsharded {ref_loss:.6f} (gap {abs(loss_a - ref_loss):.3e}, "
+              f"limit {LOSS_REF_TOL}); gradients as (p - p')/lr, the two wte copies summed, vs "
+              f"the unsharded model's over {len(rel)} leaves: max relnorm {worst[1]:.3e} "
+              f"({worst[0]}), median {statistics.median(rel.values()):.3e} (limit "
+              f"{GRAD_RELNORM_TOL}) [{card}]", flush=True)
+        if not abs(loss_a - ref_loss) <= LOSS_REF_TOL:
+            fail(f"pipeline step-0 loss {loss_a} vs unsharded {ref_loss}")
+        bad = [n for n, r in rel.items() if not r <= GRAD_RELNORM_TOL]
+        if bad:
+            fail(f"pipeline gradients of {bad} disagree with the unsharded model's")
+        for n, p in after.items():  # (e): the stages' parameters in the unsharded model
+            if n != "head":
+                ref.get_parameter(n).data.copy_(torch.from_numpy(p))
+        with torch.no_grad():
+            want = ref.backbone(torch.from_numpy(rows[:, :-1]).cuda().long())
+        gap = bench.disagreement(out, want)
+        print(f"compiled graph of inference (InputNode -> stage0.predict -> stage1.predict) on "
+              f"{rows.shape[0]} rows vs the unsharded backbone: {list(out.shape)} {out.dtype}, "
+              f"bitwise equal {torch.equal(out, want)}, max abs {gap['max_abs']:.3e}, "
+              f"relnorm {gap['relnorm']:.3e} ({_rule()}) [{card}]", flush=True)
+        if not (gap["ok"] and out.shape == want.shape and out.dtype == want.dtype):
+            fail(f"the compiled inference graph disagrees with the backbone: {gap}")
+        del ref, ref_grads, out, want
+        torch.cuda.empty_cache()
+
+        # (b) bitwise: compiled == RPC, 1F1B == GPipe
+        runs = {("rpc", "gpipe"): (loss_a, params_a)}
+        for schedule in ("gpipe", "1f1b"):
+            loss, params, pipe = sgd_step(fns, init, "compiled", schedule, batches[0], channels)
+            pipe.shutdown()
+            runs["compiled", schedule] = (loss, params)
+        for (tier, schedule), (loss, params) in runs.items():
+            same = loss == loss_a and all(
+                a.keys() == b.keys() and all(np.array_equal(a[n], b[n]) for n in a)
+                for a, b in zip(params, params_a))
+            print(f"pipeline {tier}/{schedule}: step-0 loss {loss!r}, loss and every parameter "
+                  f"after the step bitwise equal to rpc/gpipe: {same}", flush=True)
+            if not same:
+                fail(f"pipeline {tier}/{schedule} is not bitwise equal to rpc/gpipe")
+
+        # (c), (d): AdamW, a warm-up step and PP_TIMED timed steps per tier
+        adamw = functools.partial(torch.optim.AdamW, lr=3e-4, weight_decay=0.01,
+                                  betas=(0.9, 0.999), eps=1e-8)
+        pipe = Pipeline(list(fns[:2]), init, fns[2], optimizer=adamw)
+        per_step, tier_ms, first_loss = {}, {}, {}
+        try:
+            for tier, schedule in PP_TIERS:
+                stage_probe(pipe, "reset")
+                # AdamW's lr is the factory's: apply ignores its own
+                losses, times, slices = run_tier(pipe, tier, schedule, batches, 0.0, channels)
+                probes = stage_probe(pipe, "launches")
+                name = f"{tier}/{schedule}"
+                step_ms = statistics.median(times[1:]) * 1e3
+                tier_ms[name], first_loss[name] = step_ms, losses[0]
+                stages = []
+                for i, pr in enumerate(probes):
+                    n = {k: v / len(batches) for k, v in pr["launches"].items()}
+                    per_step[name, i] = n
+                    busy = (" busy %.2f ms a step, bubble %.3f," % busy_and_bubble(slices[i])
+                            if slices else " busy and bubble not measured (no stage loop),")
+                    stages.append(f"stage {i} (pid {pr['pid']}):{busy} peak memory "
+                                  f"{pr['peak_gib']:.2f} GiB, launches a step {n}")
+                    if any(pr["f32"].values()):
+                        fail(f"stage {i} launched f32 instances: {pr['f32']}")
+                print(f"pipeline {name} (AdamW, {PP_MB} microbatches of {B // PP_MB}): median "
+                      f"step {step_ms:.2f} ms over {PP_TIMED} steps ("
+                      + ", ".join(f"{t * 1e3:.2f}" for t in times[1:])
+                      + f"; warm-up {times[0] * 1e3:.2f}), {B * T / step_ms * 1e3:.1f} tokens/s; "
+                      f"losses {', '.join(f'{x:.5f}' for x in losses)}; phase 3's unpipelined "
+                      f"step {phase3_step_ms:.2f} ms, {B * T / phase3_step_ms * 1e3:.1f} tokens/s; "
+                      f"both stages time-slice the one card (no MPS) [{card}]", flush=True)
+                print("  " + "; ".join(stages), flush=True)
+        finally:
+            pipe.shutdown()
+        print(f"pipeline step ratio RPC / compiled (GPipe): "
+              f"{tier_ms['rpc/gpipe'] / tier_ms['compiled/gpipe']:.3f}x; 1F1B / GPipe (compiled): "
+              f"{tier_ms['compiled/1f1b'] / tier_ms['compiled/gpipe']:.3f}x", flush=True)
+        want = {name: PP_MB * PP_SPLIT for name in KERNELS}
+        bad = {k: n for k, n in per_step.items() if n != want}
+        if bad:
+            fail(f"stage launches a step {bad}; the design says {want} in each stage")
+        # the same batch 0, 12 AdamW steps apart
+        if not first_loss["compiled/1f1b"] < first_loss["rpc/gpipe"]:
+            fail(f"AdamW did not lower batch 0's loss: {first_loss}")
+        hop_and_ping(card, channels)
+    finally:
+        ray_tpu_torch.shutdown()
+
+    # (f) nothing left behind
+    deadline = time.monotonic() + 30
+    while True:
+        pids, files = session_leftovers(session)
+        chans = [c for c in channels if os.path.exists(c)]
+        if not (pids or files or chans) or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    print(f"after teardown() and shutdown(): {len(pids)} stage or worker processes of the session "
+          f"alive, {len(files)} of its shm and spill paths and {len(chans)} channel segments "
+          f"left of the {len(channels)} it created", flush=True)
+    if pids or files or chans:
+        fail(f"the pipeline left processes {pids}, files {files}, channels {chans}")
+    if not channels:
+        fail("the pipeline phase recorded no shm channel: the channel check saw nothing")
+    return {name: {f"stage{i}": per_step["compiled/1f1b", i][name] for i in range(2)}
+            for name in KERNELS}
+
+
 def main() -> None:
     card = identify()
     sass = build()
@@ -1364,9 +1807,11 @@ def main() -> None:
     f32 = parallel(card)
     sharded_step(card, remat["no remat"])
     pipeline_train(card, (counts, losses, step_ms))
+    stages = pipeline_parallel(card, step_ms)
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
                     launches=counts[name], **results[name], held_at=["bf16", "f32"],
-                    f32=f32[name], sass=sass[name]) for name in KERNELS]
+                    f32=f32[name], sass=sass[name], pipeline_stage_launches_a_step=stages[name])
+               for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -46,7 +46,7 @@ from ray_tpu_torch.core.placement import (
 )
 from ray_tpu_torch.core import exceptions
 
-_SUBPACKAGES = ("data", "models", "ops", "parallel", "serve", "accelerators")
+_SUBPACKAGES = ("dag", "data", "models", "ops", "parallel", "serve", "accelerators")
 
 
 def __getattr__(name):

@@ -174,9 +174,9 @@ class ActorMethod:
     def bind(self, *args):
         """Create a static-DAG node for this method (compiled graphs,
         ray_tpu_torch/dag.py; parity: python/ray/dag/dag_node.py bind)."""
-        raise NotImplementedError(
-            "compiled graphs (dag) are not ported: ROADMAP.md, Queue A "
-            "item 3 (pipeline parallelism)")
+        from ray_tpu_torch.dag import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._name, args)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

@@ -2572,15 +2572,23 @@ class CoreWorker:
                 if spec.method_name == "__rt_dag_exec_loop__":
                     # compiled-graph exec loop (ray_tpu_torch/dag.py): a system
                     # task that parks on this actor until DAG teardown
-                    raise NotImplementedError(
-                        "compiled graphs (dag) are not ported: ROADMAP.md, "
-                        "Queue A item 3 (pipeline parallelism)")
+                    import functools
+
+                    from ray_tpu_torch import dag as dag_mod
+
+                    target = functools.partial(
+                        dag_mod._actor_exec_loop, rt.instance
+                    )
                 elif spec.method_name == "__rt_pipe_exec_loop__":
                     # compiled-pipeline stage loop (parallel/pipeline.py):
                     # parks on this stage actor until pipeline teardown
-                    raise NotImplementedError(
-                        "parallel/pipeline.py is not ported: ROADMAP.md, "
-                        "Queue A item 3 (pipeline parallelism)")
+                    import functools
+
+                    from ray_tpu_torch.parallel import pipeline as pipeline_mod
+
+                    target = functools.partial(
+                        pipeline_mod._stage_exec_loop, rt.instance
+                    )
                 else:
                     target = getattr(rt.instance, spec.method_name, None)
                 if target is None:
@@ -3054,9 +3062,9 @@ class CoreWorker:
         in-band re-pickle. Idempotent per (chan_id, seq); a full mailbox
         bounces with ``full`` (the writer's retry loop is the
         backpressure)."""
-        raise NotImplementedError(
-            "core/channels.py is not ported: ROADMAP.md, Queue A item 3 "
-            "(pipeline parallelism)")
+        from ray_tpu_torch.core import channels as channels_mod
+
+        return channels_mod.rpc_channel_deliver(chan_id, seq, payload, slots)
 
     def rpc_ping(self, conn):
         return {"worker_id": self.worker_id.hex(), "mode": self.mode,

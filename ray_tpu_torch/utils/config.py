@@ -465,7 +465,6 @@ config.define("crash_dir", "", dynamic=True)
 # that config.set() or a read of one fails instead of doing nothing. An
 # RT_<NAME> variable of one is ignored, as any unknown one is.
 NOT_PORTED_FLAGS = {
-    "item 3 (pipeline parallelism)": ("pipeline_force_rpc_channels",),
     "item 4 (the train backend)": (
         "collective_p2p", "collective_p2p_min_bytes", "collective_chunk_bytes",
         "collective_op_timeout_s", "collective_quant_block", "collective_bucketed",

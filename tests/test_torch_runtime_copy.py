@@ -8,8 +8,9 @@ that the copy did not follow: either is a porting cost to decide on, not
 to drift into.
 
 What is ported rather than copied (the recompute engine, the GPU probe in
-``accelerators/``, ``ray_tpu_torch/__init__.py``, ``bench.py``) is held to
-the JAX package by behaviour, in the other ``test_torch_*`` files.
+``accelerators/``, ``ray_tpu_torch/__init__.py``, ``bench.py``, and the
+marked region of ``parallel/pipeline.py`` that holds ``PipelineStage``) is
+held to the JAX package by behaviour, in the other ``test_torch_*`` files.
 """
 
 import difflib
@@ -32,13 +33,28 @@ core/__init__.py core/exceptions.py core/object_ref.py core/task.py core/runtime
 core/runtime_env.py core/scheduling.py core/placement.py core/actor.py core/object_store.py
 core/ha/__init__.py core/ha/wal.py core/ha/reattach.py core/control_store.py
 core/node_agent.py core/worker.py core/worker_main.py core/node_main.py core/head_main.py
-core/api.py core/cluster_utils.py core/device_objects.py
+core/api.py core/cluster_utils.py core/device_objects.py core/channels.py
+dag.py parallel/pipeline.py
 data/__init__.py data/block.py data/logical.py data/datasource.py data/executor.py
 data/iterator.py data/dataset.py
 """.split()
 
 # Files of the runtime packages that are written for the port, not copied.
 PORTED = {"accelerators/__init__.py", "accelerators/gpu.py"}
+RUNTIME_PACKAGES = ("core", "data", "utils", "observability", "accelerators", "native")
+
+# A region that the port writes itself, inside a copy: from a line
+# "# >>> ported: <what>" to a line "# <<< ported". The test pins the text
+# around it; the region is held to the JAX package by behaviour
+# (tests/test_torch_pipeline.py for parallel/pipeline.py).
+_OWN_REGION = re.compile(r"(^[ \t]*# >>> ported: [^\n]*\n).*?(^[ \t]*# <<< ported\n)",
+                         re.S | re.M)
+_OWN = "<the port's own code>\n"
+
+
+def _collapse_own(text: str) -> str:
+    return _OWN_REGION.sub(lambda m: m.group(1) + _OWN + m.group(2), text)
+
 
 _NOT_YET = "a lazy import of a module this slice does not port: it raises, naming its item"
 
@@ -48,7 +64,52 @@ _OWN_FILES = ("the port's own temp_dir (under TMPDIR) and shm prefixes (rtt*): "
 _NUM_GPUS = ("num_gpus raises instead of asking for TPU chips, which no node of the "
              "port has (ROADMAP.md, Queue A item 9)")
 
+_TORCH_STAGE = ("the stage on torch: autograd graphs in place of jax.vjp, an explicit "
+                "gradient accumulator, a torch optimizer from a factory in place of optax, "
+                "and the wire format between stages (HostTensor: a host array, bf16 as its "
+                "uint16 bits, out of band under pickle-5)")
+_DEVICE = ("the stages' device: None is cuda (raises without it); the CPU tests pass "
+           "\"cpu\"")
+
 HUNKS = {
+    "core/channels.py": [
+        ("import struct\nimport threading\n",
+         "import struct\nimport tempfile\nimport threading\n", _OWN_FILES),
+        ('_SHM_DIR = "/dev/shm" if os.path.isdir("/dev/shm") else "/tmp"\n',
+         '_SHM_DIR = "/dev/shm" if os.path.isdir("/dev/shm") else tempfile.gettempdir()\n',
+         _OWN_FILES),
+        ('os.path.join(_SHM_DIR, f"rtchan_{', 'os.path.join(_SHM_DIR, f"rttchan_{',
+         _OWN_FILES),
+    ],
+    "parallel/pipeline.py": [
+        ("Training semantics: forward saves each microbatch's VJP; backward pops\n"
+         "it, accumulates parameter grads; apply() runs the optimizer on the\n"
+         "accumulated (averaged) grads and clears them. Gradients are\n"
+         "mathematically identical to the unpipelined model, which the tests\n"
+         "assert.\n",
+         "Training semantics: forward keeps each microbatch's autograd graph;\n"
+         "backward runs ``torch.autograd.grad`` on it and sums the parameter\n"
+         "grads into an accumulator in arrival order; apply() runs the\n"
+         "optimizer on the accumulated (averaged) grads and clears them.\n"
+         "Gradients are mathematically identical to the unpipelined model, which\n"
+         "the tests assert. Activations and gradients cross between stages as\n"
+         "host arrays (:class:`HostTensor`), copied off one card and onto the\n"
+         "next.\n", _TORCH_STAGE),
+        ("from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple\n\n"
+         "import ray_tpu_torch\n",
+         "import warnings\n"
+         "from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple\n\n"
+         "import numpy as np\nimport torch\n\nimport ray_tpu_torch\n", _TORCH_STAGE),
+        (re.compile(r"@ray_tpu_torch\.remote\nclass PipelineStage:\n.*?\n\n"
+                    r"(?=    def transport_info\(self\):)", re.S),
+         "# >>> ported: the wire format between stages, and PipelineStage on torch autograd\n"
+         + _OWN + "    # <<< ported\n\n", _TORCH_STAGE),
+        ("        resources: Optional[Sequence[Dict[str, float]]] = None,\n    ):\n",
+         "        resources: Optional[Sequence[Dict[str, float]]] = None,\n"
+         "        device: Optional[str] = None,\n    ):\n", _DEVICE),
+        ("                    opt_blob,\n                )\n",
+         "                    opt_blob,\n                    device,\n                )\n", _DEVICE),
+    ],
     "utils/config.py": [
         ("import json\nimport os\nimport threading\n",
          "import json\nimport os\nimport tempfile\nimport threading\n", _OWN_FILES),
@@ -69,7 +130,6 @@ HUNKS = {
 # that config.set() or a read of one fails instead of doing nothing. An
 # RT_<NAME> variable of one is ignored, as any unknown one is.
 NOT_PORTED_FLAGS = {
-    "item 3 (pipeline parallelism)": ("pipeline_force_rpc_channels",),
     "item 4 (the train backend)": (
         "collective_p2p", "collective_p2p_min_bytes", "collective_chunk_bytes",
         "collective_op_timeout_s", "collective_quant_block", "collective_bucketed",
@@ -166,51 +226,14 @@ for _names in NOT_PORTED_FLAGS.values():
         '                "scheduling); ask for cards with resources={\'GPU\': n}")\n'
         '        num_tpus = opts.get("num_tpus")\n',
         _NUM_GPUS,
-    ), (
-        "        from ray_tpu_torch.dag import ClassMethodNode\n\n"
-        "        return ClassMethodNode(self._handle, self._name, args)\n",
-        "        raise NotImplementedError(\n"
-        "            \"compiled graphs (dag) are not ported: ROADMAP.md, Queue A \"\n"
-        "            \"item 3 (pipeline parallelism)\")\n",
-        _NOT_YET,
     )],
     "core/worker.py": [
-        (
-            "                    import functools\n\n"
-            "                    from ray_tpu_torch import dag as dag_mod\n\n"
-            "                    target = functools.partial(\n"
-            "                        dag_mod._actor_exec_loop, rt.instance\n"
-            "                    )\n",
-            "                    raise NotImplementedError(\n"
-            "                        \"compiled graphs (dag) are not ported: ROADMAP.md, \"\n"
-            "                        \"Queue A item 3 (pipeline parallelism)\")\n",
-            _NOT_YET,
-        ),
-        (
-            "                    import functools\n\n"
-            "                    from ray_tpu_torch.parallel import pipeline as pipeline_mod\n\n"
-            "                    target = functools.partial(\n"
-            "                        pipeline_mod._stage_exec_loop, rt.instance\n"
-            "                    )\n",
-            "                    raise NotImplementedError(\n"
-            "                        \"parallel/pipeline.py is not ported: ROADMAP.md, \"\n"
-            "                        \"Queue A item 3 (pipeline parallelism)\")\n",
-            _NOT_YET + " (and ray_tpu_torch.parallel would import torch into the worker)",
-        ),
         (
             "        from ray_tpu_torch.collective import p2p\n\n"
             "        return p2p.deliver(group, token, tag, payload, poison=poison)\n",
             "        raise NotImplementedError(\n"
             "            \"the host collectives (collective/p2p.py) are not ported: \"\n"
             "            \"ROADMAP.md, Queue A item 4 (the train backend)\")\n",
-            _NOT_YET,
-        ),
-        (
-            "        from ray_tpu_torch.core import channels as channels_mod\n\n"
-            "        return channels_mod.rpc_channel_deliver(chan_id, seq, payload, slots)\n",
-            "        raise NotImplementedError(\n"
-            "            \"core/channels.py is not ported: ROADMAP.md, Queue A item 3 \"\n"
-            "            \"(pipeline parallelism)\")\n",
             _NOT_YET,
         ),
         (
@@ -349,7 +372,7 @@ def _expected(rel: str) -> str:
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_equals_its_source_under_the_rename(rel):
-    got = (ROOT / "ray_tpu_torch" / rel).read_text()
+    got = _collapse_own((ROOT / "ray_tpu_torch" / rel).read_text())
     want = _expected(rel)
     if got != want:
         diff = "".join(difflib.unified_diff(want.splitlines(True), got.splitlines(True),
@@ -370,9 +393,9 @@ def test_runtime_packages_hold_only_copies_and_ported_files():
     """A new file under the runtime's packages is either pinned here or
     named as ported."""
     found = {p.relative_to(ROOT / "ray_tpu_torch").as_posix()
-             for pkg in ("core", "data", "utils", "observability", "accelerators", "native")
+             for pkg in RUNTIME_PACKAGES
              for p in (ROOT / "ray_tpu_torch" / pkg).rglob("*.py")}
-    assert found == {c for c in COPIES if "/" in c} | PORTED
+    assert found == {c for c in COPIES if c.split("/")[0] in RUNTIME_PACKAGES} | PORTED
 
 
 def test_the_port_keeps_its_files_apart_from_the_jax_runtime():
