@@ -116,13 +116,44 @@ Phases (any failure exits non-zero and prints no result):
      test_dag's per-call ratio of the RPC path to a compiled graph; after
      teardown() and shutdown() no stage process, shm segment or channel
      segment is left;
-  9. print the kernel line (one JSON object; beside the contract's keys,
+  9. the Train library: (a) in this process, the oracle: gpt2-medium
+     (BASELINE.md config 3; d 1024, 24 layers, 16 heads) from bench.setup
+     (B 32, T 1024, flash, fused CE, AdamW, seed 0), 6 steps: losses, the
+     median step (CUDA events), peak memory; then the card is freed. (b)
+     ray_tpu_torch.init, then TorchTrainer with ScalingConfig(num_workers=1,
+     use_gpu=True) and FailureConfig(max_failures=1): the train worker joins
+     an NCCL process group of one, builds the same model on a mesh of one
+     (build_mesh, shard_model with gpt_rules), takes the same 6 steps,
+     reports each step's loss and launch counts (read in the worker),
+     writes a checkpoint after step 2 (the model's and AdamW's full state
+     dicts, torch.save into the rank directory, copied by report()), and on
+     the first attempt exits after step 3 (os._exit, the flag claimed in the
+     control store KV). The retry must restore the checkpoint and resume at
+     step 3; steps 3-5's losses within 1e-5 relative of the oracle's
+     (whether bitwise equal is printed); 24 launches of each kernel a step.
+     Prints the worker's median step beside the oracle's, the process
+     group's init, the checkpoint's bytes, write and copy ms, the restore
+     ms, the seconds from the crash to the end of the first resumed step,
+     the worker's peak memory. (c) data-parallel sync through the host
+     collectives: two actors on this card, each with its own CUDA context,
+     in a collective group (backend "cpu"), each takes forward and backward
+     of gpt2-small (phase 3's init) on its 16 rows of batch 0 and calls
+     grad_sync(grads).join() (bucketed, p2p ring, default buckets): the two
+     ranks' reduced leaves bitwise equal, each within SYNC_GRAD_RELNORM_TOL
+     of the full batch's gradients computed in this process, 12 launches of
+     each kernel per rank; prints grad_sync's wall ms, its bytes on the wire
+     (p2p counters) and its hidden fraction. After shutdown() no train
+     worker, controller or actor process of the session is alive, none of
+     its shm or spill files remain, and the run directory (under TMPDIR) is
+     gone;
+ 10. print the kernel line (one JSON object; beside the contract's keys,
      each kernel's SASS counts from phase 1 for both output types, its
-     f32 instantiation's gap, times and ring launches from phase 5, and its
-     launches a step in each stage process from phase 8: every number in it
-     was measured or, for bound_ms, computed in this run, and launches come
+     f32 instantiation's gap, times and ring launches from phase 5, its
+     launches a step in each stage process from phase 8 and in the train
+     worker and a grad_sync rank from phase 9: every number in it was
+     measured or, for bound_ms, computed in this run, and launches come
      from phase 3);
- 10. print the contract line (one JSON object, the last line).
+ 11. print the contract line (one JSON object, the last line).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -1797,6 +1828,407 @@ def pipeline_parallel(card: str, phase3_step_ms: float) -> dict:
             for name in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the Train library. GPT-2-medium trained by TorchTrainer in a train
+# worker, checkpointed, crashed and resumed; data-parallel gradient sync of
+# gpt2-small over the host collectives between two actors on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_MODEL = "gpt2-medium"  # BASELINE.md config 3, at full width and depth (d 1024, 24 layers)
+TRAIN_STEPS = 6
+TRAIN_CKPT_STEP = 2   # the checkpoint is written after step 2: the state steps 0-2 leave
+TRAIN_CRASH_STEP = 3  # the first attempt exits after step 3, before its report
+# Steps 3-5 of the resumed run against the oracle's, relative: the mesh of
+# one is the unsharded step (phase 6), and the checkpoint restores the
+# model and AdamW's state bit for bit.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_NS = "chip_smoke_train"  # the train worker's per-step records in the control store KV
+SYNC_MODEL = "gpt2-small"  # phase 3's init and batch 0, its 32 rows split over the ranks
+SYNC_RANKS = 2
+# Each rank's half-batch gradients, averaged by grad_sync, against the
+# full-batch gradients: each reduced leaf within this relative norm. The
+# two round bf16 products over 16 and 32 rows differently; the gap
+# measured on an H100 (NVIDIA H100 80GB HBM3, 700 W): max 2.476e-3, median
+# 2.309e-3.
+SYNC_GRAD_RELNORM_TOL = 1e-2
+
+
+def _timed(fn) -> tuple:
+    """(fn(), its ms by CUDA events around it)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _wall(fn) -> tuple:
+    """(fn(), its ms on the host clock, the card's queue drained on both sides):
+    for work that is mostly the host's (a checkpoint's write or load)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def train_oracle(card: str) -> tuple:
+    """Phase 9a, in this process: bench.setup(6, model=gpt2-medium) (B 32, T
+    1024, flash, fused CE, AdamW, seed 0, bench.batch_tokens) and its 6 steps.
+    Returns (losses, step ms by CUDA events, peak GiB); frees the card after."""
+    import gc
+
+    from ray_tpu_torch import bench
+
+    gc.collect()
+    torch.cuda.empty_cache()  # what phases 1-8 left cached
+    run = bench.setup(TRAIN_STEPS, model=TRAIN_MODEL)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for tokens in run.batches:
+        loss, t = _timed(lambda: run.step(tokens))
+        losses.append(loss.item())
+        ms.append(t)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train oracle ({TRAIN_MODEL}, B={bench.BATCH}, T={bench.SEQ}, unsharded, this process): "
+          f"losses {', '.join(f'{x:.6f}' for x in losses)}; step ms "
+          f"{', '.join(f'{t:.2f}' for t in ms)}, median of steps 1-{TRAIN_STEPS - 1} "
+          f"{statistics.median(ms[1:]):.2f}; peak memory {peak:.2f} GiB [{card}]", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"the {TRAIN_MODEL} oracle's losses are not finite: {losses}")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, ms, peak
+
+
+def medium_train_fn(config: dict) -> None:
+    """Phase 9b's train function, run by TorchTrainer in a train worker (on
+    the card, in the worker's NCCL process group of one). It builds the
+    oracle's model with bench.setup, placed on a mesh of one (build_mesh,
+    shard_model with gpt_rules), takes the same steps, reports each step's
+    loss and launch counts, writes a checkpoint after TRAIN_CKPT_STEP (the
+    model's and AdamW's full state dicts, torch.save into the rank
+    directory), and on the first attempt exits after TRAIN_CRASH_STEP. Each
+    step's record also goes into the control store KV: the reports of a
+    crashed attempt are lost with it. ``config["staging"]``: where the
+    checkpoint is written before report() copies it into the run."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions,
+        get_model_state_dict,
+        get_optimizer_state_dict,
+        set_model_state_dict,
+        set_optimizer_state_dict,
+    )
+
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.collective import process_group
+    from ray_tpu_torch.core import worker as worker_mod
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh, shard_model
+    from ray_tpu_torch.parallel.sharding import gpt_rules
+
+    ctx = train.get_context()
+    control = worker_mod.global_worker().control
+
+    def record(key: str, rec: dict) -> None:
+        control.call("kv_put", ns=TRAIN_NS, key=key, value=json.dumps(rec).encode(),
+                     retryable=True)
+
+    mesh = build_mesh(MeshConfig(dp=1), device_type="cuda")
+    run = bench.setup(TRAIN_STEPS, model=TRAIN_MODEL,
+                      place=lambda m: shard_model(m, mesh, gpt_rules()))
+    full = StateDictOptions(full_state_dict=True, cpu_offload=True)
+    restore = ctx.get_checkpoint()
+    attempt, start = (1 if restore is not None else 0), 0
+    base = {"attempt": attempt, "pid": os.getpid(), "pg_backend": dist.get_backend(),
+            "pg_world": dist.get_world_size(), "pg_init_ms": process_group.last_init_s * 1e3,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+    if restore is not None:
+        path = os.path.join(restore.rank_dir(ctx.get_world_rank()), "state.pt")
+
+        def load():
+            state = torch.load(path, map_location="cpu", weights_only=True)
+            set_model_state_dict(run.model, state["model"], options=full)
+            set_optimizer_state_dict(run.model, run.optimizer, state["optimizer"], options=full)
+            return state["step"]
+
+        start, base["restore_ms"] = _wall(load)
+        base["restored_from"] = os.path.basename(restore.path)
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(start, TRAIN_STEPS):
+        for counts in (fa.launches, fa.launches_f32):
+            counts.update(dict.fromkeys(counts, 0))
+        loss, ms = _timed(lambda: run.step(run.batches[step]))
+        rec = dict(base, step=step, start=start, loss=loss.item(), ms=ms, wall=time.time(),
+                   launches=dict(fa.launches), launches_f32=dict(fa.launches_f32),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if (step == TRAIN_CRASH_STEP and attempt == 0
+                and control.call("kv_put", ns=TRAIN_NS, key="crash", value=b"1",
+                                 overwrite=False)):
+            rec["crash_wall"] = time.time()
+            record(f"{attempt}/{step}", rec)
+            os._exit(1)
+        ckpt = None
+        if step == TRAIN_CKPT_STEP:
+            staging = tempfile.mkdtemp(dir=config["staging"])
+            target = os.path.join(staging, "state.pt")
+
+            def save():
+                torch.save({"model": get_model_state_dict(run.model, options=full),
+                            "optimizer": get_optimizer_state_dict(run.model, run.optimizer,
+                                                                  options=full),
+                            "step": step + 1}, target)
+
+            _, rec["ckpt_write_ms"] = _wall(save)
+            rec["ckpt_bytes"] = os.path.getsize(target)
+            ckpt = train.Checkpoint.from_directory(staging)
+        t0 = time.perf_counter()
+        train.report({"step": step, "loss": rec["loss"], "launches": rec["launches"],
+                      "attempt": attempt}, checkpoint=ckpt)
+        rec["report_ms"] = (time.perf_counter() - t0) * 1e3
+        if ckpt is not None:
+            shutil.rmtree(staging)
+        record(f"{attempt}/{step}", rec)
+
+
+def _read_records(control) -> dict:
+    out = {}
+    for attempt in (0, 1):
+        for step in range(TRAIN_STEPS):
+            val = control.call("kv_get", ns=TRAIN_NS, key=f"{attempt}/{step}")
+            if val is not None:
+                out[attempt, step] = json.loads(val)
+    return out
+
+
+def check_train_records(card: str, recs: dict, oracle: tuple, cfg) -> dict:
+    """Phase 9b's checks on the train worker's per-step records: where each
+    attempt started and stopped, the losses against the oracle's, the
+    launches; prints the times. Returns each kernel's launches a step, the
+    median over both attempts' steps."""
+    want_losses, want_ms, want_peak = oracle
+    first = [s for (a, s) in recs if a == 0]
+    second = [s for (a, s) in recs if a == 1]
+    if first != list(range(TRAIN_CRASH_STEP + 1)) or "crash_wall" not in recs[0, TRAIN_CRASH_STEP]:
+        fail(f"the first attempt ran steps {first}; expected 0-{TRAIN_CRASH_STEP}, then the crash")
+    if second != list(range(TRAIN_CKPT_STEP + 1, TRAIN_STEPS)):
+        fail(f"the retry ran steps {second}; it should resume at {TRAIN_CKPT_STEP + 1} from the "
+             "checkpoint, not at 0")
+    resumed = recs[1, TRAIN_CKPT_STEP + 1]
+    print(f"train worker: attempt 0 (pid {recs[0, 0]['pid']}) ran steps {first} and exited after "
+          f"step {TRAIN_CRASH_STEP}; attempt 1 (pid {resumed['pid']}) restored "
+          f"{resumed.get('restored_from')} and ran steps {second}; process group "
+          f"{resumed['pg_backend']} of {resumed['pg_world']}, mesh {resumed['mesh']}", flush=True)
+    for (a, s), r in sorted(recs.items()):
+        if r["pg_backend"] != "nccl" or r["pg_world"] != 1:
+            fail(f"attempt {a} ran on a {r['pg_backend']} group of {r['pg_world']}")
+    got = [recs[1, s]["loss"] for s in second]
+    want = want_losses[second[0]:]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    early = [recs[0, s]["loss"] for s in first]
+    print(f"train worker losses: attempt 0 steps 0-{TRAIN_CRASH_STEP} "
+          f"{', '.join(f'{x:.6f}' for x in early)} (bitwise equal to the oracle's: "
+          f"{early == want_losses[:len(early)]}); resumed steps {second[0]}-{second[-1]} "
+          f"{', '.join(f'{x:.6f}' for x in got)} vs the oracle's "
+          f"{', '.join(f'{x:.6f}' for x in want)}: bitwise equal {got == want}, largest relative "
+          f"gap {rel:.3e} (limit {TRAIN_LOSS_RTOL})", flush=True)
+    if not rel <= TRAIN_LOSS_RTOL:
+        fail(f"the resumed losses {got} disagree with the oracle's {want}")
+    design = design_launches(cfg, remat=False)
+    bad = {k: (r["launches"], r["launches_f32"]) for k, r in recs.items()
+           if r["launches"] != design or any(r["launches_f32"].values())}
+    if bad:
+        fail(f"train worker launches {bad}; the design says {design} a step, no f32 instance")
+    warm = [r["ms"] for (a, s), r in sorted(recs.items())
+            if s != (0 if a == 0 else TRAIN_CKPT_STEP + 1)]
+    ckpt = recs[0, TRAIN_CKPT_STEP]
+    crash_s = resumed["wall"] - recs[0, TRAIN_CRASH_STEP]["crash_wall"]
+    peak = max(r["peak_gib"] for r in recs.values())
+    print(f"train worker step (CUDA events, the steps after each attempt's first): median "
+          f"{statistics.median(warm):.2f} ms ({', '.join(f'{t:.2f}' for t in warm)}); first steps "
+          f"{recs[0, 0]['ms']:.2f} and {resumed['ms']:.2f} ms; the oracle's median "
+          f"{statistics.median(want_ms[1:]):.2f} ms; process group init "
+          f"{recs[0, 0]['pg_init_ms']:.1f} and {resumed['pg_init_ms']:.1f} ms (the whole join: "
+          f"the card's selection, rendezvous, init_process_group and the first barrier, which "
+          f"builds NCCL's communicator) [{card}]",
+          flush=True)
+    print(f"checkpoint after step {TRAIN_CKPT_STEP}: {ckpt['ckpt_bytes']} bytes (model and AdamW, "
+          f"full state dicts offloaded to the host), written in {ckpt['ckpt_write_ms']:.0f} ms, "
+          f"copied into checkpoint_*/rank_0 by report() in {ckpt['report_ms']:.0f} ms; restore "
+          f"(torch.load, set_model_state_dict, set_optimizer_state_dict) "
+          f"{resumed['restore_ms']:.0f} ms; crash to the end of the first resumed step "
+          f"{crash_s:.2f} s; worker peak memory {peak:.2f} GiB (the oracle's {want_peak:.2f} GiB) "
+          f"[{card}]", flush=True)
+    return {name: statistics.median(r["launches"][name] for r in recs.values()) for name in KERNELS}
+
+
+def train_library(card: str, oracle: tuple) -> dict:
+    """Phase 9b and 9c. ``oracle``: phase 9a's (losses, step ms, peak GiB).
+    Returns each kernel's launches a step in the train worker and a
+    grad_sync rank."""
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.core import worker as worker_mod
+    from ray_tpu_torch.train import FailureConfig, RunConfig, ScalingConfig, TorchTrainer
+
+    cfg = bench.config(TRAIN_MODEL)
+    base = tempfile.mkdtemp(prefix="chip_smoke_train_")  # under TMPDIR; removed below
+    staging = os.path.join(base, "staging")
+    os.makedirs(staging)
+    free_gb = shutil.disk_usage(base).free / 1e9
+    ray_tpu_torch.init(num_cpus=4, object_store_memory_mb=4096)
+    session = worker_mod.global_worker().session_id
+    try:
+        control = worker_mod.global_worker().control
+        trainer = TorchTrainer(
+            medium_train_fn,
+            train_loop_config={"staging": staging},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="gpt2_medium", storage_path=base,
+                                 failure_config=FailureConfig(max_failures=1)),
+        )
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        if result.error is not None:
+            fail(f"TorchTrainer.fit() returned an error: {result.error}")
+        print(f"TorchTrainer ({TRAIN_MODEL}, B={bench.BATCH}, T={bench.SEQ}, ScalingConfig("
+              f"num_workers=1, use_gpu=True), FailureConfig(max_failures=1)): fit() {fit_s:.1f} s, "
+              f"metrics {result.metrics}; run directory under TMPDIR ({free_gb:.0f} GB free there)",
+              flush=True)
+        if result.metrics is None or result.metrics.get("step") != TRAIN_STEPS - 1:
+            fail(f"the trainer's last metrics are {result.metrics}, expected step {TRAIN_STEPS - 1}")
+        per_step = check_train_records(card, _read_records(control), oracle, cfg)
+        per_rank = grad_sync_two_ranks(card)
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(base, ignore_errors=True)
+
+    # nothing left behind: the train worker, the controller, the sync ranks
+    deadline = time.monotonic() + 30
+    while True:
+        pids, files = session_leftovers(session)
+        if not (pids or files) or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    print(f"after shutdown(): {len(pids)} train worker, controller or actor processes of the "
+          f"session alive, {len(files)} of its shm and spill paths left; run directory removed: "
+          f"{not os.path.exists(base)}", flush=True)
+    if pids or files:
+        fail(f"the Train library's session left processes {pids} and files {files}")
+    return {name: {"train_worker": per_step[name], "grad_sync_rank": per_rank[name]}
+            for name in KERNELS}
+
+
+class _SyncRank:
+    """Phase 9c's actor: one rank of a host-collective group, with its own
+    CUDA context on the card. Wrapped by ray_tpu_torch.remote in the phase."""
+
+    def __init__(self, rank: int, world: int, group: str):
+        self.rank, self.world, self.group = rank, world, group
+
+    def setup(self) -> bool:
+        from ray_tpu_torch import collective
+
+        collective.init_collective_group(self.world, self.rank, backend="cpu",
+                                         group_name=self.group)
+        return True
+
+    def step(self) -> dict:
+        """Forward and backward of phase 3's init on this rank's rows of
+        batch 0, then grad_sync(grads).join(): bucketed, on the p2p ring, the
+        default buckets, averaged."""
+        from ray_tpu_torch import bench, collective
+        from ray_tpu_torch.collective import p2p
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        run = bench.setup(1, model=SYNC_MODEL)
+        rows = run.batches[0].shape[0] // self.world
+        tokens = run.batches[0][self.rank * rows:(self.rank + 1) * rows]
+        for counts in (fa.launches, fa.launches_f32):
+            counts.update(dict.fromkeys(counts, 0))
+        loss = run.model.loss(tokens)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches, launches_f32 = dict(fa.launches), dict(fa.launches_f32)
+        grads = {n: p.grad for n, p in run.model.named_parameters()}
+        collective.barrier(self.group)  # both ranks start the sync together
+        before = p2p.snapshot_stats()
+        t0 = time.perf_counter()
+        handle = collective.grad_sync(grads, group_name=self.group)
+        out = handle.join()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        after = p2p.snapshot_stats()
+        return {"rank": self.rank, "pid": os.getpid(), "rows": rows, "loss": loss.item(),
+                "grads": out, "wall_ms": wall_ms, "stats": dict(handle.stats),
+                "wire": {k: after[k] - before[k] for k in after},
+                "launches": launches, "launches_f32": launches_f32,
+                "grad_bytes": sum(g.numel() * g.element_size() for g in grads.values())}
+
+
+def grad_sync_two_ranks(card: str) -> dict:
+    """Phase 9c (inside phase 9's cluster). Returns each kernel's launches
+    on a rank, the median over the ranks."""
+    import gc
+
+    import ray_tpu_torch
+    from ray_tpu_torch import bench
+
+    cfg = bench.config(SYNC_MODEL)
+    run = bench.setup(1, model=SYNC_MODEL)  # the full batch (B 32) in this process
+    run.model.loss(run.batches[0]).backward()
+    ref = {n: p.grad.detach().cpu() for n, p in run.model.named_parameters()}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    Rank = ray_tpu_torch.remote(_SyncRank)
+    ranks = [Rank.remote(r, SYNC_RANKS, "chip_smoke_sync") for r in range(SYNC_RANKS)]
+    try:
+        ray_tpu_torch.get([r.setup.remote() for r in ranks], timeout=120)
+        outs = ray_tpu_torch.get([r.step.remote() for r in ranks], timeout=600)
+    finally:
+        for r in ranks:
+            ray_tpu_torch.kill(r)
+    a, b = outs[0]["grads"], outs[1]["grads"]
+    same = a.keys() == b.keys() == ref.keys() and all(np.array_equal(a[n], b[n]) for n in a)
+    rel = bench.relnorms({n: torch.tensor(g) for n, g in a.items()}, ref)
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    print(f"grad_sync ({SYNC_MODEL}, {SYNC_RANKS} actors on this card, {outs[0]['rows']} rows of "
+          f"batch 0 each, host collectives: bucketed, p2p ring, default buckets): the ranks' "
+          f"reduced leaves bitwise equal {same}; against the full batch's (B {SYNC_RANKS * outs[0]['rows']}) "
+          f"gradients over {len(rel)} leaves: max relnorm {worst[1]:.3e} ({worst[0]}), median "
+          f"{statistics.median(rel.values()):.3e} (limit {SYNC_GRAD_RELNORM_TOL}); losses "
+          f"{outs[0]['loss']:.6f}, {outs[1]['loss']:.6f} [{card}]", flush=True)
+    for o in outs:
+        print(f"  rank {o['rank']} (pid {o['pid']}): grad_sync of {o['grad_bytes']} bytes of f32 "
+              f"gradients: {o['wall_ms']:.1f} ms wall (copy to the host, bucketing, the ring, "
+              f"unpacking); {o['stats'].get('buckets')} buckets, {o['wire']['bytes_sent']} bytes "
+              f"sent and {o['wire']['bytes_recv']} received on the wire (p2p counters), hidden "
+              f"fraction {o['stats'].get('hidden_frac', float('nan')):.3f}; launches "
+              f"{o['launches']} [{card}]", flush=True)
+    if not same:
+        fail("the two ranks' reduced gradients differ")
+    bad = [n for n, r in rel.items() if not r <= SYNC_GRAD_RELNORM_TOL]
+    if bad:
+        fail(f"reduced gradients of {bad} disagree with the full batch's")
+    design = design_launches(cfg, remat=False)
+    for o in outs:
+        if o["launches"] != design or any(o["launches_f32"].values()):
+            fail(f"rank {o['rank']} launched {o['launches']} (f32 {o['launches_f32']}); the "
+                 f"design says {design}")
+    return {name: statistics.median(o["launches"][name] for o in outs) for name in KERNELS}
+
+
 def main() -> None:
     card = identify()
     sass = build()
@@ -1808,9 +2240,11 @@ def main() -> None:
     sharded_step(card, remat["no remat"])
     pipeline_train(card, (counts, losses, step_ms))
     stages = pipeline_parallel(card, step_ms)
+    trained = train_library(card, train_oracle(card))
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
                     launches=counts[name], **results[name], held_at=["bf16", "f32"],
-                    f32=f32[name], sass=sass[name], pipeline_stage_launches_a_step=stages[name])
+                    f32=f32[name], sass=sass[name], pipeline_stage_launches_a_step=stages[name],
+                    train_library_launches_a_step=trained[name])
                for name in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,8 +4,9 @@
 package is its counterpart for NVIDIA H100 cards: plain tensor code is
 PyTorch, and every Pallas kernel on a ported path is a CUDA C++ kernel
 written by hand for Hopper (``ops/csrc/``), built with nvcc at first use.
-The runtime under it (``core/``, ``data/``, ``utils/``, ``observability/``)
-is a copy of the JAX package's, pinned file by file
+The runtime under it (``core/``, ``data/``, ``utils/``, ``observability/``,
+and the Train library and host collectives in ``train/`` and
+``collective/``) is a copy of the JAX package's, pinned file by file
 (``tests/test_torch_runtime_copy.py``); ``accelerators/`` counts NVIDIA
 cards instead of TPU chips.
 
@@ -13,7 +14,8 @@ The package imports torch and numpy only: nothing of JAX and nothing of
 ``ray_tpu``. Importing it imports no torch either: the core API below is
 torch-free, so a worker process of the cluster pays for torch only when a
 task uses it. The device modules (``models``, ``ops``, ``parallel``,
-``serve``) and ``resolve_device`` load on first use.
+``serve``), ``train``, ``collective`` and ``resolve_device`` load on first
+use.
 
 Public core API, as ``ray_tpu``'s: ``init/remote/get/put/wait/kill/cancel``
 and the rest below.
@@ -46,7 +48,8 @@ from ray_tpu_torch.core.placement import (
 )
 from ray_tpu_torch.core import exceptions
 
-_SUBPACKAGES = ("dag", "data", "models", "ops", "parallel", "serve", "accelerators")
+_SUBPACKAGES = ("dag", "data", "models", "ops", "parallel", "serve", "accelerators",
+                "collective", "train")
 
 
 def __getattr__(name):

@@ -63,6 +63,7 @@ class TrainRun(NamedTuple):
     model: gpt2.GPT2
     step: Callable[[torch.Tensor], torch.Tensor]  # one AdamW step on the model
     batches: List[torch.Tensor]
+    optimizer: torch.optim.Optimizer  # the step's AdamW (its state for a checkpoint)
 
 
 def setup(n_batches: int, model: str = MODEL, batch: int = BATCH, seq: int = SEQ,
@@ -82,7 +83,7 @@ def setup(n_batches: int, model: str = MODEL, batch: int = BATCH, seq: int = SEQ
                             betas=(0.9, 0.999), eps=1e-8)
     batches = [torch.from_numpy(batch_tokens(i, cfg.vocab_size, batch, seq)).to(device)
                for i in range(n_batches)]
-    return TrainRun(cfg, net, gpt2.make_train_step(net, opt), batches)
+    return TrainRun(cfg, net, gpt2.make_train_step(net, opt), batches, opt)
 
 
 def timed_steps(run: TrainRun, batches, warmup: int, profile: bool = True) -> tuple:

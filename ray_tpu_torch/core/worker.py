@@ -3049,9 +3049,9 @@ class CoreWorker:
         connection drops; a stale token (destroyed/re-initialized group)
         drops the delivery. ``poison`` carries ring failure propagation
         instead of a payload."""
-        raise NotImplementedError(
-            "the host collectives (collective/p2p.py) are not ported: "
-            "ROADMAP.md, Queue A item 4 (the train backend)")
+        from ray_tpu_torch.collective import p2p
+
+        return p2p.deliver(group, token, tag, payload, poison=poison)
 
     def rpc_chan_push(self, conn, chan_id: str, seq: int, payload,
                       slots: int = 1):

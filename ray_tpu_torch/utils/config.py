@@ -465,12 +465,6 @@ config.define("crash_dir", "", dynamic=True)
 # that config.set() or a read of one fails instead of doing nothing. An
 # RT_<NAME> variable of one is ignored, as any unknown one is.
 NOT_PORTED_FLAGS = {
-    "item 4 (the train backend)": (
-        "collective_p2p", "collective_p2p_min_bytes", "collective_chunk_bytes",
-        "collective_op_timeout_s", "collective_quant_block", "collective_bucketed",
-        "collective_hierarchical", "collective_host_id",
-        "xla_group", "xla_rank", "xla_world",
-    ),
     "item 5 (the serving parts that need the runtime)": (
         "serve_direct_rpc", "serve_disagg", "serve_disagg_timeout_s",
         "serve_autoscale_interval_s", "serve_autoscale_window_s",

@@ -8,8 +8,9 @@ that the copy did not follow: either is a porting cost to decide on, not
 to drift into.
 
 What is ported rather than copied (the recompute engine, the GPU probe in
-``accelerators/``, ``ray_tpu_torch/__init__.py``, ``bench.py``, and the
-marked region of ``parallel/pipeline.py`` that holds ``PipelineStage``) is
+``accelerators/``, the train backend's process group in
+``collective/process_group.py``, ``ray_tpu_torch/__init__.py``,
+``bench.py``, and the marked region of ``parallel/pipeline.py`` that holds ``PipelineStage``) is
 held to the JAX package by behaviour, in the other ``test_torch_*`` files.
 """
 
@@ -37,11 +38,15 @@ core/api.py core/cluster_utils.py core/device_objects.py core/channels.py
 dag.py parallel/pipeline.py
 data/__init__.py data/block.py data/logical.py data/datasource.py data/executor.py
 data/iterator.py data/dataset.py
+collective/__init__.py collective/collective.py collective/p2p.py collective/bucketed.py
+train/__init__.py train/config.py train/checkpoint.py train/context.py train/worker_group.py
+train/controller.py train/trainer.py
 """.split()
 
 # Files of the runtime packages that are written for the port, not copied.
-PORTED = {"accelerators/__init__.py", "accelerators/gpu.py"}
-RUNTIME_PACKAGES = ("core", "data", "utils", "observability", "accelerators", "native")
+PORTED = {"accelerators/__init__.py", "accelerators/gpu.py", "collective/process_group.py"}
+RUNTIME_PACKAGES = ("core", "data", "utils", "observability", "accelerators", "native",
+                    "collective", "train")
 
 # A region that the port writes itself, inside a copy: from a line
 # "# >>> ported: <what>" to a line "# <<< ported". The test pins the text
@@ -56,8 +61,6 @@ def _collapse_own(text: str) -> str:
     return _OWN_REGION.sub(lambda m: m.group(1) + _OWN + m.group(2), text)
 
 
-_NOT_YET = "a lazy import of a module this slice does not port: it raises, naming its item"
-
 # file -> [(text of the renamed source, or a pattern matching it; text of the port; reason)]
 _OWN_FILES = ("the port's own temp_dir (under TMPDIR) and shm prefixes (rtt*): "
               "neither runtime's sweep of stale files matches the other's")
@@ -71,7 +74,200 @@ _TORCH_STAGE = ("the stage on torch: autograd graphs in place of jax.vjp, an exp
 _DEVICE = ("the stages' device: None is cuda (raises without it); the CPU tests pass "
            "\"cpu\"")
 
+_HOST = ("the wire takes host arrays: a torch tensor (either device) is detached and "
+         "copied to the host, bf16 widened to f32 (numpy has none), by _host_array; the "
+         "JAX package's np.asarray of a jax array does that copy itself. What comes back "
+         "is numpy, as in the JAX package; a bf16 leaf's sum comes back as f32, where "
+         "JAX's comes back as ml_dtypes bf16 rounded at each add")
+_TORCH_BACKEND = ("the train backend is torch.distributed (collective/process_group.py), "
+                  "NCCL on cards and gloo on the CPU, where the JAX package's is "
+                  "jax.distributed (collective/xla_group.py); workers ask for GPU, not TPU")
+
 HUNKS = {
+    "collective/__init__.py": [
+        (re.compile(r"TPU-first backend mapping \(SURVEY\.md[^\n]*\n.*?jax\.distributed\.initialize "
+                    r"and then build a global mesh\.\n", re.S),
+         "Backend mapping in the port:\n"
+         "  - device collectives are torch.distributed ops over the train\n"
+         "    backend's process group (process_group.py: NCCL on cards, gloo on\n"
+         "    the CPU) and the meshes built over it; this library's ops take\n"
+         "    host arrays and torch tensors, and return numpy arrays;\n"
+         "  - \"cpu\" backend here fills the Gloo role: host-tensor collectives\n"
+         "    between actors, rendezvoused and exchanged through the control store\n"
+         "    KV (the reference rendezvouses NCCLUniqueID through a named store\n"
+         "    actor the same way, nccl_collective_group.py:29-60);\n"
+         "  - the process group's TCP store address is handed out through the\n"
+         "    control store KV (get_coordinator), so every member can call\n"
+         "    torch.distributed.init_process_group and then build a mesh.\n",
+         _TORCH_BACKEND),
+        ("from ray_tpu_torch.collective.xla_group import get_xla_coordinator, xla_coordinator_env\n",
+         "from ray_tpu_torch.collective.process_group import (\n"
+         "    coordinator_env,\n    get_coordinator,\n    initialize_process_group,\n)\n",
+         _TORCH_BACKEND),
+        ('    "get_xla_coordinator",\n', '    "get_coordinator",\n', _TORCH_BACKEND),
+        ('    "xla_coordinator_env",\n',
+         '    "coordinator_env",\n    "initialize_process_group",\n', _TORCH_BACKEND),
+    ],
+    "collective/collective.py": [
+        ("class ReduceOp:\n",
+         "def _host_array(x) -> np.ndarray:\n"
+         "    \"\"\"``x`` as a host array for the wire. A torch tensor, on either\n"
+         "    device, is detached and copied to the host (a copy on the CPU too:\n"
+         "    its owner may write into it while a bucket is on the wire), bf16\n"
+         "    widened to f32; the tensor itself stays where it is. Anything else\n"
+         "    goes through np.asarray, as in the JAX package.\"\"\"\n"
+         "    import sys\n\n"
+         "    torch = sys.modules.get(\"torch\")  # no tensor exists before torch is imported\n"
+         "    if torch is not None and isinstance(x, torch.Tensor):\n"
+         "        x = x.detach()\n"
+         "        dtype = torch.float32 if x.dtype == torch.bfloat16 else x.dtype\n"
+         "        return x.to(\"cpu\", dtype, copy=True).numpy()\n"
+         "    return np.asarray(x)\n\n\n"
+         "class ReduceOp:\n", _HOST),
+        ("    arr = np.ascontiguousarray(np.asarray(tensor))\n    t0 = time.monotonic()\n"
+         "    tag = _next_tag(group, \"allreduce\")\n",
+         "    arr = np.ascontiguousarray(_host_array(tensor))\n    t0 = time.monotonic()\n"
+         "    tag = _next_tag(group, \"allreduce\")\n", _HOST),
+        ("        out = p2p.ring_allgather(pg, np.asarray(tensor), tag,\n",
+         "        out = p2p.ring_allgather(pg, _host_array(tensor), tag,\n", _HOST),
+        ("        parts = _exchange(group, serialization.pack(np.asarray(tensor)),",
+         "        parts = _exchange(group, serialization.pack(_host_array(tensor)),", _HOST),
+        ("    arr = np.asarray(tensor)\n    t0 = time.monotonic()\n"
+         "    tag = _next_tag(group, \"reducescatter\")\n",
+         "    arr = _host_array(tensor)\n    t0 = time.monotonic()\n"
+         "    tag = _next_tag(group, \"reducescatter\")\n", _HOST),
+        ("        arr = np.asarray(tensor) if group.rank == src_rank else None\n",
+         "        arr = _host_array(tensor) if group.rank == src_rank else None\n", _HOST),
+        ("            serialization.pack(np.asarray(tensor))\n",
+         "            serialization.pack(_host_array(tensor))\n", _HOST),
+        ("    arr = np.ascontiguousarray(np.asarray(tensor))\n    t0 = time.monotonic()\n"
+         "    tag = _p2p_tag(group, group.rank, dst_rank)\n",
+         "    arr = np.ascontiguousarray(_host_array(tensor))\n    t0 = time.monotonic()\n"
+         "    tag = _p2p_tag(group, group.rank, dst_rank)\n", _HOST),
+    ],
+    "collective/bucketed.py": [
+        ("    closed = packer.add_leaves([np.asarray(x) for x in leaves])\n",
+         "    closed = packer.add_leaves([coll_mod._host_array(x) for x in leaves])\n", _HOST),
+        ("        arrs = [np.asarray(x) for x in leaves]\n",
+         "        arrs = [coll_mod._host_array(x) for x in leaves]\n", _HOST),
+    ],
+    "train/__init__.py": [
+        ("Parity: ray.train v2 (reference python/ray/train/v2/) with JAX/TPU as the\n"
+         "first-class backend: JaxTrainer spawns one worker actor per host, wires\n"
+         "jax.distributed + mesh env, and the train loop uses ray_tpu_torch.parallel for\n"
+         "dp/fsdp/tp/cp sharding.\n",
+         "Parity: ray.train v2 (reference python/ray/train/v2/) with torch on NVIDIA\n"
+         "cards as the backend: TorchTrainer spawns one worker actor per card, joins\n"
+         "them into one torch.distributed process group (NCCL; gloo on the CPU), and\n"
+         "the train loop uses ray_tpu_torch.parallel for dp/fsdp/tp sharding.\n",
+         _TORCH_BACKEND),
+        ("from ray_tpu_torch.train.trainer import DataParallelTrainer, JaxTrainer\n",
+         "from ray_tpu_torch.train.trainer import DataParallelTrainer, TorchTrainer\n",
+         _TORCH_BACKEND),
+        ('    "JaxTrainer",\n', '    "TorchTrainer",\n', _TORCH_BACKEND),
+    ],
+    "train/config.py": [
+        ("with TPU-first fields: resources are TPU chips + slice topology instead of\n"
+         "GPUs; one worker = one host = N chips (SURVEY.md §7 hard part e).\n",
+         "with GPU fields: use_gpu and gpus_per_worker ask for cards (the\n"
+         "cluster's GPU resource); one worker = one process = its cards.\n",
+         _TORCH_BACKEND),
+        ("    use_tpu: bool = False\n", "    use_gpu: bool = False\n", _TORCH_BACKEND),
+        ("    tpu_chips_per_worker: int = 0\n", "    gpus_per_worker: int = 0\n", _TORCH_BACKEND),
+        ("        if self.use_tpu and self.tpu_chips_per_worker:\n"
+         "            res.setdefault(\"TPU\", float(self.tpu_chips_per_worker))\n",
+         "        if self.use_gpu and self.gpus_per_worker:\n"
+         "            res.setdefault(\"GPU\", float(self.gpus_per_worker))\n", _TORCH_BACKEND),
+    ],
+    "train/worker_group.py": [
+        ("bundles :384-399) with the TPU worker model: one worker = one host = all\n"
+         "its chips (JaxTrainer behavior, SURVEY.md §7 hard part e).\n",
+         "bundles :384-399) with the torch worker model: one worker = one process,\n"
+         "one rank of the process group, with its cards (GPU resources).\n",
+         _TORCH_BACKEND),
+        (re.compile(r"        # Multi-host TPU: join this worker into the group's JAX runtime\n"
+                    r".*?            initialize_xla_group\(\n.*?            \)\n", re.S),
+         "        # Join this worker into the group's torch.distributed process\n"
+         "        # group before the train fn runs (parity: reference TorchConfig\n"
+         "        # _setup_torch_process_group, train/torch/config.py). RT_XLA_*\n"
+         "        # arrive via apply_env() on this actor; the dynamic flags re-read\n"
+         "        # the process env on each access. Init failures propagate.\n"
+         "        if config.xla_group:\n"
+         "            from ray_tpu_torch.collective.process_group import (\n"
+         "                BACKEND_ENV,\n"
+         "                initialize_process_group,\n"
+         "            )\n\n"
+         "            initialize_process_group(\n"
+         "                config.xla_group,\n"
+         "                int(config.xla_rank),\n"
+         "                int(config.xla_world),\n"
+         "                os.environ[BACKEND_ENV],\n"
+         "            )\n", _TORCH_BACKEND),
+        ('                num_tpus=res.get("TPU", 0) or None,\n',
+         '                resources={"GPU": res["GPU"]} if res.get("GPU") else None,\n',
+         _TORCH_BACKEND),
+    ],
+    "train/controller.py": [
+        ("        use_tpu: bool,\n        chips_per_worker: int,\n",
+         "        use_gpu: bool,\n        gpus_per_worker: int,\n", _TORCH_BACKEND),
+        ("                    wg, group_name, use_tpu, chips_per_worker,\n",
+         "                    wg, group_name, use_gpu, gpus_per_worker,\n", _TORCH_BACKEND),
+        (re.compile(r"                           use_tpu: bool, chips_per_worker: int,\n"
+                    r".*?\n        wg\.setup_collectives\(group_name\)\n", re.S),
+         "                           use_gpu: bool, gpus_per_worker: int,\n"
+         "                           n: Optional[int] = None) -> None:\n"
+         "        \"\"\"The torch backend (the JAX package's JaxBackend equivalent;\n"
+         "        reference train/torch/config.py): CPU mode hides the cards from\n"
+         "        the workers, which run torch on the CPU with no process group; GPU\n"
+         "        mode hands every worker the RT_XLA_* env of one torch.distributed\n"
+         "        process group, joined before the train fn runs: NCCL when each\n"
+         "        worker has a card (gpus_per_worker >= 1), else gloo on the CPU.\"\"\"\n"
+         "        from ray_tpu_torch.collective.process_group import BACKEND_ENV\n\n"
+         "        if n is None:\n"
+         "            n = self.scaling.num_workers\n"
+         "        if not use_gpu:\n"
+         "            envs = [{\"CUDA_VISIBLE_DEVICES\": \"\"} for _ in range(n)]\n"
+         "            wg.apply_env(envs)\n"
+         "        else:\n"
+         "            backend = \"nccl\" if gpus_per_worker >= 1 else \"gloo\"\n"
+         "            envs = [\n"
+         "                {\n"
+         "                    \"RT_XLA_GROUP\": group_name,\n"
+         "                    \"RT_XLA_RANK\": str(i),\n"
+         "                    \"RT_XLA_WORLD\": str(n),\n"
+         "                    BACKEND_ENV: backend,\n"
+         "                }\n"
+         "                for i in range(n)\n"
+         "            ]\n"
+         "            wg.apply_env(envs)\n"
+         "        wg.setup_collectives(group_name)\n", _TORCH_BACKEND),
+    ],
+    "train/trainer.py": [
+        ('"""DataParallelTrainer / JaxTrainer — the user-facing Train API.\n\n'
+         "Parity: DataParallelTrainer.fit (reference python/ray/train/v2/api/\n"
+         "data_parallel_trainer.py:157) and JaxTrainer (train/v2/jax/jax_trainer.py:20).\n",
+         '"""DataParallelTrainer / TorchTrainer — the user-facing Train API.\n\n'
+         "Parity: DataParallelTrainer.fit (reference python/ray/train/v2/api/\n"
+         "data_parallel_trainer.py:157) and TorchTrainer (train/torch/torch_trainer.py),\n"
+         "the counterpart of the JAX package's JaxTrainer.\n", _TORCH_BACKEND),
+        ("                    self.scaling_config.use_tpu,\n"
+         "                    self.scaling_config.tpu_chips_per_worker,\n",
+         "                    self.scaling_config.use_gpu,\n"
+         "                    self.scaling_config.gpus_per_worker,\n", _TORCH_BACKEND),
+        (re.compile(r"class JaxTrainer\(DataParallelTrainer\):\n.*\Z", re.S),
+         "class TorchTrainer(DataParallelTrainer):\n"
+         "    \"\"\"Data-parallel torch training: one worker per card, the workers\n"
+         "    joined into one NCCL process group under ``use_gpu`` (on the CPU,\n"
+         "    without a process group, when not).\n\n"
+         "    Parity: reference TorchTrainer; the JAX package's JaxTrainer, whose\n"
+         "    ``tpu_chips_per_worker`` defaults to 1 under ``use_tpu`` as\n"
+         "    ``gpus_per_worker`` does here under ``use_gpu``.\"\"\"\n\n"
+         "    def __init__(self, *args, **kwargs):\n"
+         "        super().__init__(*args, **kwargs)\n"
+         "        sc = self.scaling_config\n"
+         "        if sc.use_gpu and not sc.gpus_per_worker:\n"
+         "            sc.gpus_per_worker = 1\n", _TORCH_BACKEND),
+    ],
     "core/channels.py": [
         ("import struct\nimport threading\n",
          "import struct\nimport tempfile\nimport threading\n", _OWN_FILES),
@@ -130,12 +326,6 @@ HUNKS = {
 # that config.set() or a read of one fails instead of doing nothing. An
 # RT_<NAME> variable of one is ignored, as any unknown one is.
 NOT_PORTED_FLAGS = {
-    "item 4 (the train backend)": (
-        "collective_p2p", "collective_p2p_min_bytes", "collective_chunk_bytes",
-        "collective_op_timeout_s", "collective_quant_block", "collective_bucketed",
-        "collective_hierarchical", "collective_host_id",
-        "xla_group", "xla_rank", "xla_world",
-    ),
     "item 5 (the serving parts that need the runtime)": (
         "serve_direct_rpc", "serve_disagg", "serve_disagg_timeout_s",
         "serve_autoscale_interval_s", "serve_autoscale_window_s",
@@ -228,14 +418,6 @@ for _names in NOT_PORTED_FLAGS.values():
         _NUM_GPUS,
     )],
     "core/worker.py": [
-        (
-            "        from ray_tpu_torch.collective import p2p\n\n"
-            "        return p2p.deliver(group, token, tag, payload, poison=poison)\n",
-            "        raise NotImplementedError(\n"
-            "            \"the host collectives (collective/p2p.py) are not ported: \"\n"
-            "            \"ROADMAP.md, Queue A item 4 (the train backend)\")\n",
-            _NOT_YET,
-        ),
         (
             "        import jax\n\n        hosts = []\n",
             "        hosts = []\n",
