@@ -146,14 +146,41 @@ Phases (any failure exits non-zero and prints no result):
      worker, controller or actor process of the session is alive, none of
      its shm or spill files remain, and the run directory (under TMPDIR) is
      gone;
- 10. print the kernel line (one JSON object; beside the contract's keys,
+ 10. the serve deployment, the OpenAI front door over HTTP:
+     ray_tpu_torch.init, serve.start(http_port=0), then
+     serve.llm.deploy of gpt2-small (phase 4's engine and flags, bf16, the
+     seeded init of every replica) on two OpenAI replicas, each with its
+     engine on this card: the seconds from deploy to the first answer; the
+     controller and the proxy have not loaded torch (no libtorch in their
+     /proc maps). Phase 4's 24 requests as ASCII text (64-896 bytes, 8
+     sharing a 512-byte prefix, 64 tokens each, 4 at temperature 0.8) at
+     once over SSE to /v1/completions: every answer's usage counts 64
+     tokens; 4 greedy ones again unary; 4 of one OpenAI user land on one
+     replica; 8 greedy ones one at a time. Every greedy text equals the
+     byte decode of a fresh in-process LLMServer's tokens on the same
+     prompt, or leaves it at a near tie (the reference's top-2 logit gap
+     under GREEDY_MARGIN at the first differing token); the same 8 through
+     a build_llm_deployment handle, held by token id. Then the deployment
+     is replaced by a prefill tier and one decode replica
+     (disaggregated=True): the 8 one at a time and the 24 at once, their
+     greedy texts held the same way; every KV shipment is 2 x L x n x H x
+     Dh x 4 bytes (the prefill spans). The engines' TTFT histogram counts
+     every request, the page gauges are set, the token counter covers the
+     tokens returned (the workers' metrics, read over the per-process RPC
+     the JAX package's state API reads). Prints TTFT p50 and p95 at the
+     first SSE event and output tokens/s of both deployments beside phase
+     4's, the PREFILL and TRANSFER spans' ms, and the TTFT the shipment
+     adds one request at a time. After serve.shutdown() and shutdown() no
+     replica, controller or proxy process of the session is alive and
+     none of its shm or spill files remain;
+ 11. print the kernel line (one JSON object; beside the contract's keys,
      each kernel's SASS counts from phase 1 for both output types, its
      f32 instantiation's gap, times and ring launches from phase 5, its
      launches a step in each stage process from phase 8 and in the train
      worker and a grad_sync rank from phase 9: every number in it was
      measured or, for bound_ms, computed in this run, and launches come
      from phase 3);
- 11. print the contract line (one JSON object, the last line).
+ 12. print the contract line (one JSON object, the last line).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -829,7 +856,9 @@ def compare_streams(name_a: str, a: list, name_b: str, b: list, reqs: list, mode
           "equal", flush=True)
 
 
-def serve(card: str) -> None:
+def serve(card: str) -> dict:
+    """Phase 4. Returns the 24 requests' TTFT p50 and p95 (ms) and output
+    tokens/s."""
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.serve import prefix_cache
 
@@ -907,6 +936,8 @@ def serve(card: str) -> None:
     if any(fa.launches.values()):
         fail(f"serving launched flash kernels: {dict(fa.launches)}")
     print(f"serving launched no flash kernel: {dict(fa.launches)}", flush=True)
+    return {"p50": st["ttft_s"]["p50"] * 1e3, "p95": st["ttft_s"]["p95"] * 1e3,
+            "tok_s": n_tok / wall}
 
 
 N_RECOMPUTE = 8  # requests for the recompute engine, at once: one batch of max_batch_size
@@ -2229,18 +2260,472 @@ def grad_sync_two_ranks(card: str) -> dict:
     return {name: statistics.median(o["launches"][name] for o in outs) for name in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the serve deployment, the OpenAI front door over HTTP
+# ---------------------------------------------------------------------------
+
+FRONT_NAME = "openai-llm"  # serve.llm.deploy's default deployment name
+FRONT_REPLICAS = 2
+N_UNARY = 4  # greedy requests also sent unary, after the SSE burst
+N_ONE_BY_ONE = 8  # greedy requests sent one at a time, to each deployment and the handle
+N_PINNED = 4  # requests of one OpenAI user, which must land on one replica
+FRONT_TIMEOUT_S = 300.0
+
+
+def front_text(tokens: list) -> str:
+    """A token list as ASCII text, one printable byte per token: the byte
+    tokenizer reads it back as one token per byte, and prompts that share
+    tokens share text."""
+    return "".join(chr(32 + int(t) % 95) for t in tokens)
+
+
+def front_traffic(vocab: int) -> list:
+    """Phase 4's 24 requests as OpenAI completions (a prompt of 64-896 ASCII
+    bytes, 8 sharing a 512-byte prefix, 64 tokens each, 4 at temperature
+    0.8), in phase 4's order."""
+    return [{"prompt": front_text(r["prompt_tokens"]), "max_tokens": r["max_new_tokens"],
+             "temperature": r["temperature"]} for r in serving_traffic(vocab)]
+
+
+def http_json(addr: str, path: str, body=None, timeout: float = FRONT_TIMEOUT_S) -> tuple:
+    """(status, JSON body) of a POST (a GET without ``body``)."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(f"http://{addr}{path}", data=data,
+                                 method="POST" if data else "GET",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def sse_post(addr: str, path: str, body: dict, headers=None,
+             timeout: float = FRONT_TIMEOUT_S) -> tuple:
+    """POST ``body`` with stream=true -> (status, content type, the events'
+    data strings, seconds from the request to the first event)."""
+    import http.client
+
+    host, port = addr.rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=json.dumps({**body, "stream": True}),
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        events, first = [], None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if line.startswith(b"data: "):
+                if first is None:
+                    first = time.perf_counter() - t0
+                events.append(line[len(b"data: "):].rstrip(b"\n").decode())
+        return resp.status, resp.getheader("Content-Type"), events, first
+    finally:
+        conn.close()
+
+
+def sse_completion(events: list) -> tuple:
+    """(text, completion_tokens) of a streamed /v1/completions answer."""
+    if not events or events[-1] != "[DONE]":
+        fail(f"an SSE stream did not end with [DONE]: {events[-3:]}")
+    chunks = [json.loads(e) for e in events[:-1]]
+    if "error" in chunks[0]:
+        fail(f"an SSE stream carried an error: {chunks[0]['error']}")
+    return "".join(c["choices"][0]["text"] for c in chunks), chunks[-1]["usage"]["completion_tokens"]
+
+
+def proxy_address(timeout_s: float = 60.0) -> str:
+    from ray_tpu_torch import serve
+
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        addrs = serve.proxy_addresses()
+        if addrs:
+            return addrs[0]
+        time.sleep(0.2)
+    fail("no HTTP proxy came up")
+
+
+def _worker_processes() -> dict:
+    """{address: pid} of the node's worker processes (the driver's node)."""
+    from ray_tpu_torch.core import worker as worker_mod
+
+    st = worker_mod.global_worker().agent.call("get_state", timeout_s=10.0)
+    return {w["address"]: w["pid"] for w in st["workers"].values()}
+
+
+def _each_worker(method: str, **kw) -> list:
+    """``method``'s reply from every worker process of the node, over the
+    per-process RPC that the JAX package's state API reads (state.py is not
+    ported)."""
+    from ray_tpu_torch.utils.rpc import RpcClient, RpcError
+
+    replies = []
+    for addr in _worker_processes():
+        client = RpcClient(addr, name="chip-smoke")
+        try:
+            replies.append(client.call(method, timeout_s=10.0, **kw))
+        except RpcError:
+            continue  # a worker that exited since the listing
+        finally:
+            client.close()
+    return replies
+
+
+def cluster_metrics() -> dict:
+    """The workers' metric snapshots merged as the JAX package's
+    state.cluster_metrics merges them: counters and histograms summed,
+    gauges kept per series. {name: {"kind", "series", "boundaries"}}."""
+    merged, seen = {}, set()
+    for reply in _each_worker("get_metrics"):
+        if reply["token"] in seen:
+            continue
+        seen.add(reply["token"])
+        for name, m in reply["metrics"].items():
+            cur = merged.setdefault(name, {"kind": m["kind"], "series": {},
+                                           "boundaries": m.get("boundaries")})
+            for key, v in m["series"].items():
+                if m["kind"] == "gauge":
+                    cur["series"][key] = v
+                elif m["kind"] == "counter":
+                    cur["series"][key] = cur["series"].get(key, 0.0) + v
+                else:
+                    prev = cur["series"].setdefault(key, {"count": 0, "sum": 0.0})
+                    prev["count"] += v["count"]
+                    prev["sum"] += v["sum"]
+    return merged
+
+
+def request_spans() -> list:
+    """Every serve request span in the workers' event rings."""
+    spans = []
+    for reply in _each_worker("get_task_events", types=["request"]):
+        spans.extend(reply["events"] if isinstance(reply, dict) else reply)
+    return spans
+
+
+def serve_processes() -> dict:
+    """{actor name: pid} of the serve controller, proxies and replicas."""
+    from ray_tpu_torch.core import worker as worker_mod
+
+    pids = _worker_processes()
+    return {a["name"]: pids[a["worker_address"]]
+            for a in worker_mod.global_worker().control.call("list_actors", timeout_s=10.0)
+            if a["state"] == "ALIVE" and (a["name"] or "").startswith("SERVE_")
+            and a["worker_address"] in pids}
+
+
+def torch_loaded(pid: int) -> bool:
+    """Whether process ``pid`` has loaded torch: importing it maps libtorch."""
+    return "libtorch" in Path(f"/proc/{pid}/maps").read_text()
+
+
+def top2_gap(model, cfg, prompt: list, gen: list, j: int) -> float:
+    """The gap between the two largest logits of GPT2.forward at the
+    position that predicts ``gen[j]``, teacher-forced on prompt + gen[:j]."""
+    fwd = dataclasses.replace(cfg, remat=False)
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        logits = model(torch.tensor([prompt + gen[:j]], device=dev), fwd)[0, -1, :cfg.vocab_size]
+    top = logits.float().topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def text_divergence(tok, ref: list, text: str) -> tuple:
+    """Where ``text`` leaves the byte decode of ``ref``: (the tokens of the
+    first character that differs, as a range of indices into ``ref``), or
+    None when the text is the decode. The incremental decoder emits a
+    character at the token that completes it, so the first differing token
+    lies among those since the last character that still agreed."""
+    if text == tok.decode(ref):
+        return None
+    dec, emitted, since = tok.incremental_decoder(), "", 0
+    for j, t in enumerate(ref):
+        piece = dec.feed(t)
+        if not piece:
+            continue
+        if not text.startswith(emitted + piece):
+            return range(since, j + 1)
+        emitted += piece
+        since = j + 1
+    return range(since, len(ref))
+
+
+def check_front_texts(what: str, texts: list, refs: list, prompts: list, tok, model,
+                      cfg) -> int:
+    """Each text equals the byte decode of its reference tokens, or leaves
+    it at a near tie: the reference's top-2 logit gap under GREEDY_MARGIN
+    at the first differing token. Returns the texts equal."""
+    equal = 0
+    for text, ref, prompt in zip(texts, refs, prompts):
+        where = text_divergence(tok, ref, text)
+        if where is None:
+            equal += 1
+            continue
+        gaps = [top2_gap(model, cfg, prompt, ref, j) for j in where if j < len(ref)]
+        print(f"  {what}: prompt of {len(prompt)} tokens leaves the reference's text at "
+              f"tokens {list(where)}: reference top-2 gaps {[f'{g:.3e}' for g in gaps]} "
+              f"(limit {GREEDY_MARGIN})", flush=True)
+        if not gaps or min(gaps) > GREEDY_MARGIN:
+            fail(f"{what}: a text leaves the in-process engine's at no near tie")
+    print(f"{what}: {equal} of {len(texts)} texts equal to the in-process engine's decode",
+          flush=True)
+    return equal
+
+
+def _percentile_ms(xs: list, q: float) -> float:
+    return float(np.percentile(xs, q)) * 1e3
+
+
+def front_burst(addr: str, traffic: list) -> tuple:
+    """Every request of ``traffic`` at once over SSE -> (texts, client
+    TTFTs, output tokens/s); each must answer its max_tokens."""
+    def one(r):
+        st, ctype, events, ttft = sse_post(addr, "/v1/completions", {"model": SERVE_MODEL, **r})
+        if st != 200 or ctype != "text/event-stream":
+            fail(f"an SSE completion answered {st} {ctype}")
+        text, n = sse_completion(events)
+        if n != r["max_tokens"]:
+            fail(f"usage.completion_tokens is {n}, asked {r['max_tokens']}")
+        return text, ttft, n
+
+    with ThreadPoolExecutor(max_workers=len(traffic)) as pool:
+        t0 = time.perf_counter()
+        outs = list(pool.map(one, traffic))
+        wall = time.perf_counter() - t0
+    return [o[0] for o in outs], [o[1] for o in outs], sum(o[2] for o in outs) / wall
+
+
+def one_by_one(addr: str, reqs: list) -> tuple:
+    """``reqs`` over SSE one at a time -> (texts, client TTFTs)."""
+    texts, ttfts = [], []
+    for r in reqs:
+        st, _ctype, events, ttft = sse_post(addr, "/v1/completions", {"model": SERVE_MODEL, **r})
+        if st != 200:
+            fail(f"an SSE completion answered {st}")
+        texts.append(sse_completion(events)[0])
+        ttfts.append(ttft)
+    return texts, ttfts
+
+
+def check_engine_metrics(what: str, n_requests: int, n_tokens: int, card: str) -> dict:
+    """The engines' series after a deployment's traffic (its replicas
+    alive): TTFT counted for every request, the page gauges set, tokens at
+    least those returned."""
+    mx = cluster_metrics()
+    ttft = sum(s["count"] for s in mx.get("rt_serve_ttft_s", {}).get("series", {}).values())
+    itl = sum(s["count"] for s in mx.get("rt_serve_inter_token_s", {}).get("series", {}).values())
+    tokens = sum(mx.get("rt_serve_tokens_generated_total", {}).get("series", {}).values())
+    pages = {name: mx.get(f"rt_serve_kv_pages_{name}", {}).get("series", {})
+             for name in ("total", "occupied", "prefix_resident")}
+    print(f"{what} engines' metrics: rt_serve_ttft_s count {ttft} (requests {n_requests}), "
+          f"rt_serve_inter_token_s count {itl}, rt_serve_tokens_generated_total {tokens:.0f} "
+          f"(tokens returned {n_tokens}), rt_serve_kv_pages_total "
+          f"{sorted(pages['total'].values())}, occupied {sorted(pages['occupied'].values())}, "
+          f"prefix_resident {sorted(pages['prefix_resident'].values())} [{card}]", flush=True)
+    if ttft < n_requests or tokens < n_tokens or not itl or not all(pages.values()):
+        fail(f"{what}: the engines' serving metrics are missing or short")
+    return mx
+
+
+def serve_front_door(card: str, phase4: dict) -> None:
+    """Phase 10. ``phase4``: the in-process engine's TTFT p50/p95 (ms) and
+    output tokens/s from phase 4."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core import worker as worker_mod
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.serve import llm
+    from ray_tpu_torch.serve.openai.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    cfg = gpt2.CONFIGS[SERVE_MODEL]
+    traffic = front_traffic(cfg.vocab_size)
+    greedy = [r for r in traffic if r["temperature"] == 0]
+    models = {SERVE_MODEL: llm.LLMConfig(model_id=SERVE_MODEL, max_batch_size=SERVE_BATCH)}
+    ray_tpu_torch.init(num_cpus=4)
+    session = worker_mod.global_worker().session_id
+    try:
+        serve.start(http_port=0)
+        # (a) two OpenAI replicas, each with its engine on the card
+        t0 = time.perf_counter()
+        llm.deploy(models, name=FRONT_NAME, num_replicas=FRONT_REPLICAS)
+        addr = proxy_address()
+        st, body = http_json(addr, "/v1/completions", {"model": SERVE_MODEL, "prompt": "hello",
+                                                         "max_tokens": 1, "temperature": 0})
+        startup_s = time.perf_counter() - t0
+        if st != 200:
+            fail(f"the first completion answered {st}: {body}")
+        print(f"serve.llm.deploy({SERVE_MODEL}, {FRONT_REPLICAS} replicas) to the first answer "
+              f"over HTTP: {startup_s:.2f} s [{card}]", flush=True)
+        procs = serve_processes()
+        plain = {n: pid for n, pid in procs.items() if not n.startswith("SERVE_REPLICA")}
+        loaded = {n: torch_loaded(pid) for n, pid in plain.items()}
+        print(f"serve processes: {sorted(procs)}; torch loaded in the controller and proxies: "
+              f"{loaded}", flush=True)
+        if len(plain) < 2 or any(loaded.values()):
+            fail("the serve controller or a proxy imported torch")
+        # every replica loads its engine at its first request: warm both
+        fingerprints, users = set(), 0
+        while len(fingerprints) < FRONT_REPLICAS and users < 64:
+            st, body = http_json(addr, "/v1/completions", {
+                "model": SERVE_MODEL, "prompt": "warm", "max_tokens": 1, "temperature": 0,
+                "user": f"warm-{users}"})
+            fingerprints.add(body.get("system_fingerprint"))
+            users += 1
+        if len(fingerprints) < FRONT_REPLICAS:
+            fail(f"{users} sessions reached only {fingerprints}")
+
+        # (b) phase 4's mix at once over SSE, then 4 greedy ones unary
+        texts, ttfts, rate = front_burst(addr, traffic)
+        mono = {"p50": _percentile_ms(ttfts, 50), "p95": _percentile_ms(ttfts, 95), "tok_s": rate}
+        unary_idx = [i for i, r in enumerate(traffic) if r["temperature"] == 0][:N_UNARY]
+        unary = []
+        for i in unary_idx:
+            st, body = http_json(addr, "/v1/completions", {"model": SERVE_MODEL, **traffic[i]})
+            if st != 200 or body["usage"]["completion_tokens"] != traffic[i]["max_tokens"]:
+                fail(f"a unary completion answered {st}: {body.get('usage')}")
+            unary.append(body["choices"][0]["text"])
+        pinned = set()
+        for _ in range(N_PINNED):
+            st, body = http_json(addr, "/v1/completions", {
+                "model": SERVE_MODEL, "prompt": "pin me", "max_tokens": 1, "temperature": 0,
+                "user": "alice"})
+            pinned.add(body["system_fingerprint"])
+        print(f"user 'alice' answered by {pinned} ({N_PINNED} requests); the warm-up's sessions "
+              f"by {sorted(fingerprints)}", flush=True)
+        if len(pinned) != 1:
+            fail("one OpenAI user reached more than one replica")
+        seq_texts, seq_ttfts = one_by_one(addr, greedy[:N_ONE_BY_ONE])
+
+        # the reference: a fresh in-process engine on the same seeded init
+        ref_srv = make_server()
+        try:
+            model = ref_srv.model
+            prompts = [tok.encode(r["prompt"]) for r in greedy]
+            with ThreadPoolExecutor(max_workers=len(prompts)) as pool:
+                refs = list(pool.map(lambda p: ask(ref_srv, {
+                    "prompt_tokens": p, "max_new_tokens": MAX_NEW, "temperature": 0.0}), prompts))
+            burst_greedy = [t for t, r in zip(texts, traffic) if r["temperature"] == 0]
+            check_front_texts("the SSE burst (greedy) vs the in-process engine", burst_greedy,
+                              refs, prompts, tok, model, cfg)
+            # a unary text equals its streamed one, or both leave the
+            # reference at near ties (the burst's check above)
+            same = sum(u == texts[i] for u, i in zip(unary, unary_idx))
+            print(f"unary vs streamed: {same} of {len(unary)} texts equal", flush=True)
+            check_front_texts("unary vs the in-process engine", unary, refs[:N_UNARY],
+                              prompts[:N_UNARY], tok, model, cfg)
+            check_front_texts("one at a time (monolithic) vs the in-process engine", seq_texts,
+                              refs[:N_ONE_BY_ONE], prompts[:N_ONE_BY_ONE], tok, model, cfg)
+            n_mono = users + len(traffic) + N_UNARY + N_PINNED + N_ONE_BY_ONE + 1
+            tokens_mono = MAX_NEW * (len(traffic) + N_UNARY + N_ONE_BY_ONE)
+            check_engine_metrics("monolithic", n_mono, tokens_mono, card)
+
+            # token ids through a build_llm_deployment handle
+            handle = serve.run(llm.build_llm_deployment(llm.LLMConfig(
+                model_id=SERVE_MODEL, max_batch_size=SERVE_BATCH)),
+                ready_timeout_s=FRONT_TIMEOUT_S)
+            resps = [handle.remote({"prompt_tokens": p, "max_new_tokens": MAX_NEW,
+                                    "temperature": 0.0}) for p in prompts[:N_ONE_BY_ONE]]
+            got = [r.result(timeout_s=FRONT_TIMEOUT_S)["tokens"] for r in resps]
+            compare_streams("handle", got, "in-process", refs[:N_ONE_BY_ONE],
+                            [{"prompt_tokens": p, "temperature": 0.0}
+                             for p in prompts[:N_ONE_BY_ONE]], model, cfg, near_ties=True)
+            serve.delete(f"llm-{SERVE_MODEL}")
+            serve.delete(FRONT_NAME)
+
+            # (c) a prefill tier and one decode replica
+            t0 = time.perf_counter()
+            llm.deploy(models, name=FRONT_NAME, num_replicas=1, disaggregated=True,
+                       prefill_replicas=1)
+            st, body = http_json(addr, "/v1/completions", {
+                "model": SERVE_MODEL, "prompt": "hello", "max_tokens": 1, "temperature": 0})
+            disagg_startup_s = time.perf_counter() - t0
+            if st != 200:
+                fail(f"the disaggregated deployment's first completion answered {st}: {body}")
+            d_seq_texts, d_seq_ttfts = one_by_one(addr, greedy[:N_ONE_BY_ONE])
+            print(f"one at a time, disaggregated vs monolithic: "
+                  f"{sum(a == b for a, b in zip(d_seq_texts, seq_texts))} of {N_ONE_BY_ONE} "
+                  "texts equal", flush=True)
+            check_front_texts("one at a time (disaggregated) vs the in-process engine",
+                              d_seq_texts, refs[:N_ONE_BY_ONE], prompts[:N_ONE_BY_ONE], tok,
+                              model, cfg)
+            d_texts, d_ttfts, d_rate = front_burst(addr, traffic)
+            check_front_texts("the SSE burst (disaggregated, greedy) vs the in-process engine",
+                              [t for t, r in zip(d_texts, traffic) if r["temperature"] == 0],
+                              refs, prompts, tok, model, cfg)
+        finally:
+            stop_server(ref_srv)
+        n_disagg = 1 + N_ONE_BY_ONE + len(traffic)
+        check_engine_metrics("disaggregated", n_disagg,
+                             MAX_NEW * (N_ONE_BY_ONE + len(traffic)), card)
+        disagg = {"p50": _percentile_ms(d_ttfts, 50), "p95": _percentile_ms(d_ttfts, 95),
+                  "tok_s": d_rate}
+
+        # the KV shipments: every prefill span's bytes are the f32 rows
+        spans = request_spans()
+        pre = [s for s in spans if s["component"] == "prefill"]
+        xfer = [s for s in spans if s["component"] == "transfer"]
+        per_token = 2 * cfg.n_layer * cfg.n_head * cfg.head_dim * 4
+        wrong = [(s["tokens"], s["kv_bytes"]) for s in pre
+                 if s["kv_bytes"] != per_token * s["tokens"]]
+        print(f"KV shipments: {len(pre)} prefill spans, {len(xfer)} transfer spans; bytes = "
+              f"2 x L x n x H x Dh x 4 = {per_token} x n in {len(pre) - len(wrong)} of "
+              f"{len(pre)}; {sum(s['kv_bytes'] for s in pre)} bytes in all", flush=True)
+        if len(pre) < n_disagg or len(xfer) < n_disagg or wrong:
+            fail(f"the KV shipments are missing or of the wrong size: {wrong[:4]}")
+        pre_ms = [s["dur_us"] / 1e3 for s in pre]
+        xfer_ms = [s["dur_us"] / 1e3 for s in xfer]
+        print(f"PREFILL spans: p50 {statistics.median(pre_ms):.2f} ms, max {max(pre_ms):.2f} ms; "
+              f"TRANSFER spans: p50 {statistics.median(xfer_ms):.2f} ms, max {max(xfer_ms):.2f} "
+              f"ms [{card}]", flush=True)
+        added = _percentile_ms(d_seq_ttfts, 50) - _percentile_ms(seq_ttfts, 50)
+        print(f"TTFT one request at a time ({N_ONE_BY_ONE} greedy): monolithic p50 "
+              f"{_percentile_ms(seq_ttfts, 50):.2f} ms, disaggregated p50 "
+              f"{_percentile_ms(d_seq_ttfts, 50):.2f} ms: the KV shipment adds {added:.2f} ms; "
+              f"disaggregated deploy to the first answer {disagg_startup_s:.2f} s [{card}]",
+              flush=True)
+        for what, m in (("in-process engine (phase 4)", phase4),
+                        (f"front door, {FRONT_REPLICAS} replicas", mono),
+                        ("front door, prefill tier + 1 decode replica", disagg)):
+            print(f"{len(traffic)} requests at once, {what}: TTFT p50 {m['p50']:.2f} ms, p95 "
+                  f"{m['p95']:.2f} ms, {m['tok_s']:.1f} output tokens/s [{card}]", flush=True)
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+
+    deadline = time.monotonic() + 30
+    while True:
+        pids, files = session_leftovers(session)
+        if not (pids or files) or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    print(f"after serve.shutdown() and shutdown(): {len(pids)} replica, controller or proxy "
+          f"processes of the session alive, {len(files)} of its shm and spill paths left",
+          flush=True)
+    if pids or files:
+        fail(f"the serve session left processes {pids} and files {files}")
+
+
 def main() -> None:
     card = identify()
     sass = build()
     results = check_kernels(card)
     counts, losses, step_ms = train(card)
     remat = remat_policies(card)
-    serve(card)
+    phase4 = serve(card)
     f32 = parallel(card)
     sharded_step(card, remat["no remat"])
     pipeline_train(card, (counts, losses, step_ms))
     stages = pipeline_parallel(card, step_ms)
     trained = train_library(card, train_oracle(card))
+    serve_front_door(card, phase4)
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
                     launches=counts[name], **results[name], held_at=["bf16", "f32"],
                     f32=f32[name], sass=sass[name], pipeline_stage_launches_a_step=stages[name],

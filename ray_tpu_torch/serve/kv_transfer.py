@@ -1,20 +1,34 @@
-"""The prefill tier of disaggregated serving (counterpart of
-``ray_tpu/serve/kv_transfer.py``'s ``channel_capacity`` and
-``PrefillEngine``).
+"""Disaggregated prefill/decode: the prefill tier and the KV handoff
+(counterpart of ``ray_tpu/serve/kv_transfer.py``).
+
+Prefill and decode run as separate deployments. The decode side (the
+OpenAI ingress, ``serve/openai/ingress.py``) mints an RPC channel handle
+whose reader is its own worker, calls the prefill deployment
+(``PrefillServer``) with it, and the prefill replica ships the prompt's
+KV back through ``write_value`` (the arrays travel as out-of-band frame
+segments, ``core/channels.py``). The trace id rides every leg: the
+prefill replica stamps a PREFILL span, the decode side a TRANSFER span,
+and ``serve_kv_transfer_bytes`` counts what was shipped.
 
 A ``PrefillEngine`` runs only prefill: it fills one sequence's KV, samples
 the first token and returns the shipment a decode engine's ``kv_import``
 admission takes, ``{"k", "v", "first_token", "prompt_len",
-"cached_tokens"}``. The K/V travel as f32 numpy arrays [L, n, H, Dh]: the
-card's machine has no bf16 numpy, and the upcast is exact. The RPC legs
-(``PrefillServer``, ``send_kv``, ``recv_kv``, ``prefill_remote``) need the
-runtime and are not ported (ROADMAP.md, Queue A item 3).
+"cached_tokens"}``. The K/V travel as f32 numpy arrays [L, n, H, Dh]
+(numpy has no bf16 without ml_dtypes, and the upcast is exact): twice the
+bytes of the JAX package's shipment, whose rows are bf16.
+
+Failure contract: the prefill call carries a deadline
+(``serve_disagg_timeout_s``); a SIGKILLed prefill replica surfaces as an
+actor death or a timeout on the ack or the channel read, and the request
+fails within the budget. Kill switch: ``serve_disagg=False`` (the ingress
+prefills locally).
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Any, Dict, List
 
 import numpy as np
@@ -22,6 +36,7 @@ import torch
 
 from ray_tpu_torch.models import gpt2
 from ray_tpu_torch.models import gpt2_decode as dec
+from ray_tpu_torch.observability import core_metrics, tracing
 from ray_tpu_torch.serve import prefix_cache
 from ray_tpu_torch.serve.llm import (LLMConfig, _bucket, load_model, resolve_engine_device,
                                      sample_one)
@@ -198,3 +213,132 @@ class PrefillEngine:
         """The prefix pool dies with the engine."""
         self._pool.close()
         self._cache_k = self._cache_v = None
+
+
+class PrefillServer:
+    """The prefill deployment callable: receives
+    ``{model, prompt_tokens, temperature, chan, trace_id}`` payloads
+    from decode-side ingress replicas, runs prefill, and ships the KV
+    rows back through the caller's channel handle."""
+
+    def __init__(self, models, max_engines_per_replica: int = 2):
+        from ray_tpu_torch.serve import multiplex
+        from ray_tpu_torch.serve.openai.ingress import _normalize_models
+
+        self._models = _normalize_models(models)
+        self._engines = multiplex.make_multiplexer(
+            lambda model: self._load_engine(model),
+            max_models=max_engines_per_replica,
+        )
+
+    def _load_engine(self, model: str) -> PrefillEngine:
+        cfg = self._models.get(model)
+        if cfg is None:
+            raise ValueError(f"model {model!r} does not exist")
+        return PrefillEngine(cfg)
+
+    def __call__(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        if payload.get("op") == "info":
+            # test/ops hook: which process serves this replica
+            return {"pid": os.getpid(),
+                    "models": sorted(self._models)}
+        model = payload["model"]
+        trace_id = payload.get("trace_id")
+        t0u = tracing.now_us() if (tracing.ENABLED and trace_id) else 0
+        engine = self._engines.get(model)
+        shipment = engine.prefill(
+            payload["prompt_tokens"], float(payload.get("temperature", 0.0))
+        )
+        nbytes = shipment["k"].nbytes + shipment["v"].nbytes
+        send_kv(payload["chan"], shipment,
+                timeout_s=float(payload.get("timeout_s", 30.0)))
+        if core_metrics.ENABLED:
+            core_metrics.serve_kv_transfer_bytes.inc(
+                nbytes, tags={"deployment": model}
+            )
+        if tracing.ENABLED and trace_id:
+            tracing.emit(tracing.request_span(
+                trace_id, tracing.PREFILL, model, t0u,
+                tracing.now_us() - t0u,
+                tokens=shipment["prompt_len"],
+                cached=shipment["cached_tokens"] > 0,
+                kv_bytes=nbytes,
+            ))
+        return {
+            "ok": True,
+            "prompt_len": shipment["prompt_len"],
+            "cached_tokens": shipment["cached_tokens"],
+            "kv_bytes": nbytes,
+        }
+
+
+def send_kv(handle: Dict[str, Any], shipment: Dict[str, Any],
+            timeout_s: float = 30.0) -> None:
+    """Writer leg: serialize the shipment scatter-gather (the KV
+    ndarrays become out-of-band segments; the ≥32 KiB frame rides the
+    multiseg wire format, pinned by tools/check_inband_payloads.py)."""
+    from ray_tpu_torch.core import channels
+
+    chan = channels.open_channel(handle, "write")
+    try:
+        chan.write_value(shipment, timeout_s=timeout_s)
+    finally:
+        chan.close()
+
+
+def recv_kv(reader, timeout_s: float = 30.0) -> Dict[str, Any]:
+    """Reader leg: one shipment off the channel (zero-copy frame)."""
+    return reader.read_value(timeout_s=timeout_s)
+
+
+def prefill_remote(deployment: str, model: str, eng_req: Dict[str, Any],
+                   model_cfg) -> Dict[str, Any]:
+    """Decode-side orchestration: run ``eng_req``'s prefill on the
+    ``deployment`` prefill tier and return the ``kv_import`` dict for
+    the local engine's admission. Raises within the
+    RT_SERVE_DISAGG_TIMEOUT_S budget when the prefill tier is dead."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core import channels
+    from ray_tpu_torch.core import worker as worker_mod
+    from ray_tpu_torch.utils.config import config
+
+    deadline = time.monotonic() + config.serve_disagg_timeout_s
+    w = worker_mod.global_worker()
+    handle = channels.rpc_channel_handle(
+        w.address, channel_capacity(model_cfg), slots=2
+    )
+    reader = channels.open_channel(handle, "read")
+    trace_id = eng_req.get("trace_id")
+    try:
+        h = serve.get_deployment_handle(deployment)
+        resp = h.remote({
+            "model": model,
+            "prompt_tokens": eng_req["prompt_tokens"],
+            "temperature": eng_req.get("temperature", 0.0),
+            "chan": handle,
+            "trace_id": trace_id,
+            "timeout_s": max(1.0, deadline - time.monotonic()),
+        })
+        ack = resp.result(
+            timeout_s=max(1.0, deadline - time.monotonic())
+        )
+        if not isinstance(ack, dict) or not ack.get("ok"):
+            raise RuntimeError(f"prefill deployment returned {ack!r}")
+        t0u = tracing.now_us() if (tracing.ENABLED and trace_id) else 0
+        shipment = recv_kv(
+            reader, timeout_s=max(1.0, deadline - time.monotonic())
+        )
+        if tracing.ENABLED and trace_id:
+            tracing.emit(tracing.request_span(
+                trace_id, tracing.TRANSFER, model, t0u,
+                tracing.now_us() - t0u,
+                kv_bytes=int(ack.get("kv_bytes", 0)),
+            ))
+        return {
+            "k": shipment["k"],
+            "v": shipment["v"],
+            "first_token": shipment["first_token"],
+            "prompt_len": shipment["prompt_len"],
+        }
+    finally:
+        reader.close()

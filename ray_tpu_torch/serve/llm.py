@@ -1,5 +1,6 @@
 """The LLM engine of the port: continuous-batched, KV-cached GPT-2 decoding
-(counterpart of ``ray_tpu/serve/llm.py``'s ``LLMServer``).
+(counterpart of ``ray_tpu/serve/llm.py``'s ``LLMServer``), and the serve
+deployments around it (``build_llm_deployment``, ``deploy``).
 
 Requests are ``{"prompt_tokens": [int], "max_new_tokens": N,
 "temperature": T, "stream": bool}``; answers are ``{"tokens": [int]}``, or
@@ -24,19 +25,28 @@ engine, kept for comparison) holds no KV: it takes up to
 ``max_batch_size`` queued requests and runs a full ``GPT2.forward`` over
 the padded prompts and the tokens so far for every new token.
 
+The engines publish the JAX package's serving gauges and histograms
+(``observability/core_metrics.py``: TTFT, inter-token gaps, tokens,
+batch fill, KV slots or pages, queue depth, decode host gap) and stamp
+the engine span of a traced request (``observability/tracing.py``).
+
 Differences from the JAX package: ``LLMConfig.device`` (None = ``cuda``,
 which raises without one); weights are ``gpt2.init`` from a generator on
 that device seeded with 0, or a pickle of the JAX ``gpt2.init`` pytree as
-numpy arrays (``checkpoint_path``, through ``gpt2.from_jax``); the
-metrics gauges, tracing spans and the deployment settings (replicas,
-route, concurrency) are not ported (ROADMAP.md, Queue A item 5).
+numpy arrays (``checkpoint_path``, through ``gpt2.from_jax``). torch and
+the model modules are imported at first use, not with this module: the
+serve controller and every HTTP proxy import it (through
+``ray_tpu_torch.serve``, and to unpickle an ``LLMConfig``) and stay
+torch-free, as the JAX package's stay JAX-free.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import importlib
 import logging
+import os
 import pickle
 import queue
 import threading
@@ -44,38 +54,58 @@ import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
-import torch
 
-from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.models import gpt2
-from ray_tpu_torch.models import gpt2_decode as dec
+from ray_tpu_torch import serve
+from ray_tpu_torch.observability import core_metrics, tracing
 from ray_tpu_torch.serve import prefix_cache
 from ray_tpu_torch.utils.config import config as rtcfg
 
 _log = logging.getLogger(__name__)
 
-# The recompute engine's batching wait: a batch is taken once max_batch_size
-# requests are queued or the oldest has waited this long (the JAX
-# package's LLMConfig.batch_wait_timeout_s default).
-RECOMPUTE_BATCH_WAIT_S = 0.02
+
+class _Deferred:
+    """A module imported at its first attribute access."""
+
+    def __init__(self, name: str):
+        self._name = name
+        self._module = None
+
+    def __getattr__(self, attr: str):
+        if self._module is None:
+            self._module = importlib.import_module(self._name)
+        return getattr(self._module, attr)
+
+
+torch = _Deferred("torch")
+gpt2 = _Deferred("ray_tpu_torch.models.gpt2")
+dec = _Deferred("ray_tpu_torch.models.gpt2_decode")
+_device = _Deferred("ray_tpu_torch.device")
 
 
 class LLMConfig:
     def __init__(
         self,
         model_id: str = "gpt2-tiny",
+        num_replicas: int = 1,
         max_batch_size: int = 8,
+        batch_wait_timeout_s: float = 0.02,  # the recompute engine's batching wait
         max_new_tokens_cap: int = 256,
         checkpoint_path: Optional[str] = None,
+        route_prefix: Optional[str] = "/llm",
+        max_concurrency: int = 16,
         engine: str = "kv",  # "kv" (cached decode) | "recompute" (full forward)
         paged_kv: Optional[bool] = None,  # None = RT_SERVE_PAGED_KV
         async_decode: Optional[bool] = None,  # None = RT_SERVE_ASYNC_DECODE
         device: Optional[str] = None,  # None = cuda; "cpu" for the tests
     ):
         self.model_id = model_id
+        self.num_replicas = num_replicas
         self.max_batch_size = max_batch_size
+        self.batch_wait_timeout_s = batch_wait_timeout_s
         self.max_new_tokens_cap = max_new_tokens_cap
         self.checkpoint_path = checkpoint_path
+        self.route_prefix = route_prefix
+        self.max_concurrency = max_concurrency
         if engine not in ("kv", "recompute"):
             raise ValueError(f"unknown engine {engine!r}")
         self.engine = engine
@@ -86,7 +116,7 @@ class LLMConfig:
 
 class _Request:
     __slots__ = ("prompt", "max_new", "temperature", "event", "result", "error",
-                 "token_q", "cancelled", "t_enqueue", "kv_import")
+                 "token_q", "cancelled", "trace_id", "t_enqueue", "t0_us", "kv_import")
 
     def __init__(self, prompt, max_new, temperature, stream=False):
         self.prompt = prompt
@@ -99,7 +129,11 @@ class _Request:
         # {"k", "v", "first_token", "prompt_len"} (serve/kv_transfer.py);
         # admission imports the KV instead of prefilling
         self.kv_import: Optional[Dict[str, Any]] = None
-        self.t_enqueue = 0.0  # monotonic, for the TTFT samples
+        # the trace id from the proxy, and the enqueue stamps: monotonic for
+        # the TTFT samples, the trace clock for the engine span
+        self.trace_id: Optional[str] = None
+        self.t_enqueue = 0.0
+        self.t0_us = 0
         # set when the consumer abandoned the request (closed its stream):
         # the engine frees its KV at the next round
         self.cancelled = False
@@ -128,7 +162,8 @@ class _Chunk:
 class _Seq:
     """One sequence in the decode batch (both engines)."""
 
-    __slots__ = ("req", "length", "produced", "last_token", "active", "budget_left")
+    __slots__ = ("req", "length", "produced", "last_token", "active", "budget_left",
+                 "cached", "t_last", "ttft_us")
 
     def __init__(self, req: _Request):
         self.req = req
@@ -139,6 +174,11 @@ class _Seq:
         # decode steps still to dispatch, decremented AT DISPATCH so the
         # loop knows which rows finish in the chunk it just launched
         self.budget_left = 0
+        # admission skipped prefill work (a prefix hit or an imported KV):
+        # the engine span's TTFT split
+        self.cached = False
+        self.t_last: Optional[float] = None  # last token delivery (monotonic)
+        self.ttft_us = 0
 
 
 class _PagedSeq(_Seq):
@@ -235,7 +275,7 @@ def load_model(cfg: LLMConfig, device: torch.device) -> gpt2.GPT2:
 def resolve_engine_device(name: Optional[str]) -> torch.device:
     """``resolve_device`` with a CUDA index filled in: the engine thread
     makes it its current device."""
-    device = resolve_device(name)
+    device = _device.resolve_device(name)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
@@ -271,6 +311,9 @@ class LLMServer:
         self._total_batches = 0
         self._max_batch_seen = 0
         self._occupied = 0  # sequences decoding after the last engine round
+        # the gauges' per-process label (the cluster merge keeps the latest
+        # value per series; distinct tags keep every engine process)
+        self._node_tag = f"pid{os.getpid()}"
         self._stop = threading.Event()
         self._paged = (bool(config.paged_kv) if config.paged_kv is not None
                        else bool(rtcfg.serve_paged_kv))
@@ -313,16 +356,22 @@ class LLMServer:
     # -- request path ---------------------------------------------------
 
     def _parse(self, request: Any) -> _Request:
-        if hasattr(request, "json"):  # an HTTP request object
+        trace_id = None
+        if hasattr(request, "json"):  # the HTTP proxy's request object
+            if tracing.ENABLED:
+                trace_id = request.headers.get(tracing.TRACE_HEADER)
             body = request.json()
             stream = bool(body.get("stream")) or request.query.get("stream") in ("1", "true")
             request = body
         else:
             stream = bool(request.get("stream"))
+            if tracing.ENABLED:
+                trace_id = request.get("trace_id")
         prompt = list(request.get("prompt_tokens") or [0])
         max_new = min(int(request.get("max_new_tokens", 16)), self.cfg.max_new_tokens_cap)
         temperature = float(request.get("temperature", 0.0))
         req = _Request(prompt, max_new, temperature, stream=stream)
+        req.trace_id = trace_id
         req.kv_import = request.get("kv_import")
         return req
 
@@ -332,6 +381,8 @@ class LLMServer:
             # refused before enqueue, so the engine never decodes it
             raise ValueError("stream=True requires the kv engine")
         req.t_enqueue = time.monotonic()
+        if tracing.ENABLED and req.trace_id:
+            req.t0_us = tracing.now_us()
         with self._lock:
             self._queue.append(req)
         self._work.set()
@@ -414,15 +465,45 @@ class LLMServer:
                 return req
             req.event.set()  # cancelled while queued: never admit
 
-    def _record_step(self, occupancy: int) -> None:
+    def _record_step(self, occupancy: int, pages: Optional[Dict[str, int]] = None) -> None:
+        """One decode dispatch of ``occupancy`` rows; ``pages``, the paged
+        pool's stats, publishes the page gauges and aliases them onto the
+        slot gauges' names (the JAX package's _record_step_paged)."""
         with self._lock:
             self._batch_sizes.append(occupancy)
             self._total_batches += 1
             self._max_batch_seen = max(self._max_batch_seen, occupancy)
+            queued = len(self._queue)
+        if not core_metrics.ENABLED:
+            return
+        dep = self.cfg.model_id
+        core_metrics.serve_batch_fill.observe(occupancy, tags={"deployment": dep})
+        ntags = {"deployment": dep, "node": self._node_tag}
+        if pages is None:
+            core_metrics.serve_kv_slots_occupied.set(occupancy, tags=ntags)
+            core_metrics.serve_kv_slots_total.set(self.cfg.max_batch_size, tags=ntags)
+        else:
+            core_metrics.serve_kv_pages_total.set(pages["pages_total"], tags=ntags)
+            core_metrics.serve_kv_pages_occupied.set(pages["pages_occupied"], tags=ntags)
+            core_metrics.serve_kv_pages_prefix_resident.set(pages["prefix_resident"], tags=ntags)
+            # page occupancy under the slot gauges' names keeps the
+            # serve_kv_occupancy alert rule and older dashboards evaluating
+            core_metrics.serve_kv_slots_occupied.set(pages["pages_occupied"], tags=ntags)
+            core_metrics.serve_kv_slots_total.set(pages["pages_total"], tags=ntags)
+        core_metrics.serve_queued_requests.set(queued, tags=ntags)
 
-    def _record_first_token(self, req: _Request) -> None:
+    def _record_first_token(self, s: _Seq) -> None:
+        """TTFT and the first token of ``s``, just joined the decode batch."""
+        now = time.monotonic()
         with self._lock:
-            self._ttfts.append(time.monotonic() - req.t_enqueue)
+            self._ttfts.append(now - s.req.t_enqueue)
+        if tracing.ENABLED and s.req.t0_us:
+            s.ttft_us = tracing.now_us() - s.req.t0_us
+        if core_metrics.ENABLED:
+            s.t_last = now
+            tags = {"deployment": self.cfg.model_id}
+            core_metrics.serve_ttft_s.observe(now - s.req.t_enqueue, tags=tags)
+            core_metrics.serve_tokens_generated.inc(tags=tags)
 
     def _sample_one(self, logits: torch.Tensor, temperature: float) -> int:
         return sample_one(logits, temperature, self._gen)
@@ -444,8 +525,8 @@ class LLMServer:
 
     def _take_batch(self) -> List[_Request]:
         """Up to max_batch_size queued requests, once that many wait or the
-        oldest has waited RECOMPUTE_BATCH_WAIT_S."""
-        deadline = time.monotonic() + RECOMPUTE_BATCH_WAIT_S
+        oldest has waited ``batch_wait_timeout_s``."""
+        deadline = time.monotonic() + self.cfg.batch_wait_timeout_s
         while not self._stop.is_set():
             with self._lock:
                 if len(self._queue) >= self.cfg.max_batch_size or (
@@ -455,7 +536,7 @@ class LLMServer:
                         batch.append(self._queue.popleft())
                     return batch
                 if not self._queue:
-                    deadline = time.monotonic() + RECOMPUTE_BATCH_WAIT_S
+                    deadline = time.monotonic() + self.cfg.batch_wait_timeout_s
             time.sleep(0.002)
         return []
 
@@ -495,13 +576,6 @@ class LLMServer:
             r.event.set()
 
 
-def _complete(s: _Seq) -> None:
-    s.req.result = s.produced[: s.req.max_new]
-    s.req.event.set()
-    if s.req.token_q is not None:
-        s.req.token_q.put(None)  # end of stream
-
-
 class _Loop:
     """One engine thread's decode batch: the rows' host step state, its
     device copy, the lookahead chunk, and the rounds (reap, admit, prefill,
@@ -532,6 +606,10 @@ class _Loop:
         self.dirty: set = set()
         self.step_no = 0
         self.inflight: Optional[_Chunk] = None
+        # monotonic stamp of the moment the device ran dry with work still
+        # active; the next dispatch observes the span as
+        # rt_serve_decode_host_gap_s (0 when a lookahead kept it busy)
+        self.gap_start: Optional[float] = None
         self.caches = self.new_caches()
 
     # -- the cache layout's part ----------------------------------------
@@ -556,6 +634,10 @@ class _Loop:
 
     def update_rows(self, *args) -> tuple:
         return dec.update_rows(*args)
+
+    def pool_stats(self) -> Optional[Dict[str, int]]:
+        """The page pool's stats for the step's gauges; None for slots."""
+        return None
 
     def decode(self, K: int, step: int) -> tuple:
         """Dispatch K decode steps from ``dev_state`` -> (tokens [K, S] or
@@ -583,7 +665,7 @@ class _Loop:
         self.temps[i] = max(s.req.temperature, 1e-6)
         self.greedy[i] = s.req.temperature <= 0
         self.dirty.add(i)
-        self.srv._record_first_token(s.req)
+        self.srv._record_first_token(s)
         if s.req.token_q is not None and s.req.max_new >= 1:
             # a zero-token ask must not leak the sampled first token
             s.req.token_q.put(first)
@@ -601,10 +683,22 @@ class _Loop:
         self.dirty.add(i)
         self.release(i, s)
 
+    def complete(self, s: _Seq) -> None:
+        req = s.req
+        req.result = s.produced[: req.max_new]
+        if tracing.ENABLED and req.trace_id and req.t0_us:
+            tracing.emit(tracing.request_span(
+                req.trace_id, tracing.ENGINE, self.srv.cfg.model_id, req.t0_us,
+                tracing.now_us() - req.t0_us, tokens=len(req.result), cached=s.cached,
+                ttft_us=s.ttft_us))
+        req.event.set()
+        if req.token_q is not None:
+            req.token_q.put(None)  # end of stream
+
     def finish(self, i: int) -> None:
         s = self.rows[i]
         self.retire(i)
-        _complete(s)
+        self.complete(s)
 
     def fail_all(self, e: BaseException) -> None:
         """Fail every occupied row's request, and those whose finish was
@@ -620,16 +714,31 @@ class _Loop:
                 if fin:
                     self.srv._fail_request(s.req, e)
 
-    def harvest(self, rec: _Chunk) -> None:
+    def harvest(self, rec: _Chunk, drained: bool) -> None:
         """Read a dispatched chunk's tokens and do its host bookkeeping:
-        fan-out, stream puts, completions. In async mode this runs while
-        the next chunk keeps the device busy."""
+        fan-out, stream puts, metric stamps, completions. In async mode this
+        runs while the next chunk keeps the device busy; ``drained``: no
+        younger chunk is in flight, so the device is idle from here to the
+        next dispatch (the host gap)."""
         if rec.done is not None:
             rec.done.synchronize()
         toks = rec.toks_host.numpy()
         if toks.ndim == 1:
             toks = toks[None]  # [1, S]
+        if drained and core_metrics.ENABLED:
+            self.gap_start = time.monotonic()
         live = [r for r in rec.rows if r[0] not in rec.dropped]
+        if core_metrics.ENABLED:
+            # every live row gets n_steps tokens (the chunk is bounded by
+            # the smallest budget left)
+            now = time.monotonic()
+            tags = {"deployment": self.srv.cfg.model_id}
+            core_metrics.serve_tokens_generated.inc(rec.n_steps * len(live), tags=tags)
+            for _i, s, _fin in live:
+                if s.t_last is not None:
+                    core_metrics.serve_inter_token_s.observe((now - s.t_last) / rec.n_steps,
+                                                            tags=tags)
+                s.t_last = now
         for k in range(rec.n_steps):
             for i, s, _fin in live:
                 s.length += 1
@@ -640,7 +749,7 @@ class _Loop:
                     s.req.token_q.put(s.last_token)  # the first went at join
         for i, s, fin in live:
             if fin:
-                _complete(s)
+                self.complete(s)
             elif self.rows[i] is s:
                 # keep the host mirror right for a full rebuild
                 self.last[i] = s.last_token
@@ -661,7 +770,12 @@ class _Loop:
         K = 1
         if not one_step:
             K = max(1, min(8, min(self.rows[i].budget_left for i in active)))
-        self.srv._record_step(len(active))
+        if core_metrics.ENABLED:
+            gap = time.monotonic() - self.gap_start if self.gap_start is not None else 0.0
+            core_metrics.serve_decode_host_gap_s.observe(
+                gap, tags={"deployment": self.srv.cfg.model_id})
+        self.gap_start = None
+        self.srv._record_step(len(active), self.pool_stats())
         if K > 1:
             step = self.step_no
             self.step_no += K
@@ -727,9 +841,10 @@ class _Loop:
             if self.inflight is not None:
                 # drain the lookahead before idling: its tokens are real
                 rec, self.inflight = self.inflight, None
-                self.harvest(rec)
+                self.harvest(rec, True)
             elif not admitted and not prefilling:
                 srv._work.wait(timeout=0.5)
+            self.gap_start = None
             return
         with srv._lock:
             waiting = bool(srv._queue)
@@ -737,9 +852,9 @@ class _Loop:
         if srv._async_decode:
             prev, self.inflight = self.inflight, rec
             if prev is not None:
-                self.harvest(prev)
+                self.harvest(prev, False)
         else:
-            self.harvest(rec)
+            self.harvest(rec, True)
 
     def run(self) -> None:
         srv = self.srv
@@ -751,6 +866,7 @@ class _Loop:
                 self.fail_all(e)
                 self.dev_state = None
                 self.dirty.clear()
+                self.gap_start = None
                 # rebuild the caches in the next round's try (as the JAX
                 # engine does after donation deleted them), so a failing
                 # rebuild cannot kill the thread
@@ -836,6 +952,7 @@ class _SlotLoop(_Loop):
         s = _Slot(req)
         s.pool = pool
         s.pool_refs = held
+        s.cached = cached > 0 or req.kv_import is not None
         self.join(i, s, first, prompt_len)
         return True
 
@@ -889,8 +1006,12 @@ class _PagedLoop(_Loop):
     def update_rows(self, *args) -> tuple:
         return dec.update_rows_paged(*args)
 
+    def pool_stats(self) -> Optional[Dict[str, int]]:
+        return self.pool.stats()
+
     def join(self, i: int, s: _PagedSeq, first: int, kv_len: int) -> None:
         self.tables[i] = s.table
+        s.cached = s.cached_tokens > 0
         super().join(i, s, first, kv_len)
 
     def release(self, i: int, s: _PagedSeq) -> None:
@@ -922,6 +1043,9 @@ class _PagedLoop(_Loop):
             dec.write_pages(up(kb.reshape(L, nblk, B, H, Dh)), up(vb.reshape(L, nblk, B, H, Dh)),
                             *self.caches, up(pages))
             pool.copies += nblk
+            if core_metrics.ENABLED:
+                core_metrics.serve_kv_block_copies.inc(
+                    nblk, tags={"deployment": self.srv.cfg.model_id})
             for j in range(first_pg, min(n // B, len(s.digests))):
                 pool.seal(s.digests[j], int(s.pages[j]))
         s.prefill_pos = len(s.prompt)
@@ -1009,3 +1133,91 @@ class _PagedLoop(_Loop):
                                                   cache_v, d_tables, d_temps, d_greedy,
                                                   self.srv._seed, step)
         return toks, toks, d_len
+
+
+def build_llm_deployment(config: Optional[LLMConfig] = None) -> Any:
+    """Deployment for an LLM server (parity: serve.llm build_llm_deployment):
+    token-level requests, each replica one ``LLMServer`` on
+    ``config.device`` (None = its card)."""
+    config = config or LLMConfig()
+    dep = serve.deployment(
+        LLMServer,
+        name=f"llm-{config.model_id}",
+        num_replicas=config.num_replicas,
+        route_prefix=config.route_prefix,
+        max_concurrency=config.max_concurrency,
+    )
+    return dep.bind(config)
+
+
+def deploy(
+    models: Any = "gpt2-tiny",
+    *,
+    name: str = "openai-llm",
+    num_replicas: int = 1,
+    route_prefix: str = "/v1",
+    tokenizer: Optional[str] = None,
+    max_engines_per_replica: int = 2,
+    max_concurrency: int = 16,
+    autoscaling_config: Optional[Dict[str, Any]] = None,
+    ray_actor_options: Optional[Dict[str, float]] = None,
+    max_queued_requests: Optional[int] = None,
+    wait_ready: bool = True,
+    ready_timeout_s: float = 300.0,
+    disaggregated: bool = False,
+    prefill_replicas: int = 1,
+):
+    """Run the OpenAI-compatible front door (parity: the reference's
+    ``serve.llm build_openai_app`` + ``serve.run``): a multi-replica
+    ingress deployment under ``route_prefix`` serving
+    ``/v1/completions``, ``/v1/chat/completions`` (both with SSE
+    streaming) and ``/v1/models`` over every node's HTTP proxy.
+
+    ``models`` maps OpenAI model names to engine configs — a model id
+    string, an :class:`LLMConfig`, or ``{name: LLMConfig | model_id |
+    kwargs-dict}``. Each replica loads engines lazily per model
+    (LRU-bounded at ``max_engines_per_replica``) and the router prefers
+    replicas already holding the requested model; the OpenAI ``user``
+    field pins a session to one replica's warm KV slots.
+
+    ``disaggregated=True`` additionally runs a ``<name>-prefill``
+    deployment (serve/kv_transfer.py): ingress replicas send every
+    prompt there for prefill and import the KV rows over an RpcChannel,
+    keeping only decode local (kill switch RT_SERVE_DISAGG=0 reverts to
+    local prefill without redeploying).
+
+    Returns the DeploymentHandle."""
+    from ray_tpu_torch.serve.openai.ingress import build_openai_deployment
+
+    prefill_name = None
+    if disaggregated:
+        from ray_tpu_torch.serve.kv_transfer import PrefillServer
+
+        prefill_name = f"{name}-prefill"
+        prefill_dep = serve.deployment(
+            PrefillServer,
+            name=prefill_name,
+            num_replicas=prefill_replicas,
+            route_prefix=None,  # internal tier: no HTTP surface
+            max_concurrency=max_concurrency,
+        ).bind(models, max_engines_per_replica=max_engines_per_replica)
+        serve.run(
+            prefill_dep, wait_ready=wait_ready,
+            ready_timeout_s=ready_timeout_s,
+        )
+    app = build_openai_deployment(
+        models,
+        name=name,
+        num_replicas=num_replicas,
+        route_prefix=route_prefix,
+        tokenizer=tokenizer,
+        max_engines_per_replica=max_engines_per_replica,
+        max_concurrency=max_concurrency,
+        autoscaling_config=autoscaling_config,
+        ray_actor_options=ray_actor_options,
+        prefill_deployment=prefill_name,
+        max_queued_requests=max_queued_requests,
+    )
+    return serve.run(
+        app, wait_ready=wait_ready, ready_timeout_s=ready_timeout_s
+    )

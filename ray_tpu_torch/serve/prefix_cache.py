@@ -14,18 +14,21 @@ whole prefix). Two pools:
 Lifecycle: ``match``/``insert`` and ``alloc``/``match_pages`` leave the
 caller holding one ref per block or page, which it releases when the
 request leaves the engine. ``close()`` drops everything regardless of
-refcounts. The JAX package's metrics gauges are not ported; the counters
-``stats()`` returns are.
+refcounts. Besides the counters ``stats()`` returns, the pools publish the
+JAX package's prefix-cache series (hits, misses, evictions, resident
+blocks; ``observability/core_metrics.py``).
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ray_tpu_torch.observability import core_metrics
 from ray_tpu_torch.utils.config import config
 
 # Pools not yet closed in this process, for unload accounting and tests.
@@ -63,6 +66,27 @@ class _Block:
         self.v = v
         self.refs = 0
         self.tick = 0
+
+
+def _count_match(model_id: str, hits: int, misses: int) -> None:
+    if core_metrics.ENABLED:
+        tags = {"deployment": model_id}
+        if hits:
+            core_metrics.serve_prefix_cache_hits.inc(hits, tags=tags)
+        if misses:
+            core_metrics.serve_prefix_cache_misses.inc(misses, tags=tags)
+
+
+def _count_eviction(model_id: str) -> None:
+    if core_metrics.ENABLED:
+        core_metrics.serve_prefix_cache_evictions.inc(tags={"deployment": model_id})
+
+
+def _publish_resident(model_id: str, n: int) -> None:
+    if core_metrics.ENABLED:
+        # the per-process tag keeps every engine's series in the cluster merge
+        core_metrics.serve_prefix_blocks_resident.set(
+            n, tags={"deployment": model_id, "node": f"pid{os.getpid()}"})
 
 
 class BlockPool:
@@ -107,6 +131,7 @@ class BlockPool:
                     vs.append(blk.v)
             self.hits += len(held)
             self.misses += len(digests) - len(held)
+            _count_match(self.model_id, len(held), len(digests) - len(held))
         return held, ks, vs
 
     def insert(self, digest: str, k: np.ndarray, v: np.ndarray) -> None:
@@ -124,6 +149,7 @@ class BlockPool:
             self._tick += 1
             blk.tick = self._tick
             self._evict_locked()
+            _publish_resident(self.model_id, len(self._blocks))
 
     def release(self, digests: Sequence[str]) -> None:
         """Drop the caller's refs; refcount-0 blocks stay resident (that
@@ -136,6 +162,7 @@ class BlockPool:
                 if blk is not None and blk.refs > 0:
                     blk.refs -= 1
             self._evict_locked()
+            _publish_resident(self.model_id, len(self._blocks))
 
     def _evict_locked(self) -> None:
         while len(self._blocks) > self.max_blocks:
@@ -147,6 +174,7 @@ class BlockPool:
                 return  # everything pinned by in-flight requests
             del self._blocks[victim.digest]
             self.evictions += 1
+            _count_eviction(self.model_id)
 
     def resident(self) -> int:
         with self._lock:
@@ -173,6 +201,7 @@ class BlockPool:
         with self._lock:
             self._blocks.clear()
             self._closed = True
+            _publish_resident(self.model_id, 0)
         with _POOLS_LOCK:
             _POOLS.pop(id(self), None)
 
@@ -258,6 +287,7 @@ class PagedKVPool:
         victim.digest = None
         self._free.append(victim.idx)
         self.evictions += 1
+        _count_eviction(self.model_id)
         return True
 
     def match_pages(self, digests: Sequence[str], max_tokens: int
@@ -282,6 +312,7 @@ class PagedKVPool:
                     pages.append(idx)
             self.hits += len(held)
             self.misses += len(digests) - len(held)
+            _count_match(self.model_id, len(held), len(digests) - len(held))
         return held, pages
 
     def seal(self, digest: str, page: int) -> bool:
@@ -296,6 +327,7 @@ class PagedKVPool:
             self._sealed[digest] = page
             self._tick += 1
             pg.tick = self._tick
+            _publish_resident(self.model_id, len(self._sealed))
             return True
 
     def release_pages(self, pages: Sequence[int]) -> None:
@@ -310,6 +342,7 @@ class PagedKVPool:
                     pg.refs -= 1
                 if pg.refs == 0 and pg.digest is None and not self._closed:
                     self._free.append(idx)
+            _publish_resident(self.model_id, len(self._sealed))
 
     def reset(self) -> None:
         """Drop all metadata: the engine rebuilt its device cache after a
@@ -324,6 +357,7 @@ class PagedKVPool:
             self._sealed.clear()
             self._free = list(range(self.num_pages - 1, 0, -1))
             self._tick = 0
+            _publish_resident(self.model_id, 0)
 
     def free_pages(self) -> int:
         with self._lock:
@@ -368,6 +402,7 @@ class PagedKVPool:
             self._sealed.clear()
             self._free = []
             self._closed = True
+            _publish_resident(self.model_id, 0)
         with _POOLS_LOCK:
             _POOLS.pop(id(self), None)
 

@@ -465,21 +465,11 @@ config.define("crash_dir", "", dynamic=True)
 # that config.set() or a read of one fails instead of doing nothing. An
 # RT_<NAME> variable of one is ignored, as any unknown one is.
 NOT_PORTED_FLAGS = {
-    "item 5 (the serving parts that need the runtime)": (
-        "serve_direct_rpc", "serve_disagg", "serve_disagg_timeout_s",
-        "serve_autoscale_interval_s", "serve_autoscale_window_s",
-        "serve_autoscale_up_cooldown_s", "serve_autoscale_down_cooldown_s",
-        "serve_autoscale_ttft_high_frac", "serve_autoscale_ttft_low_frac",
-        "serve_autoscale_kv_high_frac", "serve_autoscale_kv_low_frac",
-        "serve_autoscale_drain_deadline_s", "serve_admission_enabled",
-        "serve_admission_max_inflight", "serve_admission_model_concurrency",
-        "serve_admission_retry_after_s",
-    ),
     "item 8 (the state API, the metrics history and the alerts)": (
-        "metrics_history_max_series", "alerts_enabled", "alerts_ttft_target_s",
-        "alerts_ttft_budget", "alerts_burn_short_s", "alerts_burn_long_s",
-        "alerts_burn_factor", "alerts_queue_depth_max", "alerts_kv_occupancy_frac",
-        "alerts_for_s", "alerts_rules_extra", "alerts_shed_rate_max",
+        "metrics_history_max_series", "alerts_enabled", "alerts_ttft_budget",
+        "alerts_burn_short_s", "alerts_burn_long_s", "alerts_burn_factor",
+        "alerts_kv_occupancy_frac", "alerts_for_s", "alerts_rules_extra",
+        "alerts_shed_rate_max",
     ),
     "item 9 (GPU-aware scheduling; accelerators/ counts cards, not TPU chips)": (
         "num_tpus", "tpu_pod_type", "tpu_topology", "tpu_worker_id",

@@ -7,11 +7,13 @@ copy that is not listed here fails, and so does a change to its source
 that the copy did not follow: either is a porting cost to decide on, not
 to drift into.
 
-What is ported rather than copied (the recompute engine, the GPU probe in
-``accelerators/``, the train backend's process group in
-``collective/process_group.py``, ``ray_tpu_torch/__init__.py``,
-``bench.py``, and the marked region of ``parallel/pipeline.py`` that holds ``PipelineStage``) is
-held to the JAX package by behaviour, in the other ``test_torch_*`` files.
+What is ported rather than copied (the LLM engines, the prefill tier and
+the page pools in ``serve/llm.py``, ``serve/kv_transfer.py`` and
+``serve/prefix_cache.py``, the GPU probe in ``accelerators/``, the train
+backend's process group in ``collective/process_group.py``,
+``ray_tpu_torch/__init__.py``, ``bench.py``, and the marked region of
+``parallel/pipeline.py`` that holds ``PipelineStage``) is held to the JAX
+package by behaviour, in the other ``test_torch_*`` files.
 """
 
 import difflib
@@ -41,12 +43,18 @@ data/iterator.py data/dataset.py
 collective/__init__.py collective/collective.py collective/p2p.py collective/bucketed.py
 train/__init__.py train/config.py train/checkpoint.py train/context.py train/worker_group.py
 train/controller.py train/trainer.py
+serve/__init__.py serve/api.py serve/batching.py serve/controller.py serve/http_server.py
+serve/multiplex.py serve/proxy.py serve/replica.py serve/router.py
+serve/autoscale/__init__.py serve/autoscale/admission.py serve/autoscale/policy.py
+serve/openai/__init__.py serve/openai/protocol.py serve/openai/tokenizer.py
+serve/openai/ingress.py
 """.split()
 
 # Files of the runtime packages that are written for the port, not copied.
-PORTED = {"accelerators/__init__.py", "accelerators/gpu.py", "collective/process_group.py"}
+PORTED = {"accelerators/__init__.py", "accelerators/gpu.py", "collective/process_group.py",
+          "serve/llm.py", "serve/kv_transfer.py", "serve/prefix_cache.py"}
 RUNTIME_PACKAGES = ("core", "data", "utils", "observability", "accelerators", "native",
-                    "collective", "train")
+                    "collective", "train", "serve")
 
 # A region that the port writes itself, inside a copy: from a line
 # "# >>> ported: <what>" to a line "# <<< ported". The test pins the text
@@ -326,21 +334,11 @@ HUNKS = {
 # that config.set() or a read of one fails instead of doing nothing. An
 # RT_<NAME> variable of one is ignored, as any unknown one is.
 NOT_PORTED_FLAGS = {
-    "item 5 (the serving parts that need the runtime)": (
-        "serve_direct_rpc", "serve_disagg", "serve_disagg_timeout_s",
-        "serve_autoscale_interval_s", "serve_autoscale_window_s",
-        "serve_autoscale_up_cooldown_s", "serve_autoscale_down_cooldown_s",
-        "serve_autoscale_ttft_high_frac", "serve_autoscale_ttft_low_frac",
-        "serve_autoscale_kv_high_frac", "serve_autoscale_kv_low_frac",
-        "serve_autoscale_drain_deadline_s", "serve_admission_enabled",
-        "serve_admission_max_inflight", "serve_admission_model_concurrency",
-        "serve_admission_retry_after_s",
-    ),
     "item 8 (the state API, the metrics history and the alerts)": (
-        "metrics_history_max_series", "alerts_enabled", "alerts_ttft_target_s",
-        "alerts_ttft_budget", "alerts_burn_short_s", "alerts_burn_long_s",
-        "alerts_burn_factor", "alerts_queue_depth_max", "alerts_kv_occupancy_frac",
-        "alerts_for_s", "alerts_rules_extra", "alerts_shed_rate_max",
+        "metrics_history_max_series", "alerts_enabled", "alerts_ttft_budget",
+        "alerts_burn_short_s", "alerts_burn_long_s", "alerts_burn_factor",
+        "alerts_kv_occupancy_frac", "alerts_for_s", "alerts_rules_extra",
+        "alerts_shed_rate_max",
     ),
     "item 9 (GPU-aware scheduling; accelerators/ counts cards, not TPU chips)": (
         "num_tpus", "tpu_pod_type", "tpu_topology", "tpu_worker_id",

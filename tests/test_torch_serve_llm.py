@@ -17,6 +17,7 @@ engine (whose streams also equal the kv engine's).
 
 import collections
 import dataclasses
+import json
 import pickle
 import threading
 import time
@@ -27,10 +28,10 @@ import torch
 
 from ray_tpu_torch.models import gpt2 as tg
 from ray_tpu_torch.models import gpt2_decode
-from ray_tpu_torch.serve import llm as llm_mod
 from ray_tpu_torch.serve import prefix_cache
 from ray_tpu_torch.serve.kv_transfer import PrefillEngine, channel_capacity
 from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
+from ray_tpu_torch.serve.replica import Request
 from ray_tpu_torch.utils.config import config
 
 
@@ -434,6 +435,25 @@ def test_chunked_prefill_keeps_live_stream_producing(monkeypatch):
 # -- the request surface -------------------------------------------------------
 
 
+def test_page_gauges_and_slot_aliases(engines):
+    """tests/test_paged_kv.py's contract: the rt_serve_kv_pages_* gauges are
+    published, and the paged engine aliases its page numbers onto the slot
+    gauges' names, so the serve_kv_occupancy alert rule evaluates as
+    before."""
+    from ray_tpu_torch.utils import metrics as umetrics
+
+    engines[(True, True)](_req([3, 1, 4], max_new=2))
+    snap = umetrics.snapshot_all()
+    for name in ("rt_serve_kv_pages_total", "rt_serve_kv_pages_occupied",
+                 "rt_serve_kv_pages_prefix_resident"):
+        assert snap.get(name, {}).get("series"), f"{name} not published"
+    pages = snap["rt_serve_kv_pages_total"]["series"]
+    slots = snap["rt_serve_kv_slots_total"]["series"]
+    for key, val in pages.items():
+        assert slots.get(key) == val, (key, val, slots.get(key))
+    assert 4 * 2 in pages.values()  # max_batch_size x pages per sequence
+
+
 def test_request_shapes(engines):
     srv = engines[(True, True)]
     assert srv(_req([1, 2, 3], max_new=0))["tokens"] == []
@@ -441,13 +461,10 @@ def test_request_shapes(engines):
     assert list(srv(_req([1, 2, 3], max_new=0, stream=True))) == []
     assert len(srv(_req([4], max_new=10_000))["tokens"]) == 127  # T_max - prompt
 
-    class HttpRequest:  # the shape the HTTP proxy hands a deployment
-        query = {"stream": "1"}
-
-        def json(self):
-            return _req([1, 2, 3], max_new=3)
-
-    assert [ev["index"] for ev in srv(HttpRequest())] == [0, 1, 2]
+    # what the HTTP proxy hands a deployment
+    http = Request("POST", "/llm", json.dumps(_req([1, 2, 3], max_new=3)).encode(),
+                   query={"stream": "1"})
+    assert [ev["index"] for ev in srv(http)] == [0, 1, 2]
     st = srv.batch_stats()
     assert st["batches"] > 0 and st["prefix"]["pages_total"] == 4 * 2
     assert channel_capacity(tg.CONFIGS["gpt2-tiny"]) == 2 * 2 * 128 * 64 * 4 + (1 << 20)
@@ -458,14 +475,13 @@ def test_unknown_engine_is_refused():
         LLMConfig(engine="bogus")
 
 
-def test_recompute_engine_contracts(monkeypatch):
+def test_recompute_engine_contracts():
     """The recompute engine batches what is queued, counts one step per
     batch, samples in the vocabulary at temperature > 0, refuses streams
     and holds no pool."""
     # a longer batching wait, so that the four threads below meet in a batch
     # however slowly they start
-    monkeypatch.setattr(llm_mod, "RECOMPUTE_BATCH_WAIT_S", 0.2)
-    srv = _mk(engine="recompute")
+    srv = _mk(engine="recompute", batch_wait_timeout_s=0.2)
     try:
         with pytest.raises(ValueError, match="kv engine"):
             srv(_req([1, 2, 3], stream=True))
