@@ -170,11 +170,15 @@ Phases (any failure exits non-zero and prints no result):
      greedy texts held the same way; every KV shipment is 2 x L x n x H x
      Dh x 2 bytes, the rows in the cache's dtype, bf16 (the prefill spans). The engines' TTFT histogram counts
      every request, the page gauges are set, the token counter covers the
-     tokens returned (the workers' metrics, read over the per-process RPC
-     the JAX package's state API reads). Prints TTFT p50 and p95 at the
-     first SSE event and output tokens/s of both deployments beside phase
-     4's, the PREFILL and TRANSFER spans' ms, and the TTFT the shipment
-     adds one request at a time. After serve.shutdown() and shutdown() no
+     tokens returned (the workers' metrics, read through the port's state
+     API: state.cluster_metrics, and the spans through state.timeline).
+     Prints TTFT p50 and p95 at the first SSE event and output tokens/s of
+     both deployments beside phase 4's, the PREFILL and TRANSFER spans'
+     ms, and the TTFT the shipment adds one request at a time; then
+     state.request_summary() per deployment, state.autoscale_status(), and
+     the metrics history's TTFT series over the phase's window (fails if
+     the history or the alert engine is off, or the series is empty).
+     After serve.shutdown() and shutdown() no
      replica, controller or proxy process of the session is alive and
      none of its shm or spill files remain;
  11. GPU-aware placement: ray_tpu_torch.init, the card as GPU 1 with its
@@ -186,14 +190,41 @@ Phases (any failure exits non-zero and prints no result):
      on the CPU) and a task without num_gpus sees no card; once the halves
      are killed the request runs on the card, and every share is back in
      the node's free set; no process or file of the session is left;
- 12. print the kernel line (one JSON object; beside the contract's keys,
+ 12. device objects (RDT) for CUDA tensors: ray_tpu_torch.init, a producer
+     and a consumer actor at num_gpus 0.5 each. The producer returns,
+     under tensor_transport="device", a 12 MiB bf16 CUDA tensor (phase 8's
+     activation) and gpt2-small's bf16 state dict (all its leaves, from a
+     seeded init), 5 times each, and the consumer takes each ref as an
+     argument: its leaves are the producer's bits (sha256 of names, dtypes,
+     shapes and bytes) on its card; the owner holds a DeviceValue; a
+     same-actor round trip gets the stored tensor itself (data_ptr equal);
+     the driver's get of each payload is its bits on the card; after each
+     ref is dropped the producer's store holds 0 objects and, after the
+     first of each payload, its memory_allocated fell by at least the
+     payload's bytes. Prints the median handoff (from the producer's return
+     to the consumer's card; GB/s for the state dict), the driver's get,
+     the export's D2H through pinned buffers, its pwrite into shm and the
+     two overlapped, the upload from a fresh mapping (device_put, and its
+     copy into pinned memory and H2D), beside phase 8's hop. No flash
+     launch in the driver, the producer or the consumer;
+ 13. the PPO learner: ray_tpu_torch.init, then one minibatch update of the
+     learner on the card held to plain torch on the CPU (same init and
+     batch, f32: loss 1e-5 relative, each update 1e-4 and each Adam moment
+     1e-5 relnorm); PPOConfig(num_env_runners=2, seed=3) trained 15
+     iterations, the learner on the card and two CPU env runners, under
+     tests/test_rllib.py's gates (best return >= max(60, 2 x first), the
+     greedy policy survives >= 100 steps). Prints the seconds per
+     iteration split into SGD and the rest, the ms per minibatch update,
+     and what train()'s float(loss) after each update costs against one
+     read at the end. No flash launch;
+ 14. print the kernel line (one JSON object; beside the contract's keys,
      each kernel's SASS counts from phase 1 for both output types, its
      f32 instantiation's gap, times and ring launches from phase 5, its
      launches a step in each stage process from phase 8 and in the train
      worker and a grad_sync rank from phase 9: every number in it was
      measured or, for bound_ms, computed in this run, and launches come
      from phase 3);
- 13. print the contract line (one JSON object, the last line).
+ 15. print the contract line (one JSON object, the last line).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -2404,56 +2435,6 @@ def _worker_processes() -> dict:
     return {w["address"]: w["pid"] for w in st["workers"].values()}
 
 
-def _each_worker(method: str, **kw) -> list:
-    """``method``'s reply from every worker process of the node, over the
-    per-process RPC that the JAX package's state API reads (state.py is not
-    ported)."""
-    from ray_tpu_torch.utils.rpc import RpcClient, RpcError
-
-    replies = []
-    for addr in _worker_processes():
-        client = RpcClient(addr, name="chip-smoke")
-        try:
-            replies.append(client.call(method, timeout_s=10.0, **kw))
-        except RpcError:
-            continue  # a worker that exited since the listing
-        finally:
-            client.close()
-    return replies
-
-
-def cluster_metrics() -> dict:
-    """The workers' metric snapshots merged as the JAX package's
-    state.cluster_metrics merges them: counters and histograms summed,
-    gauges kept per series. {name: {"kind", "series", "boundaries"}}."""
-    merged, seen = {}, set()
-    for reply in _each_worker("get_metrics"):
-        if reply["token"] in seen:
-            continue
-        seen.add(reply["token"])
-        for name, m in reply["metrics"].items():
-            cur = merged.setdefault(name, {"kind": m["kind"], "series": {},
-                                           "boundaries": m.get("boundaries")})
-            for key, v in m["series"].items():
-                if m["kind"] == "gauge":
-                    cur["series"][key] = v
-                elif m["kind"] == "counter":
-                    cur["series"][key] = cur["series"].get(key, 0.0) + v
-                else:
-                    prev = cur["series"].setdefault(key, {"count": 0, "sum": 0.0})
-                    prev["count"] += v["count"]
-                    prev["sum"] += v["sum"]
-    return merged
-
-
-def request_spans() -> list:
-    """Every serve request span in the workers' event rings."""
-    spans = []
-    for reply in _each_worker("get_task_events", types=["request"]):
-        spans.extend(reply["events"] if isinstance(reply, dict) else reply)
-    return spans
-
-
 def serve_processes() -> dict:
     """{actor name: pid} of the serve controller, proxies and replicas."""
     from ray_tpu_torch.core import worker as worker_mod
@@ -2575,7 +2556,9 @@ def check_engine_metrics(what: str, n_requests: int, n_tokens: int, card: str) -
     """The engines' series after a deployment's traffic (its replicas
     alive): TTFT counted for every request, the page gauges set, tokens at
     least those returned."""
-    mx = cluster_metrics()
+    from ray_tpu_torch import state
+
+    mx = state.cluster_metrics()
     ttft = sum(s["count"] for s in mx.get("rt_serve_ttft_s", {}).get("series", {}).values())
     itl = sum(s["count"] for s in mx.get("rt_serve_inter_token_s", {}).get("series", {}).values())
     tokens = sum(mx.get("rt_serve_tokens_generated_total", {}).get("series", {}).values())
@@ -2591,11 +2574,44 @@ def check_engine_metrics(what: str, n_requests: int, n_tokens: int, card: str) -
     return mx
 
 
+def report_state(window_s: float, card: str) -> None:
+    """What the state API says of phase 10's session: each deployment's
+    request latencies (the spans' summary), the serve control loop's
+    status, and the metrics history's TTFT series over the phase's window.
+    Fails if the history or the alert engine is off or the series empty."""
+    from ray_tpu_torch import state
+    from ray_tpu_torch.utils.metrics import hist_quantile
+
+    for dep, rec in state.request_summary()["deployments"].items():
+        legs = ", ".join(f"{leg} p50 {v['p50'] * 1e3:.2f} ms p95 {v['p95'] * 1e3:.2f} ms"
+                         for leg, v in rec.items() if isinstance(v, dict) and "p50" in v)
+        print(f"state.request_summary() {dep}: {legs}", flush=True)
+    print(f"state.autoscale_status(): {json.dumps(state.autoscale_status(), default=str)[:1500]}",
+          flush=True)
+    hist = state.metrics_history("rt_serve_ttft_s", window_s=window_s)
+    points = [p for p in hist.get("points", []) if p["count"]]
+    alerts = state.alerts()
+    if not hist.get("enabled", True) or hist.get("kind") != "histogram" or not points \
+            or not alerts["enabled"]:
+        fail(f"the metrics history holds no TTFT series for the phase: {hist}, alerts {alerts}")
+    total = [0.0] * len(points[0]["buckets"])
+    for p in points:
+        total = [a + b for a, b in zip(total, p["buckets"])]
+    p95 = hist_quantile(hist["boundaries"], total, 0.95)
+    firing = [a["name"] for a in alerts["alerts"] if a["state"] == "firing"]
+    print(f"state.metrics_history('rt_serve_ttft_s') over the phase's {window_s:.1f} s (step "
+          f"{hist['step_s']} s): {len(points)} points with requests, "
+          f"{sum(p['count'] for p in points):.0f} requests, mean TTFT per point (ms) "
+          f"{[round(p['sum'] / p['count'] * 1e3, 2) for p in points]}, windowed p95 "
+          f"{'n/a' if p95 is None else f'{p95 * 1e3:.2f} ms'} (interpolated in its bucket); "
+          f"alerts firing {firing} [{card}]", flush=True)
+
+
 def serve_front_door(card: str, phase4: dict) -> None:
     """Phase 10. ``phase4``: the in-process engine's TTFT p50/p95 (ms) and
     output tokens/s from phase 4."""
     import ray_tpu_torch
-    from ray_tpu_torch import serve
+    from ray_tpu_torch import serve, state
     from ray_tpu_torch.core import worker as worker_mod
     from ray_tpu_torch.models import gpt2
     from ray_tpu_torch.serve import llm
@@ -2606,6 +2622,7 @@ def serve_front_door(card: str, phase4: dict) -> None:
     traffic = front_traffic(cfg.vocab_size)
     greedy = [r for r in traffic if r["temperature"] == 0]
     models = {SERVE_MODEL: llm.LLMConfig(model_id=SERVE_MODEL, max_batch_size=SERVE_BATCH)}
+    phase_start = time.time()
     ray_tpu_torch.init(num_cpus=4)
     session = worker_mod.global_worker().session_id
     try:
@@ -2732,22 +2749,23 @@ def serve_front_door(card: str, phase4: dict) -> None:
                   "tok_s": d_rate}
 
         # the KV shipments: every prefill span's bytes are the rows in the
-        # cache's dtype (bf16: 2 bytes an element)
-        spans = request_spans()
-        pre = [s for s in spans if s["component"] == "prefill"]
-        xfer = [s for s in spans if s["component"] == "transfer"]
+        # cache's dtype (bf16: 2 bytes an element); the spans as the state
+        # API's timeline renders them
+        spans = [e for e in state.timeline() if e.get("cat") == "request"]
+        pre = [s for s in spans if s["name"].startswith("prefill:")]
+        xfer = [s for s in spans if s["name"].startswith("transfer:")]
         itemsize = torch.finfo(cfg.dtype).bits // 8
         per_token = 2 * cfg.n_layer * cfg.n_head * cfg.head_dim * itemsize
-        wrong = [(s["tokens"], s["kv_bytes"]) for s in pre
-                 if s["kv_bytes"] != per_token * s["tokens"]]
+        wrong = [(s["args"]["tokens"], s["args"]["kv_bytes"]) for s in pre
+                 if s["args"]["kv_bytes"] != per_token * s["args"]["tokens"]]
         print(f"KV shipments: {len(pre)} prefill spans, {len(xfer)} transfer spans; bytes = "
               f"2 x L x n x H x Dh x {itemsize} ({cfg.dtype}) = {per_token} x n in "
-              f"{len(pre) - len(wrong)} of {len(pre)}; {sum(s['kv_bytes'] for s in pre)} bytes "
-              "in all", flush=True)
+              f"{len(pre) - len(wrong)} of {len(pre)}; "
+              f"{sum(s['args']['kv_bytes'] for s in pre)} bytes in all", flush=True)
         if len(pre) < n_disagg or len(xfer) < n_disagg or wrong:
             fail(f"the KV shipments are missing or of the wrong size: {wrong[:4]}")
-        pre_ms = [s["dur_us"] / 1e3 for s in pre]
-        xfer_ms = [s["dur_us"] / 1e3 for s in xfer]
+        pre_ms = [s["dur"] / 1e3 for s in pre]
+        xfer_ms = [s["dur"] / 1e3 for s in xfer]
         print(f"PREFILL spans: p50 {statistics.median(pre_ms):.2f} ms, max {max(pre_ms):.2f} ms; "
               f"TRANSFER spans: p50 {statistics.median(xfer_ms):.2f} ms, max {max(xfer_ms):.2f} "
               f"ms [{card}]", flush=True)
@@ -2762,6 +2780,7 @@ def serve_front_door(card: str, phase4: dict) -> None:
                         ("front door, prefill tier + 1 decode replica", disagg)):
             print(f"{len(traffic)} requests at once, {what}: TTFT p50 {m['p50']:.2f} ms, p95 "
                   f"{m['p95']:.2f} ms, {m['tok_s']:.1f} output tokens/s [{card}]", flush=True)
+        report_state(time.time() - phase_start, card)
     finally:
         serve.shutdown()
         ray_tpu_torch.shutdown()
@@ -2884,6 +2903,492 @@ def placement(card: str) -> None:
         fail(f"the placement session left processes {pids} and files {files}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: device objects (RDT) for CUDA tensors
+# ---------------------------------------------------------------------------
+
+RDT_GPUS = 0.5  # the producer and the consumer each ask for half of the card
+RDT_HANDOFFS = 5  # per payload; the median is printed
+RDT_HOP = (8, 1024, 768)  # phase 8's activation: bf16, 12 MiB
+RDT_MODEL = "gpt2-small"  # its bf16 state dict, all its leaves: the weight handoff
+RDT_EXPORT_RUNS = 3  # the export's halves: median of 3 after one warm-up
+RDT_SEED = 12
+
+
+def payload_tensors(payload) -> list:
+    """[(name, tensor)] of a payload: one tensor, or a state dict."""
+    if isinstance(payload, torch.Tensor):
+        return [("x", payload)]
+    return list(payload.items())
+
+
+def payload_digest(payload) -> tuple:
+    """(sha256 over every tensor's name, dtype, shape and bytes, in order;
+    the devices the tensors are on; their bytes)."""
+    import hashlib
+
+    h, devices, nbytes = hashlib.sha256(), set(), 0
+    for name, x in payload_tensors(payload):
+        devices.add(x.device.type)
+        nbytes += x.nbytes
+        h.update(f"{name}:{x.dtype}:{tuple(x.shape)}".encode())
+        h.update(x.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest(), sorted(devices), nbytes
+
+
+class _RdtProducer:
+    """Phase 12's producer, on its half of the card: gpt2-small's bf16
+    weights (a trainer's side of a weight handoff) and fresh payloads."""
+
+    def __init__(self, seed: int):
+        from ray_tpu_torch.models import gpt2
+
+        self.gen = torch.Generator(device="cuda").manual_seed(seed)
+        model = gpt2.init(self.gen, gpt2.CONFIGS[RDT_MODEL], "cuda").to(torch.bfloat16)
+        self.weights = model.state_dict()
+        self.kept = None
+        self.digests = {}
+
+    def payload(self, what: str):
+        from collections import OrderedDict
+
+        if what == "hop":
+            return torch.randn(RDT_HOP, device="cuda", generator=self.gen).to(torch.bfloat16)
+        return OrderedDict((k, v.clone()) for k, v in self.weights.items())
+
+    def make(self, what: str, i: int):
+        """A fresh payload, returned beside the time it leaves this task."""
+        payload = self.payload(what)
+        self.digests[what, i] = payload_digest(payload)
+        torch.cuda.synchronize()
+        return time.perf_counter(), payload
+
+    def digest(self, what: str, i: int) -> tuple:
+        return self.digests.pop((what, i))
+
+    def make_kept(self):
+        self.kept = self.payload("hop")
+        return self.kept
+
+    def same(self, x) -> bool:
+        """The in-process tier: the argument is the stored tensor itself."""
+        same = x is self.kept and x.data_ptr() == self.kept.data_ptr()
+        self.kept = None
+        return same
+
+    def probe(self) -> dict:
+        from ray_tpu_torch.core import worker as worker_mod
+
+        torch.cuda.synchronize()
+        return {"allocated": torch.cuda.memory_allocated(), "launches": _launch_counts(),
+                **worker_mod.global_worker().rpc_device_store_stats(None)}
+
+    def export_split(self, what: str) -> dict:
+        """The handoff's host halves on a payload, each the median of
+        RDT_EXPORT_RUNS after a warm-up. The export: the D2H through the
+        pinned ring (every chunk's event waited, nothing written), the
+        pwrite of the same bytes from host memory into a fresh shm file,
+        and the overlapped export the worker runs (both at once). The
+        upload a consumer runs, on a fresh mapping of an exported file:
+        device_put, and its halves, the copy out of the mapping into pinned
+        memory and the H2D of that."""
+        import mmap
+        import tempfile
+
+        from ray_tpu_torch.core import device_objects as dev
+        from ray_tpu_torch.core.object_store import _pwrite_all
+        from ray_tpu_torch.utils.config import config
+
+        arrays = [x for _, x in payload_tensors(self.payload(what))]
+        offsets, total = dev.plan_export_layout(arrays)
+        chunk = max(64 * 1024, int(config.rdt_d2h_chunk_bytes))
+        hosts = [dev._host_bytes(a.cpu()) for a in arrays]
+        shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+
+        def drain(item):
+            _off, _view, ready, release = item
+            if ready is not None:  # a card's chunk
+                ready.synchronize()
+                release()
+
+        def into_file(fill):
+            fd, path = tempfile.mkstemp(dir=shm)
+            try:
+                os.ftruncate(fd, total)
+                t0 = time.perf_counter()
+                fill(fd)
+                return (time.perf_counter() - t0) * 1e3
+            finally:
+                os.close(fd)
+                os.unlink(path)
+
+        def d2h():
+            t0 = time.perf_counter()
+            dev._stage_chunks(arrays, offsets, chunk, drain)
+            return (time.perf_counter() - t0) * 1e3
+
+        def write(fd):
+            for h, off in zip(hosts, offsets):
+                _pwrite_all(fd, h, off)
+
+        meta = [(tuple(a.shape), str(a.dtype).removeprefix("torch."), "cuda") for a in arrays]
+
+        def from_file(read) -> list:
+            """[ms] of ``read`` on a fresh mapping of an exported file."""
+            fd, path = tempfile.mkstemp(dir=shm)
+            try:
+                os.ftruncate(fd, total)
+                dev.write_arrays_overlapped(fd, arrays, offsets)
+                with mmap.mmap(fd, total, prot=mmap.PROT_READ) as mm:
+                    view = memoryview(mm)
+                    try:
+                        return read(view)
+                    finally:
+                        view.release()
+            finally:
+                os.close(fd)
+                os.unlink(path)
+
+        def put(view) -> list:
+            t0 = time.perf_counter()
+            dev.device_put(view, offsets, meta)
+            torch.cuda.synchronize()
+            return [(time.perf_counter() - t0) * 1e3]
+
+        def halves(view) -> list:
+            seg = np.frombuffer(view, dtype=np.uint8)
+            t0 = time.perf_counter()
+            staging = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+            staging.numpy()[:] = seg
+            t1 = time.perf_counter()
+            torch.empty(total, dtype=torch.uint8, device="cuda").copy_(staging, non_blocking=True)
+            torch.cuda.synchronize()
+            del seg
+            return [(t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3]
+
+        runs = {"d2h": d2h, "write": lambda: into_file(write),
+                "export": lambda: into_file(lambda fd: dev.write_arrays_overlapped(
+                    fd, arrays, offsets)),
+                "put": lambda: from_file(put)[0], "from_shm": lambda: from_file(halves)[0],
+                "h2d": lambda: from_file(halves)[1]}
+        out = {name: statistics.median([fn() for _ in range(RDT_EXPORT_RUNS + 1)][1:])
+               for name, fn in runs.items()}
+        return dict(out, bytes=total, chunk=chunk)
+
+
+class _RdtConsumer:
+    """Phase 12's consumer, on the other half of the card."""
+
+    def take(self, msg) -> dict:
+        torch.cuda.synchronize()  # the uploads were queued on this stream
+        arrived = time.perf_counter()
+        made, payload = msg
+        digest, devices, nbytes = payload_digest(payload)
+        return {"ms": (arrived - made) * 1e3, "digest": digest, "devices": devices,
+                "bytes": nbytes, "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    def launches(self) -> tuple:
+        return _launch_counts()
+
+
+def _wait_freed(producer) -> dict:
+    import ray_tpu_torch
+
+    deadline = time.monotonic() + 30
+    while True:
+        st = ray_tpu_torch.get(producer.probe.remote(), timeout=FRONT_TIMEOUT_S)
+        if st["device_objects"] == 0 or time.monotonic() > deadline:
+            return st
+        time.sleep(0.1)
+
+
+def device_objects(card: str, hop_ms: float) -> None:
+    """Phase 12. ``hop_ms``: phase 8's stage-to-stage hop of the same 12 MiB
+    activation (median ms)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.core import worker as worker_mod
+    from ray_tpu_torch.core.device_objects import DeviceValue
+
+    _zero_launches()
+    ray_tpu_torch.init(num_cpus=2)
+    w = worker_mod.global_worker()
+    session = w.session_id
+    rows = {}
+    try:
+        p = ray_tpu_torch.remote(num_gpus=RDT_GPUS)(_RdtProducer).remote(RDT_SEED)
+        c = ray_tpu_torch.remote(num_gpus=RDT_GPUS)(_RdtConsumer).remote()
+        ray_tpu_torch.get(p.probe.remote(), timeout=FRONT_TIMEOUT_S)
+        kept = p.make_kept.options(tensor_transport="device").remote()
+        if not ray_tpu_torch.get(p.same.remote(kept), timeout=FRONT_TIMEOUT_S):
+            fail("a same-actor round trip of a device object did not return the stored tensor")
+        del kept
+        _wait_freed(p)
+        for what in ("hop", "state_dict"):
+            ms = []
+            for i in range(RDT_HANDOFFS):
+                ref = p.make.options(tensor_transport="device").remote(what, i)
+                got = ray_tpu_torch.get(c.take.remote(ref), timeout=FRONT_TIMEOUT_S)
+                want = ray_tpu_torch.get(p.digest.remote(what, i), timeout=FRONT_TIMEOUT_S)
+                if got["digest"] != want[0] or got["devices"] != ["cuda"]:
+                    fail(f"{what} handoff {i}: the consumer's leaves are not the producer's "
+                         f"bits on the card ({got['devices']})")
+                ms.append(got["ms"])
+                if i == 0:
+                    if not isinstance(w.memory_store.try_get(ref.id), DeviceValue):
+                        fail(f"the owner of the {what} ref holds its payload, not a DeviceValue")
+                    t0 = time.perf_counter()
+                    _made, mine = ray_tpu_torch.get(ref, timeout=FRONT_TIMEOUT_S)
+                    torch.cuda.synchronize()
+                    get_ms = (time.perf_counter() - t0) * 1e3
+                    if payload_digest(mine)[:2] != (want[0], ["cuda"]):
+                        fail(f"the driver's get of the {what} ref is not the producer's bits "
+                             "on the card")
+                    del mine
+                    held = ray_tpu_torch.get(p.probe.remote(), timeout=FRONT_TIMEOUT_S)
+                del ref
+                freed = _wait_freed(p)
+                if freed["device_objects"]:
+                    fail(f"{what} handoff {i}: the producer's store still holds "
+                         f"{freed['device_objects']} objects after the ref was dropped")
+                if i == 0:
+                    fell = held["allocated"] - freed["allocated"]
+                    if held["device_objects"] != 1 or fell < want[2]:
+                        fail(f"the producer's memory fell by {fell} bytes when the {what} ref "
+                             f"was dropped, not by the payload's {want[2]}")
+                    rows[what] = {"bytes": want[2], "get_ms": get_ms,
+                                  "held": held, "freed": freed, "fell": fell,
+                                  "visible": got["visible"]}
+            rows[what]["ms"] = ms
+            rows[what]["export"] = ray_tpu_torch.get(p.export_split.remote(what),
+                                                     timeout=FRONT_TIMEOUT_S)
+        actor_launches = ray_tpu_torch.get([p.probe.remote(), c.launches.remote()],
+                                           timeout=FRONT_TIMEOUT_S)
+    finally:
+        ray_tpu_torch.shutdown()
+    counts, counts_f32 = _launch_counts()
+    for what, r in rows.items():
+        med = statistics.median(r["ms"])
+        e = r["export"]
+        rate = f", {r['bytes'] / med / 1e6:.2f} GB/s" if what == "state_dict" else ""
+        print(f"device object handoff, {what} ({r['bytes']} bytes, bf16 CUDA leaves), producer "
+              f"to consumer at {RDT_GPUS} of the card each (CUDA_VISIBLE_DEVICES "
+              f"{r['visible']}), from the producer's return to the consumer's card, median of "
+              f"{RDT_HANDOFFS}: {med:.3f} ms{rate} (all: {', '.join(f'{x:.3f}' for x in r['ms'])}); "
+              f"the driver's get {r['get_ms']:.3f} ms; the export ({e['chunk']} byte chunks, "
+              f"median of {RDT_EXPORT_RUNS}): D2H through pinned buffers {e['d2h']:.3f} ms, "
+              f"pwrite into shm {e['write']:.3f} ms, overlapped {e['export']:.3f} ms; the "
+              f"upload from a fresh mapping: device_put {e['put']:.3f} ms = the copy out of "
+              f"the mapping into pinned memory {e['from_shm']:.3f} ms + H2D {e['h2d']:.3f} ms; the "
+              f"producer's memory_allocated {r['held']['allocated']} with the ref, "
+              f"{r['freed']['allocated']} after its drop (fell {r['fell']}), store objects "
+              f"{r['freed']['device_objects']} [{card}]", flush=True)
+    print(f"phase 8's stage-to-stage hop of the same 12 MiB activation (HostTensor over a "
+          f"compiled graph's channel): {hop_ms:.3f} ms [{card}]", flush=True)
+    launched = {"driver": counts, "driver f32": counts_f32,
+                "producer": actor_launches[0]["launches"], "consumer": actor_launches[1]}
+    print(f"flash launches in phase 12: {launched}", flush=True)
+    if any(n for v in (counts, counts_f32) for n in v.values()) or any(
+            n for pair in (actor_launches[0]["launches"], actor_launches[1])
+            for v in pair for n in v.values()):
+        fail("the device-object phase launched a flash kernel")
+    deadline = time.monotonic() + 30
+    while True:
+        pids, files = session_leftovers(session)
+        if not (pids or files) or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    if pids or files:
+        fail(f"the device-object session left processes {pids} and files {files}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the PPO learner on the card
+# ---------------------------------------------------------------------------
+
+PPO_SEED = 3  # tests/test_rllib.py's
+PPO_ITERS = 15
+PPO_CHECK_STEPS = 256  # the held minibatch: one minibatch of CartPole steps
+PPO_LOSS_RTOL = 1e-5
+PPO_UPDATE_RELNORM_TOL = 1e-4  # each parameter's update, card vs CPU, f32
+PPO_MOMENT_RELNORM_TOL = 1e-5  # each Adam moment
+PPO_SYNC_RUNS = 2  # per variant, in turns
+
+
+def _relnorm(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _ppo_batch(params: dict, steps: int) -> dict:
+    """``steps`` of CartPole under ``params`` by an env runner in this
+    process, with GAE: a learner's batch."""
+    from ray_tpu_torch.rllib import ppo as ppo_mod
+    from ray_tpu_torch.utils import serialization
+
+    runner = ppo_mod.EnvRunner.cls("CartPole-v1", PPO_SEED * 1000)
+    b = runner.sample(serialization.pack(params), steps)
+    adv, targets = ppo_mod._gae(b, 0.99, 0.95)
+    return {"obs": b["obs"], "actions": b["actions"].astype(np.int64), "logp": b["logp"],
+            "adv": adv, "targets": targets}
+
+
+def check_learner_update(card: str) -> None:
+    """One minibatch update of the learner on the card, held to the same
+    update in plain torch on the CPU, from the same params and batch."""
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.rllib import ppo as ppo_mod
+
+    on_card = PPOConfig(num_env_runners=0, seed=PPO_SEED).build()
+    on_cpu = PPOConfig(num_env_runners=0, seed=PPO_SEED, device="cpu").build()
+    before = {k: torch.from_numpy(v) for k, v in ppo_mod._host_params(on_cpu.policy).items()}
+    mb = _ppo_batch({k: v.numpy() for k, v in before.items()}, PPO_CHECK_STEPS)
+    loss = {}
+    for name, algo in (("card", on_card), ("cpu", on_cpu)):
+        loss[name] = float(algo._train_minibatch(
+            {k: torch.as_tensor(v, device=algo.device) for k, v in mb.items()}))
+    loss_gap = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+    upd, mom = {}, {}
+    for k in before:
+        pc, pp = on_card.policy[k], on_cpu.policy[k]
+        upd[k] = _relnorm(pc.cpu() - before[k], pp - before[k])
+        sc, sp = on_card.opt.state[pc], on_cpu.opt.state[pp]
+        mom[k] = max(_relnorm(sc["exp_avg"], sp["exp_avg"]),
+                     _relnorm(sc["exp_avg_sq"], sp["exp_avg_sq"]))
+    print(f"PPO learner, one minibatch update ({PPO_CHECK_STEPS} CartPole steps, f32) on the "
+          f"card ({on_card.device}) vs plain torch on the CPU, the same init (seed {PPO_SEED}): "
+          f"loss {loss['card']:.7f} vs {loss['cpu']:.7f} (rel {loss_gap:.2e}, limit "
+          f"{PPO_LOSS_RTOL:g}); update relnorm max {max(upd.values()):.2e} (limit "
+          f"{PPO_UPDATE_RELNORM_TOL:g}); Adam moments relnorm max {max(mom.values()):.2e} "
+          f"(limit {PPO_MOMENT_RELNORM_TOL:g}) [{card}]", flush=True)
+    if (on_card.device.type != "cuda" or loss_gap > PPO_LOSS_RTOL
+            or max(upd.values()) > PPO_UPDATE_RELNORM_TOL
+            or max(mom.values()) > PPO_MOMENT_RELNORM_TOL):
+        fail(f"the learner's update on the card disagrees with the CPU's: {upd}, {mom}")
+
+
+def time_loss_syncs(card: str) -> dict:
+    """What train()'s float(loss) after every minibatch costs: one
+    iteration's updates (6 epochs of 8 minibatches over 2048 steps) with
+    a host read of each loss, and the same with the losses read once at
+    the end, in turns. Median ms of each."""
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.rllib import ppo as ppo_mod
+
+    algo = PPOConfig(num_env_runners=0, seed=PPO_SEED).build()
+    cfg = algo.cfg
+    data = _ppo_batch(ppo_mod._host_params(algo.policy), 2 * cfg.rollout_length)
+    on_dev = {k: torch.as_tensor(v, device=algo.device) for k, v in data.items()}
+    rng = np.random.default_rng(cfg.seed)
+    orders = [torch.as_tensor(rng.permutation(len(data["obs"])), device=algo.device)
+              for _ in range(cfg.num_epochs)]
+
+    def run(each: bool) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for order in orders:
+            for start in range(0, len(order), cfg.minibatch_size):
+                idx = order[start:start + cfg.minibatch_size]
+                loss = algo._train_minibatch({k: v.index_select(0, idx) for k, v in on_dev.items()})
+                losses.append(float(loss) if each else loss)
+        if not each:
+            torch.stack(losses).cpu()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    run(True)  # warm-up
+    times = {True: [], False: []}
+    for _ in range(PPO_SYNC_RUNS):
+        for each in (True, False, False, True):
+            times[each].append(run(each))
+    return {"each": statistics.median(times[True]), "once": statistics.median(times[False]),
+            "updates": cfg.num_epochs * len(range(0, len(data["obs"]), cfg.minibatch_size))}
+
+
+def ppo_learner(card: str) -> None:
+    """Phase 13: PPOConfig(num_env_runners=2, seed=3), the learner on the
+    card and two CPU env runners, 15 iterations under tests/test_rllib.py's
+    gates."""
+    import ray_tpu_torch
+    from ray_tpu_torch.core import worker as worker_mod
+    from ray_tpu_torch.rllib import CartPole, PPOConfig
+
+    _zero_launches()
+    ray_tpu_torch.init(num_cpus=4)
+    session = worker_mod.global_worker().session_id
+    try:
+        check_learner_update(card)
+        algo = PPOConfig(num_env_runners=2, seed=PPO_SEED).build()
+        try:
+            sgd_ms = []
+            update = algo._train_minibatch
+
+            def timed_update(mb):
+                # train() reads the loss right after: this sync adds none
+                t0 = time.perf_counter()
+                loss = update(mb)
+                torch.cuda.synchronize()
+                sgd_ms.append((time.perf_counter() - t0) * 1e3)
+                return loss
+
+            algo._train_minibatch = timed_update
+            iters = []
+            for _ in range(PPO_ITERS):
+                n0 = len(sgd_ms)
+                t0 = time.perf_counter()
+                result = algo.train()
+                wall = time.perf_counter() - t0
+                iters.append((wall, sum(sgd_ms[n0:]) / 1e3, result))
+            env = CartPole()
+            obs, _ = env.reset(seed=42)
+            steps, done = 0, False
+            while not done and steps < 500:
+                obs, _, term, trunc, _ = env.step(algo.compute_action(obs))
+                done = term or trunc
+                steps += 1
+        finally:
+            algo.stop()
+        syncs = time_loss_syncs(card)
+    finally:
+        ray_tpu_torch.shutdown()
+    counts, counts_f32 = _launch_counts()
+    returns = [r["episode_return_mean"] for _, _, r in iters]
+    first = next((x for x in returns if x is not None), None)
+    best = max((x for x in returns if x is not None), default=0.0)
+    walls = [w for w, _, _ in iters]
+    sgds = [s for _, s, _ in iters]
+    print(f"PPO on CartPole, {PPO_ITERS} iterations (2 CPU env runners x 1024 steps, the "
+          f"learner on the card): episode return means "
+          f"{[None if x is None else round(x, 1) for x in returns]}; first {first}, best {best} "
+          f"(gate: >= max(60, 2 x first)); the greedy policy survived {steps} steps (gate: "
+          f">= 100) [{card}]", flush=True)
+    print(f"PPO seconds per iteration, median of {PPO_ITERS}: {statistics.median(walls):.3f} s = "
+          f"SGD {statistics.median(sgds):.3f} s ({len(sgd_ms) // PPO_ITERS} minibatch updates, "
+          f"each read back by float(loss)) + sampling, GAE and the batch's upload "
+          f"{statistics.median(w - s for w, s in zip(walls, sgds)):.3f} s; one minibatch update "
+          f"median {statistics.median(sgd_ms):.3f} ms (the first iteration's included; first "
+          f"update {sgd_ms[0]:.3f} ms) [{card}]", flush=True)
+    print(f"train()'s float(loss) after each of {syncs['updates']} updates: "
+          f"{syncs['each']:.3f} ms an iteration's SGD, against {syncs['once']:.3f} ms with the "
+          f"losses read once at the end ({syncs['each'] - syncs['once']:.3f} ms of host syncs, "
+          f"median of {2 * PPO_SYNC_RUNS} each, in turns) [{card}]", flush=True)
+    print(f"flash launches in phase 13: {counts}, f32 {counts_f32}", flush=True)
+    if first is None or best < max(60.0, 2 * first):
+        fail(f"PPO did not learn on the card: first={first}, best={best}")
+    if steps < 100:
+        fail(f"the greedy policy survived only {steps} steps")
+    if any(counts.values()) or any(counts_f32.values()):
+        fail("the PPO phase launched a flash kernel")
+    deadline = time.monotonic() + 30
+    while True:
+        pids, files = session_leftovers(session)
+        if not (pids or files) or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    if pids or files:
+        fail(f"the PPO session left processes {pids} and files {files}")
+
+
 def main() -> None:
     card = identify()
     sass = build()
@@ -2894,10 +3399,13 @@ def main() -> None:
     f32 = parallel(card)
     sharded_step(card, remat["no remat"])
     pipeline_train(card, (counts, losses, step_ms))
-    stages = pipeline_parallel(card, step_ms)
+    pp = {}
+    stages = pipeline_parallel(card, step_ms, summary=pp)
     trained = train_library(card, train_oracle(card))
     serve_front_door(card, phase4)
     placement(card)
+    device_objects(card, pp["hop_ms"])
+    ppo_learner(card)
     kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
                     launches=counts[name], **results[name], held_at=["bf16", "f32"],
                     f32=f32[name], sass=sass[name], pipeline_stage_launches_a_step=stages[name],

@@ -6,9 +6,12 @@ PyTorch, and every Pallas kernel on a ported path is a CUDA C++ kernel
 written by hand for Hopper (``ops/csrc/``), built with nvcc at first use.
 The runtime under it (``core/``, ``data/``, ``utils/``, ``observability/``,
 and the Train library and host collectives in ``train/`` and
-``collective/``) is a copy of the JAX package's, pinned file by file
+``collective/``, the state API and the metrics history and alerts) is a
+copy of the JAX package's, pinned file by file
 (``tests/test_torch_runtime_copy.py``); ``accelerators/`` counts NVIDIA
-cards instead of TPU chips.
+cards instead of TPU chips, ``core/device_objects.py`` keeps torch tensors
+(on the CPU or a card) for ``tensor_transport="device"``, and
+``rllib/ppo.py`` runs the PPO learner in torch.
 
 The package imports torch and numpy only: nothing of JAX and nothing of
 ``ray_tpu``. Importing it imports no torch either: the core API below is

@@ -218,10 +218,24 @@ class ControlStore:
         interval = float(config.metrics_sample_interval_s)
         if interval <= 0 or not bool(config.observability_enabled):
             return
-        # The history sampler scrapes the state API (state.py) and feeds
-        # the alert engine; the three are not ported yet (ROADMAP.md,
-        # Queue A item 8), so the plane stays off as at interval 0:
-        # rpc_metrics_history and rpc_alerts answer {"enabled": False}.
+        from ray_tpu_torch.observability import alerts as alerts_mod
+        from ray_tpu_torch.observability import history as history_mod
+
+        self._history = history_mod.MetricsHistory(
+            base_step_s=interval,
+            max_series=int(config.metrics_history_max_series),
+        )
+        on_tick = None
+        if bool(config.alerts_enabled):
+            self._alert_engine = alerts_mod.AlertEngine(
+                alerts_mod.default_rules(), self._history
+            )
+            on_tick = self._alert_engine.evaluate
+        self._sampler = history_mod.HistorySampler(
+            self._history, self.address, self._stopped, interval,
+            on_tick=on_tick,
+        )
+        self._sampler.start()
 
     def stop(self) -> None:
         self._stopped.set()

@@ -1,65 +1,73 @@
-"""TPU-RDT: device-resident objects (ObjectRefs whose payload stays in HBM).
+"""RDT for torch tensors: device-resident objects (ObjectRefs whose payload
+stays on the card).
 
-In ray_tpu_torch the device transport waits for a store of CUDA
-tensors (ROADMAP.md, Queue A item 6): ``validate_transport("device")``
-raises NotImplementedError, and so does every helper below that the
-JAX package binds to jax. The transport-neutral parts (the
-DeviceValue marker, the store's bookkeeping, the overlapped export
-writer) are kept as they are, so that the worker copy links.
-
+Ported from the JAX package's TPU-RDT (``ray_tpu/core/device_objects.py``).
 Parity target: Ray Direct Transport — the reference's GPUObjectManager
 (Ray's python/ray/experimental/gpu_object_manager/
 gpu_object_manager.py:98) keeps tensors returned from
 ``@ray.method(tensor_transport=...)`` tasks inside the producing actor's
 device memory; the ObjectRef that travels through the control plane is
-pure metadata, and tensor payloads move out-of-band (collective / NIXL /
-CUDA-IPC transports).
+pure metadata, and tensor payloads move out-of-band.
 
-TPU-native design (NOT a port of the torch/NCCL machinery):
+Design, as the JAX package's:
 
-- A value produced under ``tensor_transport="device"`` is flattened with
-  ``jax.tree_util``; ``jax.Array`` leaves stay in the producing process's
-  HBM inside its :class:`DeviceObjectStore`, while the pytree skeleton
-  (non-array leaves + treedef) is pickled into a small metadata record.
-- The owner's memory store holds a :class:`DeviceValue` marker — shape/
-  dtype avals only, no payload — so refcounting, borrows, and lineage
-  work unchanged.
+- A value produced under ``tensor_transport="device"`` is flattened
+  through its dicts, lists and tuples; every ``torch.Tensor`` leaf, on the
+  CPU or on a card, stays in the producing process inside its
+  :class:`DeviceObjectStore`, while the skeleton (the containers and the
+  other leaves) is pickled into a small metadata record. Numpy arrays and
+  plain values are not tensors: a value with no tensor takes the object
+  path.
+- The owner's memory store holds a :class:`DeviceValue` marker — shape,
+  torch dtype and device kind per leaf, no payload — so refcounting,
+  borrows, and lineage work unchanged.
 - Transfer tiers, chosen per consumer:
     1. **in-process**: the consuming task runs in the process that holds
-       the value → the stored pytree is returned as-is (zero copy, the
-       arrays never leave HBM; mutations are visible, exactly like the
+       the value → the stored tensors are returned as-is (zero copy, the
+       same ``data_ptr``; mutations are visible, exactly like the
        reference's documented RDT aliasing semantics).
     2. **cross-process**: the holder exports raw leaf bytes ONCE into an
-       agent shm segment (worker.py _export_device_segment); same-host
-       consumers mmap it, cross-host consumers stream it over the
-       sendfile data plane, then ``jax.device_put`` — tensor data never
-       passes through pickle.
-  A jax.experimental.transfer (TransferServer) backend — true NIC/ICI DMA
-  between jax clients, the NIXL analogue — slots in here once jaxlib's
-  same-host path stops aborting (tracked: LocalBulkTransportFactory
-  check-fail in jaxlib 0.9's CPU client); the RPC tier is the universal
-  fallback the reference's object-store path plays.
+       agent shm segment (worker.py _export_device_segment): a card's leaf
+       is copied chunk by chunk into pinned host buffers on a side stream
+       that first waits for the stream that produced it, and each chunk is
+       written as soon as its event fires. Same-host consumers mmap the
+       segment, cross-host consumers stream it over the sendfile data
+       plane; :func:`device_put` then copies every leaf into a tensor of
+       its own on the kind of device it came from (a card's leaf onto the
+       consumer's current card: a consumer that sees no card raises).
+       bf16 leaves cross as their bits (numpy has no bfloat16), so they
+       come back bitwise.
 
-Only fully-addressable (single-process) arrays take the device path;
-arrays sharded across a multi-host mesh fall back to the ordinary object
-path (their per-host shards belong to different processes by
-construction in the multi-controller model).
+There is no CUDA IPC and no NCCL transport, as the JAX package has no
+ICI or NIC transport: the shm/sendfile tier is the universal one.
+
+Only plain strided tensors on ``cpu`` or ``cuda`` take the device path;
+a DTensor (sharded across processes) falls back to the ordinary object
+path, as the JAX package's multi-host arrays do.
 """
 
 from __future__ import annotations
 
+import math
 import queue
+import sys
 import threading
+from collections import OrderedDict
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch.utils import serialization
 from ray_tpu_torch.utils.config import config
 
 VALID_TRANSPORTS = ("object", "device")
-_NOT_PORTED = (
-    "tensor_transport='device' is not ported: ray_tpu_torch has no store of "
-    "CUDA tensors yet (ROADMAP.md, Queue A item 6, RDT for CUDA tensors)"
-)
+
+# numpy has no bfloat16 and no float8: such leaves cross the wire as their
+# bits, in the unsigned type of their width
+_WIRE_DTYPES = {"bfloat16": "uint16", "float8_e4m3fn": "uint8", "float8_e5m2": "uint8"}
+
+# pinned host buffers a card's export cycles through: one being written,
+# two in the writer's queue, one being filled
+_PINNED_BUFFERS = 4
 
 
 def validate_transport(transport: str) -> str:
@@ -70,19 +78,21 @@ def validate_transport(transport: str) -> str:
             f"unknown tensor_transport {transport!r}; "
             f"expected one of {VALID_TRANSPORTS}"
         )
-    if transport == "device":
-        raise NotImplementedError(_NOT_PORTED)
     return transport
 
 
-def _meta_nbytes(leaves_meta: List[Tuple[Tuple[int, ...], str]]) -> int:
-    import math
+def wire_dtype(dtype: str) -> str:
+    """The numpy dtype that carries a leaf of torch dtype ``dtype`` (its
+    name without ``torch.``) byte for byte."""
+    return _WIRE_DTYPES.get(dtype, dtype)
 
+
+def _meta_nbytes(leaves_meta: List[Tuple[Tuple[int, ...], str, str]]) -> int:
     import numpy as np
 
     return sum(
-        math.prod(shape) * np.dtype(dtype).itemsize
-        for shape, dtype in leaves_meta
+        math.prod(shape) * np.dtype(wire_dtype(dtype)).itemsize
+        for shape, dtype, _kind in leaves_meta
     )
 
 
@@ -98,19 +108,20 @@ class DeviceValue:
         worker_address: str,
         obj_hex: str,
         skeleton: bytes,
-        leaves_meta: List[Tuple[Tuple[int, ...], str]],
+        leaves_meta: List[Tuple[Tuple[int, ...], str, str]],
     ):
         self.worker_address = worker_address
         self.obj_hex = obj_hex
-        self.skeleton = skeleton  # packed (treedef, static leaves)
-        self.leaves_meta = leaves_meta  # [(shape, dtype_str)] per array leaf
+        self.skeleton = skeleton  # the packed containers and static leaves
+        # [(shape, torch dtype name, device kind "cpu" | "cuda")] per tensor
+        self.leaves_meta = leaves_meta
 
     def nbytes(self) -> int:
         return _meta_nbytes(self.leaves_meta)
 
 
 class _ArraySlot:
-    """Placeholder marking an array leaf's position in the skeleton."""
+    """Placeholder marking a tensor leaf's position in the skeleton."""
 
     __slots__ = ("index",)
 
@@ -118,63 +129,135 @@ class _ArraySlot:
         self.index = index
 
 
+def _torch():
+    """torch, if this process imported it: no tensor exists before that,
+    and a value without one costs no import."""
+    return sys.modules.get("torch")
+
+
 def _is_device_array(x: Any) -> bool:
-    raise NotImplementedError(_NOT_PORTED)
+    torch = _torch()
+    if torch is None or not isinstance(x, torch.Tensor):
+        return False
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    if dtensor is not None and isinstance(x, dtensor.DTensor):
+        return False
+    return x.layout == torch.strided and x.device.type in ("cpu", "cuda")
+
+
+def _map_tree(node: Any, leaf) -> Any:
+    """``node`` rebuilt with ``leaf`` applied to everything that is not a
+    dict, OrderedDict, list or tuple (a namedtuple keeps its type)."""
+    kind = type(node)
+    if kind in (dict, OrderedDict):
+        return kind((k, _map_tree(v, leaf)) for k, v in node.items())
+    if kind in (list, tuple):
+        return kind(_map_tree(v, leaf) for v in node)
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return kind(*(_map_tree(v, leaf) for v in node))
+    return leaf(node)
 
 
 def split_device_value(value: Any):
-    """Flatten ``value``; pull out fully-addressable jax.Array leaves.
+    """Flatten ``value``; pull out its tensor leaves.
 
-    Returns (arrays, skeleton_frame, leaves_meta) or None if the value
-    holds no device arrays (caller falls back to the object path)."""
-    raise NotImplementedError(_NOT_PORTED)
+    Returns (tensors, skeleton_frame, leaves_meta) or None if the value
+    holds no tensor (caller falls back to the object path)."""
+    if _torch() is None:
+        return None
+    arrays: List[Any] = []
+
+    def take(leaf):
+        if not _is_device_array(leaf):
+            return leaf
+        arrays.append(leaf)
+        return _ArraySlot(len(arrays) - 1)
+
+    static = _map_tree(value, take)
+    if not arrays:
+        return None
+    skeleton = serialization.pack(static)
+    leaves_meta = [
+        (tuple(a.shape), str(a.dtype).removeprefix("torch."), a.device.type)
+        for a in arrays
+    ]
+    return arrays, skeleton, leaves_meta
 
 
 def join_device_value(skeleton: bytes, arrays: List[Any]) -> Any:
     """Inverse of :func:`split_device_value`."""
-    raise NotImplementedError(_NOT_PORTED)
+    static = serialization.unpack(skeleton)
+    return _map_tree(
+        static, lambda s: arrays[s.index] if isinstance(s, _ArraySlot) else s
+    )
 
 
-def device_put(hosts: List[Any]) -> List[Any]:
-    """Upload host leaves to the card (the JAX worker's jax.device_put)."""
-    raise NotImplementedError(_NOT_PORTED)
+def _record_ready(arrays: List[Any]) -> List[Any]:
+    """One event per card, recorded on the stream the producer is on now:
+    its kernels that wrote the tensors are queued before it."""
+    import torch
+
+    devices = {a.device for a in arrays if a.device.type == "cuda"}
+    events = []
+    for dev in devices:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        events.append((dev, ev))
+    return events
+
+
+def _wait_ready(ready: List[Any]) -> None:
+    """Make the calling thread's current stream on each card wait for the
+    producer's: work it queues next reads the tensors whole."""
+    if not ready:
+        return
+    import torch
+
+    for dev, ev in ready:
+        torch.cuda.current_stream(dev).wait_event(ev)
 
 
 class DeviceObjectStore:
-    """Per-process store of device-resident pytrees, keyed by object hex.
+    """Per-process store of device-resident values, keyed by object hex.
 
     The executor-side half of RDT (reference GPUObjectStore role): holds
-    the actual ``jax.Array``s in HBM; serves raw buffer bytes to remote
-    consumers; frees on the owner's release."""
+    the tensors themselves, on the card or on the CPU; serves raw buffer
+    bytes to remote consumers; frees on the owner's release (dropping the
+    store's reference gives a card's memory back)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
-        # obj_hex -> (arrays, skeleton, leaves_meta)
-        self._objects: Dict[str, Tuple[List[Any], bytes, list]] = {}
+        # obj_hex -> (tensors, skeleton, leaves_meta, ready events)
+        self._objects: Dict[str, Tuple[List[Any], bytes, list, list]] = {}
 
     def put(self, obj_hex: str, value: Any) -> Optional[Tuple[bytes, list]]:
-        """Store ``value``'s array leaves; return (skeleton, leaves_meta)
-        or None when the value has no device arrays."""
+        """Store ``value``'s tensor leaves; return (skeleton, leaves_meta)
+        or None when the value has no tensor."""
         parts = split_device_value(value)
         if parts is None:
             return None
         arrays, skeleton, leaves_meta = parts
+        ready = _record_ready(arrays)
         with self._lock:
-            self._objects[obj_hex] = (arrays, skeleton, leaves_meta)
+            self._objects[obj_hex] = (arrays, skeleton, leaves_meta, ready)
         return skeleton, leaves_meta
 
     def get_value(self, obj_hex: str) -> Any:
-        """In-process zero-copy read: rebuild the pytree around the SAME
-        array objects (no transfer, no copy)."""
+        """In-process zero-copy read: rebuild the value around the SAME
+        tensor objects (no transfer, no copy), ordered after the producer's
+        stream."""
         with self._lock:
-            arrays, skeleton, _ = self._objects[obj_hex]
+            arrays, skeleton, _, ready = self._objects[obj_hex]
+        _wait_ready(ready)
         return join_device_value(skeleton, arrays)
 
     def arrays(self, obj_hex: str) -> List[Any]:
-        """The live device arrays (for the shm/data-plane export path)."""
+        """The live tensors (for the shm/data-plane export path), with the
+        calling thread's current stream ordered after the producer's."""
         with self._lock:
-            arrays, _, _ = self._objects[obj_hex]
+            arrays, _, _, ready = self._objects[obj_hex]
+        _wait_ready(ready)
         return arrays
 
     def free(self, obj_hex: str) -> None:
@@ -206,33 +289,31 @@ class DeviceObjectStore:
     def stats(self) -> Dict[str, int]:
         with self._lock:
             objs = list(self._objects.values())
-        total = sum(_meta_nbytes(leaves_meta) for _, _, leaves_meta in objs)
+        total = sum(_meta_nbytes(entry[2]) for entry in objs)
         return {"device_objects": len(objs), "device_bytes": total}
 
 
 # ---------------------------------------------------------------------------
-# Overlapped export: double-buffered chunked D2H -> shm/socket write
+# Overlapped export: chunked D2H through pinned buffers -> shm/socket write
 # ---------------------------------------------------------------------------
 #
-# The export path (worker._build_device_export) used to be strictly
-# serial: D2H-convert EVERY leaf, then pwrite every byte. Here the two
-# halves pipeline through a depth-2 staging queue (the double buffer):
-# a producer thread issues ``copy_to_host_async`` for leaf i+1 before
-# materializing leaf i and emits (offset, host-view) chunks of
-# ``rdt_d2h_chunk_bytes``; the caller thread pwrites chunk k-1 while
-# chunk k's device->host copy is in flight — the nixl_tensor_transport
-# playbook of hiding the transfer behind the write (and vice versa).
-# On a TPU the D2H is a real DMA and the overlap is wall-clock; on the
-# CPU backend np.asarray is a zero-copy view, so the win there comes
-# from the producer-side EAGER export instead (worker._package_returns
-# kicks this machinery the moment a device return is parked, so the
-# whole export overlaps the consumer task's submit/schedule latency
-# rather than sitting on its first-get critical path).
+# As in the JAX package, the export pipelines through a depth-2 staging
+# queue (the double buffer): a producer thread stages (offset, host view)
+# chunks of ``rdt_d2h_chunk_bytes`` while the caller thread pwrites the
+# ones before. A card's leaf is staged by a non-blocking copy into one of
+# a few pinned host buffers on a side stream (pageable memory would make
+# the copy synchronous); the copy's event travels with the chunk, the
+# writer waits for it before the pwrite and hands the buffer back after,
+# and only then may the producer fill that buffer again. A CPU leaf's
+# chunks are views of its own memory, written at once. The producer-side
+# EAGER export (worker._package_returns kicks it the moment a device
+# return is parked) overlaps the whole export with the consumer task's
+# submit/schedule latency.
 
 
 def plan_export_layout(arrays: List[Any]) -> Tuple[List[int], int]:
-    """64B-aligned segment offsets for each leaf (from aval nbytes — no
-    materialization) and the total segment size."""
+    """64B-aligned segment offsets for each leaf (from its nbytes — no
+    copy) and the total segment size."""
     offsets: List[int] = []
     off = 0
     for a in arrays:
@@ -242,43 +323,129 @@ def plan_export_layout(arrays: List[Any]) -> Tuple[List[int], int]:
     return offsets, max(off, 1)
 
 
-def _stage_chunks(arrays, offsets, chunk_bytes, emit) -> None:
-    """D2H-convert each leaf (async-prefetching the next) and emit
-    (file_offset, host_byte_view) pieces of at most ``chunk_bytes``."""
+def _flat_bytes(t):
+    """A tensor's bytes as a flat uint8 tensor (a view when contiguous)."""
+    import torch
+
+    flat = t.detach().resolve_conj().resolve_neg().reshape(-1)
+    if flat.numel() == 0:
+        return torch.empty(0, dtype=torch.uint8, device=t.device)
+    if flat.stride(0) != 1:  # a one-element view may keep any stride
+        flat = flat.clone(memory_format=torch.contiguous_format)
+    return flat.view(torch.uint8)
+
+
+def _host_bytes(a):
+    """A host leaf's bytes, as a flat uint8 array: a view of a CPU tensor's
+    own memory, written out before the export returns."""
     import numpy as np
 
-    for i, a in enumerate(arrays):
-        if i + 1 < len(arrays):
-            nxt = arrays[i + 1]
-            if hasattr(nxt, "copy_to_host_async"):
-                try:
-                    nxt.copy_to_host_async()
-                except Exception:  # noqa: BLE001 — optional fast path
-                    pass
-        host = np.ascontiguousarray(np.asarray(a))
-        mv = memoryview(host).cast("B")
-        base = offsets[i]
-        for lo in range(0, mv.nbytes, chunk_bytes):
-            emit((base + lo, mv[lo: lo + chunk_bytes]))
+    if _is_device_array(a):
+        return _flat_bytes(a).numpy()
+    return np.ascontiguousarray(np.asarray(a)).reshape(-1).view(np.uint8)
+
+
+class _CardStager:
+    """Copies card leaves into a ring of pinned host buffers, one side
+    stream per card, and hands each chunk out with its event."""
+
+    def __init__(self, buffer_bytes: int, stop: Optional[threading.Event]):
+        self.buffer_bytes = buffer_bytes
+        self.stop = stop
+        self.made = 0
+        self.free: "queue.Queue" = queue.Queue()
+        self.streams: Dict[Any, Any] = {}
+
+    def stream(self, dev):
+        import torch
+
+        side = self.streams.get(dev)
+        if side is None:
+            side = torch.cuda.Stream(device=dev)
+            # the store ordered the current stream after the producer's
+            side.wait_stream(torch.cuda.current_stream(dev))
+            self.streams[dev] = side
+        return side
+
+    def buffer(self):
+        """A pinned buffer that no chunk in flight uses."""
+        import torch
+
+        if self.made < _PINNED_BUFFERS:
+            self.made += 1
+            return torch.empty(self.buffer_bytes, dtype=torch.uint8, pin_memory=True)
+        while True:
+            try:
+                return self.free.get(timeout=0.1)
+            except queue.Empty:
+                if self.stop is not None and self.stop.is_set():
+                    raise RuntimeError("export cancelled") from None
+
+    def stage(self, a, base: int, emit) -> None:
+        import torch
+
+        side = self.stream(a.device)
+        with torch.cuda.stream(side):
+            src = _flat_bytes(a)
+            for lo in range(0, src.numel(), self.buffer_bytes):
+                n = min(self.buffer_bytes, src.numel() - lo)
+                buf = self.buffer()
+                buf[:n].copy_(src[lo:lo + n], non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(side)
+                emit((base + lo, memoryview(buf.numpy()[:n]), ev,
+                      partial(self.free.put, buf)))
+
+    def close(self) -> None:
+        """Wait for every copy queued: the tensors may be freed next."""
+        for side in self.streams.values():
+            side.synchronize()
+
+
+def _on_card(a: Any) -> bool:
+    return _is_device_array(a) and a.device.type == "cuda"
+
+
+def _stage_chunks(arrays, offsets, chunk_bytes, emit, stop=None) -> None:
+    """Stage each leaf to the host and emit (file_offset, host_byte_view,
+    ready event or None, release callback or None) pieces of at most
+    ``chunk_bytes``."""
+    card_bytes = max((a.nbytes for a in arrays if _on_card(a)), default=0)
+    stager = _CardStager(min(chunk_bytes, card_bytes), stop) if card_bytes else None
+    try:
+        for a, base in zip(arrays, offsets):
+            if _on_card(a):
+                stager.stage(a, base, emit)
+                continue
+            mv = memoryview(_host_bytes(a))
+            for lo in range(0, mv.nbytes, chunk_bytes):
+                emit((base + lo, mv[lo: lo + chunk_bytes], None, None))
+    finally:
+        if stager is not None:
+            stager.close()
+
+
+def _write_chunk(fd: int, item) -> None:
+    from ray_tpu_torch.core.object_store import _pwrite_all
+
+    off, view, ready, release = item
+    if ready is not None:
+        ready.synchronize()
+    _pwrite_all(fd, view, off)
+    if release is not None:
+        release()
 
 
 def write_arrays_overlapped(fd: int, arrays: List[Any],
                             offsets: List[int]) -> None:
-    """Write every leaf's bytes at its offset, overlapping the D2H of
+    """Write every leaf's bytes at its offset, overlapping the staging of
     chunk k with the pwrite of chunk k-1 through a depth-2 queue.
-    Falls back to the serial convert-then-write loop when
+    Falls back to the serial stage-then-write loop when
     ``rdt_d2h_overlap`` is off (or there is nothing to overlap)."""
-    from ray_tpu_torch.core.object_store import _pwrite_all
-
     chunk_bytes = max(64 * 1024, int(config.rdt_d2h_chunk_bytes))
-    if arrays and hasattr(arrays[0], "copy_to_host_async"):
-        try:
-            arrays[0].copy_to_host_async()
-        except Exception:  # noqa: BLE001 — optional fast path
-            pass
     if not config.rdt_d2h_overlap or not arrays:
         _stage_chunks(arrays, offsets, chunk_bytes,
-                      lambda item: _pwrite_all(fd, item[1], item[0]))
+                      lambda item: _write_chunk(fd, item))
         return
     q: "queue.Queue" = queue.Queue(maxsize=2)  # the double buffer
     stop = threading.Event()
@@ -294,7 +461,7 @@ def write_arrays_overlapped(fd: int, arrays: List[Any],
 
     def _produce():
         try:
-            _stage_chunks(arrays, offsets, chunk_bytes, _emit)
+            _stage_chunks(arrays, offsets, chunk_bytes, _emit, stop)
             _emit(None)
         except BaseException as e:  # noqa: BLE001 — re-raised by consumer
             try:
@@ -312,8 +479,7 @@ def write_arrays_overlapped(fd: int, arrays: List[Any],
                 break
             if isinstance(item, BaseException):
                 raise item
-            off, view = item
-            _pwrite_all(fd, view, off)
+            _write_chunk(fd, item)
     finally:
         stop.set()
         while True:  # unblock a producer parked on a full queue
@@ -324,3 +490,43 @@ def write_arrays_overlapped(fd: int, arrays: List[Any],
         t.join(timeout=10.0)
 
 
+def _consumer_card():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "a device object holds a CUDA tensor and this process sees no card: "
+            "run the consumer with num_gpus (CUDA_VISIBLE_DEVICES lists none here)"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def device_put(view, offsets: List[int], leaves_meta: list) -> List[Any]:
+    """The leaves of an exported segment (``view``: its bytes), each copied
+    into a tensor of its own of its torch dtype on its kind of device: a
+    CPU leaf on the CPU, a CUDA leaf on this process's current card (the
+    copies are queued on its current stream). Nothing keeps ``view``."""
+    import numpy as np
+    import torch
+
+    seg = np.frombuffer(view, dtype=np.uint8)
+    out: List[Any] = []
+    staging = None  # the card leaves' bytes, pinned, for async uploads
+    card = None
+    for (shape, dtype, kind), off in zip(leaves_meta, offsets):
+        t_dtype = getattr(torch, dtype)
+        nbytes = math.prod(shape) * np.dtype(wire_dtype(dtype)).itemsize
+        src = seg[off:off + nbytes]
+        if kind == "cuda":
+            if card is None:
+                card = _consumer_card()
+                staging = torch.empty(seg.nbytes, dtype=torch.uint8, pin_memory=True)
+                staging.numpy()[:] = seg
+            t = torch.empty(shape, dtype=t_dtype, device=card)
+            t.reshape(-1).view(torch.uint8).copy_(staging[off:off + nbytes],
+                                                  non_blocking=True)
+        else:
+            t = torch.empty(shape, dtype=t_dtype)
+            t.reshape(-1).view(torch.uint8).numpy()[:] = src
+        out.append(t)
+    return out

@@ -904,17 +904,9 @@ class CoreWorker:
                     meta["path"], meta["size"], meta["agent_addr"]
                 )
             )
-        hosts = []
-        for (shape, dtype), off in zip(dv.leaves_meta, meta["offsets"]):
-            n = int(np.prod(shape, dtype=np.int64)) if shape else 1
-            nbytes = n * np.dtype(dtype).itemsize
-            hosts.append(
-                np.frombuffer(
-                    view[off:off + nbytes], dtype=np.dtype(dtype)
-                ).reshape(shape)
-            )
-        # the upload to the card waits for the port's device store
-        arrays = dev_mod.device_put(hosts)
+        # each leaf into a tensor of its own on its kind of device (a CUDA
+        # leaf on this process's card); bf16 crossed the wire as its bits
+        arrays = dev_mod.device_put(view, meta["offsets"], dv.leaves_meta)
         return dev_mod.join_device_value(dv.skeleton, arrays)
 
     def _store_frame_maybe_plasma(self, oid: ObjectID, frame) -> None:
@@ -3429,6 +3421,10 @@ class _ActorSender:
                     logger.exception(
                         "actor task %s dependency wait failed", spec.name
                     )
+                # the refs go now, not when the actor's next call comes:
+                # a device object passed to its last task would stay in
+                # its producer's store, on the card, after every ref died
+                deps = None
             # A failed *send* (frame never accepted by the socket) is safe
             # to retry against the restarted actor; once the frame is out,
             # failures are classified by _actor_connection_lost instead.

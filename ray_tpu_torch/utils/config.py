@@ -462,18 +462,11 @@ config.define("native", True, dynamic=True)
 config.define("crash_dir", "", dynamic=True)
 
 # --- Flags that no module of ray_tpu_torch reads -----------------------
-# Their readers are modules not ported yet, named by the ROADMAP.md Queue A
-# item that ports them (or, last, modules of neither package). The defines
+# Their readers are TPU-only or read by neither package. The defines
 # above stay as in the JAX package; the flags leave the registry here, so
 # that config.set() or a read of one fails instead of doing nothing. An
 # RT_<NAME> variable of one is ignored, as any unknown one is.
 NOT_PORTED_FLAGS = {
-    "item 8 (the state API, the metrics history and the alerts)": (
-        "metrics_history_max_series", "alerts_enabled", "alerts_ttft_budget",
-        "alerts_burn_short_s", "alerts_burn_long_s", "alerts_burn_factor",
-        "alerts_kv_occupancy_frac", "alerts_for_s", "alerts_rules_extra",
-        "alerts_shed_rate_max",
-    ),
     "none: TPU chips and slices; accelerators/gpu.py counts cards (num_gpus)": (
         "num_tpus", "tpu_pod_type", "tpu_topology", "tpu_worker_id",
     ),

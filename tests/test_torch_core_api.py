@@ -2,9 +2,11 @@
 ``ray_tpu.core``) on the CPU: the functional contracts of
 ``tests/test_core_api.py`` on one module-scoped port cluster, plus what the
 port changes: the GPU probe of ``accelerators/``, num_gpus on cards, and the
-refused device transport. ``test_parallel_tasks`` and the first-item latency bound of
+API boundary of the device transport. ``test_parallel_tasks`` and the first-item latency bound of
 ``test_streaming_generator`` are wall-clock checks and are left to the JAX
 file."""
+
+import time
 
 import numpy as np
 import pytest
@@ -205,15 +207,35 @@ def test_streaming_generator_error(rt):
 
 
 def test_device_transport_is_refused_naming_the_roadmap(rt):
-    """RDT for CUDA tensors is not ported: the device transport raises at
-    the API boundary, before anything is stored."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item 6"):
-        rt.put(np.zeros(4), _tensor_transport="device")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A item 6"):
-        rt.method(tensor_transport="device")
-    with pytest.raises(ValueError):
+    """The API boundary refuses an unknown transport before anything is
+    stored. The device transport itself is ported (tests/test_torch_rdt.py)
+    and is no longer refused: a value with no tensor under it takes the
+    object path."""
+    ref = rt.put(np.zeros(4), _tensor_transport="device")
+    np.testing.assert_array_equal(rt.get(ref), np.zeros(4))
+    assert rt.method(tensor_transport="device") is not None
+    with pytest.raises(ValueError, match="unknown tensor_transport"):
         rt.put(1, _tensor_transport="bogus")
+    with pytest.raises(ValueError, match="unknown tensor_transport"):
+        rt.method(tensor_transport="bogus")
     assert rt.get(rt.put(7, _tensor_transport="object")) == 7
+
+
+def test_history_and_alerts_answer_at_the_default_interval(rt):
+    """The control store starts the metrics history and the alert engine
+    at the default sample interval, and the state API reads both."""
+    from ray_tpu_torch import state
+    from ray_tpu_torch.utils.config import config
+
+    assert float(config.metrics_sample_interval_s) > 0 and bool(config.alerts_enabled)
+    deadline = time.monotonic() + 30
+    while state.metrics_history().get("ticks", 0) < 1 and time.monotonic() < deadline:
+        time.sleep(0.2)
+    inv = state.metrics_history()
+    assert inv["enabled"] and inv["ticks"] >= 1, inv
+    alerts = state.alerts()
+    assert alerts["enabled"] and {a["name"] for a in alerts["alerts"]} >= {
+        "serve_ttft_p95_burn", "node_heartbeat_missed"}
 
 
 H100 = "NVIDIA H100 80GB HBM3"

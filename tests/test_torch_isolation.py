@@ -83,7 +83,11 @@ def test_port_files_are_found():
             "ray_tpu_torch/utils/serialization.py", "ray_tpu_torch/observability/tracing.py",
             "ray_tpu_torch/accelerators/__init__.py", "ray_tpu_torch/accelerators/gpu.py",
             "ray_tpu_torch/native/__init__.py", "ray_tpu_torch/dag.py",
-            "ray_tpu_torch/core/channels.py", "ray_tpu_torch/parallel/pipeline.py"} <= names
+            "ray_tpu_torch/core/channels.py", "ray_tpu_torch/parallel/pipeline.py",
+            "ray_tpu_torch/rllib/__init__.py", "ray_tpu_torch/rllib/env.py",
+            "ray_tpu_torch/rllib/ppo.py", "ray_tpu_torch/state.py",
+            "ray_tpu_torch/observability/history.py",
+            "ray_tpu_torch/observability/alerts.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -23,8 +23,8 @@ import pytest
 import torch
 
 import ray_tpu_torch
-from chip_smoke import http_json, proxy_address, request_spans, sse_post
-from ray_tpu_torch import serve
+from chip_smoke import http_json, proxy_address, sse_post
+from ray_tpu_torch import serve, state
 from ray_tpu_torch.core import cluster_utils
 from ray_tpu_torch.models import gpt2 as tg
 from ray_tpu_torch.observability import tracing
@@ -164,7 +164,8 @@ def test_disagg_request_joins_one_trace(front):
     deadline = time.monotonic() + 30
     spans = []
     while time.monotonic() < deadline:
-        spans = [s for s in request_spans() if s["trace_id"] == tid]
+        spans = [s for s in state.task_events()
+                 if s.get("type") == "request" and s["trace_id"] == tid]
         if want <= {s["component"] for s in spans}:
             break
         time.sleep(0.3)

@@ -27,8 +27,8 @@ import pytest
 import torch
 
 import ray_tpu_torch
-from chip_smoke import cluster_metrics, http_json, proxy_address, request_spans, sse_post
-from ray_tpu_torch import serve
+from chip_smoke import http_json, proxy_address, sse_post
+from ray_tpu_torch import serve, state
 from ray_tpu_torch.core import cluster_utils
 from ray_tpu_torch.models import gpt2 as tg
 from ray_tpu_torch.observability import tracing
@@ -263,7 +263,8 @@ def test_streaming_request_joins_one_trace(front):
     deadline = time.monotonic() + 30
     spans = []
     while time.monotonic() < deadline:
-        spans = [s for s in request_spans() if s["trace_id"] == tid]
+        spans = [s for s in state.task_events()
+                 if s.get("type") == "request" and s["trace_id"] == tid]
         if {"proxy", "router", "replica", "engine"} <= {s["component"] for s in spans}:
             break
         time.sleep(0.3)
@@ -288,7 +289,7 @@ def test_llm_serving_metrics_populated(front):
     deadline = time.monotonic() + 30
     mx = {}
     while time.monotonic() < deadline:
-        mx = cluster_metrics()
+        mx = state.cluster_metrics()
         if (any(s["count"] for s in mx.get("rt_serve_ttft_s", {}).get("series", {}).values())
                 and any(s["count"] for s in
                         mx.get("rt_serve_inter_token_s", {}).get("series", {}).values())):

@@ -11,8 +11,9 @@ What is ported rather than copied (the LLM engines, the prefill tier and
 the page pools in ``serve/llm.py``, ``serve/kv_transfer.py`` and
 ``serve/prefix_cache.py``, the GPU probe and the NVLink gang group in
 ``accelerators/``, the train
-backend's process group in ``collective/process_group.py``,
-``ray_tpu_torch/__init__.py``, ``bench.py``, and the marked region of
+backend's process group in ``collective/process_group.py``, the store of
+device-resident tensors in ``core/device_objects.py``, the PPO learner in
+``rllib/ppo.py``, ``ray_tpu_torch/__init__.py``, ``bench.py``, and the marked region of
 ``parallel/pipeline.py`` that holds ``PipelineStage``) is held to the JAX
 package by behaviour, in the other ``test_torch_*`` files.
 """
@@ -32,12 +33,13 @@ _version.py usage.py native/__init__.py
 utils/__init__.py utils/config.py utils/ids.py utils/serialization.py utils/rpc.py
 utils/metrics.py utils/gateway.py
 observability/__init__.py observability/core_metrics.py observability/tracing.py
-observability/forensics.py observability/profiler.py
+observability/forensics.py observability/profiler.py observability/history.py
+observability/alerts.py state.py
 core/__init__.py core/exceptions.py core/object_ref.py core/task.py core/runtime_context.py
 core/runtime_env.py core/scheduling.py core/placement.py core/actor.py core/object_store.py
 core/ha/__init__.py core/ha/wal.py core/ha/reattach.py core/control_store.py
 core/node_agent.py core/worker.py core/worker_main.py core/node_main.py core/head_main.py
-core/api.py core/cluster_utils.py core/device_objects.py core/channels.py
+core/api.py core/cluster_utils.py core/channels.py
 dag.py parallel/pipeline.py
 data/__init__.py data/block.py data/logical.py data/datasource.py data/executor.py
 data/iterator.py data/dataset.py
@@ -49,14 +51,15 @@ serve/multiplex.py serve/proxy.py serve/replica.py serve/router.py
 serve/autoscale/__init__.py serve/autoscale/admission.py serve/autoscale/policy.py
 serve/openai/__init__.py serve/openai/protocol.py serve/openai/tokenizer.py
 serve/openai/ingress.py
+rllib/__init__.py rllib/env.py
 """.split()
 
 # Files of the runtime packages that are written for the port, not copied.
 PORTED = {"accelerators/__init__.py", "accelerators/gpu.py", "accelerators/slice_pg.py",
-          "collective/process_group.py",
-          "serve/llm.py", "serve/kv_transfer.py", "serve/prefix_cache.py"}
+          "collective/process_group.py", "core/device_objects.py",
+          "serve/llm.py", "serve/kv_transfer.py", "serve/prefix_cache.py", "rllib/ppo.py"}
 RUNTIME_PACKAGES = ("core", "data", "utils", "observability", "accelerators", "native",
-                    "collective", "train", "serve")
+                    "collective", "train", "serve", "rllib")
 
 # A region that the port writes itself, inside a copy: from a line
 # "# >>> ported: <what>" to a line "# <<< ported". The test pins the text
@@ -345,18 +348,11 @@ HUNKS = {
         (re.compile(r'config\.define\("crash_dir", "", dynamic=True\)\n\Z'),
          'config.define("crash_dir", "", dynamic=True)\n' + """
 # --- Flags that no module of ray_tpu_torch reads -----------------------
-# Their readers are modules not ported yet, named by the ROADMAP.md Queue A
-# item that ports them (or, last, modules of neither package). The defines
+# Their readers are TPU-only or read by neither package. The defines
 # above stay as in the JAX package; the flags leave the registry here, so
 # that config.set() or a read of one fails instead of doing nothing. An
 # RT_<NAME> variable of one is ignored, as any unknown one is.
 NOT_PORTED_FLAGS = {
-    "item 8 (the state API, the metrics history and the alerts)": (
-        "metrics_history_max_series", "alerts_enabled", "alerts_ttft_budget",
-        "alerts_burn_short_s", "alerts_burn_long_s", "alerts_burn_factor",
-        "alerts_kv_occupancy_frac", "alerts_for_s", "alerts_rules_extra",
-        "alerts_shed_rate_max",
-    ),
     "none: TPU chips and slices; accelerators/gpu.py counts cards (num_gpus)": (
         "num_tpus", "tpu_pod_type", "tpu_topology", "tpu_worker_id",
     ),
@@ -637,124 +633,41 @@ for _names in NOT_PORTED_FLAGS.values():
     ],
     "core/worker.py": [
         (
-            "        import jax\n\n        hosts = []\n",
-            "        hosts = []\n",
-            "JAX-bound: the port imports no jax",
-        ),
-        (
+            "        import jax\n\n"
+            "        hosts = []\n"
+            "        for (shape, dtype), off in zip(dv.leaves_meta, meta[\"offsets\"]):\n"
+            "            n = int(np.prod(shape, dtype=np.int64)) if shape else 1\n"
+            "            nbytes = n * np.dtype(dtype).itemsize\n"
+            "            hosts.append(\n"
+            "                np.frombuffer(\n"
+            "                    view[off:off + nbytes], dtype=np.dtype(dtype)\n"
+            "                ).reshape(shape)\n"
+            "            )\n"
             "        # one batched transfer: jax overlaps the host->device copies\n"
             "        arrays = jax.device_put(hosts)\n",
-            "        # the upload to the card waits for the port's device store\n"
-            "        arrays = dev_mod.device_put(hosts)\n",
-            "JAX-bound: jax.device_put becomes device_objects.device_put, which raises "
-            "(ROADMAP.md, Queue A item 6); unreachable, as no DeviceValue is ever made",
-        ),
-    ],
-    "core/control_store.py": [(
-        "        from ray_tpu_torch.observability import alerts as alerts_mod\n"
-        "        from ray_tpu_torch.observability import history as history_mod\n\n"
-        "        self._history = history_mod.MetricsHistory(\n"
-        "            base_step_s=interval,\n"
-        "            max_series=int(config.metrics_history_max_series),\n"
-        "        )\n"
-        "        on_tick = None\n"
-        "        if bool(config.alerts_enabled):\n"
-        "            self._alert_engine = alerts_mod.AlertEngine(\n"
-        "                alerts_mod.default_rules(), self._history\n"
-        "            )\n"
-        "            on_tick = self._alert_engine.evaluate\n"
-        "        self._sampler = history_mod.HistorySampler(\n"
-        "            self._history, self.address, self._stopped, interval,\n"
-        "            on_tick=on_tick,\n"
-        "        )\n"
-        "        self._sampler.start()\n",
-        "        # The history sampler scrapes the state API (state.py) and feeds\n"
-        "        # the alert engine; the three are not ported yet (ROADMAP.md,\n"
-        "        # Queue A item 8), so the plane stays off as at interval 0:\n"
-        "        # rpc_metrics_history and rpc_alerts answer {\"enabled\": False}.\n",
-        "the metrics history and the alerts wait with the state API they scrape; "
-        "init() starts this plane by default, so it cannot raise here",
-    )],
-    "core/device_objects.py": [
-        (
-            # a pattern: the source names the reference checkout by its absolute path
-            re.compile('"""TPU-RDT: device-resident objects [^\n]*\n\n'
-                       "Parity target: Ray Direct Transport [^\n]*\n"
-                       r"\(/\w+/reference/python/ray/experimental/gpu_object_manager/\n"),
-            '"""TPU-RDT: device-resident objects (ObjectRefs whose payload stays in HBM).\n\n'
-            "In ray_tpu_torch the device transport waits for a store of CUDA\n"
-            "tensors (ROADMAP.md, Queue A item 6): ``validate_transport(\"device\")``\n"
-            "raises NotImplementedError, and so does every helper below that the\n"
-            "JAX package binds to jax. The transport-neutral parts (the\n"
-            "DeviceValue marker, the store's bookkeeping, the overlapped export\n"
-            "writer) are kept as they are, so that the worker copy links.\n\n"
-            "Parity target: Ray Direct Transport — the reference's GPUObjectManager\n"
-            "(Ray's python/ray/experimental/gpu_object_manager/\n",
-            "says what the port keeps; names no machine path",
+            "        # each leaf into a tensor of its own on its kind of device (a CUDA\n"
+            "        # leaf on this process's card); bf16 crossed the wire as its bits\n"
+            "        arrays = dev_mod.device_put(view, meta[\"offsets\"], dv.leaves_meta)\n",
+            "jax.device_put becomes device_objects.device_put, which reads the torch dtype "
+            "and device kind that leaves_meta carries (numpy has no bfloat16, so the wire "
+            "dtype is the port's) and copies each leaf out of the segment before it is dropped",
         ),
         (
-            'VALID_TRANSPORTS = ("object", "device")\n',
-            'VALID_TRANSPORTS = ("object", "device")\n'
-            "_NOT_PORTED = (\n"
-            "    \"tensor_transport='device' is not ported: ray_tpu_torch has no store of \"\n"
-            "    \"CUDA tensors yet (ROADMAP.md, Queue A item 6, RDT for CUDA tensors)\"\n"
-            ")\n",
-            "the message of every raise below",
-        ),
-        (
-            "            f\"expected one of {VALID_TRANSPORTS}\"\n"
-            "        )\n"
-            "    return transport\n",
-            "            f\"expected one of {VALID_TRANSPORTS}\"\n"
-            "        )\n"
-            "    if transport == \"device\":\n"
-            "        raise NotImplementedError(_NOT_PORTED)\n"
-            "    return transport\n",
-            "the API boundary: put, options and @method refuse the device transport",
-        ),
-        (
-            "def _is_device_array(x: Any) -> bool:\n"
-            "    import jax\n\n"
-            "    return isinstance(x, jax.Array)\n",
-            "def _is_device_array(x: Any) -> bool:\n"
-            "    raise NotImplementedError(_NOT_PORTED)\n",
-            "JAX-bound",
-        ),
-        (
-            "    holds no device arrays (caller falls back to the object path).\"\"\"\n"
-            "    import jax\n\n"
-            "    leaves, treedef = jax.tree_util.tree_flatten(value)\n"
-            "    arrays: List[Any] = []\n"
-            "    static: List[Any] = []\n"
-            "    for leaf in leaves:\n"
-            "        if _is_device_array(leaf) and leaf.is_fully_addressable:\n"
-            "            static.append(_ArraySlot(len(arrays)))\n"
-            "            arrays.append(leaf)\n"
-            "        else:\n"
-            "            static.append(leaf)\n"
-            "    if not arrays:\n"
-            "        return None\n"
-            "    skeleton = serialization.pack((treedef, static))\n"
-            "    leaves_meta = [(tuple(a.shape), str(a.dtype)) for a in arrays]\n"
-            "    return arrays, skeleton, leaves_meta\n",
-            "    holds no device arrays (caller falls back to the object path).\"\"\"\n"
-            "    raise NotImplementedError(_NOT_PORTED)\n",
-            "JAX-bound (jax.tree_util, jax.Array)",
-        ),
-        (
-            "    \"\"\"Inverse of :func:`split_device_value`.\"\"\"\n"
-            "    import jax\n\n"
-            "    treedef, static = serialization.unpack(skeleton)\n"
-            "    leaves = [\n"
-            "        arrays[s.index] if isinstance(s, _ArraySlot) else s for s in static\n"
-            "    ]\n"
-            "    return jax.tree_util.tree_unflatten(treedef, leaves)\n",
-            "    \"\"\"Inverse of :func:`split_device_value`.\"\"\"\n"
-            "    raise NotImplementedError(_NOT_PORTED)\n\n\n"
-            "def device_put(hosts: List[Any]) -> List[Any]:\n"
-            "    \"\"\"Upload host leaves to the card (the JAX worker's jax.device_put).\"\"\"\n"
-            "    raise NotImplementedError(_NOT_PORTED)\n",
-            "JAX-bound (jax.tree_util); device_put stands for the worker's jax.device_put",
+            "                    logger.exception(\n"
+            "                        \"actor task %s dependency wait failed\", spec.name\n"
+            "                    )\n"
+            "            # A failed *send* (frame never accepted by the socket) is safe\n",
+            "                    logger.exception(\n"
+            "                        \"actor task %s dependency wait failed\", spec.name\n"
+            "                    )\n"
+            "                # the refs go now, not when the actor's next call comes:\n"
+            "                # a device object passed to its last task would stay in\n"
+            "                # its producer's store, on the card, after every ref died\n"
+            "                deps = None\n"
+            "            # A failed *send* (frame never accepted by the socket) is safe\n",
+            "a fix the JAX package lacks (ROADMAP.md Queue C): the actor sender loop held "
+            "the last task's dependency list until that actor's next call, so a device "
+            "object passed to an actor task was not freed when its refs were dropped",
         ),
     ],
 }
@@ -866,6 +779,6 @@ def test_every_config_flag_is_read_by_the_port():
     assert [n for n in sorted(kept) if not re.search(rf"\b{n}\b", text)] == []
     assert [n for n in dropped if re.search(rf"config\.{n}\b|config\.(get|set)\([\"']{n}[\"']", text)] == []
     with pytest.raises(KeyError):
-        config_mod.config.set("alerts_enabled", False)
+        config_mod.config.set("flash_bq", 512)
     with pytest.raises(AttributeError):
         config_mod.config.num_tpus
