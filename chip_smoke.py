@@ -3,23 +3,35 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
-  1. name the card and its power limit (nvidia-smi); build the CUDA kernels
-     from ray_tpu_torch/ops/csrc with nvcc; count each kernel's wgmma
+  1. name the card and its power limit (nvidia-smi); turn TF32 off for f32
+     products (matmul and cuDNN); build both kernel libraries from
+     ray_tpu_torch/ops/csrc with nvcc at once (bf16 operands:
+     flash_attention.cu; f32 operands: flash_attention_f32.cu), print each
+     instance's registers and spills; count each bf16 instance's wgmma
      (HGMMA) and TMA load (UTMALDG) instructions in the library's SASS
-     (cuobjdump -sass), for each output type it is built for (bf16, f32),
-     and fail if any of the three kernels lacks either in either;
+     (cuobjdump -sass), per head dim (16, 32, 64, 128) and output type (bf16,
+     f32), and each f32 instance's FFMAs, and fail if an instance lacks them
+     or a head dim has no instance;
   2. hold each kernel against its plain PyTorch version on the card, on bf16
      inputs from a seeded generator, at the train step's shape, at head dim
      16, at a ragged T, non-causal with Tk != Tq, and non-causal with Tk
      spanning more key tiles than the ring has stages (the ring wraps) and a
      ragged last tile, element by element
-     (ray_tpu_torch.bench.disagreement); call dQ twice at the train step's
-     shape and fail unless both give the same bits (no atomics, no
+     (ray_tpu_torch.bench.disagreement); the same at gpt2-small's width as
+     H 6 x Dh 128 and H 24 x Dh 32 (B 32, T 1024, causal), ragged causal
+     (T 1000), non-causal (Tq 200, Tk 333) and wrapping (Tq 300, Tk 1100),
+     in both output types; call dQ twice at each of the three train-step
+     shapes and fail unless both give the same bits (no atomics, no
      dependence on run order); hold the autograd Function at the
      train step's [B, T, H, Dh] against reference attention; time each
-     kernel at the train step's shape beside its bound, its plain version
-     and the library's attention (F.scaled_dot_product_attention, a
-     yardstick only);
+     kernel at the three train-step shapes beside its bound, its plain
+     version and the library's attention (F.scaled_dot_product_attention,
+     a yardstick only). Then the f32 kernels (f32 operands) against their
+     plain versions in f32 (TF32 off, printed): gpt2-small's attention in
+     f32 at B 8, the f32 ring's Dh 32 blocks, Dh 128, ragged and Dh 16,
+     held at 1e-5 relnorm (o), 1e-4 (dq, dk, dv) and 1e-5 on lse; dQ twice
+     at B 8 for the same bits; timed at B 8 beside the bound at the f32
+     peak and SDPA on the same f32 inputs;
   3. train gpt2-small at full width through the port's entry points
      (ray_tpu_torch.bench.setup: random init from a seeded generator,
      AdamW, flash attention, fused CE, B=32, T=1024): first hold step 0's
@@ -70,7 +82,11 @@ Phases (any failure exits non-zero and prints no result):
      a real NCCL group of one rank; moe_block on that group against
      moe_block_local at gpt2-small's MLP widths (D 768, F 3,072, 8 experts,
      top-2, 4,096 tokens, capacity 1,280), forward and the gradients of all
-     four inputs. Prints the ring's forward and backward times (CUDA
+     four inputs; the ring once more in f32 at Dh 32 (the JAX ring test's B
+     2, T 64, H 4, and T 4,096) against reference attention in f32 at that
+     test's limits (output 2e-5; gradients of sum(out^2) rtol 5e-4, atol
+     5e-5), with 10 f32-operand launches of each kernel and no other.
+     Prints the ring's forward and backward times (CUDA
      events), their device time in and outside the kernels (torch.profiler),
      the monolithic flash attention's and SDPA's at T 16,384, and
      moe_block's;
@@ -217,14 +233,26 @@ Phases (any failure exits non-zero and prints no result):
      iteration split into SGD and the rest, the ms per minibatch update,
      and what train()'s float(loss) after each update costs against one
      read at the end. No flash launch;
- 14. print the kernel line (one JSON object; beside the contract's keys,
-     each kernel's SASS counts from phase 1 for both output types, its
-     f32 instantiation's gap, times and ring launches from phase 5, its
-     launches a step in each stage process from phase 8 and in the train
-     worker and a grad_sync rank from phase 9: every number in it was
-     measured or, for bound_ms, computed in this run, and launches come
-     from phase 3);
- 15. print the contract line (one JSON object, the last line).
+ 14. the train step at head dims 128 and 32 and in f32: gpt2-small's widths
+     as 6 heads of 128 and as 24 heads of 32 (bf16, B=32, T=1024), and
+     gpt2-small in f32 (B=8, T=1024), each from phase 3's seeded init and
+     tokens: step 0's loss and every gradient against reference attention
+     on the same init and batch (bf16: phase 3's limits; f32: the loss
+     within 1e-5 relative, each gradient within 1e-4 relnorm), a warm-up
+     step, 3 timed steps (median beside phase 3's), and 12 launches a step
+     of each kernel's own instance (head dim and operand dtype) and no
+     other;
+ 15. print the kernel line (one JSON object; beside the contract's keys,
+     each kernel's SASS counts per instance from phase 1, held_at (every
+     head dim and operand->output type a check held it at in this run),
+     the times of each timed instance (Dh 64, 128, 32 bf16; Dh 64 f32 at B
+     8) with their bounds, plain and library times, its f32-output
+     instantiation's gap, times and ring launches from phase 5 and the f32
+     ring's launches, its launches a step in each stage process from phase
+     8, in the train worker and a grad_sync rank from phase 9 and in phase
+     14's steps: every number in it was measured or, for bound_ms,
+     computed in this run, and launches come from phase 3);
+ 16. print the contract line (one JSON object, the last line).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -249,16 +277,44 @@ import torch
 import torch.nn.functional as F
 
 # Published dense peaks of an H100 SXM (NVIDIA data sheet; the card at its
-# full 700 W power limit): bf16 tensor-core FLOP/s and HBM3 bytes/s.
+# full 700 W power limit): bf16 tensor-core FLOP/s, f32 FLOP/s outside the
+# tensor cores (the f32 kernels' FMAs) and HBM3 bytes/s.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # (B, T, Tk, H, Dh, causal): the train step's shape first, then a pipeline
-# stage's microbatch (phase 8: 8 rows, BH 96).
+# stage's microbatch (phase 8: 8 rows, BH 96); then gpt2-small's width as
+# 6 heads of 128 and as 24 heads of 32 (the train step's FLOPs and bytes at
+# head dims 128 and 32, phase 14), each also ragged causal and non-causal.
 MAIN_CASE = (32, 1024, 1024, 12, 64, True)
+MAIN_D128 = (32, 1024, 1024, 6, 128, True)
+MAIN_D32 = (32, 1024, 1024, 24, 32, True)
+TIMED_CASES = (MAIN_CASE, MAIN_D128, MAIN_D32)
 CASES = [MAIN_CASE, (8, 1024, 1024, 12, 64, True), (4, 512, 512, 4, 16, True),
          (2, 1000, 1000, 12, 64, True), (2, 200, 333, 4, 64, False),
-         (2, 300, 1100, 4, 64, False)]
+         (2, 300, 1100, 4, 64, False),
+         MAIN_D128, (2, 1000, 1000, 6, 128, True), (2, 200, 333, 2, 128, False),
+         (2, 300, 1100, 2, 128, False),
+         MAIN_D32, (2, 1000, 1000, 24, 32, True), (2, 200, 333, 8, 32, False),
+         (2, 300, 1100, 8, 32, False)]
+# f32 operands (the f32 kernels): gpt2-small in f32 at phase 14's B 8; the
+# blocks of phase 5's f32 rings at Dh 32 (the JAX ring test's 16-row block
+# and the multi-tile ring's 1,024-row one, diagonal and earlier); Dh 128;
+# ragged causal; non-causal at Dh 16. Held to the plain versions in f32
+# (TF32 off) at the JAX package's own limits for its f32 kernels
+# (tests/test_ring_attention.py:104, 1e-5 forward and 1e-4 gradients): o within
+# F32_FWD_RELNORM, dq, dk, dv within F32_GRAD_RELNORM in relative norm, lse
+# within F32_LSE_TOL absolute.
+F32_MAIN = (8, 1024, 1024, 12, 64, True)
+F32_CASES = [F32_MAIN, (2, 16, 16, 4, 32, True), (2, 16, 16, 4, 32, False),
+             (2, 1024, 1024, 4, 32, True), (2, 1024, 1024, 4, 32, False),
+             (2, 1024, 1024, 6, 128, True), (2, 1000, 1000, 12, 64, True),
+             (2, 200, 333, 4, 16, False)]
+F32_FWD_RELNORM, F32_GRAD_RELNORM, F32_LSE_TOL = 1e-5, 1e-4, 1e-5
+# Each kernel's (head dim, operands->outputs) instances that a check held
+# to its plain version in this run: the kernel line's held_at.
+HELD_AT = {}
 # Kernels vs plain versions: every output element by the rule of
 # ray_tpu_torch.bench (RTOL relative, ATOL_RMS x the row's rms absolute,
 # RELNORM_TOL on the whole tensor). On an H100 the cases below need at most
@@ -283,6 +339,7 @@ KERNELS = {
     "flash_dkv": "ray_tpu/ops/flash_attention.py:168",
 }
 SOURCE = "ray_tpu_torch/ops/csrc/flash_attention.cu"
+F32_SOURCE = "ray_tpu_torch/ops/csrc/flash_attention_f32.cu"  # the kernels for f32 operands
 # The first versions' times at the train step's shape, before the Hopper
 # redesign (chip_smoke.py phase 2, median of 20 calls; PERF.md section 6,
 # NVIDIA H100 80GB HBM3 at 700 W). Recorded, not measured here: printed as
@@ -302,6 +359,15 @@ def _zero_launches() -> None:
     for counts in (fa.launches, fa.launches_f32):
         for name in counts:
             counts[name] = 0
+    fa.launches_by_instance.clear()
+
+
+def _instance_counts() -> dict:
+    """Launches per kernel instance ("flash_fwd d128 bfloat16", ...): read
+    just after the path."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    return dict(fa.launches_by_instance)
 
 
 def _launch_counts() -> tuple:
@@ -334,34 +400,64 @@ def identify() -> str:
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
     smi = ", ".join(bench.card())
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
+    # f32 products in full f32 everywhere in this run: the f32 kernels'
+    # plain versions and references are held at 1e-5
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     return smi
 
 
+LIBRARIES = ("flash_attention", "flash_attention_f32")  # bf16 operands, f32 operands
+
+
 def build() -> dict:
-    """Build the kernels, print nvcc's register and spill report, and return
-    each kernel's SASS instruction counts (``sass_counts``)."""
+    """Build both kernel libraries (one nvcc each, at once), print nvcc's
+    register and spill report of every instance, and return each kernel's
+    SASS instruction counts per instance (``sass_counts``)."""
     import ray_tpu_torch
     from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_attention as fa
 
     if Path(ray_tpu_torch.__file__).resolve().parent.parent != Path(__file__).resolve().parent:
         fail(f"ray_tpu_torch comes from {ray_tpu_torch.__file__}, not from this checkout")
     t0 = time.perf_counter()
-    path = _build.build("flash_attention")
-    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    log = path.with_name(path.name + ".log")
-    for line in log.read_text().splitlines() if log.exists() else []:
-        if any(w in line for w in ("registers", "spill", "Compiling entry", "warning", "setmaxnreg")):
-            print(f"  {line.strip()}")
-    counts = sass_counts(path)
-    for name, by_type in counts.items():
-        for out, c in by_type.items():
-            print(f"sass {name} ({out} output): HGMMA {c['hgmma']}, UTMALDG {c['utmaldg']}",
-                  flush=True)
-    for name in KERNELS:  # every kernel is a Hopper one: wgmma fed by TMA, in both instantiations
-        for out, c in counts[name].items():
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        paths = dict(zip(LIBRARIES, pool.map(_build.build, LIBRARIES)))
+    print(f"build: {time.perf_counter() - t0:.2f} s (both libraries at once)", flush=True)
+    spills = []
+    for lib, path in paths.items():
+        log = path.with_name(path.name + ".log")
+        entry = None
+        for line in log.read_text().splitlines() if log.exists() else []:
+            if "Compiling entry" in line:
+                found = re.search(r"(flash_\w+?_kernel)ILi(\d+)E(13__nv_bfloat16|f)?E", line)
+                entry = found and f"{found[1]}<{found[2]}{', ' + OUT_TYPES[found[3]] if found[3] else ''}>"
+            elif entry and ("registers" in line or "spill" in line):
+                print(f"  {lib} {entry}: {line.split(':', 1)[-1].strip()}")
+                if re.search(r"[1-9]\d* bytes spill", line):
+                    spills.append(f"{entry}: {line.strip()}")
+            elif "warning" in line or "C751" in line:
+                print(f"  {lib}: {line.strip()}")
+    print(f"spills: {'; '.join(spills) if spills else 'none in any instance of either library'}",
+          flush=True)
+    counts = sass_counts(paths["flash_attention"], r"({names})_kernelILi(\d+)E({outs})E", SASS_OPS)
+    f32_counts = sass_counts(paths["flash_attention_f32"], r"flash_f32_({short})_kernelILi(\d+)E()E",
+                             {"ffma": "FFMA"})
+    for name in KERNELS:
+        for inst, c in counts[name].items():
+            print(f"sass {name} {inst}: HGMMA {c['hgmma']}, UTMALDG {c['utmaldg']}", flush=True)
+            # every bf16 instance is a Hopper one: wgmma fed by TMA
             if not (c["hgmma"] > 0 and c["utmaldg"] > 0):
-                fail(f"{name} ({out} output) issues no wgmma or no TMA load in its SASS: {c}")
+                fail(f"{name} {inst} issues no wgmma or no TMA load in its SASS: {c}")
+        for inst, c in f32_counts[name].items():
+            print(f"sass {name} {inst}: FFMA {c['ffma']}", flush=True)
+            if not c["ffma"] > 0:
+                fail(f"{name} {inst} issues no f32 FMA in its SASS: {c}")
+        if len(counts[name]) != 2 * len(fa.HEAD_DIMS) or len(f32_counts[name]) != len(fa.HEAD_DIMS):
+            fail(f"{name}: the libraries hold instances {sorted(counts[name])} and "
+                 f"{sorted(f32_counts[name])}; expected every head dim of {fa.HEAD_DIMS}")
+        counts[name].update(f32_counts[name])
     return counts
 
 
@@ -369,24 +465,32 @@ SASS_OPS = {"hgmma": "HGMMA", "utmaldg": "UTMALDG"}
 OUT_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32"}  # the output type's mangled name
 
 
-def sass_counts(lib: Path) -> dict:
-    """HGMMA and UTMALDG instructions per kernel and output type (both
-    head-dim instances summed) in the SASS of the built library, read with
-    cuobjdump: {name: {"bf16": {...}, "f32": {...}}}."""
+def sass_counts(lib: Path, pattern: str, ops: dict) -> dict:
+    """Instructions ``ops`` ({key: SASS opcode}) per kernel and instance in
+    the SASS of a built library, read with cuobjdump: {name: {"d<D>
+    <operands>-><outputs>": {key: count}}}. ``pattern`` matches a kernel's
+    mangled name, with groups for the kernel, the head dim and the output
+    type ({names}, {short} and {outs} are filled in)."""
     from ray_tpu_torch.ops import _build
 
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120,
                           check=True).stdout
-    counts = {name: {out: dict.fromkeys(SASS_OPS, 0) for out in OUT_TYPES.values()}
-              for name in KERNELS}
+    short = {name.removeprefix("flash_"): name for name in KERNELS}
+    regex = pattern.format(names="|".join(KERNELS), short="|".join(short), outs="|".join(OUT_TYPES))
+    counts = {name: {} for name in KERNELS}
     current = None
     for line in sass.splitlines():
         if "Function :" in line:
-            found = re.search(rf"({'|'.join(KERNELS)})_kernelILi\d+E({'|'.join(OUT_TYPES)})E", line)
-            current = counts[found[1]][OUT_TYPES[found[2]]] if found else None
+            found = re.search(regex, line)
+            current = None
+            if found:
+                name = found[1] if found[1] in counts else short[found[1]]
+                inst = (f"d{found[2]} bf16->{OUT_TYPES[found[3]]}" if found[3]
+                        else f"d{found[2]} f32->f32")
+                current = counts[name].setdefault(inst, dict.fromkeys(ops, 0))
         elif current is not None:
-            for key, op in SASS_OPS.items():
+            for key, op in ops.items():
                 current[key] += bool(re.search(rf"\b{op}\b", line))
     return counts
 
@@ -400,14 +504,16 @@ def _visible_pairs(Tq: int, Tk: int, causal: bool) -> int:
     return Tq * (Tq + 1) // 2 if causal else Tq * Tk
 
 
-def bounds(B, T, Tk, H, D, causal, out_bytes=2):
+def bounds(B, T, Tk, H, D, causal, out_bytes=2, in_bytes=2, peak=PEAK_BF16_FLOPS):
     """Least time (ms) for each kernel's work on this card's published
-    peaks: (ms, "bytes" | "operations"). Each input (bf16) read once, each
-    output (``out_bytes`` per element: 2 for bf16, 4 for f32) written once;
-    products counted over the (q, k) pairs the mask keeps."""
+    peaks: (ms, "bytes" | "operations"). Each input (``in_bytes`` per
+    element: 2 for bf16 operands, 4 for f32) read once, each output
+    (``out_bytes``) written once, lse and delta f32; products counted over
+    the (q, k) pairs the mask keeps, at ``peak`` FLOP/s (the bf16 tensor
+    cores, or PEAK_F32_FLOPS for the f32 kernels)."""
     BH, pairs = B * H, _visible_pairs(T, Tk, causal)
-    q_bytes, kv_bytes, row_bytes = BH * T * D * 2, BH * Tk * D * 2, BH * T * 4
-    q_out, kv_out = q_bytes * out_bytes // 2, kv_bytes * out_bytes // 2
+    q_bytes, kv_bytes, row_bytes = BH * T * D * in_bytes, BH * Tk * D * in_bytes, BH * T * 4
+    q_out, kv_out = q_bytes * out_bytes // in_bytes, kv_bytes * out_bytes // in_bytes
     work = {  # name: (flops, bytes)
         "flash_fwd": (4 * BH * pairs * D, q_bytes + 2 * kv_bytes + q_out + row_bytes),
         "flash_dq": (6 * BH * pairs * D, 2 * q_bytes + 2 * kv_bytes + q_out + 2 * row_bytes),
@@ -415,93 +521,215 @@ def bounds(B, T, Tk, H, D, causal, out_bytes=2):
     }
     out = {}
     for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         out[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
     return out
 
 
-def check_kernels(card: str) -> dict:
+def _held(name: str, D: int, operands: torch.dtype, out_f32: bool) -> None:
+    dt = "bf16" if operands == torch.bfloat16 else "f32"
+    HELD_AT.setdefault(name, set()).add(f"d{D} {dt}->{'f32' if out_f32 or dt == 'f32' else 'bf16'}")
+
+
+def _instance_key(D: int, operands: torch.dtype) -> str:
+    return f"d{D} {'bf16' if operands == torch.bfloat16 else 'f32'}"
+
+
+def _inputs(case, dtype, seed=1234) -> tuple:
+    """q, k, v, dO [B*H, T, Dh] of ``case`` from a seeded generator on the card."""
+    B, T, Tk, H, D, _ = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", dtype=dtype, generator=g)
+    return (torch.randn(B * H, T, D, **kw), torch.randn(B * H, Tk, D, **kw),
+            torch.randn(B * H, Tk, D, **kw), torch.randn(B * H, T, D, **kw))
+
+
+def time_instance(case, q, k, v, do, lse, delta, gaps, card, peak=PEAK_BF16_FLOPS) -> dict:
+    """Each kernel at ``case`` on these inputs, timed (median of 20 calls,
+    CUDA events) beside its bound, its plain version and the library's
+    attention (F.scaled_dot_product_attention on the same inputs, a
+    yardstick only). Returns {kernel: the kernel line's numbers}."""
     from ray_tpu_torch import bench
     from ray_tpu_torch.ops import flash_attention as fa
 
+    B, T, Tk, H, D, causal = case
+    in_bytes = q.element_size()
+    bnd = bounds(*case, out_bytes=in_bytes, in_bytes=in_bytes, peak=peak)
+    ms = {
+        "flash_fwd": bench.time_ms(lambda: fa.flash_fwd(q, k, v, causal)),
+        "flash_dq": bench.time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, causal)),
+        "flash_dkv": bench.time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal)),
+    }
+    plain_ms = {
+        "flash_fwd": bench.time_ms(lambda: fa.flash_fwd_reference(q, k, v, causal), iters=5),
+        "flash_dq": bench.time_ms(lambda: fa.flash_dq_reference(q, k, v, do, lse, delta, causal), iters=5),
+        "flash_dkv": bench.time_ms(lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta, causal), iters=5),
+    }
+    # The library's attention on the same inputs, [B, H, T, Dh] views.
+    qs, ks, vs = (x.view(B, H, -1, D).detach().requires_grad_() for x in (q, k, v))
+    dos = do.view(B, H, T, D)
+    with torch.no_grad():
+        sdpa_fwd = bench.time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    sdpa_bwd = bench.time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True))
+    sdpa_both = bench.time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal), (qs, ks, vs), dos))
+    library = {"flash_fwd": sdpa_fwd, "flash_dq": sdpa_bwd, "flash_dkv": sdpa_bwd}
+    err_of = {"flash_fwd": gaps["o"]["max_abs"], "flash_dq": gaps["dq"]["max_abs"],
+              "flash_dkv": max(gaps["dk"]["max_abs"], gaps["dv"]["max_abs"])}
     results = {}
+    for name in KERNELS:
+        results[name] = {
+            "max_abs_err": err_of[name], "ms": ms[name], "plain_ms": plain_ms[name],
+            "bound_ms": bnd[name][0], "bound_by": bnd[name][1], "library_ms": library[name],
+        }
+        print(f"time {name} at B={B} T={T} H={H} Dh={D} causal, {q.dtype} operands: kernel "
+              f"{ms[name]:.4f} ms, bound {bnd[name][0]:.4f} ms ({bnd[name][1]}), plain "
+              f"{plain_ms[name]:.4f} ms, library {library[name]:.4f} ms"
+              + (f", before the redesign {BEFORE_REDESIGN_MS[name]:.4f} ms "
+                 "(PERF.md, not this run)" if case == MAIN_CASE else "")
+              + f" [{card}]", flush=True)
+    print(f"library at B={B} T={T} H={H} Dh={D}, {q.dtype}: sdpa forward {sdpa_fwd:.4f} ms, "
+          f"backward (dq, dk and dv in one call) {sdpa_bwd:.4f} ms, forward+backward "
+          f"{sdpa_both:.4f} ms [{card}]", flush=True)
+    return results
+
+
+def check_kernels(card: str) -> dict:
+    """Phase 2's bf16 operands. Returns the kernel line's numbers of
+    MAIN_CASE per kernel, with an "instances" entry per timed head dim."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    results = {name: {"instances": {}} for name in KERNELS}
     for case in CASES:
         B, T, Tk, H, D, causal = case
-        g = torch.Generator(device="cuda").manual_seed(1234)
-        bf = dict(device="cuda", dtype=torch.bfloat16, generator=g)
-        q = torch.randn(B * H, T, D, **bf)
-        k = torch.randn(B * H, Tk, D, **bf)
-        v = torch.randn(B * H, Tk, D, **bf)
-        do = torch.randn(B * H, T, D, **bf)
-
-        o, lse = fa.flash_fwd(q, k, v, causal)
+        q, k, v, do = _inputs(case, torch.bfloat16)
         o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
         delta = (do.float() * o_ref.float()).sum(-1)
-        dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal)
-        dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal)
-        dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(q, k, v, do, lse_ref, delta, causal)
-        torch.cuda.synchronize()
+        # bf16 outputs; at the head dims this PR added, f32 outputs too
+        for out_f32 in (False, True) if D in (32, 128) else (False,):
+            o, lse = fa.flash_fwd(q, k, v, causal, out_f32=out_f32)
+            dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, out_f32=out_f32)
+            dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal, out_f32=out_f32)
+            o_want = fa.flash_fwd_reference(q, k, v, causal, out_f32=out_f32)[0] if out_f32 else o_ref
+            dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(q, k, v, do, lse_ref, delta, causal,
+                                                            out_f32=out_f32)
+            torch.cuda.synchronize()
 
-        where = f"B={B} T={T} Tk={Tk} H={H} Dh={D} causal={causal}"
-        gaps = {name: bench.disagreement(got, ref) for name, got, ref in
-                [("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)]}
-        errs = {name: g["max_abs"] for name, g in gaps.items()}
-        lse_err = (lse - lse_ref).abs().max().item()
-        print(f"kernels vs plain at {where}: " + _gap_text(gaps) + f"; lse max abs {lse_err:.3e}",
-              flush=True)
-        bad = [name for name, g in gaps.items() if not g["ok"]]
-        if bad:
-            fail(f"{', '.join(bad)} disagree with the plain version at {where} "
-                 f"(limits: {_rule()})")
-        if not lse_err <= LSE_TOL:  # also catches NaN
-            fail(f"lse disagrees at {where}: max abs err {lse_err:.3e} > {LSE_TOL}")
-
-        if case != MAIN_CASE:
+            where = (f"B={B} T={T} Tk={Tk} H={H} Dh={D} causal={causal}"
+                     + (", f32 outputs" if out_f32 else ""))
+            gaps = {name: bench.disagreement(got, ref) for name, got, ref in
+                    [("o", o, o_want), ("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)]}
+            lse_err = (lse - lse_ref).abs().max().item()
+            print(f"kernels vs plain at {where}: " + _gap_text(gaps)
+                  + f"; lse max abs {lse_err:.3e}", flush=True)
+            bad = [name for name, g in gaps.items() if not g["ok"]]
+            if bad:
+                fail(f"{', '.join(bad)} disagree with the plain version at {where} "
+                     f"(limits: {_rule()})")
+            if not lse_err <= LSE_TOL:  # also catches NaN
+                fail(f"lse disagrees at {where}: max abs err {lse_err:.3e} > {LSE_TOL}")
+            for name in KERNELS:
+                _held(name, D, q.dtype, out_f32)
+            if not out_f32:
+                kept = (lse, dq, gaps)  # the bf16 outputs': timed and checked below
+            del o, o_want, dq, dk, dv, dq_ref, dk_ref, dv_ref
+        if case not in TIMED_CASES:
             continue
+        lse, dq, gaps = kept
+        where = f"B={B} T={T} Tk={Tk} H={H} Dh={D} causal={causal}"
         again = fa.flash_dq(q, k, v, do, lse_ref, delta, causal)
         if not torch.equal(dq, again):
             fail(f"two flash_dq calls at {where} differ: "
                  f"{(dq.float() - again.float()).abs().max().item():.3e} max abs")
         print(f"flash_dq at {where}: two calls give the same bits", flush=True)
-        del again
-        bnd = bounds(*case)
-        ms = {
-            "flash_fwd": bench.time_ms(lambda: fa.flash_fwd(q, k, v, causal)),
-            "flash_dq": bench.time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, causal)),
-            "flash_dkv": bench.time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal)),
-        }
-        plain_ms = {
-            "flash_fwd": bench.time_ms(lambda: fa.flash_fwd_reference(q, k, v, causal), iters=5),
-            "flash_dq": bench.time_ms(lambda: fa.flash_dq_reference(q, k, v, do, lse, delta, causal), iters=5),
-            "flash_dkv": bench.time_ms(lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta, causal), iters=5),
-        }
-        # The library's attention on the same inputs, [B, H, T, Dh] views.
-        qs, ks, vs = (x.view(B, H, -1, D).detach().requires_grad_() for x in (q, k, v))
-        dos = do.view(B, H, T, D)
-        with torch.no_grad():
-            sdpa_fwd = bench.time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal))
-        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
-        sdpa_bwd = bench.time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True))
-        sdpa_both = bench.time_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal), (qs, ks, vs), dos))
-        library = {"flash_fwd": sdpa_fwd, "flash_dq": sdpa_bwd, "flash_dkv": sdpa_bwd}
-        err_of = {"flash_fwd": errs["o"], "flash_dq": errs["dq"],
-                  "flash_dkv": max(errs["dk"], errs["dv"])}
+        del again, o_ref
+        timed = time_instance(case, q, k, v, do, lse, delta, gaps, card)
         for name in KERNELS:
-            results[name] = {
-                "max_abs_err": err_of[name], "ms": ms[name], "plain_ms": plain_ms[name],
-                "bound_ms": bnd[name][0], "bound_by": bnd[name][1], "library_ms": library[name],
-            }
-            print(f"time {name} at B={B} T={T} H={H} Dh={D} causal: kernel {ms[name]:.4f} ms, "
-                  f"bound {bnd[name][0]:.4f} ms ({bnd[name][1]}), plain {plain_ms[name]:.4f} ms, "
-                  f"library {library[name]:.4f} ms"
-                  + (f", before the redesign {BEFORE_REDESIGN_MS[name]:.4f} ms "
-                     "(PERF.md, not this run)" if name in BEFORE_REDESIGN_MS else "")
-                  + f" [{card}]", flush=True)
-        print(f"library: sdpa forward {sdpa_fwd:.4f} ms, backward (dq, dk and dv in one call) "
-              f"{sdpa_bwd:.4f} ms, forward+backward {sdpa_both:.4f} ms [{card}]", flush=True)
-        del qs, ks, vs, out
-        check_autograd(q, k, v, do, B, H)
+            if case == MAIN_CASE:
+                results[name].update(timed[name])
+            results[name]["instances"][_instance_key(D, q.dtype)] = timed[name]
+        if case == MAIN_CASE:
+            check_autograd(q, k, v, do, B, H)
+    check_refused_head_dim()
+    return results
+
+
+REFUSED_HEAD_DIM = 48  # a multiple of 16 the Pallas kernels take and the CUDA kernels do not
+
+
+def check_refused_head_dim() -> None:
+    """A CUDA tensor with a head dim the kernels are not built for raises in
+    each wrapper, and nothing is launched (no fallback to the plain version)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros(2, 128, REFUSED_HEAD_DIM, device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros(2, 128, device="cuda")
+    _zero_launches()
+    refused = 0
+    for call in (lambda: fa.flash_fwd(q, q, q, True), lambda: fa.flash_dq(q, q, q, q, lse, lse, True),
+                 lambda: fa.flash_dkv(q, q, q, q, lse, lse, True)):
+        try:
+            call()
+        except ValueError as e:
+            refused += "head dim" in str(e)
+    torch.cuda.synchronize()
+    counts, by_instance = _launch_counts()[0], _instance_counts()
+    print(f"head dim {REFUSED_HEAD_DIM} on the card: {refused} of 3 wrappers raised; launches "
+          f"{counts}, by instance {by_instance}", flush=True)
+    if refused != 3 or any(counts.values()) or by_instance:
+        fail(f"head dim {REFUSED_HEAD_DIM} was not refused by every wrapper, or launched a kernel")
+
+
+def check_f32_operands(card: str) -> dict:
+    """Phase 2's f32 operands: each f32 kernel against its plain version in
+    f32 at F32_CASES (TF32 off), o within F32_FWD_RELNORM, dq, dk and dv
+    within F32_GRAD_RELNORM in relative norm and lse within F32_LSE_TOL;
+    two dQ calls give the same bits; F32_MAIN timed beside its bound at the
+    f32 peak. Returns {kernel: {"d64 f32": the kernel line's numbers}}."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    print(f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}", flush=True)
+    results = {name: {} for name in KERNELS}
+    for case in F32_CASES:
+        B, T, Tk, H, D, causal = case
+        q, k, v, do = _inputs(case, torch.float32, seed=77)
+        o, lse = fa.flash_fwd(q, k, v, causal)
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
+        delta = (do * o_ref).sum(-1)
+        dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal)
+        refs = fa.flash_bwd_reference(q, k, v, do, lse_ref, delta, causal)
+        torch.cuda.synchronize()
+        where = f"B={B} T={T} Tk={Tk} H={H} Dh={D} causal={causal}, f32 operands"
+        if any(t.dtype != torch.float32 for t in (o, dq, dk, dv)):
+            fail(f"the f32 kernels returned {[t.dtype for t in (o, dq, dk, dv)]} at {where}")
+        gaps = {name: bench.disagreement(got, ref) for name, got, ref in
+                [("o", o, o_ref), ("dq", dq, refs[0]), ("dk", dk, refs[1]), ("dv", dv, refs[2])]}
+        lse_err = (lse - lse_ref).abs().max().item()
+        print(f"f32 kernels vs plain (f32) at {where}: " + _gap_text(gaps)
+              + f"; lse max abs {lse_err:.3e}", flush=True)
+        limits = {"o": F32_FWD_RELNORM, "dq": F32_GRAD_RELNORM, "dk": F32_GRAD_RELNORM,
+                  "dv": F32_GRAD_RELNORM}
+        bad = [n for n, g in gaps.items() if not g["relnorm"] <= limits[n]]
+        if bad or not lse_err <= F32_LSE_TOL:
+            fail(f"the f32 kernels' {bad or 'lse'} disagree with the plain version at {where} "
+                 f"(relnorm limits {limits}, lse {F32_LSE_TOL})")
+        for name in KERNELS:
+            _held(name, D, q.dtype, True)
+        del refs
+        if case != F32_MAIN:
+            continue
+        again = fa.flash_dq(q, k, v, do, lse_ref, delta, causal)
+        if not torch.equal(dq, again):
+            fail(f"two f32 flash_dq calls at {where} differ")
+        print(f"flash_dq at {where}: two calls give the same bits", flush=True)
+        timed = time_instance(case, q, k, v, do, lse, delta, gaps, card, peak=PEAK_F32_FLOPS)
+        for name in KERNELS:
+            results[name][_instance_key(D, q.dtype)] = timed[name]
     return results
 
 
@@ -552,10 +780,17 @@ def _rule() -> str:
 # ---------------------------------------------------------------------------
 
 
-def check_gradients(run, card: str) -> float:
+def check_gradients(run, card: str, loss_tol: float = LOSS_REF_TOL, loss_relative: bool = False,
+                    grad_tol: float = GRAD_RELNORM_TOL, chunks: int = 1) -> float:
     """Step 0's loss and every parameter's gradient through the flash
-    kernels against the same model and batch with reference attention.
-    Leaves the model's gradients unset. Returns the flash path's loss."""
+    kernels against the same model and batch with reference attention:
+    the loss within ``loss_tol`` (of the reference's loss if
+    ``loss_relative``), each gradient within ``grad_tol`` in relative
+    norm. With ``chunks`` > 1 each pass takes the batch's rows in that many
+    equal chunks, each chunk's mean loss over ``chunks`` (the batch's mean
+    loss and gradient, in less memory: reference attention keeps a [rows,
+    H, T, T] score tensor per layer). Leaves the model's gradients unset.
+    Returns the flash path's loss."""
     from ray_tpu_torch import bench
     from ray_tpu_torch.models import gpt2
 
@@ -563,9 +798,13 @@ def check_gradients(run, card: str) -> float:
     losses, grads = {}, {}
     for impl in ("flash", "reference"):
         model.zero_grad(set_to_none=True)
-        loss = gpt2.loss_fn(model, tokens, dataclasses.replace(run.cfg, attn_impl=impl))
-        loss.backward()
-        losses[impl] = loss.item()
+        cfg = dataclasses.replace(run.cfg, attn_impl=impl)
+        losses[impl] = 0.0
+        for part in tokens.chunk(chunks):
+            loss = gpt2.loss_fn(model, part, cfg) / chunks
+            loss.backward()
+            losses[impl] += loss.item()
+            del loss
         grads[impl] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     rel = bench.relnorms(grads["flash"], grads["reference"])
@@ -575,14 +814,14 @@ def check_gradients(run, card: str) -> float:
           f"gradient relnorm over {len(rel)} leaves: max {worst[0][1]:.3e} ({worst[0][0]}), "
           f"median {statistics.median(rel.values()):.3e} [{card}]", flush=True)
     print("  largest: " + ", ".join(f"{n} {r:.3e}" for n, r in worst[:6]))
-    if not abs(losses["flash"] - losses["reference"]) <= LOSS_REF_TOL:
+    limit = loss_tol * (abs(losses["reference"]) if loss_relative else 1.0)
+    if not abs(losses["flash"] - losses["reference"]) <= limit:
         fail(f"step-0 loss {losses['flash']} vs reference attention {losses['reference']}: "
-             f"> {LOSS_REF_TOL}")
+             f"> {limit}")
     zero = [n for n, g in grads["flash"].items() if n not in rel and g.norm().item() > 0]
-    bad = [n for n, r in rel.items() if not r <= GRAD_RELNORM_TOL] + zero
+    bad = [n for n, r in rel.items() if not r <= grad_tol] + zero
     if bad:
-        fail(f"gradients of {bad} disagree with reference attention "
-             f"(relnorm > {GRAD_RELNORM_TOL})")
+        fail(f"gradients of {bad} disagree with reference attention (relnorm > {grad_tol})")
     return losses["flash"]
 
 
@@ -1054,6 +1293,15 @@ BLOCK_CASES = [(2, 4096, 4096, 12, 64, True), (2, 4096, 4096, 12, 64, False),
 RING_RANKS = 4
 RING_SHAPE = (2, 16384, 12, 64)  # B, T, H, Dh of the whole sequence; bf16, causal
 RING_LAUNCHES = RING_RANKS * (RING_RANKS + 1) // 2  # 4 diagonal + 6 earlier blocks, per kernel
+# The ring in f32 at Dh 32 (B, T, H, Dh of the whole sequence; causal): the
+# JAX package's ring test's shape (tests/test_ring_attention.py: B 2, T 64,
+# H 4, Dh 32, 4 ranks of 16 rows), and one whose blocks span many tiles.
+# Held to reference attention in f32 at that test's limits: the output
+# within RING_F32_TOL (rtol and atol), the gradients of sum(out^2) within
+# rtol 5e-4, atol 5e-5.
+RING_F32_SHAPES = [(2, 64, 4, 32), (2, 4096, 4, 32)]
+RING_F32_TOL = 2e-5
+RING_F32_GRAD_TOL = (5e-4, 5e-5)
 # gpt2-small's MLP widths as 8 experts, top-2 routing, bf16 tokens, f32 weights
 MOE_TOKENS, MOE_D, MOE_F, MOE_E, MOE_TOP_K, MOE_CAPACITY = 4096, 768, 3072, 8, 2, 1280
 # moe_block on a group of one against moe_block_local: the dryrun leg's 1e-3
@@ -1103,6 +1351,7 @@ def check_f32_blocks(card: str) -> dict:
         for name, err in (("flash_fwd", gaps["o"]["max_abs"]), ("flash_dq", gaps["dq"]["max_abs"]),
                           ("flash_dkv", max(gaps["dk"]["max_abs"], gaps["dv"]["max_abs"]))):
             info[name]["max_abs_err"] = max(info[name]["max_abs_err"], err)
+            _held(name, D, q.dtype, True)
         del o_ref, refs
         if D != 64 or Tk != T:
             continue
@@ -1305,6 +1554,56 @@ def check_moe(group, card: str) -> None:
           f"median of 20) [{card}]", flush=True)
 
 
+def check_ring_f32(card: str) -> dict:
+    """The emulated ring of RING_RANKS ranks in f32 at each of
+    RING_F32_SHAPES (causal) against reference attention in f32 (TF32 off):
+    the output, and the gradients of sum(out^2) (the cotangent 2 out at the
+    reference's output, handed to both), every block through the f32
+    kernels. Returns the f32-operand launches per kernel of the last ring."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops.attention import attention
+    from ray_tpu_torch.ops.ring_attention import ring_attention_emulated
+
+    launched = {}
+    for B, T, H, D in RING_F32_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(8)
+        x = {name: torch.randn(B, T, H, D, device="cuda", generator=g) for name in ("q", "k", "v")}
+        leaves = [x[name].clone().requires_grad_() for name in ("q", "k", "v")]
+        ref = attention(*leaves, causal=True, impl="reference")
+        do = 2 * ref.detach()
+        ref.backward(do)
+        shards = {name: list(t.chunk(RING_RANKS, dim=1)) for name, t in x.items()}
+        _zero_launches()
+        ring = ring_attention_emulated(shards["q"], shards["k"], shards["v"],
+                                       list(do.chunk(RING_RANKS, dim=1)), causal=True)
+        torch.cuda.synchronize()
+        by_instance = _instance_counts()
+        launched = {name: by_instance.get(fa.instance(name, D, torch.float32), 0) for name in KERNELS}
+        got = [torch.cat(parts, dim=1) for parts in ring]
+        want = [ref.detach()] + [t.grad for t in leaves]
+        gaps = {}
+        for name, a, b, (rtol, atol) in zip(("o", "dq", "dk", "dv"), got, want,
+                                            [(RING_F32_TOL, RING_F32_TOL)] + [RING_F32_GRAD_TOL] * 3):
+            excess = ((a - b).abs() - atol - rtol * b.abs()).max().item()  # <= 0 passes
+            gaps[name] = ((a - b).abs().max().item(), excess)
+        print(f"emulated ring in f32 ({RING_RANKS} ranks, [B, T, H, Dh] = {[B, T, H, D]}, causal) "
+              f"vs reference attention (f32): " + ", ".join(
+                  f"{n} max abs {m:.3e}" for n, (m, _) in gaps.items())
+              + f" (limits: o rtol=atol={RING_F32_TOL}, gradients rtol {RING_F32_GRAD_TOL[0]} atol "
+              f"{RING_F32_GRAD_TOL[1]}); launches by instance {by_instance} [{card}]", flush=True)
+        bad = [n for n, (_, excess) in gaps.items() if not excess <= 0]
+        if bad:
+            fail(f"the f32 ring's {', '.join(bad)} disagree with reference attention")
+        want_launches = dict.fromkeys(KERNELS, RING_LAUNCHES)
+        if launched != want_launches or sum(by_instance.values()) != 3 * RING_LAUNCHES:
+            fail(f"the f32 ring launched {by_instance}; expected {want_launches} f32-operand "
+                 f"launches at Dh {D} and no other")
+        for name in KERNELS:
+            _held(name, D, torch.float32, True)
+        del ring, got, want, leaves, ref
+    return launched
+
+
 def parallel(card: str) -> dict:
     """Phase 5. Returns the kernel line's "f32" entry of each kernel."""
     info = check_f32_blocks(card)
@@ -1312,6 +1611,9 @@ def parallel(card: str) -> dict:
     for name in KERNELS:
         info[name]["ring_launches"] = ring_launches[name]
     check_group_paths(x, mono, card)
+    f32_ring = check_ring_f32(card)
+    for name in KERNELS:
+        info[name]["f32_operand_ring_launches"] = f32_ring[name]
     return info
 
 
@@ -2979,9 +3281,13 @@ class _RdtProducer:
     def probe(self) -> dict:
         from ray_tpu_torch.core import worker as worker_mod
 
+        # The store's count before the memory: a free that lands between
+        # the two reads (the owner's release of a ref reaches this
+        # process beside its next probe) then shows in both, never as 0
+        # objects beside the memory from before the free.
+        stats = worker_mod.global_worker().rpc_device_store_stats(None)
         torch.cuda.synchronize()
-        return {"allocated": torch.cuda.memory_allocated(), "launches": _launch_counts(),
-                **worker_mod.global_worker().rpc_device_store_stats(None)}
+        return {**stats, "allocated": torch.cuda.memory_allocated(), "launches": _launch_counts()}
 
     def export_split(self, what: str) -> dict:
         """The handoff's host halves on a payload, each the median of
@@ -3389,10 +3695,78 @@ def ppo_learner(card: str) -> None:
         fail(f"the PPO session left processes {pids} and files {files}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the train step at head dims 128 and 32, and in f32
+# ---------------------------------------------------------------------------
+
+# (label, config overrides, batch rows, loss limit, relative?, gradient limit,
+# chunks of the gradient check). gpt2-small's widths (d_model 768) as 6
+# heads of 128 and as 24 heads of 32, bf16, B 32, T 1024: phase 3's init
+# (the weights do not depend on the head count), tokens and limits. The
+# Dh 32 check takes its reference pass in two halves of the batch (24
+# heads double reference attention's score tensors). gpt2-small in f32, B
+# 8, T 1024, held at the JAX package's f32 limits: the loss within 1e-5
+# relative, each gradient within 1e-4 in relative norm.
+HEAD_DIM_RUNS = (
+    ("Dh 128 (6 heads)", {"n_head": 6}, 32, LOSS_REF_TOL, False, GRAD_RELNORM_TOL, 1),
+    ("Dh 32 (24 heads)", {"n_head": 24}, 32, LOSS_REF_TOL, False, GRAD_RELNORM_TOL, 2),
+    ("f32", {"dtype": torch.float32}, 8, 1e-5, True, 1e-4, 1),
+)
+HEAD_DIM_STEPS = 3  # timed, after one warm-up step
+
+
+def head_dim_steps(card: str, phase3_ms: float) -> dict:
+    """Phase 14. Each run of HEAD_DIM_RUNS: the gradient check against
+    reference attention on batch 0, one warm-up step, HEAD_DIM_STEPS timed
+    steps with each kernel's instance launches counted (n_layer a step of
+    the run's own instance, no other). Returns {label: (median ms, launches
+    a step by instance)}."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    table = {}
+    for label, overrides, batch, loss_tol, relative, grad_tol, chunks in HEAD_DIM_RUNS:
+        run = bench.setup(HEAD_DIM_STEPS + 1, batch=batch, **overrides)
+        cfg, T = run.cfg, bench.SEQ
+        check_gradients(run, card, loss_tol=loss_tol, loss_relative=relative, grad_tol=grad_tol,
+                        chunks=chunks)
+        loss0 = run.step(run.batches[0]).item()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        times, losses = [], []
+        for tokens in run.batches[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = run.step(tokens)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        per_step = {key: n / len(times) for key, n in _instance_counts().items()}
+        med = statistics.median(times)
+        want = {fa.instance(name, cfg.head_dim, cfg.dtype): cfg.n_layer for name in KERNELS}
+        print(f"train {bench.MODEL} {label}: d_model {cfg.d_model}, {cfg.n_head} heads of "
+              f"{cfg.head_dim}, {cfg.dtype}, B={batch} T={T}; losses {loss0:.5f} (warm-up), "
+              + ", ".join(f"{x:.5f}" for x in losses) + f"; median step {med:.2f} ms "
+              f"({', '.join(f'{t:.2f}' for t in times)}), {batch * T / med * 1e3:.1f} tokens/s; "
+              f"phase 3 (Dh 64, bf16, B=32): {phase3_ms:.2f} ms; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches a step {per_step} "
+              f"[{card}]", flush=True)
+        if not all(math.isfinite(x) for x in [loss0, *losses]):
+            fail(f"{label}: non-finite loss {[loss0, *losses]}")
+        if per_step != want:
+            fail(f"{label} launched {per_step} a step; the design says {want}")
+        table[label] = (med, per_step)
+        del run
+        torch.cuda.empty_cache()
+    return table
+
+
 def main() -> None:
     card = identify()
     sass = build()
     results = check_kernels(card)
+    f32_operands = check_f32_operands(card)
     counts, losses, step_ms = train(card)
     remat = remat_policies(card)
     phase4 = serve(card)
@@ -3406,11 +3780,20 @@ def main() -> None:
     placement(card)
     device_objects(card, pp["hop_ms"])
     ppo_learner(card)
-    kernels = [dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
-                    launches=counts[name], **results[name], held_at=["bf16", "f32"],
-                    f32=f32[name], sass=sass[name], pipeline_stage_launches_a_step=stages[name],
-                    train_library_launches_a_step=trained[name])
-               for name in KERNELS]
+    head_dims = head_dim_steps(card, step_ms)
+    kernels = []
+    for name in KERNELS:
+        entry = dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
+                     launches=counts[name], **results[name])
+        entry["instances"].update(f32_operands[name])
+        entry.update(held_at=sorted(HELD_AT[name], key=lambda h: (int(h.split()[0][1:]), h)),
+                     f32_operands_source=F32_SOURCE, f32=f32[name], sass=sass[name],
+                     pipeline_stage_launches_a_step=stages[name],
+                     train_library_launches_a_step=trained[name],
+                     head_dim_steps_launches_a_step={
+                         label: {k: n for k, n in per_step.items() if k.startswith(name + " ")}
+                         for label, (_, per_step) in head_dims.items()})
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

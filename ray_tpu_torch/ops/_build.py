@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` becomes ``build/<name>-<hash>.so``: a shared library
 with a plain C interface, compiled for ``sm_90a`` by nvcc at first use. The
 hash covers the source, every header beside it (``csrc/*.cuh``) and the
 flags, so a stale library is never loaded after an edit to any of them.
-A lock file in the build directory guards concurrent builds (several test
-or training processes starting at once). No PyTorch header is compiled,
-which keeps a build to seconds.
+A lock file per library in the build directory guards concurrent builds of
+it (several test or training processes starting at once); two libraries
+build at once. No PyTorch header is compiled, which keeps a build to
+seconds.
 
 Nothing here is imported or run at import time of the kernels' modules:
 the CPU has no nvcc, and the wrappers only load a library for a CUDA
@@ -63,9 +64,9 @@ def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
 
 
 @contextmanager
-def _build_lock():
+def _build_lock(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "lock", "w") as f:
+    with open(BUILD_DIR / f"{name}.lock", "w") as f:
         fcntl.flock(f, fcntl.LOCK_EX)
         try:
             yield
@@ -78,7 +79,7 @@ def build(name: str, defines: Tuple[str, ...] = ()) -> Path:
     library's path. The compiler's output (registers, shared memory and
     spills per kernel) is kept beside the library as ``<lib>.log``."""
     path = library_path(name, defines)
-    with _build_lock():
+    with _build_lock(name):
         if path.exists():
             return path
         tmp = path.with_suffix(f".tmp{os.getpid()}")

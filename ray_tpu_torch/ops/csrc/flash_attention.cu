@@ -1,7 +1,7 @@
 // Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
 //
-// Operands are folded to [BH, T, D] row-major bf16 (D = head dim, 16 or 64),
-// lse and delta are [BH, Tq] f32. Scores and all accumulators are f32. Each
+// Operands are folded to [BH, T, D] row-major bf16 (D = head dim: 16, 32,
+// 64 or 128), lse and delta are [BH, Tq] f32. Scores and all accumulators are f32. Each
 // kernel is instantiated for two output types (OutRows): bf16, the train
 // path's, and f32, for ring attention's block entries; only the store of
 // the output rows differs.
@@ -60,8 +60,8 @@ constexpr float LN2 = 0.6931471805599453f;
 // Tile sizes and ring depths, chosen by sweeps on the card (PERF.md section
 // 6). The ring depths are re-timed by python3 -m
 // ray_tpu_torch.sweep_flash_tiles, which rebuilds the library with -D
-// overrides of the three RT_ macros; nothing else sets them.
-// tests/test_torch_flash_tiles.py reads this block.
+// overrides of the RT_ macros (the _128 ones for head dim 128); nothing
+// else sets them. tests/test_torch_flash_tiles.py reads this block.
 #ifndef RT_FWD_STAGES
 #define RT_FWD_STAGES 3
 #endif
@@ -71,18 +71,43 @@ constexpr float LN2 = 0.6931471805599453f;
 #ifndef RT_DQ_STAGES
 #define RT_DQ_STAGES 4
 #endif
-constexpr int FWD_WGS = 2;                 // consumer warpgroups of the forward, 64 q rows each
-constexpr int FWD_BQ = 64 * FWD_WGS;       // q rows per work tile
-constexpr int FWD_BK = 128;                // keys per K/V stage
-constexpr int FWD_STAGES = RT_FWD_STAGES;  // K/V ring depth
-constexpr int DKV_BK = 128;                // keys per work tile (two consumer warpgroups x 64)
-constexpr int DKV_BQ = 64;                 // q rows per Q/dO stage
-constexpr int DKV_STAGES = RT_DKV_STAGES;  // Q/dO ring depth
-constexpr int DQ_WGS = 2;                  // consumer warpgroups of dQ, 64 q rows each
-constexpr int DQ_BQ = 64 * DQ_WGS;         // q rows per work tile
-constexpr int DQ_BK = 64;                  // keys per K/V stage
-constexpr int DQ_STAGES = RT_DQ_STAGES;    // K/V ring depth
-static_assert(FWD_STAGES >= 2 && DKV_STAGES >= 2 && DQ_STAGES >= 2, "a ring of at least two stages");
+#ifndef RT_FWD_STAGES_128
+#define RT_FWD_STAGES_128 2
+#endif
+#ifndef RT_DKV_STAGES_128
+#define RT_DKV_STAGES_128 4
+#endif
+#ifndef RT_DQ_STAGES_128
+#define RT_DQ_STAGES_128 4
+#endif
+constexpr int FWD_WGS = 2;            // consumer warpgroups of the forward, 64 q rows each
+constexpr int FWD_BQ = 64 * FWD_WGS;  // q rows per work tile
+constexpr int DKV_BK = 128;           // keys per work tile (two consumer warpgroups x 64)
+constexpr int DQ_WGS = 2;             // consumer warpgroups of dQ, 64 q rows each
+constexpr int DQ_BQ = 64 * DQ_WGS;    // q rows per work tile
+constexpr int SMEM_LIMIT = 232448;    // dynamic shared memory a block may have on an H100
+// Per head dim: keys per K/V stage (FWD_BK, DQ_BK), q rows per Q/dO stage
+// (DKV_BQ), the three ring depths, and whether a dK/dV consumer holds its K
+// and V rows as register A operands (DKV_KV_IN_REGS) or reads them from
+// shared memory.
+template <int D>
+struct Tiles {  // head dims 16, 32 and 64
+  static constexpr int FWD_BK = 128, FWD_STAGES = RT_FWD_STAGES;
+  static constexpr int DKV_BQ = 64, DKV_STAGES = RT_DKV_STAGES, DKV_KV_IN_REGS = 1;
+  static constexpr int DQ_BK = 64, DQ_STAGES = RT_DQ_STAGES;
+};
+// Head dim 128: rows of 256 bytes double every tile, so the forward's
+// ring is two stages deep (three would need 288 KiB), and the backward
+// kernels halve the tile their scores cover, which keeps them within 240
+// registers a consumer thread: dK/dV takes 32 q rows a stage and reads K
+// and V from shared memory (its two [64 x 128] f32 accumulators are 128
+// registers), dQ 32 keys a stage.
+template <>
+struct Tiles<128> {
+  static constexpr int FWD_BK = 128, FWD_STAGES = RT_FWD_STAGES_128;
+  static constexpr int DKV_BQ = 32, DKV_STAGES = RT_DKV_STAGES_128, DKV_KV_IN_REGS = 0;
+  static constexpr int DQ_BK = 32, DQ_STAGES = RT_DQ_STAGES_128;
+};
 
 // The 1024-byte aligned start of dynamic shared memory (the 128B swizzle
 // repeats every 1024 bytes, and TMA and wgmma agree on it from there).
@@ -183,6 +208,7 @@ template <int D>
 __device__ __forceinline__ void store_tile(bf16* stage, const CUtensorMap* map,
                                            const float (&acc)[D / 2], float mul_a, float mul_b,
                                            int row0, int bh, int tid, int bar) {
+  using T = hopper::Tile<D, 64>;
   const int lane = tid % 32, r = 16 * (tid / 32) + (lane >> 2), t = lane & 3;
   if (tid == 0) hopper::tma_store_wait_read();
   hopper::bar_sync(bar, WG_THREADS);
@@ -190,14 +216,14 @@ __device__ __forceinline__ void store_tile(bf16* stage, const CUtensorMap* map,
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * t;
-    *reinterpret_cast<uint32_t*>(base + hopper::swizzled_offset<D>(r, col)) =
+    *reinterpret_cast<uint32_t*>(base + T::offset(r, col)) =
         hopper::pack_bf16x2(acc[4 * j] * mul_a, acc[4 * j + 1] * mul_a);
-    *reinterpret_cast<uint32_t*>(base + hopper::swizzled_offset<D>(r + 8, col)) =
+    *reinterpret_cast<uint32_t*>(base + T::offset(r + 8, col)) =
         hopper::pack_bf16x2(acc[4 * j + 2] * mul_b, acc[4 * j + 3] * mul_b);
   }
   hopper::fence_proxy_async();
   hopper::bar_sync(bar, WG_THREADS);
-  if (tid == 0) hopper::tma_store_rows(map, stage, row0, bh);
+  if (tid == 0) hopper::tma_store_tile<T>(map, stage, row0, bh);
 }
 
 // Where a kernel writes its output rows, by output type (each kernel is
@@ -214,7 +240,7 @@ struct OutRows;
 
 template <int D>
 struct OutRows<D, bf16> {
-  CUtensorMap map;  // rows_map over [bh, T, D], boxes of 64 rows
+  CUtensorMap map;  // rows_map over [bh, T, D], boxes of 64 rows (Tile<D, 64>)
   __device__ __forceinline__ void store(bf16* stage, const float (&acc)[D / 2], float mul_a,
                                         float mul_b, int row0, int bh, int tid, int bar) const {
     store_tile<D>(stage, &map, acc, mul_a, mul_b, row0, bh, tid, bar);
@@ -282,14 +308,20 @@ __device__ __forceinline__ void pack_a_frags(uint32_t (&a)[N / 16][4], const flo
 // ---------------------------------------------------------------------------
 template <int D>
 struct FwdSmem {
-  static constexpr int Q_BYTES = FWD_BQ * D * 2, KV_BYTES = FWD_BK * D * 2;
+  static constexpr int BK = Tiles<D>::FWD_BK, STAGES = Tiles<D>::FWD_STAGES;
+  using TQ = hopper::Tile<D, FWD_BQ>;  // Q of a work tile
+  using TK = hopper::Tile<D, BK>;      // a K or V stage
+  using TO = hopper::Tile<D, 64>;      // a warpgroup's output staging tile
+  static constexpr int Q_BYTES = TQ::BYTES, KV_BYTES = TK::BYTES;
   // Q twice (this work tile's and the next one's), the K/V ring, and the
   // output staging tiles (one per consumer warpgroup).
-  static constexpr int K_OFF = 2 * Q_BYTES, V_OFF = K_OFF + FWD_STAGES * KV_BYTES;
-  static constexpr int O_OFF = V_OFF + FWD_STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = O_OFF + Q_BYTES;
-  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (4 + 3 * FWD_STAGES);  // + alignment slack
+  static constexpr int K_OFF = 2 * Q_BYTES, V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int O_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = O_OFF + FWD_WGS * TO::BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (4 + 3 * STAGES);  // + alignment slack
   static constexpr int LAUNCH = BYTES > ONE_BLOCK_PER_SM_SMEM ? BYTES : ONE_BLOCK_PER_SM_SMEM;
+  static_assert(STAGES >= 2, "a ring of at least two stages");
+  static_assert(LAUNCH <= SMEM_LIMIT, "the forward's shared memory does not fit");
 };
 
 // Key tiles of BK keys that a q range [first, last] needs (causal: up to
@@ -313,14 +345,14 @@ __device__ __forceinline__ int plain_tiles(int first_row, int Tk, int causal) {
 // hold a row, and returns in alpha the factor that rescales what was
 // accumulated against the old max. fwd_exp turns sc into P = 2^(s sl2 - m)
 // in place and adds its row sums to l.
-template <bool kMask>
-__device__ __forceinline__ void fwd_max(float (&sc)[FWD_BK / 2], float& m_a, float& m_b,
+template <bool kMask, int BK>
+__device__ __forceinline__ void fwd_max(float (&sc)[BK / 2], float& m_a, float& m_b,
                                         float& alpha_a, float& alpha_b, int k0, int Tk, int row_a,
                                         int t, float sl2, int causal) {
   const int row_b = row_a + 8;
   if constexpr (kMask) {
 #pragma unroll
-    for (int j = 0; j < FWD_BK / 8; ++j) {
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = k0 + 8 * j + 2 * t + e;
@@ -336,7 +368,7 @@ __device__ __forceinline__ void fwd_max(float (&sc)[FWD_BK / 2], float& m_a, flo
 #pragma unroll
   for (int u = 0; u < 4; ++u) pm_a[u] = pm_b[u] = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < FWD_BK / 8; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
     pm_a[j % 4] = fmaxf(pm_a[j % 4], fmaxf(sc[4 * j], sc[4 * j + 1]));
     pm_b[j % 4] = fmaxf(pm_b[j % 4], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
   }
@@ -354,11 +386,12 @@ __device__ __forceinline__ void fwd_max(float (&sc)[FWD_BK / 2], float& m_a, flo
   m_b = mn_b;
 }
 
-__device__ __forceinline__ void fwd_exp(float (&sc)[FWD_BK / 2], float m_a, float m_b, float& l_a,
+template <int BK>
+__device__ __forceinline__ void fwd_exp(float (&sc)[BK / 2], float m_a, float m_b, float& l_a,
                                         float& l_b, float alpha_a, float alpha_b, float sl2) {
   float ps_a[4] = {0.f, 0.f, 0.f, 0.f}, ps_b[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < FWD_BK / 8; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
     sc[4 * j + 0] = hopper::ex2(fmaf(sc[4 * j + 0], sl2, -m_a));
     sc[4 * j + 1] = hopper::ex2(fmaf(sc[4 * j + 1], sl2, -m_a));
     sc[4 * j + 2] = hopper::ex2(fmaf(sc[4 * j + 2], sl2, -m_b));
@@ -376,7 +409,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ OutRows<D, OutT> out_o,
                  float* __restrict__ lse, int bh_count, int Tq, int Tk, float scale, int causal) {
   using S = FwdSmem<D>;
+  using TQ = typename S::TQ;
+  using TK = typename S::TK;
   using R = Roles<FWD_WGS>;
+  constexpr int FWD_BK = S::BK, FWD_STAGES = S::STAGES, W = TQ::W;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_base(smem_raw);
   bf16* sq = reinterpret_cast<bf16*>(base);  // [2][FWD_BQ * D]
@@ -415,14 +451,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         const int b = wc & 1;
         hopper::mbar_wait(&empty_q[b], ((wc >> 1) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&full_q[b], S::Q_BYTES);
-        hopper::tma_load_rows(sq + b * FWD_BQ * D, &tm_q, &full_q[b], q0, bh);
+        hopper::tma_load_tile<TQ>(sq + b * FWD_BQ * D, &tm_q, &full_q[b], q0, bh);
         for (int i = 0; i < n_k; ++i, ++it) {
           const int s = it % FWD_STAGES;
           hopper::mbar_wait(&empty[s], ((it / FWD_STAGES) & 1) ^ 1);
           hopper::mbar_arrive_expect_tx(&full_k[s], S::KV_BYTES);
-          hopper::tma_load_rows(sk + s * FWD_BK * D, &tm_k, &full_k[s], i * FWD_BK, bh);
+          hopper::tma_load_tile<TK>(sk + s * FWD_BK * D, &tm_k, &full_k[s], i * FWD_BK, bh);
           hopper::mbar_arrive_expect_tx(&full_v[s], S::KV_BYTES);
-          hopper::tma_load_rows(sv + s * FWD_BK * D, &tm_v, &full_v[s], i * FWD_BK, bh);
+          hopper::tma_load_tile<TK>(sv + s * FWD_BK * D, &tm_v, &full_v[s], i * FWD_BK, bh);
         }
       }
     }
@@ -446,7 +482,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
       const int b = wc & 1;
-      const uint64_t desc_q = hopper::desc_rows<D>(sq + b * FWD_BQ * D + 64 * c * D);
+      const uint64_t desc_q = TQ::desc(sq + b * FWD_BQ * D + 64 * c * W);
       hopper::mbar_wait(&full_q[b], (wc >> 1) & 1);
       // Pipelined: S of key tile i and P V of key tile i - 1 go out in one
       // turn; P V runs on while this warpgroup takes the row maxima of tile
@@ -461,7 +497,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         const bf16* vs = sv + stage(i) * FWD_BK * D;
 #pragma unroll
         for (int kk = 0; kk < FWD_BK / 16; ++kk)
-          hopper::Wgmma<D>::rs(acc, pa[kk], hopper::desc_rows<D>(vs + kk * 16 * D));
+          hopper::Wgmma<D>::rs(acc, pa[kk], TK::mn(vs, kk * 16));
         hopper::wgmma_commit();
       };
       auto tile = [&](auto masked, auto after_first, int i) {
@@ -473,10 +509,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         hopper::fence_regs(pa);
         turns.begin();
         hopper::wgmma_fence();
-        const uint64_t desc_k = hopper::desc_rows<D>(sk + stage(i) * FWD_BK * D);
+        const uint64_t desc_k = TK::desc(sk + stage(i) * FWD_BK * D);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hopper::Wgmma<FWD_BK>::ss(sc, desc_q + 2 * kk, desc_k + 2 * kk, kk > 0);
+          hopper::Wgmma<FWD_BK>::ss(sc, desc_q + TQ::k_step(kk), desc_k + TK::k_step(kk), kk > 0);
         hopper::wgmma_commit();
         if constexpr (kAfterFirst) issue_pv(i - 1);
         turns.end();
@@ -485,9 +521,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         else
           hopper::wgmma_wait<0>();
         hopper::fence_regs(sc);
-        fwd_max<decltype(masked)::value>(sc, m_a, m_b, alpha_a, alpha_b, i * FWD_BK, Tk, row_a, t,
-                                         sl2, causal);
-        fwd_exp(sc, m_a, m_b, l_a, l_b, alpha_a, alpha_b, sl2);
+        fwd_max<decltype(masked)::value, FWD_BK>(sc, m_a, m_b, alpha_a, alpha_b, i * FWD_BK, Tk,
+                                                 row_a, t, sl2, causal);
+        fwd_exp<FWD_BK>(sc, m_a, m_b, l_a, l_b, alpha_a, alpha_b, sl2);
         hopper::fence_regs(sc);  // the exponentials stay before the wait
         if constexpr (kAfterFirst) {
           hopper::wgmma_wait<0>();
@@ -584,27 +620,38 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 // that owns the keys: no atomics, no dependence on run order. Causal: q
 // tiles from the diagonal on; a warpgroup whose keys all lie after a tile's
 // rows skips it. (Taking turns at the tensor cores, as the forward does,
-// made this kernel slower on the card.)
+// made this kernel slower on the card.) Head dim 128 (Tiles<128>): Q/dO
+// stages of 32 rows, and S^T and dP^T read K and V from shared memory (both
+// operands there), since their register copies (64 registers) would not fit
+// beside the two [64 x 128] accumulators; the K/V buffer is released when
+// the work tile's last product is in, so the next one's K and V load then.
 // ---------------------------------------------------------------------------
 template <int D>
 struct DkvSmem {
-  static constexpr int KV_BYTES = DKV_BK * D * 2, QS_BYTES = DKV_BQ * D * 2;
+  static constexpr int BQ = Tiles<D>::DKV_BQ, STAGES = Tiles<D>::DKV_STAGES;
+  using TK = hopper::Tile<D, DKV_BK>;  // K or V of a work tile
+  using TQ = hopper::Tile<D, BQ>;      // a Q or dO stage
+  using TO = hopper::Tile<D, 64>;      // a warpgroup's dK or dV staging tile
+  static constexpr int KV_BYTES = TK::BYTES, QS_BYTES = TQ::BYTES;
   // K and V, the Q/dO ring, the ring's lse and delta, and the dK/dV
   // staging tiles.
   static constexpr int K_OFF = 0, V_OFF = KV_BYTES, Q_OFF = 2 * KV_BYTES;
-  static constexpr int DO_OFF = Q_OFF + DKV_STAGES * QS_BYTES;
-  static constexpr int LSE_OFF = DO_OFF + DKV_STAGES * QS_BYTES;
-  static constexpr int DELTA_OFF = LSE_OFF + DKV_STAGES * DKV_BQ * 4;
-  static constexpr int DK_OFF = (DELTA_OFF + DKV_STAGES * DKV_BQ * 4 + 1023) / 1024 * 1024;
-  static constexpr int DV_OFF = DK_OFF + KV_BYTES;
-  static constexpr int BAR_OFF = DV_OFF + KV_BYTES;
-  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + 2 * DKV_STAGES);
+  static constexpr int DO_OFF = Q_OFF + STAGES * QS_BYTES;
+  static constexpr int LSE_OFF = DO_OFF + STAGES * QS_BYTES;
+  static constexpr int DELTA_OFF = LSE_OFF + STAGES * BQ * 4;
+  static constexpr int DK_OFF = (DELTA_OFF + STAGES * BQ * 4 + 1023) / 1024 * 1024;
+  static constexpr int DV_OFF = DK_OFF + 2 * TO::BYTES;
+  static constexpr int BAR_OFF = DV_OFF + 2 * TO::BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + 2 * STAGES);
   static constexpr int LAUNCH = BYTES > ONE_BLOCK_PER_SM_SMEM ? BYTES : ONE_BLOCK_PER_SM_SMEM;
+  static_assert(STAGES >= 2, "a ring of at least two stages");
+  static_assert(LAUNCH <= SMEM_LIMIT, "dK/dV's shared memory does not fit");
 };
 
-// The first q tile (of DKV_BQ rows) that can see key k0 (causal, Tq == Tk).
+// The first q tile (of BQ rows) that can see key k0 (causal, Tq == Tk).
+template <int BQ>
 __device__ __forceinline__ int dkv_first_q_tile(int k0, int causal) {
-  return causal ? k0 / DKV_BQ : 0;
+  return causal ? k0 / BQ : 0;
 }
 
 template <int D, typename OutT>
@@ -616,7 +663,11 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
                  const float* __restrict__ lse, const float* __restrict__ delta, int bh_count,
                  int Tq, int Tk, float scale, int causal) {
   using S = DkvSmem<D>;
+  using TK = typename S::TK;
+  using TQ = typename S::TQ;
   using R = Roles<2>;
+  constexpr int DKV_BQ = S::BQ, DKV_STAGES = S::STAGES, W = TK::W;
+  constexpr bool KV_IN_REGS = Tiles<D>::DKV_KV_IN_REGS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_base(smem_raw);
   bf16* sk = reinterpret_cast<bf16*>(base + S::K_OFF);  // [DKV_BK * D]
@@ -658,16 +709,16 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         hopper::mbar_wait(empty_kv, (wc & 1) ^ 1);
         if (lane == 0) {
           hopper::mbar_arrive_expect_tx(full_kv, 2 * S::KV_BYTES);
-          hopper::tma_load_rows(sk, &tm_k, full_kv, k0, bh);
-          hopper::tma_load_rows(sv, &tm_v, full_kv, k0, bh);
+          hopper::tma_load_tile<TK>(sk, &tm_k, full_kv, k0, bh);
+          hopper::tma_load_tile<TK>(sv, &tm_v, full_kv, k0, bh);
         }
-        for (int i = dkv_first_q_tile(k0, causal); i < n_qs; ++i, ++it) {
+        for (int i = dkv_first_q_tile<DKV_BQ>(k0, causal); i < n_qs; ++i, ++it) {
           const int s = it % DKV_STAGES, q0 = i * DKV_BQ;
           hopper::mbar_wait(&empty[s], ((it / DKV_STAGES) & 1) ^ 1);
           if (lane == 0) {
             hopper::mbar_arrive_expect_tx(&full[s], 2 * S::QS_BYTES);
-            hopper::tma_load_rows(sq + s * DKV_BQ * D, &tm_q, &full[s], q0, bh);
-            hopper::tma_load_rows(sdo + s * DKV_BQ * D, &tm_do, &full[s], q0, bh);
+            hopper::tma_load_tile<TQ>(sq + s * DKV_BQ * D, &tm_q, &full[s], q0, bh);
+            hopper::tma_load_tile<TQ>(sdo + s * DKV_BQ * D, &tm_do, &full[s], q0, bh);
           }
           for (int r = lane; r < DKV_BQ; r += 32) {
             const bool in = q0 + r < Tq;
@@ -686,21 +737,26 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     for (; works.next(bh, kt); ++wc) {
       const int k0 = kt * DKV_BK, wk0 = k0 + 64 * c;  // wk0: this warpgroup's first key
       const int key_a = wk0 + 16 * warp + g, key_b = key_a + 8;
-      const int i_begin = dkv_first_q_tile(k0, causal);
+      const int i_begin = dkv_first_q_tile<DKV_BQ>(k0, causal);
       // Causal: the first q tile with a row at or after this warpgroup's
       // first key; the tiles before it see none of its keys.
-      const int i_own = dkv_first_q_tile(wk0, causal);
+      const int i_own = dkv_first_q_tile<DKV_BQ>(wk0, causal);
       float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
       hopper::mbar_wait(full_kv, wc & 1);
       // K and V of this warpgroup's keys as register A operands, for the
-      // whole work tile; the producer may load the next work tile's.
-      uint32_t ka[D / 16][4], va[D / 16][4];
-      hopper::load_a_rows<D>(ka, sk + 64 * c * D, warp, lane);
-      hopper::load_a_rows<D>(va, sv + 64 * c * D, warp, lane);
-      warp_release(empty_kv);
+      // whole work tile; the producer may load the next work tile's. At
+      // head dim 128 they are read from shared memory instead, and the
+      // buffer is released at the end of the work tile.
+      uint32_t ka[KV_IN_REGS ? D / 16 : 1][4], va[KV_IN_REGS ? D / 16 : 1][4];
+      const uint64_t desc_ks = TK::desc(sk + 64 * c * W), desc_vs = TK::desc(sv + 64 * c * W);
+      if constexpr (KV_IN_REGS) {
+        hopper::load_a_rows<TK>(ka, sk + 64 * c * W, warp, lane);
+        hopper::load_a_rows<TK>(va, sv + 64 * c * W, warp, lane);
+        warp_release(empty_kv);
+      }
       for (int i = i_begin; i < i_own; ++i, ++it) {  // release them once landed
         const int s = it % DKV_STAGES;
         hopper::mbar_wait(&full[s], (it / DKV_STAGES) & 1);
@@ -722,20 +778,28 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         const float* ds = sdelta + s * DKV_BQ;
         hopper::mbar_wait(&full[s], ((it + i - i_own) / DKV_STAGES) & 1);
 
-        float st[DKV_BQ / 2], dpt[DKV_BQ / 2];  // S^T and dP^T, [64 keys x 64 q]
+        float st[DKV_BQ / 2], dpt[DKV_BQ / 2];  // S^T and dP^T, [64 keys x DKV_BQ q]
         hopper::fence_regs(dv_acc);
         hopper::fence_regs(dk_acc);
         hopper::fence_regs(pa);
         hopper::fence_regs(da);
         hopper::wgmma_fence();
-        const uint64_t desc_qs = hopper::desc_rows<D>(qs), desc_dos = hopper::desc_rows<D>(dos);
+        const uint64_t desc_qs = TQ::desc(qs), desc_dos = TQ::desc(dos);
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          hopper::Wgmma<DKV_BQ>::rsk(st, ka[kk], desc_qs + 2 * kk, kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          if constexpr (KV_IN_REGS)
+            hopper::Wgmma<DKV_BQ>::rsk(st, ka[kk], desc_qs + TQ::k_step(kk), kk > 0);
+          else
+            hopper::Wgmma<DKV_BQ>::ss(st, desc_ks + TK::k_step(kk), desc_qs + TQ::k_step(kk), kk > 0);
+        }
         hopper::wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          hopper::Wgmma<DKV_BQ>::rsk(dpt, va[kk], desc_dos + 2 * kk, kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          if constexpr (KV_IN_REGS)
+            hopper::Wgmma<DKV_BQ>::rsk(dpt, va[kk], desc_dos + TQ::k_step(kk), kk > 0);
+          else
+            hopper::Wgmma<DKV_BQ>::ss(dpt, desc_vs + TK::k_step(kk), desc_dos + TQ::k_step(kk), kk > 0);
+        }
         hopper::wgmma_commit();
         hopper::wgmma_wait<1>();  // the last tile's gradients and S^T are in; dP^T may still run
         hopper::fence_regs(st);
@@ -772,9 +836,9 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
           const float2 dl2 = *reinterpret_cast<const float2*>(ds + 8 * j + 2 * t);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float dl = e ? dl2.y : dl2.x;
-            dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dl);  // dS / scale
-            dpt[4 * j + 2 + e] = st[4 * j + 2 + e] * (dpt[4 * j + 2 + e] - dl);
+            const float dls = (e ? dl2.y : dl2.x) * scale;
+            dpt[4 * j + e] = st[4 * j + e] * fmaf(dpt[4 * j + e], scale, -dls);  // dS
+            dpt[4 * j + 2 + e] = st[4 * j + 2 + e] * fmaf(dpt[4 * j + 2 + e], scale, -dls);
           }
         }
         pack_a_frags<DKV_BQ>(pa, st);
@@ -786,10 +850,10 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-          hopper::Wgmma<D>::rs(dv_acc, pa[kk], hopper::desc_rows<D>(dos + kk * 16 * D));
+          hopper::Wgmma<D>::rs(dv_acc, pa[kk], TQ::mn(dos, kk * 16));
 #pragma unroll
         for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-          hopper::Wgmma<D>::rs(dk_acc, da[kk], hopper::desc_rows<D>(qs + kk * 16 * D));
+          hopper::Wgmma<D>::rs(dk_acc, da[kk], TQ::mn(qs, kk * 16));
         hopper::wgmma_commit();
         prev = s;
       };
@@ -808,9 +872,11 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       hopper::fence_regs(pa);
       hopper::fence_regs(da);
       warp_release(&empty[prev < 0 ? 0 : prev], prev >= 0);
-      // dS = P (dP - delta) scale: the scale (1/8 or 1/4, a power of two, so
-      // the bf16 rounding of dS is the same before and after it) comes in here.
-      out_dk.store(sdk + 64 * c * D, dk_acc, scale, scale, wk0, bh, tid, 3 + c);
+      if constexpr (!KV_IN_REGS) warp_release(empty_kv);  // the last product that read K and V is in
+      // dS = P (dP scale - delta scale) took the scale before its bf16
+      // rounding, as the Pallas kernel's dS does (1/sqrt(Dh) is a power of
+      // two only at head dims 16 and 64).
+      out_dk.store(sdk + 64 * c * D, dk_acc, 1.f, 1.f, wk0, bh, tid, 3 + c);
       out_dv.store(sdv + 64 * c * D, dv_acc, 1.f, 1.f, wk0, bh, tid, 3 + c);
     }
     if (tid == 0) hopper::tma_store_wait();
@@ -834,14 +900,14 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 // and, per key tile, computes S = Q K^T and dP = dO V^T by wgmma with Q and
 // dO as register A operands and K and V K-major from shared memory, P =
 // exp2(S scale log2 e - lse log2 e) in one FFMA and one MUFU op per score,
-// and dS = P (dP - delta) packed to bf16 A fragments; dQ += dS K by wgmma
-// reads the same K tile MN-major through the transpose bit. S of key tile i,
-// dQ of tile i - 1 and dP of tile i go out together, so the exponentials
-// of tile i can start while dQ(i - 1) and dP(i) run; the stage of tile
-// i - 1 is released after the wait that covers its dQ. dQ accumulates in f32
-// registers of the block that owns the rows, and takes its scale (1/8 or
-// 1/4, a power of two, so the bf16 rounding of dS is the same before and
-// after it) once in the epilogue. Causal: the key loop stops at the
+// and dS = P (dP scale - delta scale) (one FFMA: the scale comes in before
+// dS is rounded, as in the Pallas kernel) packed to bf16 A fragments; dQ +=
+// dS K by wgmma reads the same K tile MN-major through the transpose bit. S
+// of key tile i, dQ of tile i - 1 and dP of tile i go out together, so the
+// exponentials of tile i can start while dQ(i - 1) and dP(i) run; the stage
+// of tile i - 1 is released after the wait that covers its dQ. dQ
+// accumulates in f32 registers of the block that owns the rows. Causal: the
+// key loop stops at the
 // diagonal; the warpgroup whose rows end earlier releases the key tile past
 // its rows without computing, and one whose rows all lie past Tq skips its
 // tiles. Only the diagonal and ragged-end tiles are masked, in a loop of
@@ -849,15 +915,21 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 // ---------------------------------------------------------------------------
 template <int D>
 struct DqSmem {
-  static constexpr int Q_BYTES = DQ_BQ * D * 2, KV_BYTES = DQ_BK * D * 2;
+  static constexpr int BK = Tiles<D>::DQ_BK, STAGES = Tiles<D>::DQ_STAGES;
+  using TQ = hopper::Tile<D, DQ_BQ>;  // Q or dO of a work tile
+  using TK = hopper::Tile<D, BK>;     // a K or V stage
+  using TO = hopper::Tile<D, 64>;     // a warpgroup's dQ staging tile
+  static constexpr int Q_BYTES = TQ::BYTES, KV_BYTES = TK::BYTES;
   // Q and dO of one work tile, the K/V ring, and the dQ staging tiles (one
   // per consumer warpgroup).
   static constexpr int DO_OFF = Q_BYTES, K_OFF = 2 * Q_BYTES;
-  static constexpr int V_OFF = K_OFF + DQ_STAGES * KV_BYTES;
-  static constexpr int DQ_OFF = V_OFF + DQ_STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = DQ_OFF + Q_BYTES;
-  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + 2 * DQ_STAGES);  // + alignment slack
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int DQ_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = DQ_OFF + DQ_WGS * TO::BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + 2 * STAGES);  // + alignment slack
   static constexpr int LAUNCH = BYTES > ONE_BLOCK_PER_SM_SMEM ? BYTES : ONE_BLOCK_PER_SM_SMEM;
+  static_assert(STAGES >= 2, "a ring of at least two stages");
+  static_assert(LAUNCH <= SMEM_LIMIT, "dQ's shared memory does not fit");
 };
 
 template <int D, typename OutT>
@@ -868,7 +940,10 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
                 const float* __restrict__ delta, int bh_count, int Tq, int Tk, float scale,
                 int causal) {
   using S = DqSmem<D>;
+  using TQ = typename S::TQ;
+  using TK = typename S::TK;
   using R = Roles<DQ_WGS>;
+  constexpr int DQ_BK = S::BK, DQ_STAGES = S::STAGES, W = TQ::W;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_base(smem_raw);
   bf16* sq = reinterpret_cast<bf16*>(base);  // [DQ_BQ * D]
@@ -903,14 +978,14 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         const int q0 = qt * DQ_BQ, n_k = key_tiles<DQ_BK>(q0 + DQ_BQ - 1, Tk, causal);
         hopper::mbar_wait(empty_q, (wc & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(full_q, 2 * S::Q_BYTES);
-        hopper::tma_load_rows(sq, &tm_q, full_q, q0, bh);
-        hopper::tma_load_rows(sdo, &tm_do, full_q, q0, bh);
+        hopper::tma_load_tile<TQ>(sq, &tm_q, full_q, q0, bh);
+        hopper::tma_load_tile<TQ>(sdo, &tm_do, full_q, q0, bh);
         for (int i = 0; i < n_k; ++i, ++it) {
           const int s = it % DQ_STAGES;
           hopper::mbar_wait(&empty[s], ((it / DQ_STAGES) & 1) ^ 1);
           hopper::mbar_arrive_expect_tx(&full[s], 2 * S::KV_BYTES);
-          hopper::tma_load_rows(sk + s * DQ_BK * D, &tm_k, &full[s], i * DQ_BK, bh);
-          hopper::tma_load_rows(sv + s * DQ_BK * D, &tm_v, &full[s], i * DQ_BK, bh);
+          hopper::tma_load_tile<TK>(sk + s * DQ_BK * D, &tm_k, &full[s], i * DQ_BK, bh);
+          hopper::tma_load_tile<TK>(sv + s * DQ_BK * D, &tm_v, &full[s], i * DQ_BK, bh);
         }
       }
     }
@@ -931,8 +1006,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       const float* delta_bh = delta + (size_t)bh * Tq;
       const float l2_a = row_a < Tq ? lse_bh[row_a] * LOG2E : 0.f;
       const float l2_b = row_b < Tq ? lse_bh[row_b] * LOG2E : 0.f;
-      const float dl_a = row_a < Tq ? delta_bh[row_a] : 0.f;
-      const float dl_b = row_b < Tq ? delta_bh[row_b] : 0.f;
+      const float dl_a = row_a < Tq ? delta_bh[row_a] * scale : 0.f;  // delta scale
+      const float dl_b = row_b < Tq ? delta_bh[row_b] * scale : 0.f;
       float acc[D / 2];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
@@ -941,8 +1016,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       // whole work tile; the producer may load the next work tile's.
       hopper::mbar_wait(full_q, wc & 1);
       uint32_t qa[D / 16][4], doa[D / 16][4];
-      hopper::load_a_rows<D>(qa, sq + 64 * c * D, warp, lane);
-      hopper::load_a_rows<D>(doa, sdo + 64 * c * D, warp, lane);
+      hopper::load_a_rows<TQ>(qa, sq + 64 * c * W, warp, lane);
+      hopper::load_a_rows<TQ>(doa, sdo + 64 * c * W, warp, lane);
       warp_release(empty_q);
 
       // Pipelined: S of key tile i, dQ of tile i - 1 and dP of tile i go out
@@ -958,7 +1033,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         const bf16* ks = sk + stage(i) * DQ_BK * D;
 #pragma unroll
         for (int kk = 0; kk < DQ_BK / 16; ++kk)
-          hopper::Wgmma<D>::rs(acc, da[kk], hopper::desc_rows<D>(ks + kk * 16 * D));
+          hopper::Wgmma<D>::rs(acc, da[kk], TK::mn(ks, kk * 16));
         hopper::wgmma_commit();
       };
       auto ktile = [&](auto masked, auto after_first, int i) {
@@ -969,16 +1044,16 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         hopper::fence_regs(acc);
         hopper::fence_regs(da);
         hopper::wgmma_fence();
-        const uint64_t desc_k = hopper::desc_rows<D>(sk + s * DQ_BK * D);
-        const uint64_t desc_v = hopper::desc_rows<D>(sv + s * DQ_BK * D);
+        const uint64_t desc_k = TK::desc(sk + s * DQ_BK * D);
+        const uint64_t desc_v = TK::desc(sv + s * DQ_BK * D);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hopper::Wgmma<DQ_BK>::rsk(sc, qa[kk], desc_k + 2 * kk, kk > 0);
+          hopper::Wgmma<DQ_BK>::rsk(sc, qa[kk], desc_k + TK::k_step(kk), kk > 0);
         hopper::wgmma_commit();
         if constexpr (kAfterFirst) issue_dq(i - 1);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hopper::Wgmma<DQ_BK>::rsk(dp, doa[kk], desc_v + 2 * kk, kk > 0);
+          hopper::Wgmma<DQ_BK>::rsk(dp, doa[kk], desc_v + TK::k_step(kk), kk > 0);
         hopper::wgmma_commit();
         if constexpr (kAfterFirst)
           hopper::wgmma_wait<2>();  // S is in; dQ(i - 1) and dP may still run
@@ -1010,8 +1085,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         for (int j = 0; j < DQ_BK / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dl_a);  // dS / scale
-            dp[4 * j + 2 + e] = sc[4 * j + 2 + e] * (dp[4 * j + 2 + e] - dl_b);
+            dp[4 * j + e] = sc[4 * j + e] * fmaf(dp[4 * j + e], scale, -dl_a);  // dS
+            dp[4 * j + 2 + e] = sc[4 * j + 2 + e] * fmaf(dp[4 * j + 2 + e], scale, -dl_b);
           }
         }
         pack_a_frags<DQ_BK>(da, dp);
@@ -1042,7 +1117,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         hopper::mbar_wait(&full[s], (it / DQ_STAGES) & 1);
         warp_release(&empty[s]);
       }
-      out_dq.store(sdq + 64 * c * D, acc, scale, scale, wq0, bh, tid, 1 + c);
+      out_dq.store(sdq + 64 * c * D, acc, 1.f, 1.f, wq0, bh, tid, 1 + c);
     }
     if (tid == 0) hopper::tma_store_wait();
   }
@@ -1071,6 +1146,25 @@ static int persistent_grid(int n_units) {
   return n_units < sms ? n_units : sms;
 }
 
+// Calls launch(head dim, output type) with the head dim as an
+// std::integral_constant and the output type as a Type tag, for the head
+// dims the kernels are instantiated for; cudaErrorInvalidValue for others.
+template <class T>
+struct Type {
+  using type = T;
+};
+template <class F>
+static int by_head_dim(int d, int out_f32, F launch) {
+  auto with = [&](auto dd) { return out_f32 ? launch(dd, Type<float>{}) : launch(dd, Type<bf16>{}); };
+  switch (d) {
+    case 16: return with(std::integral_constant<int, 16>{});
+    case 32: return with(std::integral_constant<int, 32>{});
+    case 64: return with(std::integral_constant<int, 64>{});
+    case 128: return with(std::integral_constant<int, 128>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // The output rows of a [bh, T, D] tensor at p, as OutRows describes them.
 template <int D>
 static bool out_rows(OutRows<D, bf16>& out, void* p, int bh, int T) {
@@ -1088,9 +1182,10 @@ static int launch_fwd(const void* q, const void* k, const void* v, void* o, void
                       int tq, int tk, float scale, int causal, cudaStream_t st) {
   CUtensorMap tq_map, tk_map, tv_map;
   OutRows<D, OutT> o_rows;
+  constexpr int bk = FwdSmem<D>::BK;
   if (!hopper::rows_map(&tq_map, q, bh, tq, D, FWD_BQ) ||
-      !hopper::rows_map(&tk_map, k, bh, tk, D, FWD_BK) ||
-      !hopper::rows_map(&tv_map, v, bh, tk, D, FWD_BK) || !out_rows(o_rows, o, bh, tq))
+      !hopper::rows_map(&tk_map, k, bh, tk, D, bk) ||
+      !hopper::rows_map(&tv_map, v, bh, tk, D, bk) || !out_rows(o_rows, o, bh, tq))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = FwdSmem<D>::LAUNCH, threads = Roles<FWD_WGS>::THREADS;
   cudaFuncSetAttribute(flash_fwd_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1104,14 +1199,10 @@ static int launch_fwd(const void* q, const void* k, const void* v, void* o, void
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                             int tq, int tk, int d, float scale, int causal, int out_f32,
                             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 16)
-    return out_f32 ? launch_fwd<16, float>(q, k, v, o, lse, bh, tq, tk, scale, causal, st)
-                   : launch_fwd<16, bf16>(q, k, v, o, lse, bh, tq, tk, scale, causal, st);
-  if (d == 64)
-    return out_f32 ? launch_fwd<64, float>(q, k, v, o, lse, bh, tq, tk, scale, causal, st)
-                   : launch_fwd<64, bf16>(q, k, v, o, lse, bh, tq, tk, scale, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_head_dim(d, out_f32, [&](auto dd, auto out) {
+    return launch_fwd<decltype(dd)::value, typename decltype(out)::type>(
+        q, k, v, o, lse, bh, tq, tk, scale, causal, static_cast<cudaStream_t>(stream));
+  });
 }
 
 template <int D, typename OutT>
@@ -1120,9 +1211,10 @@ static int launch_dq(const void* q, const void* k, const void* v, const void* do
                      cudaStream_t st) {
   CUtensorMap tq_map, tk_map, tv_map, tdo_map;
   OutRows<D, OutT> dq_rows;
+  constexpr int bk = DqSmem<D>::BK;
   if (!hopper::rows_map(&tq_map, q, bh, tq, D, DQ_BQ) ||
-      !hopper::rows_map(&tk_map, k, bh, tk, D, DQ_BK) ||
-      !hopper::rows_map(&tv_map, v, bh, tk, D, DQ_BK) ||
+      !hopper::rows_map(&tk_map, k, bh, tk, D, bk) ||
+      !hopper::rows_map(&tv_map, v, bh, tk, D, bk) ||
       !hopper::rows_map(&tdo_map, dout, bh, tq, D, DQ_BQ) || !out_rows(dq_rows, dq, bh, tq))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = DqSmem<D>::LAUNCH, threads = Roles<DQ_WGS>::THREADS;
@@ -1138,14 +1230,10 @@ static int launch_dq(const void* q, const void* k, const void* v, const void* do
 extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
                            int d, float scale, int causal, int out_f32, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 16)
-    return out_f32 ? launch_dq<16, float>(q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, st)
-                   : launch_dq<16, bf16>(q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, st);
-  if (d == 64)
-    return out_f32 ? launch_dq<64, float>(q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, st)
-                   : launch_dq<64, bf16>(q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_head_dim(d, out_f32, [&](auto dd, auto out) {
+    return launch_dq<decltype(dd)::value, typename decltype(out)::type>(
+        q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, static_cast<cudaStream_t>(stream));
+  });
 }
 
 template <int D, typename OutT>
@@ -1154,10 +1242,11 @@ static int launch_dkv(const void* q, const void* k, const void* v, const void* d
                       int causal, cudaStream_t st) {
   CUtensorMap tq_map, tk_map, tv_map, tdo_map;
   OutRows<D, OutT> dk_rows, dv_rows;
-  if (!hopper::rows_map(&tq_map, q, bh, tq, D, DKV_BQ) ||
+  constexpr int bq = DkvSmem<D>::BQ;
+  if (!hopper::rows_map(&tq_map, q, bh, tq, D, bq) ||
       !hopper::rows_map(&tk_map, k, bh, tk, D, DKV_BK) ||
       !hopper::rows_map(&tv_map, v, bh, tk, D, DKV_BK) ||
-      !hopper::rows_map(&tdo_map, dout, bh, tq, D, DKV_BQ) || !out_rows(dk_rows, dk, bh, tk) ||
+      !hopper::rows_map(&tdo_map, dout, bh, tq, D, bq) || !out_rows(dk_rows, dk, bh, tk) ||
       !out_rows(dv_rows, dv, bh, tk))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = DkvSmem<D>::LAUNCH, threads = Roles<2>::THREADS;
@@ -1172,14 +1261,8 @@ static int launch_dkv(const void* q, const void* k, const void* v, const void* d
 extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
                             int tk, int d, float scale, int causal, int out_f32, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 16)
-    return out_f32
-               ? launch_dkv<16, float>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal, st)
-               : launch_dkv<16, bf16>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal, st);
-  if (d == 64)
-    return out_f32
-               ? launch_dkv<64, float>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal, st)
-               : launch_dkv<64, bf16>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return by_head_dim(d, out_f32, [&](auto dd, auto out) {
+    return launch_dkv<decltype(dd)::value, typename decltype(out)::type>(
+        q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal, static_cast<cudaStream_t>(stream));
+  });
 }

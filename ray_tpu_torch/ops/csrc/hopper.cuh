@@ -4,10 +4,13 @@
 // one instruction or a short fixed sequence, named after what it issues.
 //
 // Shared-memory tiles are rows of D bf16 as TMA writes them with the
-// swizzle that matches their row length (128B for rows of 128 bytes, 32B for
-// rows of 32 bytes). wgmma reads the same tile as a K-major operand (D is
-// the contraction) or as an MN-major one (the rows are the contraction, the
-// transpose bit set), so no transposed copy is ever made.
+// swizzle that matches their row length (32B, 64B and 128B for rows of 32,
+// 64 and 128 bytes). A row of 256 bytes (D = 128) is wider than a 128B
+// swizzle atom and than the TMA box that swizzle allows, so such a tile is
+// two [rows, 64] sub-tiles side by side (Tile<D, ROWS>). wgmma reads a tile
+// as a K-major operand (D is the contraction) or as an MN-major one (the
+// rows are the contraction, the transpose bit set), so no transposed copy is
+// ever made.
 
 #pragma once
 
@@ -82,11 +85,11 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                              int row, int bh) {
+                                              int row, int bh, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(bh)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(bh)
       : "memory");
 }
 
@@ -105,11 +108,12 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 
 // TMA store of a [rows, D] box from shared memory to a rank-3 tensor map
 // (rows past T are not written), as one bulk group of this thread.
-__device__ __forceinline__ void tma_store_rows(const CUtensorMap* map, const void* src, int row, int bh) {
+__device__ __forceinline__ void tma_store_rows(const CUtensorMap* map, const void* src, int row, int bh,
+                                               int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
       "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(0), "r"(row), "r"(bh)
+      "r"(smem_u32(src)), "r"(col), "r"(row), "r"(bh)
       : "memory");
 }
 // Waits until this thread's bulk stores have read their shared memory.
@@ -123,16 +127,6 @@ __device__ __forceinline__ void tma_store_wait() {
 // Orders this thread's shared-memory writes before later TMA reads of them.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Byte offset of element (row, col) of a [rows, D] bf16 tile as TMA lays
-// it out with the swizzle of desc_rows<D>: the 16-byte chunks of each row
-// are XORed with bits of the row (128B swizzle: row % 8; 32B: (row / 4) % 2).
-template <int D>
-__device__ __forceinline__ uint32_t swizzled_offset(int row, int col) {
-  const uint32_t off = static_cast<uint32_t>(row * D + col) * 2;
-  constexpr uint32_t mask = D == 64 ? 7 : 1;
-  return off ^ (((off >> 7) & mask) << 4);
 }
 
 // ---------------------------------------------------------------------------
@@ -154,7 +148,7 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // address, leading and stride byte offsets (16-byte units) and the swizzle.
 // ---------------------------------------------------------------------------
 
-enum Swizzle : uint64_t { SW128 = 1, SW32 = 3 };
+enum Swizzle : uint64_t { SW128 = 1, SW64 = 2, SW32 = 3 };
 
 __device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo_bytes, uint32_t sbo_bytes,
                                               Swizzle sw) {
@@ -165,16 +159,62 @@ __device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo_bytes,
   return d;
 }
 
-// A tile of rows of D bf16 (D = 64: 128-byte rows, 128B swizzle; D = 16:
-// 32-byte rows, 32B swizzle), 8-row swizzle atoms of 16 * D bytes.
-//  - K-major (the contraction runs along D): the next 16-wide slice of D
-//    starts 32 bytes on (add 2 to the descriptor per slice);
-//  - MN-major (the contraction runs along the rows, D is N): one swizzle
-//    atom spans all of D, and the next 16 rows start 32 * D bytes on.
-template <int D>
-__device__ __forceinline__ uint64_t desc_rows(const __nv_bfloat16* tile) {
-  static_assert(D == 16 || D == 64, "rows of 32 or 128 bytes");
-  return gmma_desc(tile, 16, 16 * D, D == 64 ? SW128 : SW32);
+// A [ROWS, D] bf16 tile in shared memory as TMA writes it (tma_load_tile).
+// Its columns are cut into SUB sub-tiles of W columns, each a [ROWS, W]
+// block of rows of at most 128 bytes, laid one after the other (only D =
+// 128 has two). Each sub-tile is swizzled by its row length (W = 16: 32B,
+// 32: 64B, 64: 128B): the 16-byte chunks of a row are XORed with bits of
+// the row, in 8-row swizzle atoms of 16 * W bytes. It must start on 1024
+// bytes (the 128B swizzle repeats every 1024).
+//  - K-major (the contraction runs along D): slice kk (16 columns) starts
+//    32 bytes on within its sub-tile; the fifth slice of D = 128 starts the
+//    second sub-tile (desc() + k_step(kk));
+//  - MN-major (the contraction runs along the rows, D is N): 16 rows from
+//    row r0 start r0 * 2W bytes on (mn(tile, r0)); the next W columns of N
+//    are a sub-tile on, the descriptor's leading byte offset.
+template <int D_, int ROWS>
+struct Tile {
+  static constexpr int D = D_;
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dims 16, 32, 64 and 128");
+  static constexpr int W = D > 64 ? 64 : D;  // columns of a sub-tile
+  static constexpr int SUB = D / W;          // sub-tiles side by side
+  static constexpr int SUB_BYTES = ROWS * W * 2;
+  static constexpr int BYTES = ROWS * D * 2;
+  static constexpr Swizzle SW = W == 64 ? SW128 : W == 32 ? SW64 : SW32;
+  static_assert(ROWS % 8 == 0 && SUB_BYTES % 1024 == 0, "sub-tiles start on 1024 bytes");
+
+  static __device__ __forceinline__ uint64_t desc(const __nv_bfloat16* tile) {
+    return gmma_desc(tile, SUB > 1 ? SUB_BYTES : 16, 16 * W, SW);
+  }
+  static __host__ __device__ constexpr uint64_t k_step(int kk) {
+    return static_cast<uint64_t>(((kk % (W / 16)) * 32 + (kk / (W / 16)) * SUB_BYTES) >> 4);
+  }
+  static __device__ __forceinline__ uint64_t mn(const __nv_bfloat16* tile, int r0) {
+    return desc(tile + r0 * W);
+  }
+  // Byte offset of element (row, col).
+  static __device__ __forceinline__ uint32_t offset(int row, int col) {
+    const uint32_t off = static_cast<uint32_t>(row * W + col % W) * 2;
+    constexpr uint32_t mask = W * 2 / 16 - 1;  // the 16-byte chunks of a row, less one
+    return (col / W) * SUB_BYTES + (off ^ (((off >> 7) & mask) << 4));
+  }
+};
+
+// One thread's TMA loads of a whole tile (one box per sub-tile), rows
+// [row, row + ROWS) of head bh; `bar` is told of all of its bytes at once.
+template <class T>
+__device__ __forceinline__ void tma_load_tile(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int row, int bh) {
+#pragma unroll
+  for (int h = 0; h < T::SUB; ++h) tma_load_rows(dst + h * T::SUB_BYTES / 2, map, bar, row, bh, h * T::W);
+}
+
+// The TMA stores of a whole tile, rows [row, row + ROWS) of head bh.
+template <class T>
+__device__ __forceinline__ void tma_store_tile(const CUtensorMap* map, const __nv_bfloat16* src, int row,
+                                               int bh) {
+#pragma unroll
+  for (int h = 0; h < T::SUB; ++h) tma_store_rows(map, src + h * T::SUB_BYTES / 2, row, bh, h * T::W);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -290,20 +330,78 @@ __device__ __forceinline__ void wgmma_rs_n64_k(float (&d)[32], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A and B in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A in registers, B in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A in registers, B in shared memory, K-major.
+__device__ __forceinline__ void wgmma_rs_n32_k(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A in registers, B in shared memory,
+// MN-major (the two 64-column halves of N a leading byte offset apart).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 // The register A operand of a warpgroup's 64 rows (this warp's 16 of them)
-// of a [rows, D] tile that TMA wrote with the swizzle of desc_rows<D>, one
-// fragment per 16-wide slice of D.
-template <int D>
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4], const __nv_bfloat16* tile, int warp,
+// of a tile T that TMA wrote, one fragment per 16-wide slice of D. `rows`
+// points at the warpgroup's first row in the first sub-tile (tile + r0 * W).
+template <class T>
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[T::D / 16][4], const __nv_bfloat16* rows, int warp,
                                             int lane) {
-  const uint8_t* base = reinterpret_cast<const uint8_t*>(tile);
+  const uint8_t* base = reinterpret_cast<const uint8_t*>(rows);
   const int r = 16 * warp + (lane >> 2), c = 2 * (lane & 3);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    a[kk][0] = *reinterpret_cast<const uint32_t*>(base + swizzled_offset<D>(r, 16 * kk + c));
-    a[kk][1] = *reinterpret_cast<const uint32_t*>(base + swizzled_offset<D>(r + 8, 16 * kk + c));
-    a[kk][2] = *reinterpret_cast<const uint32_t*>(base + swizzled_offset<D>(r, 16 * kk + 8 + c));
-    a[kk][3] = *reinterpret_cast<const uint32_t*>(base + swizzled_offset<D>(r + 8, 16 * kk + 8 + c));
+  for (int kk = 0; kk < T::D / 16; ++kk) {
+    a[kk][0] = *reinterpret_cast<const uint32_t*>(base + T::offset(r, 16 * kk + c));
+    a[kk][1] = *reinterpret_cast<const uint32_t*>(base + T::offset(r + 8, 16 * kk + c));
+    a[kk][2] = *reinterpret_cast<const uint32_t*>(base + T::offset(r, 16 * kk + 8 + c));
+    a[kk][3] = *reinterpret_cast<const uint32_t*>(base + T::offset(r + 8, 16 * kk + 8 + c));
   }
 }
 
@@ -318,6 +416,12 @@ template <> struct Wgmma<64> {
 };
 template <> struct Wgmma<128> {
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) { wgmma_ss_n128(d, a, b, acc); }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n128(d, a, b, 1); }
+};
+template <> struct Wgmma<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) { wgmma_ss_n32(d, a, b, acc); }
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n32(d, a, b, 1); }
+  static __device__ __forceinline__ void rsk(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_rs_n32_k(d, a, b, acc); }
 };
 template <> struct Wgmma<16> {
   static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n16(d, a, b, 1); }
@@ -359,20 +463,25 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
 }
 
 // A rank-3 map over a contiguous bf16 [bh, T, D] tensor, innermost first
-// ({D, T, bh}), whose box is [box_rows, D] of one head: rows past T are
-// zero-filled within the head (a flat [bh * T, D] map would read the next
-// head's rows instead). Swizzle 128B for D = 64, 32B for D = 16.
+// ({D, T, bh}), whose box is [box_rows, W] of one head, W = min(D, 64) (a
+// sub-tile of Tile<D, box_rows>: D = 128 takes two boxes a tile): rows past
+// T are zero-filled within the head (a flat [bh * T, D] map would read the
+// next head's rows instead). Swizzled by the box's row length: 32B, 64B or
+// 128B for D = 16, 32, 64 and 128.
 inline bool rows_map(CUtensorMap* map, const void* ptr, int bh, int T, int D, int box_rows) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
-  if (!encode || (D != 16 && D != 64)) return false;
+  if (!encode || (D != 16 && D != 32 && D != 64 && D != 128)) return false;
+  const int W = D > 64 ? 64 : D;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)W, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = W == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-                elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -2,8 +2,12 @@
 
 Counterpart of ``ray_tpu/ops/flash_attention.py``. The three Pallas TPU
 kernels there (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) are
-CUDA C++ kernels here (``csrc/flash_attention.cu`` with the Hopper helpers
-of ``csrc/hopper.cuh``, built by ``_build``):
+CUDA C++ kernels here, for head dims 16, 32, 64 and 128 (``HEAD_DIMS``).
+bf16 operands go to ``csrc/flash_attention.cu`` (with the Hopper helpers of
+``csrc/hopper.cuh``), f32 operands to ``csrc/flash_attention_f32.cu`` (f32
+FMAs on tiles in shared memory: the same function in full f32, as the
+Pallas kernels compute it on f32 inputs); ``_build`` builds both. The bf16
+library's kernels:
 
   - forward: persistent warp-specialised blocks (one per SM), a TMA-fed
     ring of K/V tiles and wgmma, online softmax over 128-key tiles in
@@ -25,10 +29,11 @@ package's model layout) and folds to [B*H, T, Dh] for the kernels. lse and
 delta are [B*H, T] f32; the JAX kernel's [BH, 8, T] sublane layout is a
 TPU tiling artefact and is not carried over.
 
-Output type: the kernels write their outputs in the operands' bf16, or in
-f32 with ``out_f32=True`` (a second instantiation of each kernel; the
-operands stay bf16). Ring attention merges and accumulates its blocks in
-f32 (``ops/ring_attention.py``), as the JAX package's block entries
+Types: the operands are all bf16 or all f32 (lse and delta f32). The bf16
+kernels write their outputs in bf16, or in f32 with ``out_f32=True`` (a
+second instantiation of each kernel); the f32 kernels write f32. Ring
+attention merges and accumulates its blocks in f32
+(``ops/ring_attention.py``), as the JAX package's block entries
 ``flash_fwd_block`` and ``flash_bwd_block`` do (flash_attention.py:376-398);
 their counterparts here take the model layout and always return f32.
 """
@@ -44,14 +49,22 @@ import torch
 from ray_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
-HEAD_DIMS = (16, 64)  # gpt2-tiny has 16; every GPT-2 size in CONFIGS has 64
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are instantiated for
+OPERAND_DTYPES = {torch.bfloat16: "flash_attention", torch.float32: "flash_attention_f32"}
 
 # Kernel launches on CUDA tensors, one count per kernel (the plain versions
-# are not counted), and of those the launches of the f32-output
-# instantiation. chip_smoke.py zeroes these before a path and reads them
-# after, to show the path went through the kernels.
+# are not counted); of those the launches with f32 outputs (out_f32, or f32
+# operands); and per instance, keyed "<kernel> d<head dim> <operand dtype>"
+# (instance()). chip_smoke.py zeroes these before a path and reads them
+# after, to show the path went through the kernels it should.
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 launches_f32 = dict.fromkeys(launches, 0)
+launches_by_instance: dict = {}
+
+
+def instance(kernel: str, head_dim: int, dtype: torch.dtype) -> str:
+    """The key of ``launches_by_instance`` for one kernel instance."""
+    return f"{kernel} d{head_dim} {str(dtype).removeprefix('torch.')}"
 
 Tensor = torch.Tensor
 
@@ -142,23 +155,28 @@ def _check(q: Tensor, k: Tensor, v: Tensor, causal: bool, *more: Tensor) -> None
     devs = {t.device for t in (q, k, v, *more)}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
-    if q.is_cuda:  # the plain versions that serve CPU tensors take any head dim
+    if q.is_cuda:  # the plain versions that serve CPU tensors take any head dim and dtype
         if D not in HEAD_DIMS:
             raise ValueError(f"head dim {D} not supported (kernels take {HEAD_DIMS})")
+        if q.dtype not in OPERAND_DTYPES:
+            raise ValueError(f"the CUDA kernels take bf16 or f32 operands, got {q.dtype}")
         for t in (q, k, v, *more):
-            want = torch.float32 if t.dim() == 2 else torch.bfloat16  # lse/delta vs operands
+            want = torch.float32 if t.dim() == 2 else q.dtype  # lse/delta vs operands
             if t.dtype != want:
-                raise ValueError(f"the CUDA kernels take bf16 operands and f32 lse/delta, got {t.dtype}")
+                raise ValueError(f"the CUDA kernels take operands of one dtype (bf16 or f32) and "
+                                 f"f32 lse/delta; got {t.dtype} beside {q.dtype} operands")
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError("kernel operands must be contiguous and 16-byte aligned")
 
 
 def _launch(entry: str, counter: str, out_f32: bool, *args) -> None:
-    """Call C entry point ``entry`` of the kernel library on the current
-    stream with ``args`` and ``out_f32`` last: tensors go as device
-    pointers, floats as float, the rest as int. Counts the launch once the
-    entry point has reported no error."""
-    lib = _build.load("flash_attention")
+    """Call C entry point ``entry`` of the kernel library for the operands'
+    dtype (``args[0]`` is q) on the current stream with ``args`` and
+    ``out_f32`` last: tensors go as device pointers, floats as float, the
+    rest as int. Counts the launch once the entry point has reported no
+    error."""
+    q = args[0]
+    lib = _build.load(OPERAND_DTYPES[q.dtype])
     fn = getattr(lib, entry)
     types, vals = [], []
     for a in (*args, out_f32):
@@ -175,7 +193,9 @@ def _launch(entry: str, counter: str, out_f32: bool, *args) -> None:
     fn.restype = ctypes.c_int
     _build.check(lib, fn(*vals, torch.cuda.current_stream().cuda_stream), entry)
     launches[counter] += 1
-    launches_f32[counter] += bool(out_f32)
+    launches_f32[counter] += bool(out_f32) or q.dtype == torch.float32
+    key = instance(counter, q.shape[-1], q.dtype)
+    launches_by_instance[key] = launches_by_instance.get(key, 0) + 1
 
 
 def _empty_out(like: Tensor, out_f32: bool) -> Tensor:
@@ -186,8 +206,8 @@ def _empty_out(like: Tensor, out_f32: bool) -> Tensor:
 @torch.no_grad()
 def flash_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool,
               out_f32: bool = False) -> Tuple[Tensor, Tensor]:
-    """Folded forward: q [BH, Tq, Dh], k/v [BH, Tk, Dh] -> (o in q's dtype,
-    or f32 with ``out_f32``, lse [BH, Tq] f32)."""
+    """Folded forward: q [BH, Tq, Dh], k/v [BH, Tk, Dh] (bf16 or f32) ->
+    (o in q's dtype, or f32 with ``out_f32``, lse [BH, Tq] f32)."""
     _check(q, k, v, causal)
     if not q.is_cuda:
         return flash_fwd_reference(q, k, v, causal, out_f32)

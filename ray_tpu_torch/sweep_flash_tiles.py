@@ -1,24 +1,30 @@
 """Sweep the ring depths of the three flash kernels on the card.
 
-    python3 -m ray_tpu_torch.sweep_flash_tiles
+    python3 -m ray_tpu_torch.sweep_flash_tiles [--head-dim 64|128]
 
-``csrc/flash_attention.cu`` takes its ring depths from three macros
-(``RT_FWD_STAGES``, ``RT_DKV_STAGES``, ``RT_DQ_STAGES``). This builds the
-library once per setting with a ``-D`` override of one of them, prints
-nvcc's register and spill lines for each kernel, holds the three kernels
-against their plain versions at the train step's shape (BH 384, T 1024,
-Dh 64, causal, bf16; ``ray_tpu_torch.bench.disagreement``), then times
-each setting in turns, ROUNDS times (median of 20 calls each, CUDA
-events), and prints one line per setting and round, the best median of
-each kernel, and the card's name and power limit. The kernels' wrappers
-load the library built with the setting under test: the sweep swaps
+``csrc/flash_attention.cu`` takes its ring depths from three macros per
+tile set: ``RT_FWD_STAGES``, ``RT_DKV_STAGES``, ``RT_DQ_STAGES`` for head
+dims 16, 32 and 64, and the same with ``_128`` for head dim 128. This
+builds the library once per setting with a ``-D`` override of one of the
+head dim's macros, prints nvcc's register and spill lines for each kernel
+at that head dim, holds the three kernels against their plain versions at
+gpt2-small's train step with that head dim (B 32, T 1024, 768 / Dh heads,
+causal, bf16; ``ray_tpu_torch.bench.disagreement``), then times each
+setting in turns, ROUNDS times (median of 20 calls each, CUDA events), and
+prints one line per setting and round, the best median of each kernel,
+and the card's name and power limit. The kernels' wrappers load the
+library built with the setting under test: the sweep swaps
 ``_build.load`` for the length of a setting, so nothing in the wrappers
-knows of it. Needs one NVIDIA card; the 12 builds take about 15 s each.
+knows of it. The depths tried are the ones whose shared memory fits (the
+``.cu`` refuses to build others). Needs one NVIDIA card; a build takes
+about 30 s.
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
+import re
 import statistics
 import subprocess
 from unittest import mock
@@ -29,22 +35,25 @@ from ray_tpu_torch import bench
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as fa
 
-FWD_STAGES = (2, 3, 4)
-DKV_STAGES = (2, 3, 4, 5, 6)
-DQ_STAGES = (2, 3, 4, 6)
+# Ring depths tried per tile set (head dim 64 stands for 16, 32 and 64):
+# forward, dK/dV, dQ.
+DEPTHS = {64: ((2, 3, 4), (2, 3, 4, 5, 6), (2, 3, 4, 6)),
+          128: ((2,), (2, 3, 4, 5), (2, 3, 4, 6, 8))}
 ROUNDS = 2
-SHAPE = (384, 1024, 64)  # BH, T, Dh of the train step (gpt2-small, B 32, 12 heads)
+T, D_MODEL = 1024, 768  # gpt2-small's train step, B 32
 # Each kernel and the prefix of the macro that sets its ring depth.
 KERNELS = {"flash_fwd": "RT_FWD_", "flash_dq": "RT_DQ_", "flash_dkv": "RT_DKV_"}
 # The constants a setting leaves alone keep the values the .cu chooses.
 
 
-def settings():
+def settings(head_dim: int = 64):
     """-D overrides, one tuple per build: the forward's ring depth, then
-    dK/dV's, then dQ's."""
-    return ([(f"RT_FWD_STAGES={st}",) for st in FWD_STAGES]
-            + [(f"RT_DKV_STAGES={st}",) for st in DKV_STAGES]
-            + [(f"RT_DQ_STAGES={st}",) for st in DQ_STAGES])
+    dK/dV's, then dQ's, of the macros of ``head_dim``'s tile set."""
+    suffix = "_128" if head_dim == 128 else ""
+    fwd, dkv, dq = DEPTHS[128 if head_dim == 128 else 64]
+    return ([(f"RT_FWD_STAGES{suffix}={st}",) for st in fwd]
+            + [(f"RT_DKV_STAGES{suffix}={st}",) for st in dkv]
+            + [(f"RT_DQ_STAGES{suffix}={st}",) for st in dq])
 
 
 def built_with(defines):
@@ -53,24 +62,31 @@ def built_with(defines):
     return mock.patch.object(_build, "load", functools.partial(_build.load, defines=defines))
 
 
-def _ptxas_report(path) -> str:
-    """The register and spill lines nvcc printed for the three kernels."""
+def _ptxas_report(path, head_dim: int) -> str:
+    """The register and spill lines nvcc printed for the three kernels at
+    ``head_dim``."""
     out, kernel = [], None
     for line in path.with_name(path.name + ".log").read_text().splitlines():
         if "Compiling entry" in line:
             kernel = next((k for k in KERNELS if k + "_kernel" in line), None)
-            kernel = kernel and kernel + ("<64>" if "ILi64E" in line else "<16>")
+            found = re.search(r"ILi(\d+)E(13__nv_bfloat16|f)E", line)
+            kernel = (kernel if found and int(found[1]) == head_dim else None) and \
+                f"{kernel}<{found[1]}, {'bf16' if found[2] != 'f' else 'f32'}>"
         elif kernel and ("spill" in line or "registers" in line):
             out.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
     return "; ".join(out)
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--head-dim", type=int, default=64, choices=fa.HEAD_DIMS,
+                        help="the tile set to sweep (16, 32 and 64 share one)")
+    D = parser.parse_args(argv).head_dim
     if not torch.cuda.is_available():
         raise SystemExit("the sweep needs an NVIDIA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    BH, T, D = SHAPE
+    BH = 32 * D_MODEL // D
     g = torch.Generator(device="cuda").manual_seed(1234)
     q, k, v, do = (torch.randn(BH, T, D, device="cuda", dtype=torch.bfloat16, generator=g)
                    for _ in range(4))
@@ -83,9 +99,10 @@ def main() -> None:
         "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse_ref, delta, True),
     }
 
-    for defines in settings():
+    print(f"sweeping head dim {D}: BH {BH}, T {T}, causal, bf16 [{card}]", flush=True)
+    for defines in settings(D):
         path = _build.build("flash_attention", defines)
-        print(f"{' '.join(defines)}: {_ptxas_report(path)}", flush=True)
+        print(f"{' '.join(defines)}: {_ptxas_report(path, D)}", flush=True)
         with built_with(defines):
             o, _ = calls["flash_fwd"]()
             dq = calls["flash_dq"]()
@@ -95,9 +112,9 @@ def main() -> None:
         if not all(gap["ok"] for gap in gaps):
             raise SystemExit(f"{defines}: a kernel disagrees with its plain version: {gaps}")
 
-    times = {d: {name: [] for name in KERNELS} for d in settings()}
+    times = {d: {name: [] for name in KERNELS} for d in settings(D)}
     for rnd in range(ROUNDS):
-        for defines in settings():
+        for defines in settings(D):
             with built_with(defines):
                 for name in KERNELS:
                     times[defines][name].append(bench.time_ms(calls[name]))

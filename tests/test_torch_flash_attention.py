@@ -60,8 +60,8 @@ def _close(a, b, tol):
 # (B, Tq, Tk, H, D, causal). JAX's default tiles (1024) cover these T in
 # one block, so the JAX side runs its one-shot softmax path, except for
 # Tk = 96 (tiles of 32: online softmax over three K blocks) and T = 40
-# (tiles of 8: the ragged T falls back to the largest divisor). Dh 32 is a
-# head dim the CUDA kernels do not take: the plain versions do.
+# (tiles of 8: the ragged T falls back to the largest divisor). Dh 32 and
+# 128 at more shapes, and in bf16: tests/test_torch_flash_reach.py.
 CASES = [
     (2, 64, 64, 2, 16, True),
     (2, 64, 64, 2, 64, True),
@@ -191,13 +191,16 @@ class _ReportsCuda(torch.Tensor):
 def test_wrapper_rejects_what_the_kernels_do_not_take(bad):
     x = torch.zeros(2, 32, 16)
     if bad == "head_dim":
-        # the kernels take HEAD_DIMS only; the plain versions that serve CPU
-        # tensors take any head dim, as the Pallas kernels do
-        y = torch.zeros(2, 32, 32)
+        # the kernels take HEAD_DIMS only (48 is none of them); the plain
+        # versions that serve CPU tensors take any head dim, as the Pallas
+        # kernels do
+        y = torch.zeros(2, 32, 48)
         assert tfa.flash_fwd(y, y, y, True)[0].shape == y.shape
         cuda_like = torch.Tensor._make_subclass(_ReportsCuda, y)
+        before = dict(tfa.launches)
         with pytest.raises(ValueError, match="head dim"):
             tfa.flash_fwd(cuda_like, cuda_like, cuda_like, True)
+        assert tfa.launches == before  # raised before any launch
     elif bad == "causal_tq_ne_tk":
         with pytest.raises(ValueError, match="Tq == Tk"):
             tfa.flash_fwd(x, torch.zeros(2, 48, 16), torch.zeros(2, 48, 16), True)

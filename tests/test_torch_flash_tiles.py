@@ -2,17 +2,19 @@
 
 The forward, dQ and dK/dV kernels of ``ray_tpu_torch/ops/csrc/flash_attention.cu``
 run only on the card. This file writes their schedules out in PyTorch at
-the tile sizes the ``.cu`` settles on: which work tiles each persistent
+the tile sizes the ``.cu`` settles on for each head dim (``Tiles<D>``: 16,
+32 and 64 share one set, 128 has its own): which work tiles each persistent
 block takes and in what order, which (q tile, key tile) pairs each
 consumer warpgroup visits, which of those it masks, and the arithmetic in
 that order (the forward's exp2 with scale * log2 e folded in and P rounded
 to bf16 against the running max; dQ to the diagonal and dK/dV from it on,
-P as exp2 with the scale folded in, dS rounded to bf16 before its product
-and scaled after it). The model is held by ``bench.disagreement`` to the
+P as exp2 with the scale folded in, dS scaled and then rounded to bf16
+before its product). The model is held by ``bench.disagreement`` to the
 port's plain versions and to the JAX package's functions (run as
 ``tests/test_torch_flash_attention.py`` runs them: Pallas in interpret
 mode, one tile per call), and the schedules to covering every pair the mask
-keeps exactly once.
+keeps exactly once. Each instance's shared-memory plan, worked out from the
+``.cu``'s constants, is held to the 232,448 bytes a block may have.
 """
 
 import math
@@ -32,24 +34,47 @@ from ray_tpu_torch.ops import flash_attention as tfa
 CU = Path(tfa.__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 
+HEAD_DIMS = tuple(tfa.HEAD_DIMS)  # 16, 32, 64, 128
+SMEM_LIMIT = 232448  # dynamic shared memory a block may have on an H100
+
+
 def cu_tiles(source: str) -> dict:
-    """The tile block of flash_attention.cu: each ``constexpr int NAME =
-    <int or RT_ macro>;``, a macro read from its ``#define`` default."""
+    """The tile block of flash_attention.cu per head dim, {D: {NAME: int}}:
+    each global ``constexpr int NAME = <int>;`` (FWD_WGS, DKV_BK, DQ_WGS)
+    and each member of the ``Tiles`` traits (``NAME = <int or RT_ macro>``;
+    the primary template for the head dims without a specialisation), a
+    macro read from its ``#define`` default."""
     macros = dict(re.findall(r"^#define (RT_\w+) (\d+)$", source, re.M))
-    return {name: int(macros.get(value, value)) for name, value in
-            re.findall(r"^constexpr int ((?:FWD|DKV|DQ)_(?:WGS|BK|BQ|STAGES)) = (\w+);", source, re.M)}
+    value = lambda v: int(macros.get(v, v))
+    common = {name: value(v) for name, v in
+              re.findall(r"^constexpr int ((?:FWD|DKV|DQ)_(?:WGS|BK|BQ|STAGES)) = (\w+);", source, re.M)}
+    traits = {int(d) if d else None: {name: value(v) for name, v in re.findall(r"(\w+) = (\w+)", body)}
+              for d, body in re.findall(r"^struct Tiles(?:<(\d+)>)? \{(.*?)^\};", source, re.M | re.S)}
+    return {d: {**common, **traits.get(d, traits[None])} for d in HEAD_DIMS}
 
 
 # The tile sizes the .cu settles on, read from its source, so the model
 # follows any change there.
 _TILES = cu_tiles(CU.read_text())
-FWD_WGS, FWD_BK, FWD_STAGES = _TILES["FWD_WGS"], _TILES["FWD_BK"], _TILES["FWD_STAGES"]
-DKV_BK, DKV_BQ, DKV_STAGES = _TILES["DKV_BK"], _TILES["DKV_BQ"], _TILES["DKV_STAGES"]
-DQ_WGS, DQ_BK, DQ_STAGES = _TILES["DQ_WGS"], _TILES["DQ_BK"], _TILES["DQ_STAGES"]
 WG_ROWS = 64  # q rows (forward, dQ) or keys (dK/dV) of one consumer warpgroup
-FWD_BQ = WG_ROWS * FWD_WGS
-DQ_BQ = WG_ROWS * DQ_WGS
 GRID = 132    # one persistent block per SM of an H100 SXM
+
+
+class Tiles:
+    """One head dim's tile sizes and ring depths (``Tiles<D>`` in the .cu)."""
+
+    def __init__(self, d: int):
+        t = _TILES[d]
+        self.d = d
+        self.FWD_WGS, self.FWD_BK, self.FWD_STAGES = t["FWD_WGS"], t["FWD_BK"], t["FWD_STAGES"]
+        self.DKV_BK, self.DKV_BQ, self.DKV_STAGES = t["DKV_BK"], t["DKV_BQ"], t["DKV_STAGES"]
+        self.DKV_KV_IN_REGS = t["DKV_KV_IN_REGS"]
+        self.DQ_WGS, self.DQ_BK, self.DQ_STAGES = t["DQ_WGS"], t["DQ_BK"], t["DQ_STAGES"]
+        self.FWD_BQ = WG_ROWS * self.FWD_WGS
+        self.DQ_BQ = WG_ROWS * self.DQ_WGS
+
+
+TILES = {d: Tiles(d) for d in HEAD_DIMS}
 
 LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
 LSE_TOL = 1e-4  # f32 in both, summed in other orders (as on the card)
@@ -57,7 +82,8 @@ LSE_TOL = 1e-4  # f32 in both, summed in other orders (as on the card)
 # (Tq, Tk, causal)
 SHAPES = [(1, 1, True), (65, 65, True), (256, 256, True), (1000, 1000, True),
           (100, 37, False), (300, 1100, False)]
-CASES = [(*shape, d) for shape in SHAPES for d in (16, 64)]
+CASES = ([(*shape, d) for shape in SHAPES for d in (16, 64)]
+         + [(*shape, d) for shape in SHAPES for d in (32, 128)])
 BH = 2  # B 1, H 2
 
 
@@ -107,25 +133,25 @@ def _q_tile_visits(qt, Tq, Tk, causal, bq, bk):
     return out
 
 
-def fwd_visits(qt, Tq, Tk, causal):
-    return _q_tile_visits(qt, Tq, Tk, causal, FWD_BQ, FWD_BK)
+def fwd_visits(qt, Tq, Tk, causal, t):
+    return _q_tile_visits(qt, Tq, Tk, causal, t.FWD_BQ, t.FWD_BK)
 
 
-def dq_visits(qt, Tq, Tk, causal):
-    return _q_tile_visits(qt, Tq, Tk, causal, DQ_BQ, DQ_BK)
+def dq_visits(qt, Tq, Tk, causal, t):
+    return _q_tile_visits(qt, Tq, Tk, causal, t.DQ_BQ, t.DQ_BK)
 
 
-def dkv_visits(kt, Tq, Tk, causal):
+def dkv_visits(kt, Tq, Tk, causal, t):
     """For work tile kt: per consumer warpgroup, its first key and the q
     tiles (of DKV_BQ rows) it multiplies, in order, each with whether it is
     masked (from the diagonal on when causal)."""
-    k0 = kt * DKV_BK
+    k0, bq = kt * t.DKV_BK, t.DKV_BQ
     out = []
-    for c in range(DKV_BK // WG_ROWS):
+    for c in range(t.DKV_BK // WG_ROWS):
         wk0 = k0 + WG_ROWS * c
-        first = wk0 // DKV_BQ if causal else 0
-        tiles = [(i, i * DKV_BQ + DKV_BQ > Tq or (causal and wk0 + WG_ROWS - 1 > i * DKV_BQ))
-                 for i in range(first, _ceil(Tq, DKV_BQ))]
+        first = wk0 // bq if causal else 0
+        tiles = [(i, i * bq + bq > Tq or (causal and wk0 + WG_ROWS - 1 > i * bq))
+                 for i in range(first, _ceil(Tq, bq))]
         out.append((wk0, tiles))
     return out
 
@@ -140,13 +166,15 @@ def fwd_model(q, k, v, causal):
     m and l in log2 units, P rounded to bf16 against the running max."""
     BHn, Tq, D = q.shape
     Tk = k.shape[1]
+    t = TILES[D]
+    FWD_BK = t.FWD_BK
     sl2 = LOG2E / math.sqrt(D)
     qf, kf, vf = q.float(), k.float(), v.float()
     o = torch.zeros(BHn, Tq, D)
     lse = torch.zeros(BHn, Tq)
-    for works in work_list(_ceil(Tq, FWD_BQ), BHn, causal, longest_high=True):
+    for works in work_list(_ceil(Tq, t.FWD_BQ), BHn, causal, longest_high=True):
         for bh, qt in works:
-            for wq0, tiles in fwd_visits(qt, Tq, Tk, causal):
+            for wq0, tiles in fwd_visits(qt, Tq, Tk, causal, t):
                 rows = torch.arange(wq0, wq0 + WG_ROWS)
                 live = rows < Tq
                 qr = torch.zeros(WG_ROWS, D)
@@ -174,16 +202,18 @@ def fwd_model(q, k, v, causal):
 
 def dq_model(q, k, v, do, lse, delta, causal):
     """dq by the dQ kernel's schedule: P = 2^(S sl2 - lse log2 e), dS = P (dP -
-    delta) rounded to bf16 before its product, scaled after it."""
+    delta) scale rounded to bf16 before its product."""
     BHn, Tq, D = q.shape
     Tk = k.shape[1]
+    t = TILES[D]
+    DQ_BK = t.DQ_BK
     scale = 1.0 / math.sqrt(D)
     sl2 = scale * LOG2E
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     dq = torch.zeros(BHn, Tq, D)
-    for works in work_list(_ceil(Tq, DQ_BQ), BHn, causal, longest_high=True):
+    for works in work_list(_ceil(Tq, t.DQ_BQ), BHn, causal, longest_high=True):
         for bh, qt in works:
-            for wq0, tiles in dq_visits(qt, Tq, Tk, causal):
+            for wq0, tiles in dq_visits(qt, Tq, Tk, causal, t):
                 rows = torch.arange(wq0, wq0 + WG_ROWS)
                 live = rows < Tq
                 qr, dor = torch.zeros(WG_ROWS, D), torch.zeros(WG_ROWS, D)
@@ -200,25 +230,26 @@ def dq_model(q, k, v, do, lse, delta, causal):
                     if masked:
                         off = (cols[None] >= Tk) | (causal & (cols[None] > rows[:, None]))
                         p = p.masked_fill(off, 0.0)
-                    ds = p * (dor @ vt.T - dl)
+                    ds = p * (dor @ vt.T - dl) * scale
                     acc += ds.bfloat16().float() @ kt
-                dq[bh, rows[live]] = (acc * scale)[live]
+                dq[bh, rows[live]] = acc[live]
     return dq.bfloat16()
 
 
 def dkv_model(q, k, v, do, lse, delta, causal):
     """dk, dv by the dK/dV kernel's schedule: P^T = 2^(S^T sl2 - lse log2 e),
-    dS^T = P^T (dP^T - delta) rounded to bf16 before its product, scaled
-    after it."""
+    dS^T = P^T (dP^T - delta) scale rounded to bf16 before its product."""
     BHn, Tq, D = q.shape
     Tk = k.shape[1]
+    t = TILES[D]
+    DKV_BQ = t.DKV_BQ
     scale = 1.0 / math.sqrt(D)
     sl2 = scale * LOG2E
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     dk, dv = torch.zeros(BHn, Tk, D), torch.zeros(BHn, Tk, D)
-    for works in work_list(_ceil(Tk, DKV_BK), BHn, causal, longest_high=False):
+    for works in work_list(_ceil(Tk, t.DKV_BK), BHn, causal, longest_high=False):
         for bh, kt in works:
-            for wk0, tiles in dkv_visits(kt, Tq, Tk, causal):
+            for wk0, tiles in dkv_visits(kt, Tq, Tk, causal, t):
                 keys = torch.arange(wk0, wk0 + WG_ROWS)
                 live = keys < Tk
                 kr, vr = torch.zeros(WG_ROWS, D), torch.zeros(WG_ROWS, D)
@@ -235,10 +266,10 @@ def dkv_model(q, k, v, do, lse, delta, causal):
                     if masked:
                         off = (rows[None] >= Tq) | (causal & (keys[:, None] > rows[None]))
                         p = p.masked_fill(off, 0.0)
-                    dst = p * (vr @ dot.T - ds[None])
+                    dst = p * (vr @ dot.T - ds[None]) * scale
                     dv_acc += p.bfloat16().float() @ dot
                     dk_acc += dst.bfloat16().float() @ qt
-                dk[bh, keys[live]] = (dk_acc * scale)[live]
+                dk[bh, keys[live]] = dk_acc[live]
                 dv[bh, keys[live]] = dv_acc[live]
     return dk.bfloat16(), dv.bfloat16()
 
@@ -342,9 +373,7 @@ def test_dq_tiles_match_plain_and_jax(cpu_mesh_devices, one_jax_tile, case):
     _close(dq, torch.from_numpy(np.array(dq_j)))
 
 
-@pytest.mark.parametrize("kernel", ["forward", "dq", "dkv"])
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: _id((*s, 0))[:-3])
-def test_schedule_covers_each_kept_pair_once(kernel, shape):
+def _check_schedule(kernel, shape, t):
     """Over all blocks, warpgroups and visited tiles, every (q, key) pair
     the mask keeps is computed exactly once, every work tile is taken by
     exactly one block, and the masked tiles are the ones that hold a pair
@@ -352,53 +381,108 @@ def test_schedule_covers_each_kept_pair_once(kernel, shape):
     Tq, Tk, causal = shape
     seen = torch.zeros(Tq, Tk, dtype=torch.int32)
     if kernel == "forward":
-        n, tile_rows, longest_high, visits = _ceil(Tq, FWD_BQ), FWD_BQ, True, fwd_visits
+        n, longest_high, visits = _ceil(Tq, t.FWD_BQ), True, fwd_visits
     elif kernel == "dq":
-        n, tile_rows, longest_high, visits = _ceil(Tq, DQ_BQ), DQ_BQ, True, dq_visits
+        n, longest_high, visits = _ceil(Tq, t.DQ_BQ), True, dq_visits
     else:
-        n, tile_rows, longest_high, visits = _ceil(Tk, DKV_BK), DKV_BK, False, dkv_visits
+        n, longest_high, visits = _ceil(Tk, t.DKV_BK), False, dkv_visits
     blocks = work_list(n, 1, causal, longest_high)
     works = [w for b in blocks for w in b]
-    assert sorted(works) == [(0, t) for t in range(n)]
+    assert sorted(works) == [(0, tile) for tile in range(n)]
     for tile in range(n):
-        for first, tiles in visits(tile, Tq, Tk, causal):
+        for first, tiles in visits(tile, Tq, Tk, causal, t):
             for i, masked in tiles:
                 if kernel != "dkv":
-                    bk = FWD_BK if kernel == "forward" else DQ_BK
-                    rows, cols = range(first, first + WG_ROWS), range(i * bk, (i + 1) * bk)
+                    bk = t.FWD_BK if kernel == "forward" else t.DQ_BK
+                    rows, cols = torch.arange(first, first + WG_ROWS), torch.arange(i * bk, (i + 1) * bk)
                 else:
-                    rows, cols = range(i * DKV_BQ, (i + 1) * DKV_BQ), range(first, first + WG_ROWS)
-                block = [(r, c) for r in rows for c in cols]
+                    rows = torch.arange(i * t.DKV_BQ, (i + 1) * t.DKV_BQ)
+                    cols = torch.arange(first, first + WG_ROWS)
+                r, c = rows[:, None], cols[None, :]
                 # The kernels mask what would change a kept result: keys past
                 # Tk in the forward and dQ, q rows past Tq in dK/dV, and the
                 # causal upper triangle; rows (forward, dQ) or keys (dK/dV)
                 # past T are computed and never stored.
-                dropped = [(c >= Tk if kernel != "dkv" else r >= Tq) or (causal and c > r)
-                           for r, c in block]
-                assert masked == any(dropped)
-                kept = [(r, c) for r, c in block if r < Tq and c < Tk and not (causal and c > r)]
-                for r, c in kept:
-                    seen[r, c] += 1
+                dropped = ((c >= Tk) if kernel != "dkv" else (r >= Tq)) | (causal & (c > r))
+                assert masked == bool(dropped.any())
+                kept = (r < Tq) & (c < Tk) & ~(causal & (c > r))
+                rr, cc = torch.broadcast_tensors(r, c)
+                seen.index_put_((rr[kept], cc[kept]), torch.ones(int(kept.sum()), dtype=torch.int32),
+                                accumulate=True)
     want = torch.ones(Tq, Tk, dtype=torch.int32)
     if causal:
         want = want.tril()
     assert torch.equal(seen, want)
     if causal:  # a unit's two tiles add up to the same work as any other unit's
         # the tiles visited by the warpgroup that sees the most of them
-        cost = lambda t: max(len(tiles) for _, tiles in visits(t, Tq, Tk, causal))
+        cost = lambda tile: max(len(tiles) for _, tiles in visits(tile, Tq, Tk, causal, t))
         unit_cost = set()
         for b in blocks:
             j = 0
             while j < len(b):
-                h, t = b[j]
-                if j + 1 < len(b) and b[j + 1] == (h, n - 1 - t) and n - 1 - t != t:
-                    assert cost(t) >= cost(n - 1 - t)  # the longer tile first
-                    unit_cost.add(cost(t) + cost(n - 1 - t))
+                h, tile = b[j]
+                if j + 1 < len(b) and b[j + 1] == (h, n - 1 - tile) and n - 1 - tile != tile:
+                    assert cost(tile) >= cost(n - 1 - tile)  # the longer tile first
+                    unit_cost.add(cost(tile) + cost(n - 1 - tile))
                     j += 2
                 else:
-                    assert n - 1 - t == t  # only the middle tile of an odd count is alone
+                    assert n - 1 - tile == tile  # only the middle tile of an odd count is alone
                     j += 1
         assert len(unit_cost) <= 1, unit_cost
+
+
+@pytest.mark.parametrize("kernel", ["forward", "dq", "dkv"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: _id((*s, 0))[:-3])
+def test_schedule_covers_each_kept_pair_once(kernel, shape):
+    """The schedules of head dims 16, 32 and 64 (one set of tiles)."""
+    assert len({(t.FWD_BK, t.DKV_BQ, t.DQ_BK) for d, t in TILES.items() if d != 128}) == 1
+    _check_schedule(kernel, shape, TILES[64])
+
+
+@pytest.mark.parametrize("kernel", ["forward", "dq", "dkv"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: _id((*s, 0))[:-3])
+def test_schedule_covers_each_kept_pair_once_at_head_dim_128(kernel, shape):
+    """Head dim 128's schedules: 32 keys a dQ stage, 32 q rows a dK/dV stage."""
+    _check_schedule(kernel, shape, TILES[128])
+
+
+def smem_plan(t: Tiles) -> dict:
+    """Each kernel's dynamic shared memory at head dim t.d, by the layout of
+    FwdSmem, DkvSmem and DqSmem in the .cu (1,024 bytes of alignment slack,
+    the tiles, the mbarriers)."""
+    d, row = t.d, 2 * t.d  # bytes of a bf16 row
+    fwd = (2 * t.FWD_BQ * row + 2 * t.FWD_STAGES * t.FWD_BK * row + t.FWD_WGS * WG_ROWS * row
+           + 8 * (4 + 3 * t.FWD_STAGES))
+    ring = 2 * t.DKV_BK * row + 2 * t.DKV_STAGES * t.DKV_BQ * row + 2 * t.DKV_STAGES * t.DKV_BQ * 4
+    dkv = _ceil(ring, 1024) * 1024 + 2 * t.DKV_BK * row + 8 * (2 + 2 * t.DKV_STAGES)
+    dq = (2 * t.DQ_BQ * row + 2 * t.DQ_STAGES * t.DQ_BK * row + t.DQ_WGS * WG_ROWS * row
+          + 8 * (2 + 2 * t.DQ_STAGES))
+    assert d in HEAD_DIMS
+    return {"flash_fwd": 1024 + fwd, "flash_dkv": 1024 + dkv, "flash_dq": 1024 + dq}
+
+
+def f32_smem_plan(d: int) -> dict:
+    """The f32 library's dynamic shared memory at head dim d: padded operand
+    tiles of BM rows and score tiles of BM x (BN + 1) floats."""
+    source = (CU.parent / "flash_attention_f32.cu").read_text()
+    c = {n: int(v) for n, v in re.findall(r"^constexpr int (BM|BN) = (\d+);", source, re.M)}
+    tile, score = c["BM"] * (d + 1), c["BM"] * (c["BN"] + 1)
+    return {"flash_fwd": 4 * (3 * tile + score), "flash_dq": 4 * (4 * tile + score),
+            "flash_dkv": 4 * (4 * tile + 2 * score + 2 * c["BN"])}
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_shared_memory_plan_fits(d):
+    """Every instance's shared memory, worked out from the .cu's constants,
+    fits in what a block may have; the .cu asserts the same at build time."""
+    plans = {"bf16": smem_plan(TILES[d]), "f32": f32_smem_plan(d)}
+    for lib, plan in plans.items():
+        for name, nbytes in plan.items():
+            assert nbytes <= SMEM_LIMIT, (lib, name, d, nbytes)
+    source = CU.read_text()
+    for name in ("forward", "dK/dV", "dQ"):
+        assert f"LAUNCH <= SMEM_LIMIT, \"{'the forward' if name == 'forward' else name}" in source
+    assert f"constexpr int SMEM_LIMIT = {SMEM_LIMIT};" in source
 
 
 def test_tile_block_is_read_from_the_cu():
@@ -407,14 +491,17 @@ def test_tile_block_is_read_from_the_cu():
     the forward's and dQ's rings have stages and more q tiles than dK/dV's,
     so all three rings wrap."""
     source = CU.read_text()
-    assert set(_TILES) == {"FWD_WGS", "FWD_BK", "FWD_STAGES", "DKV_BK", "DKV_BQ", "DKV_STAGES",
-                           "DQ_WGS", "DQ_BK", "DQ_STAGES"}
+    for d in HEAD_DIMS:
+        assert set(_TILES[d]) == {"FWD_WGS", "FWD_BK", "FWD_STAGES", "DKV_BK", "DKV_BQ", "DKV_STAGES",
+                                  "DKV_KV_IN_REGS", "DQ_WGS", "DQ_BK", "DQ_STAGES"}
     assert f"constexpr int FWD_BQ = {WG_ROWS} * FWD_WGS;" in source
     assert f"constexpr int DQ_BQ = {WG_ROWS} * DQ_WGS;" in source
-    for macro, name in (("RT_FWD_STAGES", "FWD_STAGES"), ("RT_DQ_STAGES", "DQ_STAGES")):
+    for macro, name, d in (("RT_FWD_STAGES", "FWD_STAGES", 64), ("RT_DQ_STAGES", "DQ_STAGES", 16),
+                           ("RT_DKV_STAGES_128", "DKV_STAGES", 128)):
         deeper = re.sub(rf"^#define {macro} \d+$", f"#define {macro} 7", source, flags=re.M)
-        assert cu_tiles(deeper)[name] == 7
-    assert FWD_BK in (64, 128) and DQ_BK in (64, 128)
-    assert min(FWD_STAGES, DKV_STAGES, DQ_STAGES) >= 2
-    assert _ceil(1100, FWD_BK) > FWD_STAGES and _ceil(300, DKV_BQ) > DKV_STAGES
-    assert _ceil(1100, DQ_BK) > DQ_STAGES
+        assert cu_tiles(deeper)[d][name] == 7
+    for t in TILES.values():
+        assert t.FWD_BK in (64, 128) and t.DQ_BK in (32, 64, 128) and t.DKV_BQ in (32, 64)
+        assert min(t.FWD_STAGES, t.DKV_STAGES, t.DQ_STAGES) >= 2
+        assert _ceil(1100, t.FWD_BK) > t.FWD_STAGES and _ceil(300, t.DKV_BQ) > t.DKV_STAGES
+        assert _ceil(1100, t.DQ_BK) > t.DQ_STAGES
