@@ -277,10 +277,17 @@ import torch
 import torch.nn.functional as F
 
 # Published dense peaks of an H100 SXM (NVIDIA data sheet; the card at its
-# full 700 W power limit): bf16 tensor-core FLOP/s, f32 FLOP/s outside the
-# tensor cores (the f32 kernels' FMAs) and HBM3 bytes/s.
+# full 700 W power limit): bf16 and TF32 tensor-core FLOP/s, f32 FLOP/s
+# outside the tensor cores and HBM3 bytes/s. The f32 kernels' bound is taken
+# at PEAK_TF32_FLOPS / 3: their products keep f32 accuracy as three TF32
+# products (3xTF32, the dQ and dK/dV kernels), the least time the card
+# could take for f32-accurate work; the forward's FMAs are held to it too,
+# so its row shows what its own redesign has to close. PEAK_F32_FLOPS is
+# printed beside it.
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F32_ACCURATE_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
 
 # (B, T, Tk, H, Dh, causal): the train step's shape first, then a pipeline
@@ -309,9 +316,14 @@ CASES = [MAIN_CASE, (8, 1024, 1024, 12, 64, True), (4, 512, 512, 4, 16, True),
 F32_MAIN = (8, 1024, 1024, 12, 64, True)
 F32_CASES = [F32_MAIN, (2, 16, 16, 4, 32, True), (2, 16, 16, 4, 32, False),
              (2, 1024, 1024, 4, 32, True), (2, 1024, 1024, 4, 32, False),
-             (2, 1024, 1024, 6, 128, True), (2, 1000, 1000, 12, 64, True),
-             (2, 200, 333, 4, 16, False)]
+             (2, 1024, 1024, 6, 128, True), (8, 1024, 1024, 6, 128, True),
+             (2, 1000, 1000, 12, 64, True), (2, 200, 333, 4, 16, False)]
 F32_FWD_RELNORM, F32_GRAD_RELNORM, F32_LSE_TOL = 1e-5, 1e-4, 1e-5
+# Timed beside their bounds (the forward at F32_MAIN only): F32_MAIN, Dh 128
+# at gpt2-small's width (B 8, 6 heads), and the f32 ring's Dh 32 blocks
+# (phase 5: 1,024 rows, the diagonal's causal and an earlier block's full).
+F32_TIMED = {F32_MAIN: "d64 f32", (8, 1024, 1024, 6, 128, True): "d128 f32",
+             (2, 1024, 1024, 4, 32, True): "d32 f32", (2, 1024, 1024, 4, 32, False): "d32 f32 earlier"}
 # Each kernel's (head dim, operands->outputs) instances that a check held
 # to its plain version in this run: the kernel line's held_at.
 HELD_AT = {}
@@ -345,6 +357,9 @@ F32_SOURCE = "ray_tpu_torch/ops/csrc/flash_attention_f32.cu"  # the kernels for 
 # NVIDIA H100 80GB HBM3 at 700 W). Recorded, not measured here: printed as
 # text beside this run's times, and kept out of the kernel line.
 BEFORE_REDESIGN_MS = {"flash_fwd": 0.5302, "flash_dq": 0.6775, "flash_dkv": 1.0951}
+# The f32 kernels' times at F32_MAIN before their 3xTF32 redesign (f32 FMAs;
+# PERF.md section 6, same card): printed as text beside this run's times.
+F32_BEFORE_REDESIGN_MS = {"flash_dq": 0.9051, "flash_dkv": 1.1923}
 
 
 def fail(msg: str) -> None:
@@ -443,7 +458,7 @@ def build() -> dict:
           flush=True)
     counts = sass_counts(paths["flash_attention"], r"({names})_kernelILi(\d+)E({outs})E", SASS_OPS)
     f32_counts = sass_counts(paths["flash_attention_f32"], r"flash_f32_({short})_kernelILi(\d+)E()E",
-                             {"ffma": "FFMA"})
+                             {"ffma": "FFMA", **SASS_OPS})
     for name in KERNELS:
         for inst, c in counts[name].items():
             print(f"sass {name} {inst}: HGMMA {c['hgmma']}, UTMALDG {c['utmaldg']}", flush=True)
@@ -451,9 +466,15 @@ def build() -> dict:
             if not (c["hgmma"] > 0 and c["utmaldg"] > 0):
                 fail(f"{name} {inst} issues no wgmma or no TMA load in its SASS: {c}")
         for inst, c in f32_counts[name].items():
-            print(f"sass {name} {inst}: FFMA {c['ffma']}", flush=True)
-            if not c["ffma"] > 0:
-                fail(f"{name} {inst} issues no f32 FMA in its SASS: {c}")
+            if name == "flash_fwd":  # f32 FMAs until its 3xTF32 redesign
+                print(f"sass {name} {inst}: FFMA {c['ffma']}", flush=True)
+                if not c["ffma"] > 0:
+                    fail(f"{name} {inst} issues no f32 FMA in its SASS: {c}")
+                continue
+            # the 3xTF32 backward: tf32 wgmma fed by TMA
+            print(f"sass {name} {inst}: HGMMA {c['hgmma']}, UTMALDG {c['utmaldg']}", flush=True)
+            if not (c["hgmma"] > 0 and c["utmaldg"] > 0):
+                fail(f"{name} {inst} issues no wgmma or no TMA load in its SASS: {c}")
         if len(counts[name]) != 2 * len(fa.HEAD_DIMS) or len(f32_counts[name]) != len(fa.HEAD_DIMS):
             fail(f"{name}: the libraries hold instances {sorted(counts[name])} and "
                  f"{sorted(f32_counts[name])}; expected every head dim of {fa.HEAD_DIMS}")
@@ -510,7 +531,7 @@ def bounds(B, T, Tk, H, D, causal, out_bytes=2, in_bytes=2, peak=PEAK_BF16_FLOPS
     element: 2 for bf16 operands, 4 for f32) read once, each output
     (``out_bytes``) written once, lse and delta f32; products counted over
     the (q, k) pairs the mask keeps, at ``peak`` FLOP/s (the bf16 tensor
-    cores, or PEAK_F32_FLOPS for the f32 kernels)."""
+    cores, or PEAK_F32_ACCURATE_FLOPS for the f32-operand kernels)."""
     BH, pairs = B * H, _visible_pairs(T, Tk, causal)
     q_bytes, kv_bytes, row_bytes = BH * T * D * in_bytes, BH * Tk * D * in_bytes, BH * T * 4
     q_out, kv_out = q_bytes * out_bytes // in_bytes, kv_bytes * out_bytes // in_bytes
@@ -544,27 +565,30 @@ def _inputs(case, dtype, seed=1234) -> tuple:
             torch.randn(B * H, Tk, D, **kw), torch.randn(B * H, T, D, **kw))
 
 
-def time_instance(case, q, k, v, do, lse, delta, gaps, card, peak=PEAK_BF16_FLOPS) -> dict:
-    """Each kernel at ``case`` on these inputs, timed (median of 20 calls,
-    CUDA events) beside its bound, its plain version and the library's
-    attention (F.scaled_dot_product_attention on the same inputs, a
-    yardstick only). Returns {kernel: the kernel line's numbers}."""
+def time_instance(case, q, k, v, do, lse, delta, gaps, card, peak=PEAK_BF16_FLOPS, kernels=tuple(KERNELS),
+                  before=None) -> dict:
+    """``kernels`` at ``case`` on these inputs, timed (median of 20 calls,
+    CUDA events) beside their bounds (products at ``peak``), their plain
+    versions and the library's attention (F.scaled_dot_product_attention
+    on the same inputs, a yardstick only); ``before`` ({kernel: ms},
+    recorded in PERF.md) printed beside as text. Returns {kernel: the
+    kernel line's numbers}."""
     from ray_tpu_torch import bench
     from ray_tpu_torch.ops import flash_attention as fa
 
     B, T, Tk, H, D, causal = case
     in_bytes = q.element_size()
     bnd = bounds(*case, out_bytes=in_bytes, in_bytes=in_bytes, peak=peak)
-    ms = {
-        "flash_fwd": bench.time_ms(lambda: fa.flash_fwd(q, k, v, causal)),
-        "flash_dq": bench.time_ms(lambda: fa.flash_dq(q, k, v, do, lse, delta, causal)),
-        "flash_dkv": bench.time_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal)),
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal),
+                      lambda: fa.flash_fwd_reference(q, k, v, causal)),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
+                     lambda: fa.flash_dq_reference(q, k, v, do, lse, delta, causal)),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal),
+                      lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta, causal)),
     }
-    plain_ms = {
-        "flash_fwd": bench.time_ms(lambda: fa.flash_fwd_reference(q, k, v, causal), iters=5),
-        "flash_dq": bench.time_ms(lambda: fa.flash_dq_reference(q, k, v, do, lse, delta, causal), iters=5),
-        "flash_dkv": bench.time_ms(lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta, causal), iters=5),
-    }
+    ms = {name: bench.time_ms(calls[name][0]) for name in kernels}
+    plain_ms = {name: bench.time_ms(calls[name][1], iters=5) for name in kernels}
     # The library's attention on the same inputs, [B, H, T, Dh] views.
     qs, ks, vs = (x.view(B, H, -1, D).detach().requires_grad_() for x in (q, k, v))
     dos = do.view(B, H, T, D)
@@ -578,16 +602,16 @@ def time_instance(case, q, k, v, do, lse, delta, gaps, card, peak=PEAK_BF16_FLOP
     err_of = {"flash_fwd": gaps["o"]["max_abs"], "flash_dq": gaps["dq"]["max_abs"],
               "flash_dkv": max(gaps["dk"]["max_abs"], gaps["dv"]["max_abs"])}
     results = {}
-    for name in KERNELS:
+    for name in kernels:
         results[name] = {
             "max_abs_err": err_of[name], "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": bnd[name][0], "bound_by": bnd[name][1], "library_ms": library[name],
         }
-        print(f"time {name} at B={B} T={T} H={H} Dh={D} causal, {q.dtype} operands: kernel "
-              f"{ms[name]:.4f} ms, bound {bnd[name][0]:.4f} ms ({bnd[name][1]}), plain "
-              f"{plain_ms[name]:.4f} ms, library {library[name]:.4f} ms"
-              + (f", before the redesign {BEFORE_REDESIGN_MS[name]:.4f} ms "
-                 "(PERF.md, not this run)" if case == MAIN_CASE else "")
+        print(f"time {name} at B={B} T={T} Tk={Tk} H={H} Dh={D} causal={causal}, {q.dtype} operands: "
+              f"kernel {ms[name]:.4f} ms, bound {bnd[name][0]:.4f} ms ({bnd[name][1]}, "
+              f"{peak / 1e12:.0f} TFLOP/s), plain {plain_ms[name]:.4f} ms, library {library[name]:.4f} ms"
+              + (f", before the redesign {before[name]:.4f} ms (PERF.md, not this run)"
+                 if before and name in before else "")
               + f" [{card}]", flush=True)
     print(f"library at B={B} T={T} H={H} Dh={D}, {q.dtype}: sdpa forward {sdpa_fwd:.4f} ms, "
           f"backward (dq, dk and dv in one call) {sdpa_bwd:.4f} ms, forward+backward "
@@ -645,7 +669,8 @@ def check_kernels(card: str) -> dict:
                  f"{(dq.float() - again.float()).abs().max().item():.3e} max abs")
         print(f"flash_dq at {where}: two calls give the same bits", flush=True)
         del again, o_ref
-        timed = time_instance(case, q, k, v, do, lse, delta, gaps, card)
+        timed = time_instance(case, q, k, v, do, lse, delta, gaps, card,
+                              before=BEFORE_REDESIGN_MS if case == MAIN_CASE else None)
         for name in KERNELS:
             if case == MAIN_CASE:
                 results[name].update(timed[name])
@@ -686,8 +711,9 @@ def check_f32_operands(card: str) -> dict:
     """Phase 2's f32 operands: each f32 kernel against its plain version in
     f32 at F32_CASES (TF32 off), o within F32_FWD_RELNORM, dq, dk and dv
     within F32_GRAD_RELNORM in relative norm and lse within F32_LSE_TOL;
-    two dQ calls give the same bits; F32_MAIN timed beside its bound at the
-    f32 peak. Returns {kernel: {"d64 f32": the kernel line's numbers}}."""
+    two dQ calls give the same bits; the F32_TIMED cases timed beside their
+    bounds at PEAK_F32_ACCURATE_FLOPS (3xTF32), the forward at F32_MAIN
+    only. Returns {kernel: {F32_TIMED's key: the kernel line's numbers}}."""
     from ray_tpu_torch import bench
     from ray_tpu_torch.ops import flash_attention as fa
 
@@ -721,15 +747,22 @@ def check_f32_operands(card: str) -> dict:
         for name in KERNELS:
             _held(name, D, q.dtype, True)
         del refs
-        if case != F32_MAIN:
+        if case not in F32_TIMED:
             continue
         again = fa.flash_dq(q, k, v, do, lse_ref, delta, causal)
         if not torch.equal(dq, again):
             fail(f"two f32 flash_dq calls at {where} differ")
         print(f"flash_dq at {where}: two calls give the same bits", flush=True)
-        timed = time_instance(case, q, k, v, do, lse, delta, gaps, card, peak=PEAK_F32_FLOPS)
-        for name in KERNELS:
-            results[name][_instance_key(D, q.dtype)] = timed[name]
+        fma = bounds(*case, out_bytes=4, in_bytes=4, peak=PEAK_F32_FLOPS)
+        print(f"bounds at {where} at the f32 FMA peak ({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, not the kernel "
+              "line's): " + ", ".join(f"{n} {b[0]:.4f} ms ({b[1]})" for n, b in fma.items()), flush=True)
+        timed = time_instance(case, q, k, v, do, lse, delta, gaps, card, peak=PEAK_F32_ACCURATE_FLOPS,
+                              kernels=tuple(KERNELS) if case == F32_MAIN else ("flash_dq", "flash_dkv"),
+                              before=F32_BEFORE_REDESIGN_MS if case == F32_MAIN else None)
+        for name, numbers in timed.items():
+            results[name][F32_TIMED[case]] = numbers
+        print(f"f32 dQ + dK/dV at {where}: {timed['flash_dq']['ms'] + timed['flash_dkv']['ms']:.4f} ms, "
+              f"SDPA's backward (dq, dk and dv) {timed['flash_dq']['library_ms']:.4f} ms [{card}]", flush=True)
     return results
 
 

@@ -15,6 +15,9 @@ every tree of the port has had since its first slice (``bench.config``,
 ``bench.batch_tokens``, ``gpt2.init``, ``gpt2.make_train_step``), so a
 parent tree runs it as it is.
 
+``--dtype f32`` takes the same model in f32 (its attention through the f32
+flash kernels, as phase 14 of ``chip_smoke.py`` trains it at B 8).
+
 Prints one line per tree and setting, with the card's name and power
 limit; exits non-zero if a tree's process fails. ``--device cpu`` with a
 smaller ``--model``, ``--batch`` and ``--seq`` runs the same on the CPU,
@@ -30,7 +33,7 @@ import sys
 
 WARMUP, STEPS = 2, 5
 
-# Run from a tree's root by ``python -c``; argv: device, model, batch, seq.
+# Run from a tree's root by ``python -c``; argv: device, model, batch, seq, dtype.
 _CHILD = f"""
 import dataclasses, statistics, sys, time
 import torch
@@ -38,9 +41,10 @@ from ray_tpu_torch import bench
 from ray_tpu_torch.models import gpt2
 
 device, model, batch, seq = sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4])
+dtype = {{"bf16": {{}}, "f32": {{"dtype": torch.float32}}}}[sys.argv[5]]
 sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
 for remat in (False, True):
-    cfg = dataclasses.replace(bench.config(model), remat=remat)
+    cfg = dataclasses.replace(bench.config(model), remat=remat, **dtype)
     net = gpt2.init(torch.Generator(device=device).manual_seed(0), cfg, device)
     opt = torch.optim.AdamW(net.parameters(), lr=3e-4, weight_decay=0.01, betas=(0.9, 0.999),
                             eps=1e-8)
@@ -67,6 +71,7 @@ def main(argv=None) -> None:
     parser.add_argument("--model", default="gpt2-small")
     parser.add_argument("--batch", type=int, default=32)
     parser.add_argument("--seq", type=int, default=1024)
+    parser.add_argument("--dtype", default="bf16", choices=("bf16", "f32"))
     args = parser.parse_args(argv)
     if args.device == "cuda":
         card = subprocess.run(
@@ -79,7 +84,7 @@ def main(argv=None) -> None:
         env = dict(os.environ, PYTHONPATH=root)
         done = subprocess.run(
             [sys.executable, "-c", _CHILD, args.device, args.model, str(args.batch),
-             str(args.seq)], cwd=root, env=env, capture_output=True, text=True)
+             str(args.seq), args.dtype], cwd=root, env=env, capture_output=True, text=True)
         if done.returncode != 0:
             sys.exit(f"{tree}: exit {done.returncode}\n{done.stdout}{done.stderr}")
         for line in done.stdout.splitlines():

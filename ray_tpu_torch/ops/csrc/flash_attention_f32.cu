@@ -5,27 +5,64 @@
 // kernels _fwd_kernel, _dq_kernel and _dkv_kernel
 // (ray_tpu/ops/flash_attention.py:72, :135, :168) where those run on f32
 // inputs (the ring's f32 path, an f32 model). Scores, softmax and every
-// product are f32, P and dS stay f32 (the Pallas kernels' casts to the
-// operands' dtype are no-ops in f32), lse, delta and all outputs are f32.
-// The products are plain f32 FMAs: TF32 would keep about three decimal
-// digits, and the JAX package holds its f32 kernels to 1e-5 (forward) and
-// 1e-4 (gradients) of reference attention.
+// product keep f32 accuracy, P and dS stay f32 (the Pallas kernels' casts
+// to the operands' dtype are no-ops in f32), lse, delta and all outputs are
+// f32. The JAX package holds its f32 kernels to 1e-5 (forward) and 1e-4
+// (gradients) of reference attention; a single TF32 product keeps about
+// three decimal digits and misses that.
 //
-// Bound on an H100 SXM: the products, 4 (forward), 6 (dQ) and 8 (dK/dV)
-// FLOPs per (q, key) pair the mask keeps and per head-dim element, against
-// the f32 FMA peak outside the tensor cores (67 TFLOP/s); the bytes are
-// twice the bf16 kernels' and still far below that: operations.
-// Design (simple, not yet fast): a block of 256 threads owns 64 rows of the
-// result (q rows: forward and dQ; keys: dK/dV) of one head and walks over
-// 64-row tiles of the other side, both staged in shared memory. Thread (ty,
-// tx) of a 16 x 16 grid computes a 4 x 4 patch of each 64 x 64 score tile
-// (rows ty + 16 i, columns tx + 16 j: the 16 threads of a row are one half
-// warp, so row maxima and sums are four shuffles), writes P (or dS) back to
-// shared memory, and accumulates D / 16 columns of its four result rows.
-// Rows of shared memory are padded to D + 1 floats, so the 16 columns a half
-// warp reads fall in 16 banks. The key loop stops at the diagonal (causal);
-// keys past Tk and q rows past Tq are masked or zero-filled. No atomics:
-// each block owns the rows it writes.
+// dQ and dK/dV: 3xTF32 on the tensor cores. Each f32 operand x is split
+// into big = tf32(x) (cvt.rna.tf32.f32's rounding, hopper::tf32_rna) and
+// small = tf32(x - big), and a product is
+// big.small + small.big + big.big, the cross terms first, into one f32
+// accumulator (CUTLASS's OpMultiplyAddFastF32 order); only small.small,
+// below 2^-22 of the product, is dropped.
+// Bound on an H100 SXM: 6 (dQ) and 8 (dK/dV) FLOPs per (q, key) pair the
+// mask keeps and per head-dim element, done as three TF32 products at 495
+// TFLOP/s, i.e. 165 TFLOP/s of f32-accurate work (0.117 and 0.156 ms at B 8,
+// T 1024, H 12, Dh 64, causal); the bytes (q, k, v, dO, lse, delta in, the
+// gradients out, 126 MB for dQ) take at most a third of that: operations.
+// Design: a block owns 64 rows of its result (q rows: dQ; keys: dK/dV) of
+// one head and walks over BK keys (dQ) or BQ q rows (dK/dV) a stage, sizes
+// and ring depths per head dim in F32Tiles<D>. The first warpgroups (three;
+// two at head dim 128) load and split: warp 0 streams each stage's tiles
+// by TMA into raw slots ahead of a ring of stages (or into the stage
+// itself), with mbarriers per slot and stage (Feed); the other warps split
+// each landed tile into big and small tiles (in place when TMA wrote the
+// stage) and, where a product needs one, a transposed copy, then mark the
+// stage ready. The split is on
+// every stage's path: with one splitting warpgroup the kernels ran 1.4-1.5x
+// slower than with three (sweep_flash_f32). The last two warpgroups
+// (the consumers) both own the block's 64 rows and take alternate stages,
+// each summing a partial result in f32 registers; at the end the second
+// hands its sum to the first through shared memory, which adds it (always
+// in that order) and writes the rows.
+// Per stage a consumer issues the two score products (S and dP, or S^T and
+// dP^T) with both operands split in shared memory, turns S into P (exp2
+// with scale * log2 e folded in) and dP into dS = P (dP scale - delta scale)
+// in registers, splits P and dS per k-step of 8 into register A fragments,
+// and issues the gradient products with them.
+// tf32 wgmma reads shared memory K-major only (its transpose bit exists for
+// 16-bit types alone), and three gradient products reduce over the rows of
+// the tile they read: dQ = dS K (over keys), dV = P^T dO and dK = dS^T Q
+// (over q rows). Each takes way (a): the split pass writes a transposed,
+// swizzled big and small copy of that tile (K^T; dO^T and Q^T), so the
+// reduction runs along its rows. It keeps every product in one shape (A =
+// the 64 owned rows, N = D), where the other way (computing dQ^T = K^T dS^T
+// with K^T as register fragments) would need D to be a multiple of 64 and
+// dS in shared memory. The transposed copy also absorbs the tf32 A
+// fragment's layout: an m64nNk8 accumulator holds columns 2t and 2t + 1 of
+// each 8 in thread t, the A fragment wants k = t and t + 4, so column 8g + p
+// of a transposed tile holds key (or q row) 8g + 2p for p < 4 and
+// 8g + 2(p - 4) + 1 for p >= 4, and P and dS become A fragments without a
+// shuffle. No atomics: each block writes only its own rows, and the
+// partial sums meet in a fixed order, so two calls give the same bits.
+// Causal: the key loop stops at the diagonal (dQ) and the q loop starts at
+// it (dK/dV); keys past Tk and q rows past Tq are masked or zero-filled.
+//
+// The forward is still plain f32 FMAs on shared-memory tiles (a 16 x 16
+// thread grid, 4 x 4 results a thread, 67 TFLOP/s f32 peak): only two
+// kernels are redesigned at a time, and its 3xTF32 rewrite is the next one.
 //
 // Every C entry point launches on the caller's stream and returns
 // cudaGetLastError(); nothing here allocates or synchronises. The
@@ -38,7 +75,13 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// Forward: f32 FMAs on shared-memory tiles.
+// ---------------------------------------------------------------------------
 
 constexpr int THREADS = 256;  // a 16 x 16 grid
 constexpr int BM = 64;        // result rows of a block
@@ -204,142 +247,644 @@ flash_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, c
 }
 
 // ---------------------------------------------------------------------------
-// dQ = dS k scale, P = exp(q k^T scale - lse), dS = P (dO v^T - delta).
+// Backward: 3xTF32 on wgmma (see the note at the top).
 // ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_f32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq, int Tq, int Tk, float scale,
-                    int causal) {
-  extern __shared__ float sm[];
-  float* sq = sm;
-  float* sdo = sq + Smem<D>::TILE;
-  float* sk = sdo + Smem<D>::TILE;
-  float* sv = sk + Smem<D>::TILE;
-  float* sp = sv + Smem<D>::TILE;  // dS, [BM][PN]
-  const int bh = blockIdx.y, q0 = blockIdx.x * BM, ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  q += (size_t)bh * Tq * D;
-  dout += (size_t)bh * Tq * D;
-  k += (size_t)bh * Tk * D;
-  v += (size_t)bh * Tk * D;
-  load_tile<D>(sq, q, q0, Tq);
-  load_tile<D>(sdo, dout, q0, Tq);
+constexpr int WG_THREADS = 128;
+constexpr int ROWS_OWNED = 64;  // result rows of a block: one wgmma M
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may have on an H100
+constexpr float LOG2E = 1.4426950408889634f;
 
-  float L[4], dl[4], acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    L[i] = row < Tq ? lse[(size_t)bh * Tq + row] : 0.f;
-    dl[i] = row < Tq ? delta[(size_t)bh * Tq + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+// Per head dim: keys per dQ stage (DQ_BK), q rows per dK/dV stage
+// (DKV_BQ), the two ring depths (STAGES), the raw slots in front of each
+// ring (RAW; 0: TMA lands in the stage itself and the split works in
+// place), and the loading warpgroups (LOADER_WGS). A stage holds six (dQ)
+// or eight (dK/dV) f32 tiles (big and small, natural and transposed), so
+// head dim 128 takes 16 keys and 8 q rows a stage. Chosen by timing
+// variants on an H100 (python3 -m ray_tpu_torch.sweep_flash_f32, device
+// time at B 8, T 1024, gpt2-small's width): raw slots let TMA run ahead of
+// the split pass, which otherwise waits for a stage to be released and then
+// for its loads to land (dK/dV 4% faster at head dims 64 and 3% at 128;
+// dQ at 64 gains nothing and keeps a third stage instead); three loading
+// warpgroups split faster than two (dQ 6%, dK/dV 11% at head dim 64) but
+// leave the consumers 168 registers, too few for head dim 128's dK/dV
+// accumulators. tests/test_torch_flash_f32_split.py reads this block.
+template <int D>
+struct F32Tiles;
+template <>
+struct F32Tiles<16> {
+  static constexpr int DQ_BK = 64, DQ_STAGES = 4, DQ_RAW = 2, DKV_BQ = 32, DKV_STAGES = 4, DKV_RAW = 2;
+  static constexpr int LOADER_WGS = 3;
+};
+template <>
+struct F32Tiles<32> {
+  static constexpr int DQ_BK = 64, DQ_STAGES = 3, DQ_RAW = 2, DKV_BQ = 32, DKV_STAGES = 4, DKV_RAW = 2;
+  static constexpr int LOADER_WGS = 3;
+};
+template <>
+struct F32Tiles<64> {
+  static constexpr int DQ_BK = 32, DQ_STAGES = 3, DQ_RAW = 0, DKV_BQ = 32, DKV_STAGES = 2, DKV_RAW = 2;
+  static constexpr int LOADER_WGS = 3;
+};
+template <>
+struct F32Tiles<128> {
+  static constexpr int DQ_BK = 16, DQ_STAGES = 2, DQ_RAW = 0, DKV_BQ = 8, DKV_STAGES = 2, DKV_RAW = 2;
+  static constexpr int LOADER_WGS = 2;
+};
+
+// A block's warpgroups at head dim D: LOADER_WGS loading (warp 0 issues the
+// TMA loads, the other warps split) and two consumers. setmaxnreg moves
+// registers from the loaders to the consumers; the block holds what it
+// started with, ENTRY_REGS a thread (ptxas's count under
+// __launch_bounds__(THREADS, 1)), so the consumers can take only what the
+// loaders give up, or setmaxnreg.inc waits for ever.
+template <int D>
+struct Roles {
+  static constexpr int LOADER_WGS = F32Tiles<D>::LOADER_WGS;
+  static constexpr int THREADS = (LOADER_WGS + 2) * WG_THREADS;
+  static constexpr int SPLIT_THREADS = LOADER_WGS * WG_THREADS - 32;
+  static constexpr int ENTRY_REGS = 65536 / THREADS / 8 * 8;
+  static constexpr int LOADER_REGS = 48;
+  static constexpr int CONSUMER_REGS_FIT =
+      (ENTRY_REGS * THREADS - LOADER_WGS * WG_THREADS * LOADER_REGS) / (2 * WG_THREADS) / 8 * 8;
+  static constexpr int CONSUMER_REGS = CONSUMER_REGS_FIT < 240 ? CONSUMER_REGS_FIT : 240;
+};
+
+// The 1024-byte aligned start of dynamic shared memory (the 128B swizzle
+// repeats every 1024 bytes; TMA and wgmma agree on it from there).
+__device__ __forceinline__ uint8_t* smem_base(uint8_t* raw) {
+  return raw + ((1024 - (hopper::smem_u32(raw) & 1023)) & 1023);
+}
+
+// Tiles of BK keys that rows up to last_row need (causal: to the diagonal).
+template <int BK>
+__device__ __forceinline__ int key_tiles(int last_row, int Tk, int causal) {
+  return ((causal ? min(Tk, last_row + 1) : Tk) + BK - 1) / BK;
+}
+
+// The leading key tiles that need no mask for q rows from first_row on.
+template <int BK>
+__device__ __forceinline__ int plain_tiles(int first_row, int Tk, int causal) {
+  return causal ? min(Tk / BK, (first_row + 1) / BK) : Tk / BK;
+}
+
+// The split pass, run by NT threads (u = 0 .. NT - 1).
+// A whole tile: x of `src` -> big and small at the same offset of `big` and
+// `small` (`src` may be `big`: in place).
+template <int BYTES, int NT>
+__device__ __forceinline__ void split_tile(const float* src, float* big, float* small, int u) {
+  for (int e = u; e < BYTES / 16; e += NT) {
+    const float4 x = reinterpret_cast<const float4*>(src)[e];
+    uint4 b, s;
+    hopper::tf32_split(x.x, b.x, s.x);
+    hopper::tf32_split(x.y, b.y, s.y);
+    hopper::tf32_split(x.z, b.z, s.z);
+    hopper::tf32_split(x.w, b.w, s.w);
+    reinterpret_cast<uint4*>(big)[e] = b;
+    reinterpret_cast<uint4*>(small)[e] = s;
   }
-  const int n_k = tiles_to(q0, Tk, causal);
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    load_tile<D>(sk, k, k0, Tk);
-    load_tile<D>(sv, v, k0, Tk);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    scores<D>(s, sq, sk, ty, tx);
-    scores<D>(dp, sdo, sv, ty, tx);
+}
+
+// A tile T [R, C] of `src` split as split_tile does, and its transpose TileF<R, C>
+// [C, R] written big and small: row c, position 8g + p holds T's row 8g + 2p
+// (p < 4) or 8g + 2(p - 4) + 1 (p >= 4), column c. A thread takes one column
+// c and the four rows of one parity in one group of 8: four scalar reads
+// (the lanes of a warp read neighbouring columns of one row) and one 16-byte
+// store per transposed tile (eight lanes, eight rows of it: the swizzle puts
+// them in distinct banks).
+template <class T, int NT>
+__device__ __forceinline__ void split_tile_t(const float* src, float* big, float* small, float* tbig,
+                                             float* tsmall, int u) {
+  using TT = hopper::TileF<T::N_ROWS, T::N_COLS>;
+  constexpr int C = T::N_COLS;
+  const uint8_t* xb = reinterpret_cast<const uint8_t*>(src);
+  uint8_t* bb = reinterpret_cast<uint8_t*>(big);
+  uint8_t* sb = reinterpret_cast<uint8_t*>(small);
+  for (int e = u; e < T::N_ROWS / 4 * C; e += NT) {
+    const int c = e % C, h = (e / C) % 2, g = e / (2 * C);
+    uint32_t b[4], s[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const float p = (col >= Tk || (causal && col > row)) ? 0.f : expf(s[i][j] * scale - L[i]);
-        sp[(ty + 16 * i) * PN + tx + 16 * j] = p * (dp[i][j] - dl[i]);
-      }
+      const uint32_t off = T::offset(8 * g + h + 2 * i, c);
+      hopper::tf32_split(*reinterpret_cast<const float*>(xb + off), b[i], s[i]);
+      *reinterpret_cast<uint32_t*>(bb + off) = b[i];
+      *reinterpret_cast<uint32_t*>(sb + off) = s[i];
     }
-    __syncthreads();
-    accumulate<D>(acc, sp, sk, ty, tx);
+    const uint32_t to = TT::offset(c, 8 * g + 4 * h);
+    *reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(tbig) + to) = make_uint4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(tsmall) + to) = make_uint4(s[0], s[1], s[2], s[3]);
   }
+}
+
+// The split pass's end of a tile: its writes ordered before the tensor
+// cores' reads (async proxy), then one arrival each on `ready`.
+__device__ __forceinline__ void split_done(uint64_t* ready) {
+  hopper::fence_proxy_async();
+  hopper::mbar_arrive_if(ready, true);
+}
+
+// The barriers of a ring of STAGES stages fed through RAW raw slots (RAW =
+// 0: TMA writes the stage itself). Tile j's loads land in load slot j % NL
+// (raw slot, or stage) and complete `full`; the split pass reads them,
+// writes stage j % STAGES once its consumer has released it (`empty`),
+// frees the raw slot (`freed`) and marks the stage `ready`.
+template <int STAGES, int RAW>
+struct Feed {
+  static constexpr int NL = RAW > 0 ? RAW : STAGES;  // load slots
+  static constexpr int BARRIERS = 2 * NL + 2 * STAGES;
+  uint64_t *full, *freed, *ready, *empty;
+
+  __device__ explicit Feed(uint64_t* bars)
+      : full(bars), freed(bars + NL), ready(bars + 2 * NL), empty(bars + 2 * NL + STAGES) {}
+  __device__ void init(int split_threads, int consumer_warps) const {
+    for (int l = 0; l < NL; ++l) {
+      hopper::mbar_init(&full[l], 1);
+      hopper::mbar_init(&freed[l], split_threads);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&ready[s], split_threads);
+      hopper::mbar_init(&empty[s], consumer_warps);
+    }
+  }
+  // The TMA thread, before tile j's loads: returns the barrier they complete.
+  __device__ uint64_t* load_slot(int j, int bytes) const {
+    const int l = j % NL;
+    hopper::mbar_wait(RAW > 0 ? &freed[l] : &empty[l], ((j / NL) & 1) ^ 1);
+    hopper::mbar_arrive_expect_tx(&full[l], bytes);
+    return &full[l];
+  }
+  // The split pass, before tile j: its loads have landed and its stage is free.
+  __device__ void split_begin(int j) const {
+    hopper::mbar_wait(&full[j % NL], (j / NL) & 1);
+    if constexpr (RAW > 0) hopper::mbar_wait(&empty[j % STAGES], ((j / STAGES) & 1) ^ 1);
+  }
+  __device__ void split_end(int j) const {
+    hopper::fence_proxy_async();
+    if constexpr (RAW > 0) hopper::mbar_arrive_if(&freed[j % NL], true);
+    hopper::mbar_arrive_if(&ready[j % STAGES], true);
+  }
+};
+
+// One arrival per warp on an "empty" barrier, from lane 0 once the whole
+// warp is here.
+__device__ __forceinline__ void warp_release(uint64_t* bar) {
+  __syncwarp();
+  hopper::mbar_arrive_if(bar, threadIdx.x % 32 == 0);
+}
+
+// d (+)= A B over 8 KSTEPS columns, A and B split in shared memory (TA and
+// TB K-major): per k-step big.small, small.big, then big.big. The first
+// product of the first step overwrites d.
+template <int N, int KSTEPS, class TA, class TB>
+__device__ __forceinline__ void mma3_ss(float (&d)[N / 2], uint64_t a_big, uint64_t a_small, uint64_t b_big,
+                                        uint64_t b_small) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Tq) continue;
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const uint64_t ka = TA::k_step(kk), kb = TB::k_step(kk);
+    hopper::WgmmaTF32<N>::ss(d, a_big + ka, b_small + kb, kk > 0);
+    hopper::WgmmaTF32<N>::ss(d, a_small + ka, b_big + kb, 1);
+    hopper::WgmmaTF32<N>::ss(d, a_big + ka, b_big + kb, 1);
+  }
+}
+
+// d += A B, A split in registers (one fragment a k-step), B split in
+// shared memory (TB K-major), in the same order.
+template <int N, int KSTEPS, class TB>
+__device__ __forceinline__ void mma3_rs(float (&d)[N / 2], const uint32_t (&a_big)[KSTEPS][4],
+                                        const uint32_t (&a_small)[KSTEPS][4], uint64_t b_big, uint64_t b_small) {
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) dq[((size_t)bh * Tq + row) * D + tx + 16 * c] = acc[i][c] * scale;
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const uint64_t kb = TB::k_step(kk);
+    hopper::WgmmaTF32<N>::rs(d, a_big[kk], b_small + kb, 1);
+    hopper::WgmmaTF32<N>::rs(d, a_small[kk], b_big + kb, 1);
+    hopper::WgmmaTF32<N>::rs(d, a_big[kk], b_big + kb, 1);
+  }
+}
+
+// Chunk j of an m64nN accumulator (this thread: rows g and g + 8, columns
+// 8j + 2t and 8j + 2t + 1) as the tf32 A fragment of k-step j, split:
+// a0..a3 sit at (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4), so position
+// t holds column 2t and t + 4 column 2t + 1 -- the permutation the
+// transposed tiles carry.
+template <int N>
+__device__ __forceinline__ void split_a_frags(uint32_t (&big)[N / 8][4], uint32_t (&small)[N / 8][4],
+                                              const float (&c)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    hopper::tf32_split(c[4 * j + 0], big[j][0], small[j][0]);
+    hopper::tf32_split(c[4 * j + 2], big[j][1], small[j][1]);
+    hopper::tf32_split(c[4 * j + 1], big[j][2], small[j][2]);
+    hopper::tf32_split(c[4 * j + 3], big[j][3], small[j][3]);
+  }
+}
+
+// The partial sums of the two consumer warpgroups (c = 0, 1) meet: c = 1
+// parks its accumulator in `park` (a tile no product reads any more, room
+// for 128 x N floats), c = 0 adds it to its own. Named barrier 1, both
+// consumer warpgroups.
+template <int N>
+__device__ __forceinline__ void meet(float (&acc)[N], float* park, int c, int tid) {
+  hopper::bar_sync(1, 2 * WG_THREADS);  // every product of both warpgroups is in
+  if (c == 1) {
+#pragma unroll
+    for (int r = 0; r < N; ++r) park[r * WG_THREADS + tid] = acc[r];
+  }
+  hopper::bar_sync(1, 2 * WG_THREADS);
+  if (c == 0) {
+#pragma unroll
+    for (int r = 0; r < N; ++r) acc[r] += park[r * WG_THREADS + tid];
+  }
+}
+
+// A warpgroup's [64 x D] f32 accumulator to rows [row0, row0 + 64) of a
+// contiguous [T, D] matrix, rows past T not written.
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 2], int row0, int T, int tid) {
+  const int lane = tid % 32, r = row0 + 16 * (tid / 32) + (lane >> 2);
+  float* p = dst + (size_t)r * D + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (r < T) *reinterpret_cast<float2*>(p + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (r + 8 < T) *reinterpret_cast<float2*>(p + 8 * D + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// dK = dS^T q scale and dV = P^T dO for 64 keys a block, over the q tiles
-// that see them (causal: from the diagonal on).
+// dQ = dS K with P = exp(q k^T scale - lse) and dS = P (dO v^T - delta)
+// scale. Replaces _dq_kernel (ray_tpu/ops/flash_attention.py:135-165) on
+// f32 inputs. A block owns 64 q rows; its Q and dO are split once; each
+// stage holds BK keys of K and V split, and K^T split (for dQ = dS K, whose
+// reduction runs over keys). Consumer c takes key tiles c, c + 2, ...
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_f32_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                     const float* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-                     int Tq, int Tk, float scale, int causal) {
-  extern __shared__ float sm[];
-  float* sk = sm;
-  float* sv = sk + Smem<D>::TILE;
-  float* sq = sv + Smem<D>::TILE;
-  float* sdo = sq + Smem<D>::TILE;
-  float* spt = sdo + Smem<D>::TILE;  // P^T, [BM keys][PN]
-  float* sdst = spt + BM * PN;       // dS^T
-  float* slse = sdst + BM * PN;      // [BN]
-  float* sdelta = slse + BN;         // [BN]
-  const int bh = blockIdx.y, k0 = blockIdx.x * BM, ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  q += (size_t)bh * Tq * D;
-  dout += (size_t)bh * Tq * D;
-  k += (size_t)bh * Tk * D;
-  v += (size_t)bh * Tk * D;
-  lse += (size_t)bh * Tq;
-  delta += (size_t)bh * Tq;
-  load_tile<D>(sk, k, k0, Tk);
-  load_tile<D>(sv, v, k0, Tk);
+struct DqPlan {
+  static constexpr int BK = F32Tiles<D>::DQ_BK, STAGES = F32Tiles<D>::DQ_STAGES, RAW = F32Tiles<D>::DQ_RAW;
+  using TA = hopper::TileF<D, ROWS_OWNED>;  // Q or dO of the block's rows, big or small
+  using TK = hopper::TileF<D, BK>;          // a stage's K or V, big or small
+  using TT = hopper::TileF<BK, D>;          // a stage's K^T, big or small
+  using F = Feed<STAGES, RAW>;
+  // Q, Q small, dO, dO small; the ring, a stage being K, K small, V, V
+  // small, K^T, K^T small; the raw slots, K and V as loaded; the mbarriers
+  // (full and ready of Q/dO, then the feed's).
+  static constexpr int A_BYTES = 4 * TA::BYTES;
+  static constexpr int STAGE_BYTES = 4 * TK::BYTES + 2 * TT::BYTES;
+  static constexpr int RAW_OFF = A_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = RAW_OFF + RAW * 2 * TK::BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + F::BARRIERS);  // + alignment slack
+  static_assert(STAGES >= 2 && (RAW == 0 || RAW >= 2), "TMA rings of at least two stages");
+  static_assert(BYTES <= SMEM_LIMIT, "dQ's shared memory does not fit");
+};
 
-  float dk_acc[4][D / 16], dv_acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-  const int n_q = (Tq + BN - 1) / BN;
-  for (int qt = causal ? k0 / BN : 0; qt < n_q; ++qt) {
-    const int q0 = qt * BN;
-    __syncthreads();
-    load_tile<D>(sq, q, q0, Tq);
-    load_tile<D>(sdo, dout, q0, Tq);
-    if (threadIdx.x < BN) {
-      const int row = q0 + threadIdx.x;
-      slse[threadIdx.x] = row < Tq ? lse[row] : 0.f;
-      sdelta[threadIdx.x] = row < Tq ? delta[row] : 0.f;
-    }
-    __syncthreads();
-    float st[4][4], dpt[4][4];  // [key ty + 16 i][q row tx + 16 j]
-    scores<D>(st, sk, sq, ty, tx);
-    scores<D>(dpt, sv, sdo, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = tx + 16 * j, row = q0 + n;
-        const float p = (row >= Tq || (causal && key > row)) ? 0.f : expf(st[i][j] * scale - slse[n]);
-        spt[(ty + 16 * i) * PN + n] = p;
-        sdst[(ty + 16 * i) * PN + n] = p * (dpt[i][j] - sdelta[n]);
+template <int D>
+__global__ void __launch_bounds__(Roles<D>::THREADS, 1)
+flash_f32_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
+                    int Tq, int Tk, float scale, int causal) {
+  using P = DqPlan<D>;
+  using TA = typename P::TA;
+  using TK = typename P::TK;
+  using TT = typename P::TT;
+  using R = Roles<D>;
+  constexpr int BK = P::BK, STAGES = P::STAGES, NT = R::SPLIT_THREADS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_base(smem_raw);
+  float* sq = reinterpret_cast<float*>(base);
+  float* sq_s = sq + TA::BYTES / 4;
+  float* sdo = sq_s + TA::BYTES / 4;
+  float* sdo_s = sdo + TA::BYTES / 4;
+  // Stage s: K, K small, V, V small, K^T, K^T small.
+  auto ring = [&](int s, int part) {
+    const int at = part < 4 ? part * TK::BYTES : 4 * TK::BYTES + (part - 4) * TT::BYTES;
+    return reinterpret_cast<float*>(base + P::A_BYTES + s * P::STAGE_BYTES + at);
+  };
+  // Where tile i's K and V land: a raw slot, or the stage's K and V.
+  auto loaded = [&](int i, int part) {
+    return P::RAW > 0 ? reinterpret_cast<float*>(base + P::RAW_OFF + ((i % P::RAW) * 2 + part / 2) * TK::BYTES)
+                      : ring(i % STAGES, part);
+  };
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(base + P::BAR_OFF);
+  uint64_t* ready_a = full_a + 1;
+  const typename P::F feed(ready_a + 1);
+  // Causal: the longest rows first (blocks start in order of blockIdx.y).
+  const int bh = blockIdx.x, qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * ROWS_OWNED, n_k = key_tiles<BK>(q0 + ROWS_OWNED - 1, Tk, causal);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_a, 1);
+    hopper::mbar_init(ready_a, NT);
+    feed.init(NT, WG_THREADS / 32);  // a stage is released by the warps of the one warpgroup that took it
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg < R::LOADER_WGS) {
+    hopper::setmaxnreg_dec<R::LOADER_REGS>();
+    if (threadIdx.x == 0) {  // TMA
+      hopper::mbar_arrive_expect_tx(full_a, 2 * TA::BYTES);
+      hopper::tma_load_tile<TA>(sq, &tm_q, full_a, q0, bh);
+      hopper::tma_load_tile<TA>(sdo, &tm_do, full_a, q0, bh);
+      for (int i = 0; i < n_k; ++i) {
+        uint64_t* bar = feed.load_slot(i, 2 * TK::BYTES);
+        hopper::tma_load_tile<TK>(loaded(i, 0), &tm_k, bar, i * BK, bh);
+        hopper::tma_load_tile<TK>(loaded(i, 2), &tm_v, bar, i * BK, bh);
+      }
+    } else if (threadIdx.x >= 32) {  // the split pass
+      const int u = threadIdx.x - 32;
+      hopper::mbar_wait(full_a, 0);
+      split_tile<TA::BYTES, NT>(sq, sq, sq_s, u);
+      split_tile<TA::BYTES, NT>(sdo, sdo, sdo_s, u);
+      split_done(ready_a);
+      for (int i = 0; i < n_k; ++i) {
+        const int s = i % STAGES;
+        feed.split_begin(i);
+        split_tile_t<TK, NT>(loaded(i, 0), ring(s, 0), ring(s, 1), ring(s, 4), ring(s, 5), u);
+        split_tile<TK::BYTES, NT>(loaded(i, 2), ring(s, 2), ring(s, 3), u);
+        feed.split_end(i);
       }
     }
-    __syncthreads();
-    accumulate<D>(dv_acc, spt, sdo, ty, tx);
-    accumulate<D>(dk_acc, sdst, sq, ty, tx);
+  } else {  // consumers: both own the 64 rows, c takes key tiles c, c + 2, ...
+    hopper::setmaxnreg_inc<R::CONSUMER_REGS>();
+    const int c = wg - R::LOADER_WGS, tid = threadIdx.x - wg * WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+    const int row_a = q0 + 16 * warp + g, row_b = row_a + 8;
+    const float sl2 = scale * LOG2E;
+    // This thread's rows' lse (log2 units) and delta scale; zero past Tq,
+    // where Q and dO are zero-filled, so dS is zero there.
+    const float* lse_bh = lse + (size_t)bh * Tq;
+    const float* delta_bh = delta + (size_t)bh * Tq;
+    const float l2_a = row_a < Tq ? lse_bh[row_a] * LOG2E : 0.f;
+    const float l2_b = row_b < Tq ? lse_bh[row_b] * LOG2E : 0.f;
+    const float dl_a = row_a < Tq ? delta_bh[row_a] * scale : 0.f;
+    const float dl_b = row_b < Tq ? delta_bh[row_b] * scale : 0.f;
+    float acc[D / 2];
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) acc[r] = 0.f;
+
+    hopper::mbar_wait(ready_a, 0);
+    const uint64_t q_b = TA::desc(sq), q_s = TA::desc(sq_s), do_b = TA::desc(sdo), do_s = TA::desc(sdo_s);
+    auto ktile = [&](auto masked, int i) {
+      const int s = i % STAGES, k0 = i * BK;
+      hopper::mbar_wait(&feed.ready[s], (i / STAGES) & 1);
+      float sc[BK / 2], dp[BK / 2];  // S (then P) and dP (then dS), [64 q x BK keys]
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+      mma3_ss<BK, D / 8, TA, TK>(sc, q_b, q_s, TK::desc(ring(s, 0)), TK::desc(ring(s, 1)));
+      hopper::wgmma_commit();
+      mma3_ss<BK, D / 8, TA, TK>(dp, do_b, do_s, TK::desc(ring(s, 2)), TK::desc(ring(s, 3)));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // S is in; dP may still run
+      hopper::fence_regs(sc);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * j + 2 * t + e;
+          float pa = hopper::ex2(fmaf(sc[4 * j + e], sl2, -l2_a));
+          float pb = hopper::ex2(fmaf(sc[4 * j + 2 + e], sl2, -l2_b));
+          if constexpr (decltype(masked)::value) {
+            if (col >= Tk || (causal && col > row_a)) pa = 0.f;
+            if (col >= Tk || (causal && col > row_b)) pb = 0.f;
+          }
+          sc[4 * j + e] = pa;
+          sc[4 * j + 2 + e] = pb;
+        }
+      }
+      hopper::fence_regs(sc);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          dp[4 * j + e] = sc[4 * j + e] * fmaf(dp[4 * j + e], scale, -dl_a);  // dS
+          dp[4 * j + 2 + e] = sc[4 * j + 2 + e] * fmaf(dp[4 * j + 2 + e], scale, -dl_b);
+        }
+      }
+      uint32_t ds_b[BK / 8][4], ds_s[BK / 8][4];
+      split_a_frags<BK>(ds_b, ds_s, dp);
+      hopper::fence_regs(acc);
+      hopper::fence_regs(ds_b);
+      hopper::fence_regs(ds_s);
+      hopper::wgmma_fence();
+      mma3_rs<D, BK / 8, TT>(acc, ds_b, ds_s, TT::desc(ring(s, 4)), TT::desc(ring(s, 5)));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(ds_b);
+      hopper::fence_regs(ds_s);
+      warp_release(&feed.empty[s]);
+    };
+    // The tiles that need a mask (the diagonal's, the ragged end's) run in
+    // a loop of their own.
+    const int n_plain = min(plain_tiles<BK>(q0, Tk, causal), n_k);
+    int i = c;
+    for (; i < n_plain; i += 2) ktile(std::false_type{}, i);
+    for (; i < n_k; i += 2) ktile(std::true_type{}, i);
+    meet(acc, sq, c, tid);  // Q's tile: no product reads it now
+    if (c == 0) store_rows<D>(dq + (size_t)bh * Tq * D, acc, q0, Tq, tid);
   }
+}
+
+// ---------------------------------------------------------------------------
+// dK = dS^T q scale and dV = P^T dO, over the q rows that see the block's
+// 64 keys (causal: from the diagonal on). Replaces _dkv_kernel
+// (ray_tpu/ops/flash_attention.py:168-205) on f32 inputs. The block's K and
+// V are split once; each stage holds BQ q rows of Q and dO split, Q^T and
+// dO^T split (for dK = dS^T Q and dV = P^T dO, whose reductions run over q
+// rows), and the rows' lse and delta. Consumer c takes the block's q tiles
+// c, c + 2, ... counted from the first.
+// ---------------------------------------------------------------------------
+template <int D>
+struct DkvPlan {
+  static constexpr int BQ = F32Tiles<D>::DKV_BQ, STAGES = F32Tiles<D>::DKV_STAGES, RAW = F32Tiles<D>::DKV_RAW;
+  using TA = hopper::TileF<D, ROWS_OWNED>;  // K or V of the block's keys, big or small
+  using TQ = hopper::TileF<D, BQ>;          // a stage's Q or dO, big or small
+  using TT = hopper::TileF<BQ, D>;          // a stage's Q^T or dO^T, big or small
+  using F = Feed<STAGES, RAW>;
+  // K, K small, V, V small; the ring, a stage being Q, Q small, dO, dO
+  // small, Q^T, Q^T small, dO^T, dO^T small; the raw slots, Q and dO as
+  // loaded; each stage's lse and delta; the mbarriers.
+  static constexpr int A_BYTES = 4 * TA::BYTES;
+  static constexpr int STAGE_BYTES = 4 * TQ::BYTES + 4 * TT::BYTES;
+  static constexpr int RAW_OFF = A_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int ROWS_OFF = RAW_OFF + RAW * 2 * TQ::BYTES;
+  static constexpr int BAR_OFF = ROWS_OFF + STAGES * 2 * BQ * 4;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + F::BARRIERS);  // + alignment slack
+  static_assert(STAGES >= 2 && (RAW == 0 || RAW >= 2), "TMA rings of at least two stages");
+  static_assert(BYTES <= SMEM_LIMIT, "dK/dV's shared memory does not fit");
+};
+
+template <int D>
+__global__ void __launch_bounds__(Roles<D>::THREADS, 1)
+flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                     const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int Tq, int Tk, float scale, int causal) {
+  using P = DkvPlan<D>;
+  using TA = typename P::TA;
+  using TQ = typename P::TQ;
+  using TT = typename P::TT;
+  using R = Roles<D>;
+  constexpr int BQ = P::BQ, STAGES = P::STAGES, NT = R::SPLIT_THREADS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_base(smem_raw);
+  float* sk = reinterpret_cast<float*>(base);
+  float* sk_s = sk + TA::BYTES / 4;
+  float* sv = sk_s + TA::BYTES / 4;
+  float* sv_s = sv + TA::BYTES / 4;
+  // Stage s: Q, Q small, dO, dO small, Q^T, Q^T small, dO^T, dO^T small.
+  auto ring = [&](int s, int part) {
+    const int at = part < 4 ? part * TQ::BYTES : 4 * TQ::BYTES + (part - 4) * TT::BYTES;
+    return reinterpret_cast<float*>(base + P::A_BYTES + s * P::STAGE_BYTES + at);
+  };
+  // Where tile j's Q and dO land: a raw slot, or the stage's Q and dO.
+  auto loaded = [&](int j, int part) {
+    return P::RAW > 0 ? reinterpret_cast<float*>(base + P::RAW_OFF + ((j % P::RAW) * 2 + part / 2) * TQ::BYTES)
+                      : ring(j % STAGES, part);
+  };
+  float* slse = reinterpret_cast<float*>(base + P::ROWS_OFF);  // [STAGES][BQ], log2 units
+  float* sdelta = slse + STAGES * BQ;                          // [STAGES][BQ], times scale
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(base + P::BAR_OFF);
+  uint64_t* ready_a = full_a + 1;
+  const typename P::F feed(ready_a + 1);
+  const int bh = blockIdx.x, k0 = blockIdx.y * ROWS_OWNED;  // causal: key tile 0 sees the most rows
+  const int n_qs = (Tq + BQ - 1) / BQ, i_begin = causal ? k0 / BQ : 0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_a, 1);
+    hopper::mbar_init(ready_a, NT);
+    feed.init(NT, WG_THREADS / 32);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg < R::LOADER_WGS) {
+    hopper::setmaxnreg_dec<R::LOADER_REGS>();
+    if (threadIdx.x == 0) {  // TMA
+      hopper::mbar_arrive_expect_tx(full_a, 2 * TA::BYTES);
+      hopper::tma_load_tile<TA>(sk, &tm_k, full_a, k0, bh);
+      hopper::tma_load_tile<TA>(sv, &tm_v, full_a, k0, bh);
+      for (int i = i_begin; i < n_qs; ++i) {
+        const int j = i - i_begin;
+        uint64_t* bar = feed.load_slot(j, 2 * TQ::BYTES);
+        hopper::tma_load_tile<TQ>(loaded(j, 0), &tm_q, bar, i * BQ, bh);
+        hopper::tma_load_tile<TQ>(loaded(j, 2), &tm_do, bar, i * BQ, bh);
+      }
+    } else if (threadIdx.x >= 32) {  // the split pass
+      const int u = threadIdx.x - 32;
+      const float* lse_bh = lse + (size_t)bh * Tq;
+      const float* delta_bh = delta + (size_t)bh * Tq;
+      hopper::mbar_wait(full_a, 0);
+      split_tile<TA::BYTES, NT>(sk, sk, sk_s, u);
+      split_tile<TA::BYTES, NT>(sv, sv, sv_s, u);
+      split_done(ready_a);
+      for (int i = i_begin; i < n_qs; ++i) {
+        const int j = i - i_begin, s = j % STAGES;
+        feed.split_begin(j);
+        split_tile_t<TQ, NT>(loaded(j, 0), ring(s, 0), ring(s, 1), ring(s, 4), ring(s, 5), u);
+        split_tile_t<TQ, NT>(loaded(j, 2), ring(s, 2), ring(s, 3), ring(s, 6), ring(s, 7), u);
+        for (int r = u; r < BQ; r += NT) {  // zero past Tq, where Q and dO are zero-filled
+          const int row = i * BQ + r;
+          slse[s * BQ + r] = row < Tq ? lse_bh[row] * LOG2E : 0.f;
+          sdelta[s * BQ + r] = row < Tq ? delta_bh[row] * scale : 0.f;
+        }
+        feed.split_end(j);
+      }
+    }
+  } else {  // consumers: both own the 64 keys, c takes q tiles i_begin + c, + 2, ...
+    hopper::setmaxnreg_inc<R::CONSUMER_REGS>();
+    const int c = wg - R::LOADER_WGS, tid = threadIdx.x - wg * WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+    const int key_a = k0 + 16 * warp + g, key_b = key_a + 8;
+    const float sl2 = scale * LOG2E;
+    float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
-    if (key >= Tk) continue;
+    for (int r = 0; r < D / 2; ++r) dk_acc[r] = dv_acc[r] = 0.f;
+
+    hopper::mbar_wait(ready_a, 0);
+    const uint64_t k_b = TA::desc(sk), k_s = TA::desc(sk_s), v_b = TA::desc(sv), v_s = TA::desc(sv_s);
+    auto qtile = [&](auto masked, int i) {
+      const int j = i - i_begin, s = j % STAGES, q0 = i * BQ;
+      const float* ls = slse + s * BQ;
+      const float* ds = sdelta + s * BQ;
+      hopper::mbar_wait(&feed.ready[s], (j / STAGES) & 1);
+      float st[BQ / 2], dpt[BQ / 2];  // S^T (then P^T) and dP^T (then dS^T), [64 keys x BQ q]
+      hopper::fence_regs(dk_acc);
+      hopper::fence_regs(dv_acc);
+      hopper::wgmma_fence();
+      mma3_ss<BQ, D / 8, TA, TQ>(st, k_b, k_s, TQ::desc(ring(s, 0)), TQ::desc(ring(s, 1)));
+      hopper::wgmma_commit();
+      mma3_ss<BQ, D / 8, TA, TQ>(dpt, v_b, v_s, TQ::desc(ring(s, 2)), TQ::desc(ring(s, 3)));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // S^T is in; dP^T may still run
+      hopper::fence_regs(st);
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const size_t at = ((size_t)bh * Tk + key) * D + tx + 16 * c;
-      dk[at] = dk_acc[i][c] * scale;
-      dv[at] = dv_acc[i][c];
+      for (int jj = 0; jj < BQ / 8; ++jj) {
+        const float2 L2 = *reinterpret_cast<const float2*>(ls + 8 * jj + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qcol = q0 + 8 * jj + 2 * t + e;
+          const float L = e ? L2.y : L2.x;
+          float pa = hopper::ex2(fmaf(st[4 * jj + e], sl2, -L));
+          float pb = hopper::ex2(fmaf(st[4 * jj + 2 + e], sl2, -L));
+          if constexpr (decltype(masked)::value) {
+            if (qcol >= Tq || (causal && key_a > qcol)) pa = 0.f;
+            if (qcol >= Tq || (causal && key_b > qcol)) pb = 0.f;
+          }
+          st[4 * jj + e] = pa;
+          st[4 * jj + 2 + e] = pb;
+        }
+      }
+      hopper::fence_regs(st);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dpt);
+#pragma unroll
+      for (int jj = 0; jj < BQ / 8; ++jj) {
+        const float2 dl2 = *reinterpret_cast<const float2*>(ds + 8 * jj + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dls = e ? dl2.y : dl2.x;
+          dpt[4 * jj + e] = st[4 * jj + e] * fmaf(dpt[4 * jj + e], scale, -dls);  // dS^T
+          dpt[4 * jj + 2 + e] = st[4 * jj + 2 + e] * fmaf(dpt[4 * jj + 2 + e], scale, -dls);
+        }
+      }
+      uint32_t p_b[BQ / 8][4], p_s[BQ / 8][4], ds_b[BQ / 8][4], ds_s[BQ / 8][4];
+      split_a_frags<BQ>(p_b, p_s, st);
+      split_a_frags<BQ>(ds_b, ds_s, dpt);
+      hopper::fence_regs(dk_acc);
+      hopper::fence_regs(dv_acc);
+      hopper::fence_regs(p_b);
+      hopper::fence_regs(p_s);
+      hopper::fence_regs(ds_b);
+      hopper::fence_regs(ds_s);
+      hopper::wgmma_fence();
+      mma3_rs<D, BQ / 8, TT>(dv_acc, p_b, p_s, TT::desc(ring(s, 6)), TT::desc(ring(s, 7)));
+      mma3_rs<D, BQ / 8, TT>(dk_acc, ds_b, ds_s, TT::desc(ring(s, 4)), TT::desc(ring(s, 5)));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dk_acc);
+      hopper::fence_regs(dv_acc);
+      hopper::fence_regs(p_b);
+      hopper::fence_regs(p_s);
+      hopper::fence_regs(ds_b);
+      hopper::fence_regs(ds_s);
+      warp_release(&feed.empty[s]);
+    };
+    // Masked tiles in loops of their own: causal, those whose first row is
+    // before the block's last key; then the one holding the ragged end.
+    const int diag_end = causal ? min(n_qs, (k0 + ROWS_OWNED - 1) / BQ + 1) : i_begin;
+    const int plain_end = max(diag_end, Tq / BQ);
+    int i = i_begin + c;
+    for (; i < diag_end; i += 2) qtile(std::true_type{}, i);
+    for (; i < plain_end; i += 2) qtile(std::false_type{}, i);
+    for (; i < n_qs; i += 2) qtile(std::true_type{}, i);
+    meet(dk_acc, sk, c, tid);  // K's tiles: no product reads them now
+    meet(dv_acc, sk_s, c, tid);
+    if (c == 0) {
+      store_rows<D>(dk + (size_t)bh * Tk * D, dk_acc, k0, Tk, tid);
+      store_rows<D>(dv + (size_t)bh * Tk * D, dv_acc, k0, Tk, tid);
     }
   }
 }
@@ -355,14 +900,43 @@ static int by_head_dim(int d, F launch) {
   }
 }
 
-// Dynamic shared memory of each kernel: operand tiles and score tiles.
+// Dynamic shared memory of the forward: operand tiles and a score tile.
 template <int D>
 constexpr int fwd_smem() { return (3 * Smem<D>::TILE + BM * PN) * 4; }
+static_assert(fwd_smem<128>() <= SMEM_LIMIT, "the forward's shared memory does not fit at head dim 128");
+
 template <int D>
-constexpr int dq_smem() { return (4 * Smem<D>::TILE + BM * PN) * 4; }
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int bh, int tq, int tk, float scale, int causal, cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mdo;
+  constexpr int bk = DqPlan<D>::BK, smem = DqPlan<D>::BYTES;
+  if (!hopper::rows_map(&mq, q, bh, tq, D, ROWS_OWNED, 4) || !hopper::rows_map(&mk, k, bh, tk, D, bk, 4) ||
+      !hopper::rows_map(&mv, v, bh, tk, D, bk, 4) || !hopper::rows_map(&mdo, dout, bh, tq, D, ROWS_OWNED, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncSetAttribute(flash_f32_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const dim3 grid(bh, (tq + ROWS_OWNED - 1) / ROWS_OWNED);
+  flash_f32_dq_kernel<D><<<grid, Roles<D>::THREADS, smem, st>>>(mq, mk, mv, mdo, static_cast<const float*>(lse),
+                                                          static_cast<const float*>(delta),
+                                                          static_cast<float*>(dq), tq, tk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
-constexpr int dkv_smem() { return (4 * Smem<D>::TILE + 2 * BM * PN + 2 * BN) * 4; }
-static_assert(dkv_smem<128>() <= 232448, "dK/dV's shared memory does not fit at head dim 128");
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int bh, int tq, int tk, float scale, int causal,
+               cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mdo;
+  constexpr int bq = DkvPlan<D>::BQ, smem = DkvPlan<D>::BYTES;
+  if (!hopper::rows_map(&mq, q, bh, tq, D, bq, 4) || !hopper::rows_map(&mk, k, bh, tk, D, ROWS_OWNED, 4) ||
+      !hopper::rows_map(&mv, v, bh, tk, D, ROWS_OWNED, 4) || !hopper::rows_map(&mdo, dout, bh, tq, D, bq, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncSetAttribute(flash_f32_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const dim3 grid(bh, (tk + ROWS_OWNED - 1) / ROWS_OWNED);
+  flash_f32_dkv_kernel<D><<<grid, Roles<D>::THREADS, smem, st>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), tq, tk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -391,14 +965,8 @@ extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const vo
                            const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
                            int d, float scale, int causal, int, void* stream) {
   return by_head_dim(d, [&](auto dd) {
-    constexpr int D = decltype(dd)::value, smem = dq_smem<D>();
-    cudaFuncSetAttribute(flash_f32_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    const dim3 grid((tq + BM - 1) / BM, bh);
-    flash_f32_dq_kernel<D><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<float*>(dq), tq, tk, scale, causal);
-    return static_cast<int>(cudaGetLastError());
+    return launch_dq<decltype(dd)::value>(q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal,
+                                          static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -406,14 +974,7 @@ extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v, const v
                             const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
                             int tk, int d, float scale, int causal, int, void* stream) {
   return by_head_dim(d, [&](auto dd) {
-    constexpr int D = decltype(dd)::value, smem = dkv_smem<D>();
-    cudaFuncSetAttribute(flash_f32_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    const dim3 grid((tk + BM - 1) / BM, bh);
-    flash_f32_dkv_kernel<D><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), tq, tk,
-        scale, causal);
-    return static_cast<int>(cudaGetLastError());
+    return launch_dkv<decltype(dd)::value>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal,
+                                           static_cast<cudaStream_t>(stream));
   });
 }

@@ -10,7 +10,9 @@
 // two [rows, 64] sub-tiles side by side (Tile<D, ROWS>). wgmma reads a tile
 // as a K-major operand (D is the contraction) or as an MN-major one (the
 // rows are the contraction, the transpose bit set), so no transposed copy is
-// ever made.
+// ever made. f32 tiles (TileF) have the same byte geometry with 32 floats to
+// a 128-byte row; tf32 wgmma reads them K-major only (the transpose bit
+// exists for 16-bit types alone).
 
 #pragma once
 
@@ -200,13 +202,13 @@ struct Tile {
   }
 };
 
-// One thread's TMA loads of a whole tile (one box per sub-tile), rows
-// [row, row + ROWS) of head bh; `bar` is told of all of its bytes at once.
-template <class T>
-__device__ __forceinline__ void tma_load_tile(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar,
-                                              int row, int bh) {
+// One thread's TMA loads of a whole tile T (Tile or TileF, E its element
+// type; one box per sub-tile), rows [row, row + ROWS) of head bh; `bar` is
+// told of all of its bytes at once.
+template <class T, class E>
+__device__ __forceinline__ void tma_load_tile(E* dst, const CUtensorMap* map, uint64_t* bar, int row, int bh) {
 #pragma unroll
-  for (int h = 0; h < T::SUB; ++h) tma_load_rows(dst + h * T::SUB_BYTES / 2, map, bar, row, bh, h * T::W);
+  for (int h = 0; h < T::SUB; ++h) tma_load_rows(dst + h * T::SUB_BYTES / sizeof(E), map, bar, row, bh, h * T::W);
 }
 
 // The TMA stores of a whole tile, rows [row, row + ROWS) of head bh.
@@ -427,6 +429,195 @@ template <> struct Wgmma<16> {
   static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n16(d, a, b, 1); }
 };
 
+
+// ---------------------------------------------------------------------------
+// f32 tiles and tf32 wgmma (the f32-operand kernels' 3xTF32 products).
+// ---------------------------------------------------------------------------
+
+// A [ROWS, COLS] f32 tile in shared memory, laid out as TMA writes it with
+// the swizzle of its row length: sub-tiles of W = min(COLS, 32) floats (rows
+// of 32, 64 or 128 bytes: 32B, 64B, 128B swizzle), SUB of them side by side.
+// This is Tile's byte geometry, so a k-step of tf32 wgmma (8 floats, 32
+// bytes) advances a K-major descriptor as Tile's 16-element step does. tf32
+// wgmma reads shared memory K-major only: a tile is always read with COLS as
+// the contraction. Each sub-tile must start on 1024 bytes.
+template <int COLS, int ROWS>
+struct TileF {
+  static constexpr int N_ROWS = ROWS, N_COLS = COLS;
+  static constexpr int W = COLS > 32 ? 32 : COLS;  // floats of a sub-tile row
+  static constexpr int SUB = COLS / W;
+  static constexpr int ROW_BYTES = W * 4;
+  static constexpr int SUB_BYTES = ROWS * ROW_BYTES;
+  static constexpr int BYTES = ROWS * COLS * 4;
+  static constexpr Swizzle SW = ROW_BYTES == 128 ? SW128 : ROW_BYTES == 64 ? SW64 : SW32;
+  static_assert(COLS == 8 || COLS == 16 || COLS % 32 == 0, "rows of 32, 64 or 128-byte sub-tiles");
+  static_assert(ROWS % 8 == 0 && SUB_BYTES % 1024 == 0, "sub-tiles start on 1024 bytes");
+
+  static __device__ __forceinline__ uint64_t desc(const float* tile) {
+    return gmma_desc(tile, 16, 8 * ROW_BYTES, SW);
+  }
+  // k-step kk: columns [8 kk, 8 kk + 8).
+  static __host__ __device__ constexpr uint64_t k_step(int kk) {
+    return static_cast<uint64_t>(((kk % (W / 8)) * 32 + (kk / (W / 8)) * SUB_BYTES) >> 4);
+  }
+  // Byte offset of element (row, col); 16-byte aligned when col % 4 == 0.
+  static __device__ __forceinline__ uint32_t offset(int row, int col) {
+    const uint32_t off = static_cast<uint32_t>(row * ROW_BYTES + (col % W) * 4);
+    constexpr uint32_t mask = ROW_BYTES / 16 - 1;
+    return (col / W) * SUB_BYTES + (off ^ (((off >> 7) & mask) << 4));
+  }
+};
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero), as
+// an f32 bit pattern whose low 13 bits are zero: cvt.rna.tf32.f32's rounding
+// for every finite x, in two integer instructions (half a tf32 ulp added to
+// the magnitude, then the 13 bits cleared). cvt is a longer sequence on
+// sm_90: with it the f32 flash backward kernels (whose split pass this is)
+// ran 8-9% slower on an H100 (python3 -m ray_tpu_torch.sweep_flash_f32).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// 3xTF32: x = big + small with big = tf32(x) and small = tf32(x - big)
+// (x - big is exact); big.big + big.small + small.big keeps about f32's
+// accuracy (the dropped small.small is below 2^-22 of x y).
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// D[64 x 8] (+)= A[64 x 8] . B[8 x 8], tf32, A and B in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_tf32_ss_n8(float (&d)[4], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 16] (+)= A[64 x 8] . B[8 x 16], tf32, A and B in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 16] (+)= A[64 x 8] . B[8 x 16], tf32, A in registers (a[4]), B in shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A[64 x 8] . B[8 x 32], tf32, A and B in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A[64 x 8] . B[8 x 32], tf32, A in registers (a[4]), B in shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 8] . B[8 x 64], tf32, A and B in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 8] . B[8 x 64], tf32, A in registers (a[4]), B in shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 8] . B[8 x 128], tf32, A in registers (a[4]), B in shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <int N> struct WgmmaTF32;
+// The tf32 products by their N: ss takes A and B from shared memory, rs A
+// from registers; B K-major in both. The shapes the f32 kernels issue.
+template <> struct WgmmaTF32<8> {
+  static __device__ __forceinline__ void ss(float (&d)[4], uint64_t a, uint64_t b, int acc) { wgmma_tf32_ss_n8(d, a, b, acc); }
+};
+
+template <> struct WgmmaTF32<16> {
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b, int acc) { wgmma_tf32_ss_n16(d, a, b, acc); }
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_tf32_rs_n16(d, a, b, acc); }
+};
+
+template <> struct WgmmaTF32<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) { wgmma_tf32_ss_n32(d, a, b, acc); }
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_tf32_rs_n32(d, a, b, acc); }
+};
+
+template <> struct WgmmaTF32<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) { wgmma_tf32_ss_n64(d, a, b, acc); }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_tf32_rs_n64(d, a, b, acc); }
+};
+
+template <> struct WgmmaTF32<128> {
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_tf32_rs_n128(d, a, b, acc); }
+};
+
 // ---------------------------------------------------------------------------
 // Small math
 // ---------------------------------------------------------------------------
@@ -462,26 +653,27 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// A rank-3 map over a contiguous bf16 [bh, T, D] tensor, innermost first
-// ({D, T, bh}), whose box is [box_rows, W] of one head, W = min(D, 64) (a
-// sub-tile of Tile<D, box_rows>: D = 128 takes two boxes a tile): rows past
-// T are zero-filled within the head (a flat [bh * T, D] map would read the
-// next head's rows instead). Swizzled by the box's row length: 32B, 64B or
-// 128B for D = 16, 32, 64 and 128.
-inline bool rows_map(CUtensorMap* map, const void* ptr, int bh, int T, int D, int box_rows) {
+// A rank-3 map over a contiguous [bh, T, D] tensor of bf16 (elem_bytes 2)
+// or f32 (4), innermost first ({D, T, bh}), whose box is [box_rows, W] of
+// one head, W the columns of a 128-byte row at most (min(D, 64) bf16, a
+// sub-tile of Tile<D, box_rows>; min(D, 32) f32, of TileF<D, box_rows>: D =
+// 128 takes two or four boxes a tile): rows past T are zero-filled within
+// the head (a flat [bh * T, D] map would read the next head's rows
+// instead). Swizzled by the box's row length: 32B, 64B or 128B.
+inline bool rows_map(CUtensorMap* map, const void* ptr, int bh, int T, int D, int box_rows, int elem_bytes = 2) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
-  if (!encode || (D != 16 && D != 32 && D != 64 && D != 128)) return false;
-  const int W = D > 64 ? 64 : D;
+  if (!encode || (D != 16 && D != 32 && D != 64 && D != 128) || (elem_bytes != 2 && elem_bytes != 4)) return false;
+  const int W = D * elem_bytes > 128 ? 128 / elem_bytes : D, row_bytes = W * elem_bytes;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * elem_bytes, (cuuint64_t)T * D * elem_bytes};
   const cuuint32_t box[3] = {(cuuint32_t)W, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = W == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const CUtensorMapSwizzle swizzle = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -4,10 +4,11 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``. The three Pallas TPU
 kernels there (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) are
 CUDA C++ kernels here, for head dims 16, 32, 64 and 128 (``HEAD_DIMS``).
 bf16 operands go to ``csrc/flash_attention.cu`` (with the Hopper helpers of
-``csrc/hopper.cuh``), f32 operands to ``csrc/flash_attention_f32.cu`` (f32
-FMAs on tiles in shared memory: the same function in full f32, as the
-Pallas kernels compute it on f32 inputs); ``_build`` builds both. The bf16
-library's kernels:
+``csrc/hopper.cuh``), f32 operands to ``csrc/flash_attention_f32.cu`` (the
+same functions at f32 accuracy, as the Pallas kernels compute them on f32
+inputs: dQ and dK/dV as 3xTF32 products on wgmma, each operand split into
+two tf32 parts in shared memory; the forward in f32 FMAs); ``_build``
+builds both. The bf16 library's kernels:
 
   - forward: persistent warp-specialised blocks (one per SM), a TMA-fed
     ring of K/V tiles and wgmma, online softmax over 128-key tiles in

@@ -1,0 +1,198 @@
+"""Time design variants of the f32-operand dQ and dK/dV kernels on the card.
+
+    python3 -m ray_tpu_torch.sweep_flash_f32 [--rounds 2]
+
+``csrc/flash_attention_f32.cu`` splits every f32 operand into two tf32
+parts in shared memory before its 3xTF32 products; the split pass runs on
+every stage's path. Its choices (how many warpgroups split, how tf32 is
+rounded, whether TMA loads land in raw slots ahead of the ring) were
+settled by timing variants of the source against one another. This
+rebuilds the library once per variant of ``VARIANTS`` (text edits of the
+current ``.cu`` and ``hopper.cuh``, copied into the ignored build
+directory; an edit that no longer applies is reported and the variant
+skipped), prints nvcc's spill lines for each, holds each variant's dQ and
+dK/dV against the plain versions (1e-4 relative norm, f32, TF32 off), and
+times both kernels at ``SHAPES`` in turns, ``--rounds`` times: median of 20
+calls with CUDA events around each call (which includes the host's launch
+when it is slower than the kernel), and the device time of the kernels
+alone from ``torch.profiler``. Each variant runs in a process of its own
+with a time limit, so a variant that hangs the card is reported, not
+waited for. Needs one NVIDIA card; the builds run at once (about 15 s).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+from ray_tpu_torch import bench
+from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import flash_attention as fa
+
+SOURCE, HEADER = "flash_attention_f32.cu", "hopper.cuh"
+TRAITS = {  # F32Tiles<D> as the .cu has them, the text the variants edit
+    16: "DQ_BK = 64, DQ_STAGES = 4, DQ_RAW = 2, DKV_BQ = 32, DKV_STAGES = 4, DKV_RAW = 2;\n"
+        "  static constexpr int LOADER_WGS = 3;",
+    32: "DQ_BK = 64, DQ_STAGES = 3, DQ_RAW = 2, DKV_BQ = 32, DKV_STAGES = 4, DKV_RAW = 2;\n"
+        "  static constexpr int LOADER_WGS = 3;",
+    64: "DQ_BK = 32, DQ_STAGES = 3, DQ_RAW = 0, DKV_BQ = 32, DKV_STAGES = 2, DKV_RAW = 2;\n"
+        "  static constexpr int LOADER_WGS = 3;",
+    128: "DQ_BK = 16, DQ_STAGES = 2, DQ_RAW = 0, DKV_BQ = 8, DKV_STAGES = 2, DKV_RAW = 2;\n"
+         "  static constexpr int LOADER_WGS = 2;",
+}
+CVT_RNA = ('  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;',
+           '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n  return r;')
+
+
+def _loaders(n: int) -> list:
+    return [(SOURCE, TRAITS[d], TRAITS[d].replace(f"LOADER_WGS = {TRAITS[d][-2]}", f"LOADER_WGS = {n}"))
+            for d in (16, 32, 64) if not TRAITS[d].endswith(f"= {n};")]
+
+
+# name: (what it tries, [(file, old text, new text), ...])
+VARIANTS = {
+    "chosen": ("the .cu as it is", []),
+    "one loading warpgroup": ("96 threads split (three warps)", _loaders(1) + [
+        (SOURCE, TRAITS[128], TRAITS[128].replace("LOADER_WGS = 2", "LOADER_WGS = 1"))]),
+    "two loading warpgroups": ("224 threads split at head dims 16-64", _loaders(2)),
+    "cvt.rna rounding": ("tf32 rounding by cvt.rna.tf32.f32 instead of two integer instructions",
+                         [(HEADER, *CVT_RNA)]),
+    "no raw slots": ("TMA into the stage and the split in place (head dim 128's dK/dV ring 3 deep)", [
+        (SOURCE, TRAITS[d], TRAITS[d].replace("DQ_RAW = 2", "DQ_RAW = 0").replace("DKV_RAW = 2", "DKV_RAW = 0")
+         .replace("DKV_BQ = 8, DKV_STAGES = 2", "DKV_BQ = 8, DKV_STAGES = 3")) for d in TRAITS]),
+}
+# (B, T, H, Dh, causal): gpt2-small in f32 at B 8 (phase 14's attention),
+# its width as 6 heads of 128, and the f32 ring's Dh 32 diagonal block.
+SHAPES = [(8, 1024, 12, 64, True), (8, 1024, 6, 128, True), (2, 1024, 4, 32, True)]
+CHECK_SHAPES = [(1, 200, 2, 64, True), (1, 200, 2, 128, True), (1, 130, 2, 32, False), (1, 130, 4, 16, True)]
+GRAD_RELNORM = 1e-4
+VARIANT_SECONDS = 180
+
+
+def sources(name: str) -> dict:
+    """The variant's source files {file name: text}; raises KeyError on an
+    edit that does not apply to the current sources."""
+    files = {f.name: f.read_text() for f in [_build.CSRC / SOURCE, *sorted(_build.CSRC.glob("*.cuh"))]}
+    for f, old, new in VARIANTS[name][1]:
+        if old not in files[f]:
+            raise KeyError(f"{name}: the text to edit is not in {f}: {old[:60]!r}")
+        files[f] = files[f].replace(old, new)
+    return files
+
+
+def _dir(name: str) -> Path:
+    return _build.BUILD_DIR / "sweep_f32" / name.replace(" ", "_").replace(".", "_")
+
+
+def build(name: str) -> str:
+    """Compile the variant into its own directory; returns nvcc's spill
+    lines (or its error)."""
+    d = _dir(name)
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    for f, text in sources(name).items():
+        (d / f).write_text(text)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        return "build failed: " + (proc.stdout + proc.stderr)[-2000:]
+    return "; ".join(line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+                     if ("spill" in line and " 0 bytes spill stores" not in line) or "C751" in line)
+
+
+def _inputs(B, T, H, D, causal, seed=5):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(B * H, T, D, device="cuda", generator=g) for _ in range(4))
+    o, lse = fa.flash_fwd_reference(q, k, v, causal)
+    return q, k, v, do, lse, (do * o).sum(-1)
+
+
+def measure(name: str) -> dict:
+    """In this process: the variant's gradients against the plain versions,
+    then each kernel's event and device ms at SHAPES."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib = ctypes.CDLL(str(_dir(name) / "lib.so"))
+    real = _build.load
+    _build.load = lambda n, defines=(): lib if n == "flash_attention_f32" else real(n, defines)
+    out = {"relnorm": 0.0}
+    for B, T, H, D, causal in CHECK_SHAPES:
+        q, k, v, do, lse, delta = _inputs(B, T, H, D, causal)
+        got = [fa.flash_dq(q, k, v, do, lse, delta, causal), *fa.flash_dkv(q, k, v, do, lse, delta, causal)]
+        ref = fa.flash_bwd_reference(q, k, v, do, lse, delta, causal)
+        out["relnorm"] = max(out["relnorm"], *(bench.disagreement(a, b)["relnorm"] for a, b in zip(got, ref)))
+    for B, T, H, D, causal in SHAPES:
+        q, k, v, do, lse, delta = _inputs(B, T, H, D, causal)
+        calls = {"dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
+                 "dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal)}
+        for kernel, call in calls.items():
+            out[f"{kernel} Dh {D} ms"] = bench.time_ms(call)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                for call in calls.values():
+                    call()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            for kernel in calls:
+                if f"flash_f32_{kernel}_kernel" in ev.key:
+                    total = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+                    out[f"{kernel} Dh {D} device ms"] = total / ev.count / 1e3
+        del q, k, v, do, lse, delta
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--measure", help=argparse.SUPPRESS)  # one variant, in a child process
+    args = ap.parse_args(argv)
+    if args.measure:
+        print(json.dumps(measure(args.measure)), flush=True)
+        return
+    if not torch.cuda.is_available():
+        sys.exit("sweep_flash_f32 needs an NVIDIA card")
+    print(", ".join(bench.card()), flush=True)
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        reports = dict(zip(VARIANTS, pool.map(build, VARIANTS)))
+    for name, report in reports.items():
+        print(f"build {name!r} ({VARIANTS[name][0]}): {report or 'no spill'}", flush=True)
+    best = {}
+    for rnd in range(args.rounds):
+        for name, report in reports.items():
+            if report.startswith("build failed"):
+                continue
+            try:
+                proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch.sweep_flash_f32", "--measure", name],
+                                      capture_output=True, text=True, timeout=VARIANT_SECONDS)
+                res = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.returncode == 0 else None
+            except subprocess.TimeoutExpired:
+                print(f"round {rnd} {name!r}: no answer in {VARIANT_SECONDS} s", flush=True)
+                continue
+            if res is None:
+                print(f"round {rnd} {name!r}: failed: {proc.stderr[-1500:]}", flush=True)
+                continue
+            ok = res["relnorm"] <= GRAD_RELNORM
+            print(f"round {rnd} {name!r}: max relnorm {res['relnorm']:.3e} ({'ok' if ok else 'WRONG'}); "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in res.items() if k != "relnorm"), flush=True)
+            for k, v in res.items():
+                if ok and k != "relnorm":
+                    best[(name, k)] = min(best.get((name, k), math.inf), v)
+    for name in reports:
+        row = {k: v for (n, k), v in best.items() if n == name}
+        if row:
+            print(f"best {name!r}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()), flush=True)
+
+
+if __name__ == "__main__":
+    main()

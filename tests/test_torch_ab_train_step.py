@@ -24,3 +24,16 @@ def test_ab_train_step_times_each_tree_in_turn():
     assert len(lines) == 4, lines
     for line, remat in zip(lines, ["False", "True"] * 2):
         assert line.startswith(f"{ROOT}: remat {remat}: median of 5 steps "), line
+
+
+def test_ab_train_step_takes_f32():
+    """``--dtype f32`` trains the same model in f32 (the f32 flash kernels
+    on the card; their plain versions here)."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    done = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.ab_train_step", str(ROOT), "--device", "cpu", "--model",
+         "gpt2-tiny", "--batch", "2", "--seq", "32", "--dtype", "f32"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=TIMEOUT_S)
+    assert done.returncode == 0, done.stdout + done.stderr
+    lines = done.stdout.splitlines()
+    assert [line.split(": median")[0] for line in lines] == [f"{ROOT}: remat False", f"{ROOT}: remat True"]
