@@ -10,8 +10,9 @@ Phases (any failure exits non-zero and prints no result):
      instance's registers and spills; count each bf16 instance's wgmma
      (HGMMA) and TMA load (UTMALDG) instructions in the library's SASS
      (cuobjdump -sass), per head dim (16, 32, 64, 128) and output type (bf16,
-     f32), and each f32 instance's FFMAs, and fail if an instance lacks them
-     or a head dim has no instance;
+     f32), and each f32 instance's (all three kernels are 3xTF32 on tf32
+     wgmma fed by TMA), and fail if an instance lacks them, an f32 instance
+     spills or a head dim has no instance;
   2. hold each kernel against its plain PyTorch version on the card, on bf16
      inputs from a seeded generator, at the train step's shape, at head dim
      16, at a ragged T, non-causal with Tk != Tq, and non-causal with Tk
@@ -30,8 +31,10 @@ Phases (any failure exits non-zero and prints no result):
      plain versions in f32 (TF32 off, printed): gpt2-small's attention in
      f32 at B 8, the f32 ring's Dh 32 blocks, Dh 128, ragged and Dh 16,
      held at 1e-5 relnorm (o), 1e-4 (dq, dk, dv) and 1e-5 on lse; dQ twice
-     at B 8 for the same bits; timed at B 8 beside the bound at the f32
-     peak and SDPA on the same f32 inputs;
+     at B 8 for the same bits; all three timed at B 8, at Dh 128 and at the
+     f32 ring's Dh 32 blocks beside the bound at the 3xTF32 rate and SDPA on
+     the same f32 inputs, with each kernel's device time (torch.profiler)
+     beside its CUDA-event time;
   3. train gpt2-small at full width through the port's entry points
      (ray_tpu_torch.bench.setup: random init from a seeded generator,
      AdamW, flash attention, fused CE, B=32, T=1024): first hold step 0's
@@ -89,7 +92,7 @@ Phases (any failure exits non-zero and prints no result):
      Prints the ring's forward and backward times (CUDA
      events), their device time in and outside the kernels (torch.profiler),
      the monolithic flash attention's and SDPA's at T 16,384, and
-     moe_block's;
+     moe_block's; the same times for the f32 ring at T 4,096;
   6. the sharded train step: gpt2-small at full width (phase 3's model,
      batch and optimizer) through build_mesh, shard_model (gpt_rules) and
      make_train_step on a mesh of one rank over NCCL (every axis of size 1;
@@ -277,16 +280,16 @@ import torch
 import torch.nn.functional as F
 
 # Published dense peaks of an H100 SXM (NVIDIA data sheet; the card at its
-# full 700 W power limit): bf16 and TF32 tensor-core FLOP/s, f32 FLOP/s
-# outside the tensor cores and HBM3 bytes/s. The f32 kernels' bound is taken
-# at PEAK_TF32_FLOPS / 3: their products keep f32 accuracy as three TF32
-# products (3xTF32, the dQ and dK/dV kernels), the least time the card
-# could take for f32-accurate work; the forward's FMAs are held to it too,
-# so its row shows what its own redesign has to close. PEAK_F32_FLOPS is
-# printed beside it.
+# full 700 W power limit): bf16 and TF32 tensor-core FLOP/s and HBM3
+# bytes/s. The f32 kernels' bound is taken at PEAK_TF32_FLOPS / 3: all
+# three (the forward, replacing _fwd_kernel at
+# ray_tpu/ops/flash_attention.py:72, dQ and dK/dV) keep f32 accuracy as
+# three TF32 products on the tensor cores (3xTF32), so the least time the
+# card could take for their f32-accurate work is their FLOPs (4, 6 and 8
+# per kept (q, key) pair and head-dim element) at that rate: 0.0782 ms for
+# the forward at F32_MAIN.
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
-PEAK_F32_FLOPS = 67e12
 PEAK_F32_ACCURATE_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12
 
@@ -319,9 +322,9 @@ F32_CASES = [F32_MAIN, (2, 16, 16, 4, 32, True), (2, 16, 16, 4, 32, False),
              (2, 1024, 1024, 6, 128, True), (8, 1024, 1024, 6, 128, True),
              (2, 1000, 1000, 12, 64, True), (2, 200, 333, 4, 16, False)]
 F32_FWD_RELNORM, F32_GRAD_RELNORM, F32_LSE_TOL = 1e-5, 1e-4, 1e-5
-# Timed beside their bounds (the forward at F32_MAIN only): F32_MAIN, Dh 128
-# at gpt2-small's width (B 8, 6 heads), and the f32 ring's Dh 32 blocks
-# (phase 5: 1,024 rows, the diagonal's causal and an earlier block's full).
+# Timed beside their bounds, all three kernels: F32_MAIN, Dh 128 at
+# gpt2-small's width (B 8, 6 heads), and the f32 ring's Dh 32 blocks (phase
+# 5: 1,024 rows, the diagonal's causal and an earlier block's full).
 F32_TIMED = {F32_MAIN: "d64 f32", (8, 1024, 1024, 6, 128, True): "d128 f32",
              (2, 1024, 1024, 4, 32, True): "d32 f32", (2, 1024, 1024, 4, 32, False): "d32 f32 earlier"}
 # Each kernel's (head dim, operands->outputs) instances that a check held
@@ -359,7 +362,7 @@ F32_SOURCE = "ray_tpu_torch/ops/csrc/flash_attention_f32.cu"  # the kernels for 
 BEFORE_REDESIGN_MS = {"flash_fwd": 0.5302, "flash_dq": 0.6775, "flash_dkv": 1.0951}
 # The f32 kernels' times at F32_MAIN before their 3xTF32 redesign (f32 FMAs;
 # PERF.md section 6, same card): printed as text beside this run's times.
-F32_BEFORE_REDESIGN_MS = {"flash_dq": 0.9051, "flash_dkv": 1.1923}
+F32_BEFORE_REDESIGN_MS = {"flash_fwd": 0.6467, "flash_dq": 0.9051, "flash_dkv": 1.1923}
 
 
 def fail(msg: str) -> None:
@@ -457,21 +460,13 @@ def build() -> dict:
     print(f"spills: {'; '.join(spills) if spills else 'none in any instance of either library'}",
           flush=True)
     counts = sass_counts(paths["flash_attention"], r"({names})_kernelILi(\d+)E({outs})E", SASS_OPS)
-    f32_counts = sass_counts(paths["flash_attention_f32"], r"flash_f32_({short})_kernelILi(\d+)E()E",
-                             {"ffma": "FFMA", **SASS_OPS})
+    if any(entry.startswith("flash_f32_") for entry in spills):
+        fail(f"an f32 instance spills: {spills}")
+    f32_counts = sass_counts(paths["flash_attention_f32"], r"flash_f32_({short})_kernelILi(\d+)E()E", SASS_OPS)
     for name in KERNELS:
-        for inst, c in counts[name].items():
-            print(f"sass {name} {inst}: HGMMA {c['hgmma']}, UTMALDG {c['utmaldg']}", flush=True)
-            # every bf16 instance is a Hopper one: wgmma fed by TMA
-            if not (c["hgmma"] > 0 and c["utmaldg"] > 0):
-                fail(f"{name} {inst} issues no wgmma or no TMA load in its SASS: {c}")
-        for inst, c in f32_counts[name].items():
-            if name == "flash_fwd":  # f32 FMAs until its 3xTF32 redesign
-                print(f"sass {name} {inst}: FFMA {c['ffma']}", flush=True)
-                if not c["ffma"] > 0:
-                    fail(f"{name} {inst} issues no f32 FMA in its SASS: {c}")
-                continue
-            # the 3xTF32 backward: tf32 wgmma fed by TMA
+        # every instance of both libraries is a Hopper one: wgmma (bf16, or
+        # tf32 for 3xTF32) fed by TMA
+        for inst, c in [*counts[name].items(), *f32_counts[name].items()]:
             print(f"sass {name} {inst}: HGMMA {c['hgmma']}, UTMALDG {c['utmaldg']}", flush=True)
             if not (c["hgmma"] > 0 and c["utmaldg"] > 0):
                 fail(f"{name} {inst} issues no wgmma or no TMA load in its SASS: {c}")
@@ -712,8 +707,10 @@ def check_f32_operands(card: str) -> dict:
     f32 at F32_CASES (TF32 off), o within F32_FWD_RELNORM, dq, dk and dv
     within F32_GRAD_RELNORM in relative norm and lse within F32_LSE_TOL;
     two dQ calls give the same bits; the F32_TIMED cases timed beside their
-    bounds at PEAK_F32_ACCURATE_FLOPS (3xTF32), the forward at F32_MAIN
-    only. Returns {kernel: {F32_TIMED's key: the kernel line's numbers}}."""
+    bounds at PEAK_F32_ACCURATE_FLOPS (3xTF32), each kernel's profiler
+    device time beside its CUDA-event time (at the ring's small blocks the
+    host's launch takes longer than the kernel). Returns {kernel:
+    {F32_TIMED's key: the kernel line's numbers}}."""
     from ray_tpu_torch import bench
     from ray_tpu_torch.ops import flash_attention as fa
 
@@ -753,17 +750,43 @@ def check_f32_operands(card: str) -> dict:
         if not torch.equal(dq, again):
             fail(f"two f32 flash_dq calls at {where} differ")
         print(f"flash_dq at {where}: two calls give the same bits", flush=True)
-        fma = bounds(*case, out_bytes=4, in_bytes=4, peak=PEAK_F32_FLOPS)
-        print(f"bounds at {where} at the f32 FMA peak ({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, not the kernel "
-              "line's): " + ", ".join(f"{n} {b[0]:.4f} ms ({b[1]})" for n, b in fma.items()), flush=True)
         timed = time_instance(case, q, k, v, do, lse, delta, gaps, card, peak=PEAK_F32_ACCURATE_FLOPS,
-                              kernels=tuple(KERNELS) if case == F32_MAIN else ("flash_dq", "flash_dkv"),
                               before=F32_BEFORE_REDESIGN_MS if case == F32_MAIN else None)
         for name, numbers in timed.items():
             results[name][F32_TIMED[case]] = numbers
-        print(f"f32 dQ + dK/dV at {where}: {timed['flash_dq']['ms'] + timed['flash_dkv']['ms']:.4f} ms, "
+        device = _device_ms({
+            "flash_fwd": lambda: fa.flash_fwd(q, k, v, causal),
+            "flash_dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
+            "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal)})
+        print(f"f32 kernels at {where}, CUDA events against the profiler's device time per call: " + ", ".join(
+            f"{n} {timed[n]['ms']:.4f} / {device[n]:.4f} ms" for n in KERNELS) + f" [{card}]", flush=True)
+        fwd = timed["flash_fwd"]
+        print(f"f32 forward at {where}: {fwd['ms']:.4f} ms, SDPA's forward {fwd['library_ms']:.4f} ms "
+              f"({fwd['ms'] / fwd['library_ms']:.2f}x), bound {fwd['bound_ms']:.4f} ms; "
+              f"dQ + dK/dV {timed['flash_dq']['ms'] + timed['flash_dkv']['ms']:.4f} ms, "
               f"SDPA's backward (dq, dk and dv) {timed['flash_dq']['library_ms']:.4f} ms [{card}]", flush=True)
     return results
+
+
+def _device_ms(calls: dict, rounds: int = 10) -> dict:
+    """Device ms per call of each f32 kernel ({kernel: call}), from one
+    torch.profiler window of ``rounds`` calls of each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for call in calls.values():
+                call()
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof, "the f32 kernels")
+    out = {}
+    for name in calls:
+        kernel = name.replace("flash_", "flash_f32_") + "_kernel"
+        times = [ev.time_range.elapsed_us() for ev in kernels if kernel in ev.name]
+        if len(times) != rounds:
+            fail(f"the profiler saw {len(times)} launches of {name}'s f32 kernel, not {rounds}")
+        out[name] = sum(times) / rounds / 1e3
+    return out
 
 
 def _gap_text(gaps: dict) -> str:
@@ -1416,7 +1439,7 @@ def _device_split(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
     kernels = _device_kernels(prof, "the ring")
-    ours = lambda ev: any(f"{name}_kernel" in ev.name for name in KERNELS)
+    ours = lambda ev: re.search(r"flash_(f32_)?(fwd|dq|dkv)_kernel", ev.name)  # bf16 or f32 operands
     flash = sum(ev.time_range.elapsed_us() for ev in kernels if ours(ev)) / 1e3
     by_name = {}
     for ev in kernels:
@@ -1465,16 +1488,19 @@ def check_ring(card: str) -> tuple:
     return counts_f32, x, mono
 
 
-def time_ring(x: dict, shards: dict, leaves: list, card: str) -> None:
+def time_ring(x: dict, shards: dict, leaves: list, card: str, shape: tuple = RING_SHAPE,
+              f32: bool = False) -> None:
     """Median of 20 calls (CUDA events) of the emulated ring's forward and
     forward+backward, the monolithic flash attention's and SDPA's on the
     same inputs; one profiled call of each ring pass splits its device
-    time between the kernels and the rest."""
+    time between the kernels and the rest. ``f32``: f32 operands, bounds
+    at the 3xTF32 rate."""
     from ray_tpu_torch import bench
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops.ring_attention import ring_attention_emulated
 
-    B, T, H, D = RING_SHAPE
+    B, T, H, D = shape
+    what = "emulated ring in f32" if f32 else "emulated ring"
     ring_fwd = lambda: ring_attention_emulated(shards["q"], shards["k"], shards["v"], causal=True)
     ring_all = lambda: ring_attention_emulated(shards["q"], shards["k"], shards["v"], shards["do"],
                                                causal=True)
@@ -1487,21 +1513,22 @@ def time_ring(x: dict, shards: dict, leaves: list, card: str) -> None:
     ms = {name: bench.time_ms(fn) for name, fn in (
         ("ring_fwd", ring_fwd), ("ring_all", ring_all), ("mono_fwd", mono_fwd),
         ("mono_all", mono_all), ("sdpa_fwd", sdpa), ("sdpa_all", sdpa_all))}
-    bnd = bounds(B, T, T, H, D, True)
+    bnd = (bounds(B, T, T, H, D, True, out_bytes=4, in_bytes=4, peak=PEAK_F32_ACCURATE_FLOPS) if f32
+           else bounds(B, T, T, H, D, True))
     bound_fwd, bound_bwd = bnd["flash_fwd"][0], bnd["flash_dq"][0] + bnd["flash_dkv"][0]
     for label, fn, wall, bound in (("forward", ring_fwd, ms["ring_fwd"], bound_fwd),
                                    ("forward+backward", ring_all, ms["ring_all"],
                                     bound_fwd + bound_bwd)):
         flash, rest, top = _device_split(fn)
-        print(f"emulated ring {label}: {wall:.3f} ms (CUDA events), device time in the flash "
+        print(f"{what} {label}: {wall:.3f} ms (CUDA events), device time in the flash "
               f"kernels {flash:.3f} ms, outside them {rest:.3f} ms ({100 * rest / (flash + rest):.1f}% "
               f"of the device time; merges, accumulations, folds, casts), bound {bound:.3f} ms "
               f"[{card}]", flush=True)
         print("  largest outside the kernels (ms): " + "; ".join(
             f"{t:.3f} {name[:60]}" for name, t in top), flush=True)
-    print(f"monolithic flash attention at T={T}: forward {ms['mono_fwd']:.3f} ms, forward+backward "
-          f"{ms['mono_all']:.3f} ms; SDPA (library, not called by the port): forward "
-          f"{ms['sdpa_fwd']:.3f} ms, forward+backward {ms['sdpa_all']:.3f} ms; emulated ring "
+    print(f"monolithic flash attention at T={T}{', f32' if f32 else ''}: forward {ms['mono_fwd']:.3f} ms, "
+          f"forward+backward {ms['mono_all']:.3f} ms; SDPA (library, not called by the port): forward "
+          f"{ms['sdpa_fwd']:.3f} ms, forward+backward {ms['sdpa_all']:.3f} ms; {what} "
           f"backward {ms['ring_all'] - ms['ring_fwd']:.3f} ms, monolithic "
           f"{ms['mono_all'] - ms['mono_fwd']:.3f} ms [{card}]", flush=True)
 
@@ -1592,7 +1619,8 @@ def check_ring_f32(card: str) -> dict:
     RING_F32_SHAPES (causal) against reference attention in f32 (TF32 off):
     the output, and the gradients of sum(out^2) (the cotangent 2 out at the
     reference's output, handed to both), every block through the f32
-    kernels. Returns the f32-operand launches per kernel of the last ring."""
+    kernels; the longest ring then timed as time_ring times the bf16 one.
+    Returns the f32-operand launches per kernel of the last ring."""
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops.attention import attention
     from ray_tpu_torch.ops.ring_attention import ring_attention_emulated
@@ -1633,7 +1661,12 @@ def check_ring_f32(card: str) -> dict:
                  f"launches at Dh {D} and no other")
         for name in KERNELS:
             _held(name, D, torch.float32, True)
-        del ring, got, want, leaves, ref
+        del ring, got, want
+        if (B, T, H, D) == RING_F32_SHAPES[-1]:
+            x["do"] = do
+            shards["do"] = list(do.chunk(RING_RANKS, dim=1))
+            time_ring(x, shards, leaves, card, shape=(B, T, H, D), f32=True)
+        del leaves, ref
     return launched
 
 

@@ -17,6 +17,12 @@ parent tree runs it as it is.
 
 ``--dtype f32`` takes the same model in f32 (its attention through the f32
 flash kernels, as phase 14 of ``chip_smoke.py`` trains it at B 8).
+``--ring T`` then also times the emulated ring of ``chip_smoke.py``'s
+phase 5 in f32 (4 ranks, B 2, H 4, Dh 32, causal, T tokens in all; the
+f32 kernels at the ring's block shapes): its forward and its forward and
+backward, median of ``RING_CALLS`` calls after 3, host clock around calls
+that end in a synchronise. ``ring_attention_emulated`` has had this form
+since the ring's slice, so a parent tree runs it too.
 
 Prints one line per tree and setting, with the card's name and power
 limit; exits non-zero if a tree's process fails. ``--device cpu`` with a
@@ -32,8 +38,9 @@ import subprocess
 import sys
 
 WARMUP, STEPS = 2, 5
+RING_CALLS = 20
 
-# Run from a tree's root by ``python -c``; argv: device, model, batch, seq, dtype.
+# Run from a tree's root by ``python -c``; argv: device, model, batch, seq, dtype, ring T.
 _CHILD = f"""
 import dataclasses, statistics, sys, time
 import torch
@@ -61,6 +68,24 @@ for remat in (False, True):
     print(f"remat {{remat}}: median of {STEPS} steps {{statistics.median(times):.2f}} ms "
           f"({{', '.join(f'{{t:.2f}}' for t in times)}})", flush=True)
     del net, opt, step
+ring_t = int(sys.argv[6])
+if ring_t:
+    from ray_tpu_torch.ops.ring_attention import ring_attention_emulated
+
+    g = torch.Generator(device=device).manual_seed(8)
+    q, k, v, do = (list(torch.randn(2, ring_t, 4, 32, device=device, generator=g).chunk(4, dim=1))
+                   for _ in range(4))
+    for label, fn in (("forward", lambda: ring_attention_emulated(q, k, v, causal=True)),
+                      ("forward+backward", lambda: ring_attention_emulated(q, k, v, do, causal=True))):
+        times = []
+        for i in range(3 + {RING_CALLS}):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"f32 ring T {{ring_t}} {{label}}: median of {RING_CALLS} calls "
+              f"{{statistics.median(times[3:]):.3f}} ms", flush=True)
 """
 
 
@@ -72,7 +97,11 @@ def main(argv=None) -> None:
     parser.add_argument("--batch", type=int, default=32)
     parser.add_argument("--seq", type=int, default=1024)
     parser.add_argument("--dtype", default="bf16", choices=("bf16", "f32"))
+    parser.add_argument("--ring", type=int, default=0, metavar="T",
+                        help="also time the emulated f32 ring at T tokens in all (a multiple of 4)")
     args = parser.parse_args(argv)
+    if args.ring % 4:
+        parser.error("--ring takes a multiple of 4 (the ring's ranks)")
     if args.device == "cuda":
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -84,7 +113,7 @@ def main(argv=None) -> None:
         env = dict(os.environ, PYTHONPATH=root)
         done = subprocess.run(
             [sys.executable, "-c", _CHILD, args.device, args.model, str(args.batch),
-             str(args.seq), args.dtype], cwd=root, env=env, capture_output=True, text=True)
+             str(args.seq), args.dtype, str(args.ring)], cwd=root, env=env, capture_output=True, text=True)
         if done.returncode != 0:
             sys.exit(f"{tree}: exit {done.returncode}\n{done.stdout}{done.stderr}")
         for line in done.stdout.splitlines():

@@ -11,17 +11,18 @@
 // (gradients) of reference attention; a single TF32 product keeps about
 // three decimal digits and misses that.
 //
-// dQ and dK/dV: 3xTF32 on the tensor cores. Each f32 operand x is split
+// All three: 3xTF32 on the tensor cores. Each f32 operand x is split
 // into big = tf32(x) (cvt.rna.tf32.f32's rounding, hopper::tf32_rna) and
 // small = tf32(x - big), and a product is
 // big.small + small.big + big.big, the cross terms first, into one f32
 // accumulator (CUTLASS's OpMultiplyAddFastF32 order); only small.small,
 // below 2^-22 of the product, is dropped.
-// Bound on an H100 SXM: 6 (dQ) and 8 (dK/dV) FLOPs per (q, key) pair the
-// mask keeps and per head-dim element, done as three TF32 products at 495
-// TFLOP/s, i.e. 165 TFLOP/s of f32-accurate work (0.117 and 0.156 ms at B 8,
-// T 1024, H 12, Dh 64, causal); the bytes (q, k, v, dO, lse, delta in, the
-// gradients out, 126 MB for dQ) take at most a third of that: operations.
+// Bound on an H100 SXM: 4 (forward), 6 (dQ) and 8 (dK/dV) FLOPs per (q,
+// key) pair the mask keeps and per head-dim element, done as three TF32
+// products at 495 TFLOP/s, i.e. 165 TFLOP/s of f32-accurate work (0.078,
+// 0.117 and 0.156 ms at B 8, T 1024, H 12, Dh 64, causal); the bytes (q, k,
+// v, dO, lse, delta in, the results out, 126 MB for dQ) take at most a
+// third of that: operations.
 // Design: a block owns 64 rows of its result (q rows: dQ; keys: dK/dV) of
 // one head and walks over BK keys (dQ) or BQ q rows (dK/dV) a stage, sizes
 // and ring depths per head dim in F32Tiles<D>. The first warpgroups (three;
@@ -43,26 +44,36 @@
 // in registers, splits P and dS per k-step of 8 into register A fragments,
 // and issues the gradient products with them.
 // tf32 wgmma reads shared memory K-major only (its transpose bit exists for
-// 16-bit types alone), and three gradient products reduce over the rows of
-// the tile they read: dQ = dS K (over keys), dV = P^T dO and dK = dS^T Q
-// (over q rows). Each takes way (a): the split pass writes a transposed,
-// swizzled big and small copy of that tile (K^T; dO^T and Q^T), so the
-// reduction runs along its rows. It keeps every product in one shape (A =
-// the 64 owned rows, N = D), where the other way (computing dQ^T = K^T dS^T
-// with K^T as register fragments) would need D to be a multiple of 64 and
-// dS in shared memory. The transposed copy also absorbs the tf32 A
-// fragment's layout: an m64nNk8 accumulator holds columns 2t and 2t + 1 of
-// each 8 in thread t, the A fragment wants k = t and t + 4, so column 8g + p
-// of a transposed tile holds key (or q row) 8g + 2p for p < 4 and
+// 16-bit types alone), and four products reduce over the rows of the tile
+// they read: O = P V (over keys), dQ = dS K (over keys), dV = P^T dO and
+// dK = dS^T Q (over q rows). Each takes way (a): the split pass writes a
+// transposed, swizzled big and small copy of that tile (V^T; K^T; dO^T and
+// Q^T), so the reduction runs along its rows. It keeps every product in one
+// shape (A = the 64 owned rows, N = D), where the other way (computing dQ^T
+// = K^T dS^T with K^T as register fragments) would need D to be a multiple
+// of 64 and dS in shared memory. The transposed copy also absorbs the tf32
+// A fragment's layout: an m64nNk8 accumulator holds columns 2t and 2t + 1
+// of each 8 in thread t, the A fragment wants k = t and t + 4, so column
+// 8g + p of a transposed tile holds key (or q row) 8g + 2p for p < 4 and
 // 8g + 2(p - 4) + 1 for p >= 4, and P and dS become A fragments without a
 // shuffle. No atomics: each block writes only its own rows, and the
 // partial sums meet in a fixed order, so two calls give the same bits.
-// Causal: the key loop stops at the diagonal (dQ) and the q loop starts at
-// it (dK/dV); keys past Tk and q rows past Tq are masked or zero-filled.
+// Causal: the key loop stops at the diagonal (forward, dQ) and the q loop
+// starts at it (dK/dV); keys past Tk and q rows past Tq are masked or
+// zero-filled.
 //
-// The forward is still plain f32 FMAs on shared-memory tiles (a 16 x 16
-// thread grid, 4 x 4 results a thread, 67 TFLOP/s f32 peak): only two
-// kernels are redesigned at a time, and its 3xTF32 rewrite is the next one.
+// The forward differs in its block (FwdPlan): 128 q rows of one head, each
+// consumer warpgroup owning 64 of them, both reading every stage (a stage
+// is released by the eight consumer warps), so each split tile serves twice
+// the products; a stage is K split in place and V's transposed copy alone
+// (V's natural split is never read). Per stage a consumer issues S = Q K^T,
+// keeps a running max and sum for each of its rows in registers (a row with
+// no key seen yet keeps base 0), rescales its O accumulator by exp2(m_old -
+// m_new) once the last P V is in, and issues O += P V with P's split A
+// fragments. At the end o = O / l and lse = (m + log2 l) / log2 e. The
+// traits may give it 64-row blocks instead (FWD_ROWS): the two consumers on
+// alternate stages of the same rows, their (m, l, O) merged in a fixed
+// order at the end.
 //
 // Every C entry point launches on the caller's stream and returns
 // cudaGetLastError(); nothing here allocates or synchronises. The
@@ -80,174 +91,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// Forward: f32 FMAs on shared-memory tiles.
-// ---------------------------------------------------------------------------
-
-constexpr int THREADS = 256;  // a 16 x 16 grid
-constexpr int BM = 64;        // result rows of a block
-constexpr int BN = 64;        // rows of a visiting tile
-constexpr int PN = BN + 1;    // padded row of a score tile in shared memory
-
-template <int D>
-struct Smem {
-  static constexpr int LD = D + 1;  // padded row of an operand tile
-  static constexpr int TILE = BM * LD;
-};
-
-// Rows [row0, row0 + 64) of a [T, D] matrix into a padded tile, zeros past T.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int row0, int T) {
-  constexpr int LD = Smem<D>::LD, V = D / 4;
-  for (int i = threadIdx.x; i < BM * V; i += THREADS) {
-    const int r = i / V, c = 4 * (i % V);
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < T) x = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
-    float* d = dst + r * LD + c;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
-  }
-}
-
-// s[i][j] = sum_d a[ty + 16 i][d] * b[tx + 16 j][d] over two padded tiles.
-template <int D>
-__device__ __forceinline__ void scores(float (&s)[4][4], const float* a, const float* b, int ty, int tx) {
-  constexpr int LD = Smem<D>::LD;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = a[(ty + 16 * i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = b[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
-  }
-}
-
-// acc[i][c] += sum_n p[ty + 16 i][n] * m[n][tx + 16 c] (p a padded score
-// tile, m a padded operand tile).
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[4][D / 16], const float* p, const float* m, int ty,
-                                           int tx) {
-  constexpr int LD = Smem<D>::LD;
-#pragma unroll 4
-  for (int n = 0; n < BN; ++n) {
-    float x[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = p[(ty + 16 * i) * PN + n];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const float y = m[n * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(x[i], y, acc[i][c]);
-    }
-  }
-}
-
-// Sum or max over the 16 threads of a row (one half warp).
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < 16; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 1; off < 16; off <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// Visiting tiles of 64 a block of 64 rows from row0 needs (causal: to its
-// last row).
-__device__ __forceinline__ int tiles_to(int row0, int T, int causal) {
-  return ((causal ? min(T, row0 + BM) : T) + BN - 1) / BN;
-}
-
-// ---------------------------------------------------------------------------
-// Forward: o = softmax(q k^T scale) v, lse = the row logsumexp, online over
-// key tiles.
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_f32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                     float* __restrict__ o, float* __restrict__ lse, int Tq, int Tk, float scale,
-                     int causal) {
-  extern __shared__ float sm[];
-  float* sq = sm;
-  float* sk = sq + Smem<D>::TILE;
-  float* sv = sk + Smem<D>::TILE;
-  float* sp = sv + Smem<D>::TILE;  // [BM][PN]
-  const int bh = blockIdx.y, q0 = blockIdx.x * BM, ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  q += (size_t)bh * Tq * D;
-  k += (size_t)bh * Tk * D;
-  v += (size_t)bh * Tk * D;
-  load_tile<D>(sq, q, q0, Tq);
-
-  float m[4], l[4], acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-  }
-  const int n_k = tiles_to(q0, Tk, causal);
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // the last tile's K, V and P are read
-    load_tile<D>(sk, k, k0, Tk);
-    load_tile<D>(sv, v, k0, Tk);
-    __syncthreads();
-    float s[4][4];
-    scores<D>(s, sq, sk, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        s[i][j] = (col >= Tk || (causal && col > row)) ? -INFINITY : s[i][j] * scale;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float base = m_new == -INFINITY ? 0.f : m_new;  // a row with no key seen yet
-      const float alpha = expf(m[i] - base);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - base);
-        sp[(ty + 16 * i) * PN + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    accumulate<D>(acc, sp, sv, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Tq) continue;
-    const float inv = 1.f / l[i];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) o[((size_t)bh * Tq + row) * D + tx + 16 * c] = acc[i][c] * inv;
-    if (tx == 0) lse[(size_t)bh * Tq + row] = m[i] + logf(l[i]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward: 3xTF32 on wgmma (see the note at the top).
+// 3xTF32 on wgmma (see the note at the top): the pieces all three share.
 // ---------------------------------------------------------------------------
 constexpr int WG_THREADS = 128;
 constexpr int ROWS_OWNED = 64;  // result rows of a block: one wgmma M
@@ -257,9 +101,14 @@ constexpr float LOG2E = 1.4426950408889634f;
 // Per head dim: keys per dQ stage (DQ_BK), q rows per dK/dV stage
 // (DKV_BQ), the two ring depths (STAGES), the raw slots in front of each
 // ring (RAW; 0: TMA lands in the stage itself and the split works in
-// place), and the loading warpgroups (LOADER_WGS). A stage holds six (dQ)
-// or eight (dK/dV) f32 tiles (big and small, natural and transposed), so
-// head dim 128 takes 16 keys and 8 q rows a stage. Chosen by timing
+// place), and the loading warpgroups of both (LOADER_WGS). A stage holds
+// six (dQ) or eight (dK/dV) f32 tiles (big and small, natural and
+// transposed), so head dim 128 takes 16 keys and 8 q rows a stage. The
+// forward's own line: q rows a block (FWD_ROWS: 128, the two consumers on
+// every stage; or 64, on alternate stages), keys a stage (FWD_BK), its ring
+// (FWD_STAGES, FWD_RAW) and loading warpgroups (FWD_LOADER_WGS); a stage is
+// four tiles (K big and small, V^T big and small) and Q's rows take 64 KB
+// of a 128-row block at head dim 64, 128 KB at 128. Chosen by timing
 // variants on an H100 (python3 -m ray_tpu_torch.sweep_flash_f32, device
 // time at B 8, T 1024, gpt2-small's width): raw slots let TMA run ahead of
 // the split pass, which otherwise waits for a stage to be released and then
@@ -267,39 +116,50 @@ constexpr float LOG2E = 1.4426950408889634f;
 // dQ at 64 gains nothing and keeps a third stage instead); three loading
 // warpgroups split faster than two (dQ 6%, dK/dV 11% at head dim 64) but
 // leave the consumers 168 registers, too few for head dim 128's dK/dV
-// accumulators. tests/test_torch_flash_f32_split.py reads this block.
+// accumulators. The forward's line (the same sweep, device time): 128-row
+// blocks beat 64-row ones where a head's rows fill the card (Dh 64: 0.197
+// against 0.260 ms; Dh 128: 0.235 against 0.278), and lose at the f32
+// ring's Dh 32 blocks (B 2, H 4, 1,024 rows: 64 blocks for 132 SMs; 0.0305
+// against 0.0204 ms); 64 keys a stage at Dh 64 (0.169 ms against 0.197 at
+// 32) needs two loading warpgroups, whose consumers' 208 registers hold its
+// P fragments without a spill; head dim 128 keeps 16 keys (8: 0.353 ms).
+// tests/test_torch_flash_f32_split.py reads this block.
 template <int D>
 struct F32Tiles;
 template <>
 struct F32Tiles<16> {
   static constexpr int DQ_BK = 64, DQ_STAGES = 4, DQ_RAW = 2, DKV_BQ = 32, DKV_STAGES = 4, DKV_RAW = 2;
   static constexpr int LOADER_WGS = 3;
+  static constexpr int FWD_ROWS = 128, FWD_BK = 64, FWD_STAGES = 4, FWD_RAW = 2, FWD_LOADER_WGS = 3;
 };
 template <>
 struct F32Tiles<32> {
   static constexpr int DQ_BK = 64, DQ_STAGES = 3, DQ_RAW = 2, DKV_BQ = 32, DKV_STAGES = 4, DKV_RAW = 2;
   static constexpr int LOADER_WGS = 3;
+  static constexpr int FWD_ROWS = 64, FWD_BK = 64, FWD_STAGES = 3, FWD_RAW = 2, FWD_LOADER_WGS = 3;
 };
 template <>
 struct F32Tiles<64> {
   static constexpr int DQ_BK = 32, DQ_STAGES = 3, DQ_RAW = 0, DKV_BQ = 32, DKV_STAGES = 2, DKV_RAW = 2;
   static constexpr int LOADER_WGS = 3;
+  static constexpr int FWD_ROWS = 128, FWD_BK = 64, FWD_STAGES = 2, FWD_RAW = 0, FWD_LOADER_WGS = 2;
 };
 template <>
 struct F32Tiles<128> {
   static constexpr int DQ_BK = 16, DQ_STAGES = 2, DQ_RAW = 0, DKV_BQ = 8, DKV_STAGES = 2, DKV_RAW = 2;
   static constexpr int LOADER_WGS = 2;
+  static constexpr int FWD_ROWS = 128, FWD_BK = 16, FWD_STAGES = 2, FWD_RAW = 2, FWD_LOADER_WGS = 2;
 };
 
-// A block's warpgroups at head dim D: LOADER_WGS loading (warp 0 issues the
-// TMA loads, the other warps split) and two consumers. setmaxnreg moves
-// registers from the loaders to the consumers; the block holds what it
-// started with, ENTRY_REGS a thread (ptxas's count under
-// __launch_bounds__(THREADS, 1)), so the consumers can take only what the
-// loaders give up, or setmaxnreg.inc waits for ever.
-template <int D>
+// A block's warpgroups: LOADER_WGS_ loading (warp 0 issues the TMA loads,
+// the other warps split) and two consumers. setmaxnreg moves registers
+// from the loaders to the consumers; the block holds what it started with,
+// ENTRY_REGS a thread (ptxas's count under __launch_bounds__(THREADS, 1)),
+// so the consumers can take only what the loaders give up, or
+// setmaxnreg.inc waits for ever.
+template <int LOADER_WGS_>
 struct Roles {
-  static constexpr int LOADER_WGS = F32Tiles<D>::LOADER_WGS;
+  static constexpr int LOADER_WGS = LOADER_WGS_;
   static constexpr int THREADS = (LOADER_WGS + 2) * WG_THREADS;
   static constexpr int SPLIT_THREADS = LOADER_WGS * WG_THREADS - 32;
   static constexpr int ENTRY_REGS = 65536 / THREADS / 8 * 8;
@@ -350,8 +210,9 @@ __device__ __forceinline__ void split_tile(const float* src, float* big, float* 
 // c and the four rows of one parity in one group of 8: four scalar reads
 // (the lanes of a warp read neighbouring columns of one row) and one 16-byte
 // store per transposed tile (eight lanes, eight rows of it: the swizzle puts
-// them in distinct banks).
-template <class T, int NT>
+// them in distinct banks). NATURAL = false writes the transposed copy alone
+// (`big` and `small` unused): the forward never reads V's natural split.
+template <class T, int NT, bool NATURAL = true>
 __device__ __forceinline__ void split_tile_t(const float* src, float* big, float* small, float* tbig,
                                              float* tsmall, int u) {
   using TT = hopper::TileF<T::N_ROWS, T::N_COLS>;
@@ -366,8 +227,10 @@ __device__ __forceinline__ void split_tile_t(const float* src, float* big, float
     for (int i = 0; i < 4; ++i) {
       const uint32_t off = T::offset(8 * g + h + 2 * i, c);
       hopper::tf32_split(*reinterpret_cast<const float*>(xb + off), b[i], s[i]);
-      *reinterpret_cast<uint32_t*>(bb + off) = b[i];
-      *reinterpret_cast<uint32_t*>(sb + off) = s[i];
+      if constexpr (NATURAL) {
+        *reinterpret_cast<uint32_t*>(bb + off) = b[i];
+        *reinterpret_cast<uint32_t*>(sb + off) = s[i];
+      }
     }
     const uint32_t to = TT::offset(c, 8 * g + 4 * h);
     *reinterpret_cast<uint4*>(reinterpret_cast<uint8_t*>(tbig) + to) = make_uint4(b[0], b[1], b[2], b[3]);
@@ -535,7 +398,7 @@ struct DqPlan {
 };
 
 template <int D>
-__global__ void __launch_bounds__(Roles<D>::THREADS, 1)
+__global__ void __launch_bounds__(Roles<F32Tiles<D>::LOADER_WGS>::THREADS, 1)
 flash_f32_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                     const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
@@ -544,7 +407,7 @@ flash_f32_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
   using TA = typename P::TA;
   using TK = typename P::TK;
   using TT = typename P::TT;
-  using R = Roles<D>;
+  using R = Roles<F32Tiles<D>::LOADER_WGS>;
   constexpr int BK = P::BK, STAGES = P::STAGES, NT = R::SPLIT_THREADS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_base(smem_raw);
@@ -716,7 +579,7 @@ struct DkvPlan {
 };
 
 template <int D>
-__global__ void __launch_bounds__(Roles<D>::THREADS, 1)
+__global__ void __launch_bounds__(Roles<F32Tiles<D>::LOADER_WGS>::THREADS, 1)
 flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                      const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
@@ -725,7 +588,7 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
   using TA = typename P::TA;
   using TQ = typename P::TQ;
   using TT = typename P::TT;
-  using R = Roles<D>;
+  using R = Roles<F32Tiles<D>::LOADER_WGS>;
   constexpr int BQ = P::BQ, STAGES = P::STAGES, NT = R::SPLIT_THREADS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_base(smem_raw);
@@ -889,6 +752,268 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
   }
 }
 
+// ---------------------------------------------------------------------------
+// o = softmax(q k^T scale) v, normalised, and lse = the row logsumexp
+// (natural log), online over key tiles. Replaces _fwd_kernel
+// (ray_tpu/ops/flash_attention.py:72-132) on f32 inputs. A block owns ROWS q
+// rows of one head (64 a consumer warpgroup when ROWS is 128); its Q is
+// split once; each stage holds BK keys of K split, and V^T split (for O =
+// P V, whose reduction runs over keys).
+// ---------------------------------------------------------------------------
+template <int D>
+struct FwdPlan {
+  static constexpr int ROWS = F32Tiles<D>::FWD_ROWS, BK = F32Tiles<D>::FWD_BK;
+  static constexpr int STAGES = F32Tiles<D>::FWD_STAGES, RAW = F32Tiles<D>::FWD_RAW;
+  // ROWS 128: consumer c owns rows 64c.., both read every stage; ROWS 64:
+  // both own the 64 rows, c takes key tiles c, c + 2, ...
+  static constexpr bool SHARED = ROWS == 2 * ROWS_OWNED;
+  static constexpr int Q_TILES = ROWS / ROWS_OWNED;
+  using TA = hopper::TileF<D, ROWS_OWNED>;  // 64 rows of Q, big or small
+  using TK = hopper::TileF<D, BK>;          // a stage's K, big or small (and V as loaded)
+  using TT = hopper::TileF<BK, D>;          // a stage's V^T, big or small
+  using F = Feed<STAGES, RAW>;
+  // Q big, a tile per 64 rows, then Q small; the ring, a stage being K, K
+  // small, V^T, V^T small (and V as loaded, without raw slots); the raw
+  // slots, K and V as loaded; the mbarriers (full and ready of Q, then the
+  // feed's).
+  static constexpr int A_BYTES = 2 * Q_TILES * TA::BYTES;
+  static constexpr int STAGE_BYTES = 2 * TK::BYTES + 2 * TT::BYTES + (RAW == 0 ? TK::BYTES : 0);
+  static constexpr int RAW_OFF = A_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = RAW_OFF + RAW * 2 * TK::BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + F::BARRIERS);  // + alignment slack
+  static_assert(ROWS == ROWS_OWNED || SHARED, "blocks of 64 or 128 q rows");
+  static_assert(STAGES >= 2 && (RAW == 0 || RAW >= 2), "TMA rings of at least two stages");
+  static_assert(BYTES <= SMEM_LIMIT, "the forward's shared memory does not fit");
+};
+
+template <int D>
+__global__ void __launch_bounds__(Roles<F32Tiles<D>::FWD_LOADER_WGS>::THREADS, 1)
+flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o, float* __restrict__ lse,
+                     int Tq, int Tk, float scale, int causal) {
+  using P = FwdPlan<D>;
+  using TA = typename P::TA;
+  using TK = typename P::TK;
+  using TT = typename P::TT;
+  using R = Roles<F32Tiles<D>::FWD_LOADER_WGS>;
+  constexpr int BK = P::BK, STAGES = P::STAGES, NT = R::SPLIT_THREADS;
+  static_assert(TK::BYTES == TT::BYTES, "a stage's tiles are of one size");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_base(smem_raw);
+  float* sq = reinterpret_cast<float*>(base);
+  float* sq_s = sq + P::Q_TILES * TA::BYTES / 4;
+  // Stage s: K, K small, V^T, V^T small, V as loaded (no raw slots).
+  auto ring = [&](int s, int part) {
+    return reinterpret_cast<float*>(base + P::A_BYTES + s * P::STAGE_BYTES + part * TK::BYTES);
+  };
+  // Where tile i's K (part 0) and V (part 1) land: a raw slot, or the stage.
+  auto loaded = [&](int i, int part) {
+    return P::RAW > 0 ? reinterpret_cast<float*>(base + P::RAW_OFF + ((i % P::RAW) * 2 + part) * TK::BYTES)
+                      : ring(i % STAGES, part ? 4 : 0);
+  };
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(base + P::BAR_OFF);
+  uint64_t* ready_a = full_a + 1;
+  const typename P::F feed(ready_a + 1);
+  // Causal: the longest rows first (blocks start in order of blockIdx.y).
+  const int bh = blockIdx.x, qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * P::ROWS, n_k = key_tiles<BK>(q0 + P::ROWS - 1, Tk, causal);
+  // Q's 64-row tiles that hold a row before Tq: only those are loaded.
+  const int q_tiles = min(P::Q_TILES, (Tq - q0 + ROWS_OWNED - 1) / ROWS_OWNED);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_a, 1);
+    hopper::mbar_init(ready_a, NT);
+    feed.init(NT, (P::SHARED ? 2 : 1) * WG_THREADS / 32);  // shared: both warpgroups release each stage
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg < R::LOADER_WGS) {
+    hopper::setmaxnreg_dec<R::LOADER_REGS>();
+    if (threadIdx.x == 0) {  // TMA
+      hopper::mbar_arrive_expect_tx(full_a, q_tiles * TA::BYTES);
+      for (int h = 0; h < q_tiles; ++h)
+        hopper::tma_load_tile<TA>(sq + h * TA::BYTES / 4, &tm_q, full_a, q0 + h * ROWS_OWNED, bh);
+      for (int i = 0; i < n_k; ++i) {
+        uint64_t* bar = feed.load_slot(i, 2 * TK::BYTES);
+        hopper::tma_load_tile<TK>(loaded(i, 0), &tm_k, bar, i * BK, bh);
+        hopper::tma_load_tile<TK>(loaded(i, 1), &tm_v, bar, i * BK, bh);
+      }
+    } else if (threadIdx.x >= 32) {  // the split pass
+      const int u = threadIdx.x - 32;
+      hopper::mbar_wait(full_a, 0);
+      for (int h = 0; h < q_tiles; ++h)
+        split_tile<TA::BYTES, NT>(sq + h * TA::BYTES / 4, sq + h * TA::BYTES / 4, sq_s + h * TA::BYTES / 4, u);
+      split_done(ready_a);
+      for (int i = 0; i < n_k; ++i) {
+        const int s = i % STAGES;
+        feed.split_begin(i);
+        split_tile<TK::BYTES, NT>(loaded(i, 0), ring(s, 0), ring(s, 1), u);
+        split_tile_t<TK, NT, false>(loaded(i, 1), nullptr, nullptr, ring(s, 2), ring(s, 3), u);
+        feed.split_end(i);
+      }
+    }
+  } else {  // consumers
+    hopper::setmaxnreg_inc<R::CONSUMER_REGS>();
+    const int c = wg - R::LOADER_WGS, tid = threadIdx.x - wg * WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + (P::SHARED ? c * ROWS_OWNED : 0);  // this warpgroup's first row
+    const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
+    const float sl2 = scale * LOG2E;
+    // O, and per row the running max (log2 units) and this thread's part of
+    // the running sum (its columns; the four threads of a row add theirs at
+    // the end).
+    float acc[D / 2], m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) acc[r] = 0.f;
+
+    hopper::mbar_wait(ready_a, 0);
+    const int h = P::SHARED ? c : 0;
+    const uint64_t q_b = TA::desc(sq + h * TA::BYTES / 4), q_s = TA::desc(sq_s + h * TA::BYTES / 4);
+    auto ktile = [&](auto masked, int i) {
+      const int s = i % STAGES, k0 = i * BK;
+      hopper::mbar_wait(&feed.ready[s], (i / STAGES) & 1);
+      float sc[BK / 2];  // S (then P), [64 q x BK keys]
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+      mma3_ss<BK, D / 8, TA, TK>(sc, q_b, q_s, TK::desc(ring(s, 0)), TK::desc(ring(s, 1)));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float sa = sc[4 * j + e] * sl2, sb = sc[4 * j + 2 + e] * sl2;
+          if constexpr (decltype(masked)::value) {
+            const int col = k0 + 8 * j + 2 * t + e;
+            if (col >= Tk || (causal && col > row_a)) sa = -INFINITY;
+            if (col >= Tk || (causal && col > row_b)) sb = -INFINITY;
+          }
+          sc[4 * j + e] = sa;
+          sc[4 * j + 2 + e] = sb;
+          mx_a = fmaxf(mx_a, sa);
+          mx_b = fmaxf(mx_b, sb);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // the row's four threads
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float base_a = mn_a == -INFINITY ? 0.f : mn_a;  // a row with no key seen yet
+      const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+      const float al_a = hopper::ex2(m_a - base_a), al_b = hopper::ex2(m_b - base_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pa = hopper::ex2(sc[4 * j + e] - base_a), pb = hopper::ex2(sc[4 * j + 2 + e] - base_b);
+          sc[4 * j + e] = pa;
+          sc[4 * j + 2 + e] = pb;
+          sum_a += pa;
+          sum_b += pb;
+        }
+      }
+      l_a = l_a * al_a + sum_a;
+      l_b = l_b * al_b + sum_b;
+      // The last tile's P V is in (its wait ended the last call): rescale O.
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= al_a;
+        acc[4 * j + 1] *= al_a;
+        acc[4 * j + 2] *= al_b;
+        acc[4 * j + 3] *= al_b;
+      }
+      uint32_t p_b[BK / 8][4], p_s[BK / 8][4];
+      split_a_frags<BK>(p_b, p_s, sc);
+      hopper::fence_regs(acc);
+      hopper::fence_regs(p_b);
+      hopper::fence_regs(p_s);
+      hopper::wgmma_fence();
+      mma3_rs<D, BK / 8, TT>(acc, p_b, p_s, TT::desc(ring(s, 2)), TT::desc(ring(s, 3)));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(p_b);
+      hopper::fence_regs(p_s);
+      warp_release(&feed.empty[s]);
+    };
+    // A stage this warpgroup has no rows for (shared, causal: past its
+    // diagonal; or all its rows past Tq): released all the same.
+    auto skip = [&](int i) {
+      hopper::mbar_wait(&feed.ready[i % STAGES], (i / STAGES) & 1);
+      warp_release(&feed.empty[i % STAGES]);
+    };
+    // The tiles that need a mask (the diagonal's, the ragged end's) run in
+    // a loop of their own.
+    constexpr int STEP = P::SHARED ? 1 : 2;
+    const int n_mine = !P::SHARED ? n_k : r0 < Tq ? key_tiles<BK>(r0 + ROWS_OWNED - 1, Tk, causal) : 0;
+    const int n_plain = min(plain_tiles<BK>(r0, Tk, causal), n_mine);
+    int i = P::SHARED ? 0 : c;
+    for (; i < n_plain; i += STEP) ktile(std::false_type{}, i);
+    for (; i < n_mine; i += STEP) ktile(std::true_type{}, i);
+    for (; i < n_k; i += STEP) skip(i);
+    if constexpr (!P::SHARED) {
+      // The two partial results of the rows meet: c = 1 parks (O, m, l) in
+      // Q's tiles (no product reads them now), c = 0 merges, in that order.
+      float* park = sq;
+      hopper::bar_sync(1, 2 * WG_THREADS);  // every product of both warpgroups is in
+      if (c == 1) {
+#pragma unroll
+        for (int r = 0; r < D / 2; ++r) park[r * WG_THREADS + tid] = acc[r];
+        park[(D / 2) * WG_THREADS + tid] = m_a;
+        park[(D / 2 + 1) * WG_THREADS + tid] = m_b;
+        park[(D / 2 + 2) * WG_THREADS + tid] = l_a;
+        park[(D / 2 + 3) * WG_THREADS + tid] = l_b;
+      }
+      hopper::bar_sync(1, 2 * WG_THREADS);
+      if (c == 1) return;
+      const float m1_a = park[(D / 2) * WG_THREADS + tid], m1_b = park[(D / 2 + 1) * WG_THREADS + tid];
+      const float mn_a = fmaxf(m_a, m1_a), mn_b = fmaxf(m_b, m1_b);
+      const float base_a = mn_a == -INFINITY ? 0.f : mn_a, base_b = mn_b == -INFINITY ? 0.f : mn_b;
+      const float a0 = hopper::ex2(m_a - base_a), a1 = hopper::ex2(m1_a - base_a);
+      const float b0 = hopper::ex2(m_b - base_b), b1 = hopper::ex2(m1_b - base_b);
+      l_a = l_a * a0 + park[(D / 2 + 2) * WG_THREADS + tid] * a1;
+      l_b = l_b * b0 + park[(D / 2 + 3) * WG_THREADS + tid] * b1;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] = acc[4 * j] * a0 + park[(4 * j) * WG_THREADS + tid] * a1;
+        acc[4 * j + 1] = acc[4 * j + 1] * a0 + park[(4 * j + 1) * WG_THREADS + tid] * a1;
+        acc[4 * j + 2] = acc[4 * j + 2] * b0 + park[(4 * j + 2) * WG_THREADS + tid] * b1;
+        acc[4 * j + 3] = acc[4 * j + 3] * b0 + park[(4 * j + 3) * WG_THREADS + tid] * b1;
+      }
+      m_a = mn_a;
+      m_b = mn_b;
+    }
+    // The row's sum over its four threads, then o = O / l and lse.
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    }
+    const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= inv_a;
+      acc[4 * j + 1] *= inv_a;
+      acc[4 * j + 2] *= inv_b;
+      acc[4 * j + 3] *= inv_b;
+    }
+    store_rows<D>(o + (size_t)bh * Tq * D, acc, r0, Tq, tid);
+    if (t == 0) {
+      if (row_a < Tq) lse[(size_t)bh * Tq + row_a] = (m_a + log2f(l_a)) / LOG2E;
+      if (row_b < Tq) lse[(size_t)bh * Tq + row_b] = (m_b + log2f(l_b)) / LOG2E;
+    }
+  }
+}
+
 template <class F>
 static int by_head_dim(int d, F launch) {
   switch (d) {
@@ -900,10 +1025,20 @@ static int by_head_dim(int d, F launch) {
   }
 }
 
-// Dynamic shared memory of the forward: operand tiles and a score tile.
 template <int D>
-constexpr int fwd_smem() { return (3 * Smem<D>::TILE + BM * PN) * 4; }
-static_assert(fwd_smem<128>() <= SMEM_LIMIT, "the forward's shared memory does not fit at head dim 128");
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int tq, int tk,
+               float scale, int causal, cudaStream_t st) {
+  using P = FwdPlan<D>;
+  CUtensorMap mq, mk, mv;
+  if (!hopper::rows_map(&mq, q, bh, tq, D, ROWS_OWNED, 4) || !hopper::rows_map(&mk, k, bh, tk, D, P::BK, 4) ||
+      !hopper::rows_map(&mv, v, bh, tk, D, P::BK, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncSetAttribute(flash_f32_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
+  const dim3 grid(bh, (tq + P::ROWS - 1) / P::ROWS);
+  flash_f32_fwd_kernel<D><<<grid, Roles<F32Tiles<D>::FWD_LOADER_WGS>::THREADS, P::BYTES, st>>>(
+      mq, mk, mv, static_cast<float*>(o), static_cast<float*>(lse), tq, tk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -915,7 +1050,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
     return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncSetAttribute(flash_f32_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid(bh, (tq + ROWS_OWNED - 1) / ROWS_OWNED);
-  flash_f32_dq_kernel<D><<<grid, Roles<D>::THREADS, smem, st>>>(mq, mk, mv, mdo, static_cast<const float*>(lse),
+  flash_f32_dq_kernel<D><<<grid, Roles<F32Tiles<D>::LOADER_WGS>::THREADS, smem, st>>>(mq, mk, mv, mdo, static_cast<const float*>(lse),
                                                           static_cast<const float*>(delta),
                                                           static_cast<float*>(dq), tq, tk, scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -932,7 +1067,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
     return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncSetAttribute(flash_f32_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid(bh, (tk + ROWS_OWNED - 1) / ROWS_OWNED);
-  flash_f32_dkv_kernel<D><<<grid, Roles<D>::THREADS, smem, st>>>(
+  flash_f32_dkv_kernel<D><<<grid, Roles<F32Tiles<D>::LOADER_WGS>::THREADS, smem, st>>>(
       mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dk),
       static_cast<float*>(dv), tq, tk, scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -951,13 +1086,8 @@ extern "C" const char* rt_cuda_error_string(int status) {
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                             int tq, int tk, int d, float scale, int causal, int, void* stream) {
   return by_head_dim(d, [&](auto dd) {
-    constexpr int D = decltype(dd)::value, smem = fwd_smem<D>();
-    cudaFuncSetAttribute(flash_f32_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    const dim3 grid((tq + BM - 1) / BM, bh);
-    flash_f32_fwd_kernel<D><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), static_cast<float*>(lse), tq, tk, scale, causal);
-    return static_cast<int>(cudaGetLastError());
+    return launch_fwd<decltype(dd)::value>(q, k, v, o, lse, bh, tq, tk, scale, causal,
+                                           static_cast<cudaStream_t>(stream));
   });
 }
 

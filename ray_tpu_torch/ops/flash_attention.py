@@ -6,9 +6,12 @@ CUDA C++ kernels here, for head dims 16, 32, 64 and 128 (``HEAD_DIMS``).
 bf16 operands go to ``csrc/flash_attention.cu`` (with the Hopper helpers of
 ``csrc/hopper.cuh``), f32 operands to ``csrc/flash_attention_f32.cu`` (the
 same functions at f32 accuracy, as the Pallas kernels compute them on f32
-inputs: dQ and dK/dV as 3xTF32 products on wgmma, each operand split into
-two tf32 parts in shared memory; the forward in f32 FMAs); ``_build``
-builds both. The bf16 library's kernels:
+inputs: all three as 3xTF32 products on tf32 wgmma fed by TMA, each operand
+split into two tf32 parts in shared memory; the forward, for
+``_fwd_kernel``, with 128 q rows a block and an online softmax in
+registers, bound by its 4 FLOPs per kept (q, key) pair and head-dim element
+at a third of the TF32 rate); ``_build`` builds both. The bf16 library's
+kernels:
 
   - forward: persistent warp-specialised blocks (one per SM), a TMA-fed
     ring of K/V tiles and wgmma, online softmax over 128-key tiles in

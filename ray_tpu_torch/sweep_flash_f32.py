@@ -1,21 +1,26 @@
-"""Time design variants of the f32-operand dQ and dK/dV kernels on the card.
+"""Time design variants of the f32-operand flash kernels on the card.
 
-    python3 -m ray_tpu_torch.sweep_flash_f32 [--rounds 2]
+    python3 -m ray_tpu_torch.sweep_flash_f32 [--rounds 2] [--variants NAME ...]
 
 ``csrc/flash_attention_f32.cu`` splits every f32 operand into two tf32
 parts in shared memory before its 3xTF32 products; the split pass runs on
 every stage's path. Its choices (how many warpgroups split, how tf32 is
-rounded, whether TMA loads land in raw slots ahead of the ring) were
-settled by timing variants of the source against one another. This
-rebuilds the library once per variant of ``VARIANTS`` (text edits of the
-current ``.cu`` and ``hopper.cuh``, copied into the ignored build
+rounded, whether TMA loads land in raw slots ahead of the ring; for the
+forward also its block of 128 q rows, both consumer warpgroups on every
+stage, against 64 rows on alternate stages, its keys a stage and ring
+depth) were settled by timing variants of the source against one another.
+This rebuilds the library once per variant of ``VARIANTS`` (text edits of
+the current ``.cu`` and ``hopper.cuh``, copied into the ignored build
 directory; an edit that no longer applies is reported and the variant
-skipped), prints nvcc's spill lines for each, holds each variant's dQ and
-dK/dV against the plain versions (1e-4 relative norm, f32, TF32 off), and
-times both kernels at ``SHAPES`` in turns, ``--rounds`` times: median of 20
-calls with CUDA events around each call (which includes the host's launch
-when it is slower than the kernel), and the device time of the kernels
-alone from ``torch.profiler``. Each variant runs in a process of its own
+skipped), prints nvcc's spill lines for each, holds each variant's
+forward (o within 1e-5 in relative norm, lse within 1e-5 absolute) and dQ
+and dK/dV (1e-4 relative norm) against the plain versions (f32, TF32
+off), and times the three kernels at ``SHAPES`` in turns, ``--rounds``
+times: median of 20 calls with CUDA events around each call (which
+includes the host's launch when it is slower than the kernel), and the
+device time of the kernels alone from ``torch.profiler``, side by side.
+``--variants`` runs only the variants whose names start with one of those
+given ("chosen" always runs). Each variant runs in a process of its own
 with a time limit, so a variant that hangs the card is reported, not
 waited for. Needs one NVIDIA card; the builds run at once (about 15 s).
 """
@@ -27,6 +32,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -42,40 +48,86 @@ from ray_tpu_torch.ops import flash_attention as fa
 SOURCE, HEADER = "flash_attention_f32.cu", "hopper.cuh"
 TRAITS = {  # F32Tiles<D> as the .cu has them, the text the variants edit
     16: "DQ_BK = 64, DQ_STAGES = 4, DQ_RAW = 2, DKV_BQ = 32, DKV_STAGES = 4, DKV_RAW = 2;\n"
-        "  static constexpr int LOADER_WGS = 3;",
+        "  static constexpr int LOADER_WGS = 3;\n"
+        "  static constexpr int FWD_ROWS = 128, FWD_BK = 64, FWD_STAGES = 4, FWD_RAW = 2, FWD_LOADER_WGS = 3;",
     32: "DQ_BK = 64, DQ_STAGES = 3, DQ_RAW = 2, DKV_BQ = 32, DKV_STAGES = 4, DKV_RAW = 2;\n"
-        "  static constexpr int LOADER_WGS = 3;",
+        "  static constexpr int LOADER_WGS = 3;\n"
+        "  static constexpr int FWD_ROWS = 64, FWD_BK = 64, FWD_STAGES = 3, FWD_RAW = 2, FWD_LOADER_WGS = 3;",
     64: "DQ_BK = 32, DQ_STAGES = 3, DQ_RAW = 0, DKV_BQ = 32, DKV_STAGES = 2, DKV_RAW = 2;\n"
-        "  static constexpr int LOADER_WGS = 3;",
+        "  static constexpr int LOADER_WGS = 3;\n"
+        "  static constexpr int FWD_ROWS = 128, FWD_BK = 64, FWD_STAGES = 2, FWD_RAW = 0, FWD_LOADER_WGS = 2;",
     128: "DQ_BK = 16, DQ_STAGES = 2, DQ_RAW = 0, DKV_BQ = 8, DKV_STAGES = 2, DKV_RAW = 2;\n"
-         "  static constexpr int LOADER_WGS = 2;",
+         "  static constexpr int LOADER_WGS = 2;\n"
+         "  static constexpr int FWD_ROWS = 128, FWD_BK = 16, FWD_STAGES = 2, FWD_RAW = 2, FWD_LOADER_WGS = 2;",
 }
 CVT_RNA = ('  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;',
            '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n  return r;')
 
 
-def _loaders(n: int) -> list:
-    return [(SOURCE, TRAITS[d], TRAITS[d].replace(f"LOADER_WGS = {TRAITS[d][-2]}", f"LOADER_WGS = {n}"))
-            for d in (16, 32, 64) if not TRAITS[d].endswith(f"= {n};")]
+def _trait(d: int, name: str) -> int:
+    return int(re.search(rf"\b{name} = (\d+)", TRAITS[d])[1])
+
+
+def _set(d: int, **values) -> tuple:
+    """An edit of head dim d's traits: each NAME to its value."""
+    text = TRAITS[d]
+    for name, value in values.items():
+        text = re.sub(rf"\b{name} = \d+", f"{name} = {value}", text)
+    return (SOURCE, TRAITS[d], text)
+
+
+def _edits(**per_dim) -> list:
+    """Edits of several head dims' traits ({"d64": {...}, ...}), those that change the text."""
+    edits = [_set(int(key[1:]), **values) for key, values in per_dim.items()]
+    return [e for e in edits if e[1] != e[2]]
+
+
+def _every(**values) -> list:
+    return _edits(**{f"d{d}": values for d in TRAITS})
 
 
 # name: (what it tries, [(file, old text, new text), ...])
 VARIANTS = {
     "chosen": ("the .cu as it is", []),
-    "one loading warpgroup": ("96 threads split (three warps)", _loaders(1) + [
-        (SOURCE, TRAITS[128], TRAITS[128].replace("LOADER_WGS = 2", "LOADER_WGS = 1"))]),
-    "two loading warpgroups": ("224 threads split at head dims 16-64", _loaders(2)),
+    "one loading warpgroup": ("96 threads split (three warps) in the backward", _every(LOADER_WGS=1)),
+    "two loading warpgroups": ("224 threads split in the backward at head dims 16-64",
+                               _edits(d16={"LOADER_WGS": 2}, d32={"LOADER_WGS": 2}, d64={"LOADER_WGS": 2})),
     "cvt.rna rounding": ("tf32 rounding by cvt.rna.tf32.f32 instead of two integer instructions",
                          [(HEADER, *CVT_RNA)]),
-    "no raw slots": ("TMA into the stage and the split in place (head dim 128's dK/dV ring 3 deep)", [
-        (SOURCE, TRAITS[d], TRAITS[d].replace("DQ_RAW = 2", "DQ_RAW = 0").replace("DKV_RAW = 2", "DKV_RAW = 0")
-         .replace("DKV_BQ = 8, DKV_STAGES = 2", "DKV_BQ = 8, DKV_STAGES = 3")) for d in TRAITS]),
+    "no raw slots": ("TMA into the stage and the split in place in the backward (head dim 128's dK/dV ring 3 "
+                     "deep)", _edits(**{f"d{d}": {"DQ_RAW": 0, "DKV_RAW": 0} for d in (16, 32, 64)},
+                                     d128={"DQ_RAW": 0, "DKV_RAW": 0, "DKV_STAGES": 3})),
+    "forward 64-row blocks": ("the forward's consumers on alternate stages of one 64-row block, (m, l, O) "
+                              "merged at the end", _every(FWD_ROWS=64)),
+    "forward 64-row blocks, deeper rings": (
+        "64-row blocks with the room Q gives up (head dim 64 at 32 keys a stage, 4 deep), 4 stages at Dh 32",
+        _edits(d16={"FWD_ROWS": 64}, d32={"FWD_STAGES": 4},
+               d64={"FWD_ROWS": 64, "FWD_BK": 32, "FWD_STAGES": 4, "FWD_RAW": 2},
+               d128={"FWD_ROWS": 64, "FWD_STAGES": 3})),
+    "forward 128-row blocks at Dh 32": ("both consumers on every stage at head dim 32 too",
+                                        _edits(d32={"FWD_ROWS": 128})),
+    "forward half the keys a stage": ("FWD_BK halved (64 -> 32, 16 -> 8)",
+                                      _edits(**{f"d{d}": {"FWD_BK": _trait(d, "FWD_BK") // 2} for d in TRAITS})),
+    "forward 32 keys a stage at Dh 64, three loading warpgroups": (
+        "head dim 64 at 32 keys a stage, 3 stages behind 2 raw slots, 168 registers a consumer thread",
+        _edits(d64={"FWD_BK": 32, "FWD_STAGES": 3, "FWD_RAW": 2, "FWD_LOADER_WGS": 3})),
+    "forward 64 keys a stage at Dh 64, three loading warpgroups": (
+        "168 registers a consumer thread: too few for 64 keys' P fragments (spills)",
+        _edits(d64={"FWD_LOADER_WGS": 3})),
+    "forward two-stage ring": ("FWD_STAGES 2 at every head dim", _every(FWD_STAGES=2)),
+    "forward no raw slots": ("the forward's TMA into the stage, K split in place, V landing in a fifth tile",
+                             _every(FWD_RAW=0)),
+    "forward two loading warpgroups": ("224 threads split in the forward at head dims 16 and 32",
+                                       _edits(d16={"FWD_LOADER_WGS": 2}, d32={"FWD_LOADER_WGS": 2})),
 }
 # (B, T, H, Dh, causal): gpt2-small in f32 at B 8 (phase 14's attention),
-# its width as 6 heads of 128, and the f32 ring's Dh 32 diagonal block.
-SHAPES = [(8, 1024, 12, 64, True), (8, 1024, 6, 128, True), (2, 1024, 4, 32, True)]
-CHECK_SHAPES = [(1, 200, 2, 64, True), (1, 200, 2, 128, True), (1, 130, 2, 32, False), (1, 130, 4, 16, True)]
+# its width as 6 heads of 128, and the f32 ring's Dh 32 diagonal and
+# earlier blocks.
+SHAPES = [(8, 1024, 12, 64, True), (8, 1024, 6, 128, True), (2, 1024, 4, 32, True), (2, 1024, 4, 32, False)]
+CHECK_SHAPES = [(1, 200, 2, 64, True), (1, 200, 2, 128, True), (1, 130, 2, 32, False), (1, 130, 4, 16, True),
+                (2, 16, 4, 32, True)]
 GRAD_RELNORM = 1e-4
+FWD_RELNORM, LSE_TOL = 1e-5, 1e-5
 VARIANT_SECONDS = 180
 
 
@@ -118,26 +170,31 @@ def _inputs(B, T, H, D, causal, seed=5):
 
 
 def measure(name: str) -> dict:
-    """In this process: the variant's gradients against the plain versions,
-    then each kernel's event and device ms at SHAPES."""
+    """In this process: the variant's forward and gradients against the
+    plain versions, then each kernel's event and device ms at SHAPES."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.backends.cuda.matmul.allow_tf32 = False
     lib = ctypes.CDLL(str(_dir(name) / "lib.so"))
     real = _build.load
     _build.load = lambda n, defines=(): lib if n == "flash_attention_f32" else real(n, defines)
-    out = {"relnorm": 0.0}
+    out = {"relnorm": 0.0, "fwd relnorm": 0.0, "lse": 0.0}
     for B, T, H, D, causal in CHECK_SHAPES:
         q, k, v, do, lse, delta = _inputs(B, T, H, D, causal)
         got = [fa.flash_dq(q, k, v, do, lse, delta, causal), *fa.flash_dkv(q, k, v, do, lse, delta, causal)]
         ref = fa.flash_bwd_reference(q, k, v, do, lse, delta, causal)
         out["relnorm"] = max(out["relnorm"], *(bench.disagreement(a, b)["relnorm"] for a, b in zip(got, ref)))
+        o, lse_k = fa.flash_fwd(q, k, v, causal)
+        o_ref, _ = fa.flash_fwd_reference(q, k, v, causal)
+        out["fwd relnorm"] = max(out["fwd relnorm"], bench.disagreement(o, o_ref)["relnorm"])
+        out["lse"] = max(out["lse"], (lse_k - lse).abs().max().item())
     for B, T, H, D, causal in SHAPES:
         q, k, v, do, lse, delta = _inputs(B, T, H, D, causal)
-        calls = {"dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
+        calls = {"fwd": lambda: fa.flash_fwd(q, k, v, causal),
+                 "dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
                  "dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal)}
         for kernel, call in calls.items():
-            out[f"{kernel} Dh {D} ms"] = bench.time_ms(call)
+            out[f"{kernel} Dh {D}{'' if causal else ' full'} ms"] = bench.time_ms(call)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
                 for call in calls.values():
@@ -147,14 +204,20 @@ def measure(name: str) -> dict:
             for kernel in calls:
                 if f"flash_f32_{kernel}_kernel" in ev.key:
                     total = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-                    out[f"{kernel} Dh {D} device ms"] = total / ev.count / 1e3
+                    out[f"{kernel} Dh {D}{'' if causal else ' full'} device ms"] = total / ev.count / 1e3
         del q, k, v, do, lse, delta
     return out
+
+
+def _ok(res: dict) -> bool:
+    return res["relnorm"] <= GRAD_RELNORM and res["fwd relnorm"] <= FWD_RELNORM and res["lse"] <= LSE_TOL
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--variants", nargs="*", default=None,
+                    help="run only the variants whose names start with one of these (and the chosen one)")
     ap.add_argument("--measure", help=argparse.SUPPRESS)  # one variant, in a child process
     args = ap.parse_args(argv)
     if args.measure:
@@ -163,8 +226,10 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("sweep_flash_f32 needs an NVIDIA card")
     print(", ".join(bench.card()), flush=True)
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        reports = dict(zip(VARIANTS, pool.map(build, VARIANTS)))
+    names = [n for n in VARIANTS if n == "chosen" or args.variants is None
+             or any(n.startswith(prefix) for prefix in args.variants)]
+    with ThreadPoolExecutor(len(names)) as pool:
+        reports = dict(zip(names, pool.map(build, names)))
     for name, report in reports.items():
         print(f"build {name!r} ({VARIANTS[name][0]}): {report or 'no spill'}", flush=True)
     best = {}
@@ -182,11 +247,13 @@ def main(argv=None) -> None:
             if res is None:
                 print(f"round {rnd} {name!r}: failed: {proc.stderr[-1500:]}", flush=True)
                 continue
-            ok = res["relnorm"] <= GRAD_RELNORM
-            print(f"round {rnd} {name!r}: max relnorm {res['relnorm']:.3e} ({'ok' if ok else 'WRONG'}); "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in res.items() if k != "relnorm"), flush=True)
+            ok = _ok(res)
+            checks = ("relnorm", "fwd relnorm", "lse")
+            print(f"round {rnd} {name!r}: max relnorm dq/dk/dv {res['relnorm']:.3e}, o {res['fwd relnorm']:.3e}, "
+                  f"lse max abs {res['lse']:.3e} ({'ok' if ok else 'WRONG'}); "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in res.items() if k not in checks), flush=True)
             for k, v in res.items():
-                if ok and k != "relnorm":
+                if ok and k not in checks:
                     best[(name, k)] = min(best.get((name, k), math.inf), v)
     for name in reports:
         row = {k: v for (n, k), v in best.items() if n == name}

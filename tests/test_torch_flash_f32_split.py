@@ -1,23 +1,27 @@
-"""The f32-operand dQ and dK/dV kernels' 3xTF32 arithmetic, modelled in plain PyTorch on the CPU.
+"""The f32-operand flash kernels' 3xTF32 arithmetic, modelled in plain PyTorch on the CPU.
 
 ``ray_tpu_torch/ops/csrc/flash_attention_f32.cu`` computes the f32 flash
-backward on the tensor cores: every f32 operand x is split into big =
-tf32(x) (round to nearest, ties away from zero, as ``cvt.rna.tf32.f32``
-does) and small = tf32(x - big), and each product is big.small + small.big
-+ big.big per k-step of 8, in that order, into one f32 accumulator. This
-file writes that arithmetic out in PyTorch, tf32 rounding by bit
-operations, at the tile sizes the ``.cu`` settles on for each head dim
-(``F32Tiles<D>``, read from the source), with the kernels' schedule: a
-block owns 64 rows, its two consumer warpgroups take alternate key tiles
-(dQ) or q tiles (dK/dV) and their partial sums meet at the end. The model
-is held to the JAX package's f32 flash backward (the Pallas kernels in
-interpret mode, one tile per call, as ``tests/test_torch_flash_reach.py``
-runs them) and to the port's plain versions; the same model with a single
-TF32 product lands far from both, which is why the split is there. The
-schedule is held to covering every kept (q, key) pair once, the transposed
-tiles' permutation to the accumulator's register layout, and the split
-pass's stores to distinct shared-memory banks. Inputs come from seeded
-numpy generators at gpt2-tiny's width (d_model 64; Dh 128 as one head).
+forward and backward on the tensor cores: every f32 operand x is split
+into big = tf32(x) (round to nearest, ties away from zero, as
+``cvt.rna.tf32.f32`` does) and small = tf32(x - big), and each product is
+big.small + small.big + big.big per k-step of 8, in that order, into one
+f32 accumulator. This file writes that arithmetic out in PyTorch, tf32
+rounding by bit operations, at the tile sizes the ``.cu`` settles on for
+each head dim (``F32Tiles<D>``, read from the source), with the kernels'
+schedules: a dQ or dK/dV block owns 64 rows, its two consumer warpgroups
+take alternate key tiles (dQ) or q tiles (dK/dV) and their partial sums
+meet at the end; a forward block owns FWD_ROWS q rows, 64 a warpgroup on
+every key tile (or, at 64 rows, alternate tiles whose (m, l, O) merge at
+the end), with an online max, sum and rescale in exp2 units. The models
+are held to the JAX package's f32 flash forward and backward (the Pallas
+kernels in interpret mode, one tile per call, as
+``tests/test_torch_flash_reach.py`` runs them) and to the port's plain
+versions; the same models with a single TF32 product land far from both,
+which is why the split is there. The schedules are held to covering every
+kept (q, key) pair once, the transposed tiles' permutation to the
+accumulator's register layout, and the split pass's stores to distinct
+shared-memory banks. Inputs come from seeded numpy generators at
+gpt2-tiny's width (d_model 64; Dh 128 as one head).
 """
 
 import math
@@ -40,6 +44,8 @@ SMEM_LIMIT = 232448  # dynamic shared memory a block may have on an H100
 # The JAX package's limit for its f32 kernels' gradients
 # (tests/test_ring_attention.py:104), in relative norm.
 GRAD_RELNORM = 1e-4
+# ... and for its f32 forward: o in relative norm, lse absolute.
+FWD_RELNORM, LSE_TOL = 1e-5, 1e-5
 LOG2E = 1.4426950408889634
 D_MODEL = 64  # gpt2-tiny's width
 
@@ -134,9 +140,96 @@ def dkv_schedule(Tq, Tk, causal, t):
     return blocks
 
 
+def fwd_schedule(Tq, Tk, causal, t):
+    """Per q block (FWD_ROWS rows from q0): q0 and, per consumer warpgroup
+    c, (its first row, the key tiles (of FWD_BK keys) it computes in order,
+    each with whether it is masked, and the tiles it only waits for and
+    releases). FWD_ROWS 128: c owns rows q0 + 64c.., both walk every tile;
+    64: both own the 64 rows, c takes tiles c, c + 2, ..."""
+    R, ROWS, BK = t["ROWS_OWNED"], t["FWD_ROWS"], t["FWD_BK"]
+    shared = ROWS == 2 * R
+    blocks = []
+    for qt in range(_ceil(Tq, ROWS)):
+        q0 = qt * ROWS
+        n_k = _ceil(min(Tk, q0 + ROWS) if causal else Tk, BK)
+        per_wg = []
+        for c in range(2):
+            r0 = q0 + R * c if shared else q0
+            if not shared:
+                n_mine = n_k
+            else:
+                n_mine = _ceil(min(Tk, r0 + R) if causal else Tk, BK) if r0 < Tq else 0
+            n_plain = min(min(Tk // BK, (r0 + 1) // BK) if causal else Tk // BK, n_mine)
+            step, first = (1, 0) if shared else (2, c)
+            mine = [(i, i >= n_plain) for i in range(first, n_mine, step)]
+            after = first + step * len(mine)
+            per_wg.append((r0, mine, list(range(after, n_k, step))))
+        blocks.append((q0, per_wg))
+    return blocks
+
+
 # ---------------------------------------------------------------------------
 # The kernels in that order
 # ---------------------------------------------------------------------------
+
+
+def fwd_model(q, k, v, causal, single=False):
+    """(o, lse) by flash_f32_fwd_kernel's schedule and arithmetic: per
+    warpgroup and key tile, S = Q K^T in 3xTF32, s = S (scale log2 e) in
+    f32, masked to -inf; the running max m (log2 units) and base (0 while
+    a row has seen no key); alpha = exp2(m_old - base), P = exp2(s - base);
+    each of a row's four threads keeps the sum of its columns (2t, 2t + 1
+    of every 8), l = l alpha + that; O = O alpha + P V in 3xTF32 (V^T split
+    in shared memory, P split into register fragments). At 64-row blocks
+    the two warpgroups' (m, l, O) merge, warpgroup 0's first. Then l over
+    the four threads ((l0 + l1) + (l2 + l3)), o = O (1 / l) and lse = (m +
+    log2 l) / log2 e."""
+    BH, Tq, D = q.shape
+    Tk, t = k.shape[1], TILES[D]
+    R, ROWS, BK = t["ROWS_OWNED"], t["FWD_ROWS"], t["FWD_BK"]
+    scale = 1.0 / math.sqrt(D)
+    sl2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(LOG2E, dtype=torch.float32)
+    qp = _pad_rows(q, _ceil(Tq, ROWS) * ROWS)
+    kp, vp = _pad_rows(k, _ceil(Tk, BK) * BK), _pad_rows(v, _ceil(Tk, BK) * BK)
+    o, lse = torch.zeros(BH, Tq, D), torch.zeros(BH, Tq)
+
+    def base_of(m):
+        return torch.where(m == -math.inf, torch.zeros(()), m)
+
+    for q0, per_wg in fwd_schedule(Tq, Tk, causal, t):
+        parts = []
+        for r0, tiles, _ in per_wg:
+            rows = torch.arange(r0, r0 + R)
+            m = torch.full((BH, R), -math.inf)
+            l4 = torch.zeros(BH, R, 4)  # per thread t of the row
+            acc = torch.zeros(BH, R, D)
+            for i, _ in tiles:
+                ks = slice(i * BK, (i + 1) * BK)
+                s = mma3(qp[:, r0:r0 + R], kp[:, ks].transpose(1, 2), single) * sl2
+                cols = torch.arange(i * BK, (i + 1) * BK)
+                s = s.masked_fill((cols[None, :] >= Tk) | (causal & (cols[None, :] > rows[:, None])), -math.inf)
+                m_new = torch.maximum(m, s.amax(-1))
+                base = base_of(m_new)
+                alpha = torch.exp2(m - base)
+                p = torch.exp2(s - base[..., None])
+                l4 = l4 * alpha[..., None] + p.view(BH, R, BK // 8, 4, 2).sum((2, 4))
+                acc = acc * alpha[..., None] + mma3(p, vp[:, ks], single)
+                m = m_new
+            parts.append((r0, m, l4, acc))
+        if ROWS == R:  # the two warpgroups' partial results of the same rows
+            (r0, m0, l0, a0), (_, m1, l1, a1) = parts
+            m = torch.maximum(m0, m1)
+            base = base_of(m)
+            w0, w1 = torch.exp2(m0 - base), torch.exp2(m1 - base)
+            parts = [(r0, m, l0 * w0[..., None] + l1 * w1[..., None], a0 * w0[..., None] + a1 * w1[..., None])]
+        for r0, m, l4, acc in parts:
+            n = min(R, Tq - r0)
+            if n <= 0:
+                continue
+            l = (l4[..., 0] + l4[..., 1]) + (l4[..., 2] + l4[..., 3])
+            o[:, r0:r0 + n] = (acc * (1.0 / l)[..., None])[:, :n]
+            lse[:, r0:r0 + n] = ((m + torch.log2(l)) / torch.tensor(LOG2E, dtype=torch.float32))[:, :n]
+    return o, lse
 
 
 def dq_model(q, k, v, do, lse, delta, causal, single=False):
@@ -282,21 +375,54 @@ def test_split_model_matches_jax_and_plain(cpu_mesh_devices, one_jax_tile, case)
         assert _relnorm(g, j) <= GRAD_RELNORM, (name, "jax", _relnorm(g, j))
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
-def test_single_tf32_lands_ten_times_further(d):
+@pytest.mark.parametrize("case", CASES, ids=_id)
+def test_forward_model_matches_jax_and_plain(cpu_mesh_devices, one_jax_tile, case):
+    """The 3xTF32 model of the forward against the JAX package's f32
+    flash forward (the Pallas kernel in interpret mode) and the port's
+    plain version: o within 1e-5 in relative norm, lse within 1e-5
+    absolute."""
+    B, Tq, Tk, causal, D = case
+    q, k, v, _ = _inputs(B, Tq, Tk, D, seed=D + Tq + 1)
+    o, lse = fwd_model(q, k, v, causal)
+    o_plain, lse_plain = tfa.flash_fwd_reference(q, k, v, causal)
+
+    one_jax_tile(Tq, Tk)
+    as_jax = lambda x: jnp.asarray(x.numpy())[:, :, None, :]  # noqa: E731  [BH, T, 1, Dh]
+    o_jax, res = jfa._flash_fwd(as_jax(q), as_jax(k), as_jax(v), causal)
+    o_jax, lse_jax = np.asarray(o_jax)[:, :, 0, :], np.asarray(res[-1])[:, 0, :]
+    assert _relnorm(o, o_plain) <= FWD_RELNORM, ("plain", _relnorm(o, o_plain))
+    assert _relnorm(o, o_jax) <= FWD_RELNORM, ("jax", _relnorm(o, o_jax))
+    assert (lse - lse_plain).abs().max().item() <= LSE_TOL
+    assert np.abs(lse.numpy() - lse_jax).max() <= LSE_TOL
+
+
+# (head dim, kernel): the backward's cases keep their ids ("16" ...).
+TF32_CASES = [pytest.param(d, "backward", id=str(d)) for d in HEAD_DIMS] + \
+    [pytest.param(d, "forward", id=f"forward-{d}") for d in HEAD_DIMS]
+
+
+@pytest.mark.parametrize("d, kernel", TF32_CASES)
+def test_single_tf32_lands_ten_times_further(d, kernel):
     """The split is what keeps f32 accuracy: the same model with one TF32
     product (big.big) lands at least 10x further from the plain f32
-    versions than 3xTF32 does, in dq, dk and dv, and misses 1e-4."""
+    versions than 3xTF32 does, in dq, dk and dv (missing 1e-4), and in o
+    (missing 1e-5)."""
     B, Tq, Tk, causal = SHAPES[0]
     q, k, v, do = _inputs(B, Tq, Tk, d, seed=7)
-    lse, delta = _lse_delta(q, k, v, do, causal)
-    plain = tfa.flash_bwd_reference(q, k, v, do, lse, delta, causal)
-    three = (dq_model(q, k, v, do, lse, delta, causal), *dkv_model(q, k, v, do, lse, delta, causal))
-    one = (dq_model(q, k, v, do, lse, delta, causal, single=True),
-           *dkv_model(q, k, v, do, lse, delta, causal, single=True))
-    for name, p, g3, g1 in zip(("dq", "dk", "dv"), plain, three, one):
+    if kernel == "forward":
+        limit, names = FWD_RELNORM, ("o",)
+        plain = tfa.flash_fwd_reference(q, k, v, causal)[:1]
+        three, one = fwd_model(q, k, v, causal)[:1], fwd_model(q, k, v, causal, single=True)[:1]
+    else:
+        limit, names = GRAD_RELNORM, ("dq", "dk", "dv")
+        lse, delta = _lse_delta(q, k, v, do, causal)
+        plain = tfa.flash_bwd_reference(q, k, v, do, lse, delta, causal)
+        three = (dq_model(q, k, v, do, lse, delta, causal), *dkv_model(q, k, v, do, lse, delta, causal))
+        one = (dq_model(q, k, v, do, lse, delta, causal, single=True),
+               *dkv_model(q, k, v, do, lse, delta, causal, single=True))
+    for name, p, g3, g1 in zip(names, plain, three, one):
         e3, e1 = _relnorm(g3, p), _relnorm(g1, p)
-        assert e1 >= 10 * e3 and e1 > GRAD_RELNORM, (name, e3, e1)
+        assert e1 >= 10 * e3 and e1 > limit, (name, e3, e1)
 
 
 def test_tf32_rounding_and_split():
@@ -318,11 +444,41 @@ def test_tf32_rounding_and_split():
     assert tf32_rna(one).item() == 1.0
 
 
+def _check_fwd_schedule(shape, t):
+    """The forward's: every kept (q, key) pair computed exactly once, by the
+    warpgroup that owns its row; the masked tiles are those holding a pair
+    the mask drops among the warpgroup's rows; every warpgroup waits for and
+    releases each tile its block loads that the release count expects of
+    it (all of them at 128 rows; its own parity at 64), in order."""
+    Tq, Tk, causal = shape
+    R, ROWS, BK = t["ROWS_OWNED"], t["FWD_ROWS"], t["FWD_BK"]
+    seen = torch.zeros(Tq, Tk, dtype=torch.int32)
+    blocks = fwd_schedule(Tq, Tk, causal, t)
+    assert len(blocks) == _ceil(Tq, ROWS)
+    for q0, per_wg in blocks:
+        n_k = _ceil(min(Tk, q0 + ROWS) if causal else Tk, BK)
+        for c, (r0, tiles, released) in enumerate(per_wg):
+            visited = [i for i, _ in tiles] + released
+            assert visited == (list(range(n_k)) if ROWS == 2 * R else list(range(c, n_k, 2))), (q0, c)
+            for i, masked in tiles:
+                r = torch.arange(r0, r0 + R)[:, None]
+                col = torch.arange(i * BK, (i + 1) * BK)[None, :]
+                assert masked == bool(((col >= Tk) | (causal & (col > r))).any()), (q0, c, i)
+                kept = (r < Tq) & (col < Tk) & ~(causal & (col > r))
+                rr, cc = torch.broadcast_tensors(r, col)
+                seen.index_put_((rr[kept], cc[kept]), torch.ones(int(kept.sum()), dtype=torch.int32),
+                                accumulate=True)
+    want = torch.ones(Tq, Tk, dtype=torch.int32)
+    assert torch.equal(seen, want.tril() if causal else want)
+
+
 def _check_schedule(kernel, shape, t):
     """Over all blocks, both warpgroups and their tiles, every (q, key) pair
     the mask keeps is computed exactly once, the masked tiles are the ones
     that hold a pair the mask drops, and the two warpgroups' tile counts of
     a block differ by at most one."""
+    if kernel == "fwd":
+        return _check_fwd_schedule(shape, t)
     Tq, Tk, causal = shape
     seen = torch.zeros(Tq, Tk, dtype=torch.int32)
     R = t["ROWS_OWNED"]
@@ -355,7 +511,7 @@ SCHEDULE_SHAPES = [(1, 1, True), (65, 65, True), (256, 256, True), (1000, 1000, 
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("kernel", ["dq", "dkv", "fwd"])
 @pytest.mark.parametrize("shape", SCHEDULE_SHAPES, ids=lambda s: f"Tq{s[0]}_Tk{s[1]}_{'causal' if s[2] else 'full'}")
 def test_schedule_covers_each_kept_pair_once(kernel, shape, d):
     _check_schedule(kernel, shape, TILES[d])
@@ -426,24 +582,50 @@ def test_split_pass_hits_distinct_banks(d):
                 assert len(slots) == min(8, items - e0), (d, rows, e0)
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_forward_split_pass_hits_distinct_banks(d):
+    """The forward's transpose-only split of V (split_tile_t without the
+    natural copy) at its stage's FWD_BK keys: a warp's 32 scalar reads of
+    one step fall in 32 distinct banks, and each 8 lanes' 16-byte stores
+    into V^T in 8 distinct 16-byte bank groups."""
+    rows = TILES[d]["FWD_BK"]
+    items = rows // 4 * d
+    for warp0 in range(0, items, 32):
+        lanes = range(warp0, min(warp0 + 32, items))
+        for i in range(4):
+            banks = {tilef_offset(d, rows, 8 * (e // (2 * d)) + (e // d) % 2 + 2 * i, e % d) // 4 % 32
+                     for e in lanes}
+            assert len(banks) == len(lanes), (d, rows, warp0, i)
+        for e0 in range(warp0, min(warp0 + 32, items), 8):
+            slots = set()
+            for e in range(e0, min(e0 + 8, items)):
+                off = tilef_offset(rows, d, e % d, 8 * (e // (2 * d)) + 4 * ((e // d) % 2))
+                assert off % 16 == 0
+                slots.add(off // 16 % 8)
+            assert len(slots) == min(8, items - e0), (d, rows, e0)
+
+
 def test_tile_block_is_read_from_the_cu():
-    """Every head dim has its traits; each stage size is a wgmma N the
-    kernels issue (the score products' N), the rings are at least two
-    deep, and a 64-row block takes whole 8-row k-steps."""
+    """Every head dim has its traits, the forward's among them; each stage
+    size is a wgmma N the kernels issue (the score products' N), the rings
+    are at least two deep, a 64-row block takes whole 8-row k-steps, and a
+    forward block is one or two warpgroups' 64 rows; each plan asserts its
+    shared memory."""
     assert set(TILES) == set(HEAD_DIMS)
     source = CU.read_text()
     for d, t in TILES.items():
         assert set(t) == {"DQ_BK", "DQ_STAGES", "DQ_RAW", "DKV_BQ", "DKV_STAGES", "DKV_RAW", "LOADER_WGS",
-                          "ROWS_OWNED"}
-        assert t["DQ_RAW"] in (0, 2, 3, 4) and t["DKV_RAW"] in (0, 2, 3, 4)
-        assert t["LOADER_WGS"] in (1, 2, 3)
-        assert t["ROWS_OWNED"] == 64
-        assert t["DQ_BK"] in (8, 16, 32, 64) and t["DKV_BQ"] in (8, 16, 32, 64)
-        assert min(t["DQ_STAGES"], t["DKV_STAGES"]) >= 2
-        for n in (t["DQ_BK"], t["DKV_BQ"], d):
+                          "FWD_ROWS", "FWD_BK", "FWD_STAGES", "FWD_RAW", "FWD_LOADER_WGS", "ROWS_OWNED"}
+        assert t["DQ_RAW"] in (0, 2, 3, 4) and t["DKV_RAW"] in (0, 2, 3, 4) and t["FWD_RAW"] in (0, 2, 3, 4)
+        assert t["LOADER_WGS"] in (1, 2, 3) and t["FWD_LOADER_WGS"] in (1, 2, 3)
+        assert t["ROWS_OWNED"] == 64 and t["FWD_ROWS"] in (64, 128)
+        assert t["DQ_BK"] in (8, 16, 32, 64) and t["DKV_BQ"] in (8, 16, 32, 64) and t["FWD_BK"] in (8, 16, 32, 64)
+        assert min(t["DQ_STAGES"], t["DKV_STAGES"], t["FWD_STAGES"]) >= 2
+        for n in (t["DQ_BK"], t["DKV_BQ"], t["FWD_BK"], d):
             assert f"m64n{n}k8.f32.tf32.tf32" in (CU.parent / "hopper.cuh").read_text()
-    assert "static_assert(BYTES <= SMEM_LIMIT, \"dQ's shared memory does not fit\");" in source
-    assert "static_assert(BYTES <= SMEM_LIMIT, \"dK/dV's shared memory does not fit\");" in source
+    for kernel in ("dQ's", "dK/dV's", "the forward's"):
+        assert f"static_assert(BYTES <= SMEM_LIMIT, \"{kernel} shared memory does not fit\");" in source
+    assert "struct FwdPlan {" in source and "F32Tiles<D>::FWD_BK" in source
     assert f"constexpr int SMEM_LIMIT = {SMEM_LIMIT};" in source
 
 

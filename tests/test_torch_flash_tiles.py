@@ -462,26 +462,29 @@ def smem_plan(t: Tiles) -> dict:
 
 
 def f32_smem_plan(d: int) -> dict:
-    """The f32 library's dynamic shared memory at head dim d. The forward:
-    padded operand tiles of BM rows and a score tile of BM x (BN + 1)
-    floats. dQ and dK/dV (DqPlan, DkvPlan), from F32Tiles<d>: 1,024 bytes
-    of alignment slack; the block's ROWS_OWNED rows of two operands, big
-    and small (Q and dO, or K and V); STAGES stages of split tiles (dQ: K
-    and V big and small and K^T big and small, DQ_BK keys; dK/dV: Q and dO
-    big and small, natural and transposed, DKV_BQ rows, and the rows' lse
-    and delta); RAW raw slots (the two operands as loaded); two mbarriers,
-    two a load slot (a raw slot, or a stage without them) and two a stage
-    (Feed)."""
+    """The f32 library's dynamic shared memory at head dim d, by FwdPlan,
+    DqPlan and DkvPlan, from F32Tiles<d>: 1,024 bytes of alignment slack;
+    the block's rows of its split operands, big and small (the forward:
+    FWD_ROWS rows of Q; dQ and dK/dV: ROWS_OWNED rows of two operands, Q and
+    dO, or K and V); STAGES stages of split tiles (the forward: K big and
+    small and V^T big and small, FWD_BK keys, and V as loaded without raw
+    slots; dQ: K and V big and small and K^T big and small, DQ_BK keys;
+    dK/dV: Q and dO big and small, natural and transposed, DKV_BQ rows, and
+    the rows' lse and delta); RAW raw slots (the two operands as loaded);
+    two mbarriers, two a load slot (a raw slot, or a stage without them)
+    and two a stage (Feed)."""
     source = (CU.parent / "flash_attention_f32.cu").read_text()
-    c = {n: int(v) for n, v in re.findall(r"^constexpr int (BM|BN|ROWS_OWNED) = (\d+);", source, re.M)}
-    tile, score = c["BM"] * (d + 1), c["BM"] * (c["BN"] + 1)
+    rows = int(re.search(r"^constexpr int ROWS_OWNED = (\d+);", source, re.M)[1])
     body = re.search(rf"^struct F32Tiles<{d}> \{{(.*?)^\}};", source, re.M | re.S)[1]
     t = {name: int(v) for name, v in re.findall(r"(\w+) = (\d+)", body)}
-    owned = 4 * c["ROWS_OWNED"] * d * 4
+    owned = 4 * rows * d * 4
     bars = lambda stages, raw: 8 * (2 + 2 * (raw or stages) + 2 * stages)  # noqa: E731
+    fwd_tile = t["FWD_BK"] * d * 4
+    fwd_stage = 4 * fwd_tile + (fwd_tile if t["FWD_RAW"] == 0 else 0)
     dq_stage, dq_raw = 6 * t["DQ_BK"] * d * 4, 2 * t["DQ_BK"] * d * 4
     dkv_stage, dkv_raw = 8 * t["DKV_BQ"] * d * 4 + 2 * t["DKV_BQ"] * 4, 2 * t["DKV_BQ"] * d * 4
-    return {"flash_fwd": 4 * (3 * tile + score),
+    return {"flash_fwd": 1024 + 2 * t["FWD_ROWS"] * d * 4 + t["FWD_STAGES"] * fwd_stage
+            + t["FWD_RAW"] * 2 * fwd_tile + bars(t["FWD_STAGES"], t["FWD_RAW"]),
             "flash_dq": 1024 + owned + t["DQ_STAGES"] * dq_stage + t["DQ_RAW"] * dq_raw
             + bars(t["DQ_STAGES"], t["DQ_RAW"]),
             "flash_dkv": 1024 + owned + t["DKV_STAGES"] * dkv_stage + t["DKV_RAW"] * dkv_raw
