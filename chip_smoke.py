@@ -1432,21 +1432,13 @@ def check_f32_blocks(card: str) -> dict:
 def _device_split(fn) -> tuple:
     """One profiled call of ``fn``: device ms in the three flash kernels, and
     in everything else (the merges, accumulations, folds and casts), with the
-    largest of the rest by name."""
-    from torch.profiler import ProfilerActivity, profile
+    largest of the rest by name (``bench.device_split``)."""
+    from ray_tpu_torch import bench
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = _device_kernels(prof, "the ring")
-    ours = lambda ev: re.search(r"flash_(f32_)?(fwd|dq|dkv)_kernel", ev.name)  # bf16 or f32 operands
-    flash = sum(ev.time_range.elapsed_us() for ev in kernels if ours(ev)) / 1e3
-    by_name = {}
-    for ev in kernels:
-        if not ours(ev):
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-    return flash, sum(by_name.values()), top
+    try:
+        return bench.device_split(fn)
+    except RuntimeError as e:
+        fail(f"{e} for the ring")
 
 
 def check_ring(card: str) -> tuple:

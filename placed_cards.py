@@ -29,17 +29,31 @@ attention, fused CE, AdamW, seeded init, ``bench.py``'s tokens):
   4. two OpenAI replicas of ``serve.llm.deploy``, a card each
      (``ray_actor_options={"num_gpus": 1}``), phase 10's 24 requests at once
      over SSE: TTFT p50 and p95 at the first SSE event, output tokens/s,
-     every greedy text held to an in-process engine's.
+     every greedy text held to an in-process engine's;
+  5. two NVLink domains on the one machine: two node agents of a
+     ``Cluster``, one seeing cards 0 and 1, the other cards 2 and 3
+     (``CUDA_VISIBLE_DEVICES``, so each leases only its own), a
+     ``slice_placement_group`` of the two-card domain with ``num_slices=2``,
+     and one ``num_gpus=1`` actor pinned to each bundle
+     (``worker_strategy``); each joins one NCCL group of four through
+     ``coordinator_env`` and ``initialize_process_group`` (ranks
+     domain-major), reports its slice id, rank and the one card it sees,
+     and runs the step on ``build_mesh(MeshConfig(dcn=2, dp=1, tp=2))``,
+     whose dcn axis is the domain boundary: held to the unsharded step as
+     in part 2 and timed, beside ``sharded_cards``' "dcn 2 x tp 2" (the
+     same mesh over one group of four processes, recorded).
 
 Prints each reading with the card's name and power limit, then one JSON
 line of the numbers (the last line); a disagreement, a launch count off
 the design, a worker that sees other than its own card, or a failed run
-exits non-zero. ``--device cpu`` rehearses part 2 on the CPU: four cards
-declared on a host that has none, each worker's bundle asking for one
+exits non-zero. ``--device cpu`` rehearses parts 2 and 5 on the CPU: four
+cards declared on a host that has none, each worker's bundle asking for one
 through ``resources_per_worker`` (``DataParallelTrainer``, whose workers
-join gloo when ``gpus_per_worker`` is 0), a smaller ``--model``,
-``--batch`` and ``--seq``; nothing is timed as the card's. It shares
-phases 8 and 10 with ``chip_smoke.py``, beside it at the repository root.
+join gloo when ``gpus_per_worker`` is 0); then two hosts of two declared
+cards, each with its domain's head, the slice workers joining gloo; a
+smaller ``--model``, ``--batch`` and ``--seq``; nothing is timed as the
+card's. It shares phases 8 and 10 with ``chip_smoke.py``, beside it at the
+repository root.
 """
 
 from __future__ import annotations
@@ -67,10 +81,54 @@ LOSS_TOL, GRAD_RELNORM_TOL = 5e-4, 2e-2
 SYNC_RELNORM_TOL = 1e-6
 SYNC_TIMED = 3  # all_reduce calls timed after one that builds NCCL's communicator
 RECORDS = "placed_cards"  # the workers' records in the control store KV
+# Part 5: two NVLink domains of two cards each on the four-card machine,
+# and the mesh whose outermost axis spans them.
+SLICES, SLICE_CARDS = 2, 2
+SLICE_MESH = dict(dcn=2, dp=1, tp=2)
+CPU_CARD_NAME = "NVIDIA H100 80GB HBM3"  # the cards the CPU rehearsal declares
+# sharded_cards' "dcn 2 x tp 2" (the same mesh over one group of four
+# processes, gpt2-small, B 32, T 1024) on four NVIDIA H100 80GB HBM3 at
+# 700 W, the run before this script's in one call: recorded, printed as
+# text beside part 5's reading.
+SHARDED_DCN_TP_MS = ("median of 5 steps 158.53 ms (158.53, 189.46, 157.58, 135.58, 439.11), "
+                     "rank 0 device busy 63.97 ms of a profiled step")
 
 
 def _relnorm(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def _mesh_step(mesh, kw: dict, rank: int) -> dict:
+    """This rank's part of one mesh's check: the unsharded step on this card
+    (the whole batch: the reference), then the mesh step (``shard_model``
+    with ``gpt_rules``) held to it, then ``STEPS`` timed steps with each
+    kernel's launches a step (profiled on rank 0 of a card). Returns the
+    record's numbers."""
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.parallel import shard_model
+    from ray_tpu_torch.parallel.sharding import full_parameters, gpt_rules
+
+    ref = bench.setup(1, **kw)
+    loss = gpt2.loss_fn(ref.model, ref.batches[0])
+    loss.backward()
+    ref_loss = loss.item()
+    ref_grads = {n: p.grad for n, p in ref.model.named_parameters()}
+    del ref, loss
+    run = bench.setup(1 + WARMUP + STEPS, **kw, place=lambda m: shard_model(m, mesh, gpt_rules()))
+    loss = gpt2.loss_fn(run.model, gpt2.local_rows(run.model, run.batches[0]))
+    loss.backward()
+    rec = {"loss": gpt2.data_mean(run.model, loss).item(), "ref_loss": ref_loss}
+    rel = bench.relnorms(full_parameters(run.model, grads=True), ref_grads)
+    run.model.zero_grad(set_to_none=True)
+    del ref_grads
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    rec.update(worst_relnorm=worst[1], worst_leaf=worst[0],
+               median_relnorm=statistics.median(rel.values()), leaves=len(rel))
+    cuda = kw["device"].type == "cuda"
+    times, per_step, peak, busy = bench.timed_steps(run, run.batches[1:], WARMUP,
+                                                    profile=cuda and rank == 0)
+    rec.update(step_ms=times, launches=per_step, peak_gib=peak, busy_ms=busy)
+    return rec
 
 
 def train_fn(config: dict) -> None:
@@ -82,9 +140,7 @@ def train_fn(config: dict) -> None:
     from ray_tpu_torch import collective
     from ray_tpu_torch.collective import process_group
     from ray_tpu_torch.core import worker as worker_mod
-    from ray_tpu_torch.models import gpt2
-    from ray_tpu_torch.parallel import MeshConfig, build_mesh, shard_model
-    from ray_tpu_torch.parallel.sharding import full_parameters, gpt_rules
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh
 
     ctx = train.get_context()
     rank, world = ctx.get_world_rank(), ctx.get_world_size()
@@ -100,30 +156,8 @@ def train_fn(config: dict) -> None:
     if cuda:
         rec["uuid"] = str(getattr(torch.cuda.get_device_properties(0), "uuid", ""))
 
-    # the reference: the unsharded step on this card, the whole batch
-    ref = bench.setup(1, **kw)
-    loss = gpt2.loss_fn(ref.model, ref.batches[0])
-    loss.backward()
-    ref_loss = loss.item()
-    ref_grads = {n: p.grad for n, p in ref.model.named_parameters()}
-    del ref, loss
-
-    # the data-parallel mesh of the trainer's group, held to the reference
     mesh = build_mesh(MeshConfig(dp=world), device_type=device.type)
-    run = bench.setup(1 + WARMUP + STEPS, **kw, place=lambda m: shard_model(m, mesh, gpt_rules()))
-    loss = gpt2.loss_fn(run.model, gpt2.local_rows(run.model, run.batches[0]))
-    loss.backward()
-    rec["loss"], rec["ref_loss"] = gpt2.data_mean(run.model, loss).item(), ref_loss
-    rel = bench.relnorms(full_parameters(run.model, grads=True), ref_grads)
-    run.model.zero_grad(set_to_none=True)
-    del ref_grads
-    worst = max(rel.items(), key=lambda kv: kv[1])
-    rec.update(worst_relnorm=worst[1], worst_leaf=worst[0],
-               median_relnorm=statistics.median(rel.values()), leaves=len(rel))
-    times, per_step, peak, busy = bench.timed_steps(run, run.batches[1:], WARMUP,
-                                                    profile=cuda and rank == 0)
-    rec.update(step_ms=times, launches=per_step, peak_gib=peak, busy_ms=busy)
-    del run
+    rec.update(_mesh_step(mesh, kw, rank))
     if cuda:
         torch.cuda.empty_cache()
 
@@ -259,6 +293,159 @@ def _check_world(world: int, recs: list, design: int, card: str, fit_s: float,
             "pg_init_ms": [r["pg_init_ms"] for r in recs]}
 
 
+class SliceWorker:
+    """One worker of part 5, pinned to its bundle of a slice's group."""
+
+    def run(self, config: dict, rank: int, slice_id: int) -> dict:
+        """Join the gang's process group as ``rank`` of slice ``slice_id``
+        and run the mesh step; returns the record."""
+        import torch.distributed as dist
+
+        import ray_tpu_torch
+        from ray_tpu_torch.collective import process_group
+        from ray_tpu_torch.parallel import MeshConfig, build_mesh
+
+        device = torch.device(config["device"])
+        cuda = device.type == "cuda"
+        if not cuda:
+            torch.set_num_threads(1)
+        world = SLICES * SLICE_CARDS
+        env = process_group.coordinator_env(config["group"], rank, world, SLICES, slice_id)
+        os.environ.update(env)
+        process_group.initialize_process_group(config["group"], rank, world,
+                                               "nccl" if cuda else "gloo")
+        try:
+            mesh = build_mesh(MeshConfig(**SLICE_MESH), device_type=device.type)
+            rec = {"rank": rank, "slice": int(os.environ[process_group.SLICE_ID_ENV]),
+                   "dcn": mesh.get_coordinate()[0], "pid": os.getpid(),
+                   "coordinator": f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+                   "node": ray_tpu_torch.get_runtime_context().get_node_id(),
+                   "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   "cards": torch.cuda.device_count(), "backend": dist.get_backend(),
+                   "world": dist.get_world_size(), "pg_init_ms": process_group.last_init_s * 1e3}
+            if cuda:
+                rec["uuid"] = str(getattr(torch.cuda.get_device_properties(0), "uuid", ""))
+            kw = dict(model=config["model"], batch=config["batch"], seq=config["seq"],
+                      device=device)
+            rec.update(_mesh_step(mesh, kw, rank))
+        finally:
+            dist.destroy_process_group()
+        return rec
+
+
+def multislice(args, card: str) -> dict:
+    """Part 5: two NVLink domains, a slice each, one process group. Returns
+    the numbers."""
+    import ray_tpu_torch
+    from ray_tpu_torch.accelerators import slice_placement_group
+    from ray_tpu_torch.accelerators.gpu import domain_head_resource, domain_type
+    from ray_tpu_torch.core.cluster_utils import Cluster
+
+    cuda = args.device == "cuda"
+    domain = domain_type(torch.cuda.get_device_name(0) if cuda else CPU_CARD_NAME, SLICE_CARDS)
+    c = Cluster()
+    try:
+        saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+        try:
+            for s in range(SLICES):
+                if cuda:  # the agent sees, and leases, only its domain's cards
+                    os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(
+                        str(s * SLICE_CARDS + i) for i in range(SLICE_CARDS))
+                    c.add_node(num_cpus=SLICE_CARDS + 1, num_gpus=SLICE_CARDS)
+                else:  # declared cards, and the head a host of them carries
+                    c.add_node(num_cpus=SLICE_CARDS + 1, num_gpus=SLICE_CARDS,
+                               resources={domain_head_resource(domain): 1})
+        finally:
+            if saved is None:
+                os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+            else:
+                os.environ["CUDA_VISIBLE_DEVICES"] = saved
+        ray_tpu_torch.init(address=c.address)
+        heads = ray_tpu_torch.cluster_resources().get(domain_head_resource(domain))
+        spg = slice_placement_group(domain, cards_per_worker=1, num_slices=SLICES)
+        t0 = time.perf_counter()
+        if not spg.wait(120):
+            _fail(f"{SLICES} domains of {domain} not reserved in 120 s (heads: {heads})")
+        reserve_s = time.perf_counter() - t0
+        worker = ray_tpu_torch.remote(num_gpus=1, num_cpus=0)(SliceWorker)
+        config = dict(device=args.device, model=args.model, batch=args.batch, seq=args.seq,
+                      group="placed_cards_slices")
+        actors = [worker.options(scheduling_strategy=spg.worker_strategy(s, w)).remote()
+                  for s in range(SLICES) for w in range(spg.num_workers_per_slice)]
+        refs = [a.run.remote(config, rank, rank // spg.num_workers_per_slice)
+                for rank, a in enumerate(actors)]
+        t0 = time.perf_counter()
+        recs = ray_tpu_torch.get(refs, timeout=900)
+        run_s = time.perf_counter() - t0
+        spg.remove()
+    finally:
+        ray_tpu_torch.shutdown()
+        c.shutdown()
+    design = bench.config(args.model).n_layer if cuda else 0
+    return _check_slices(recs, design, card, domain, reserve_s, run_s, args)
+
+
+def _check_slices(recs: list, design: int, card: str, domain: str, reserve_s: float,
+                  run_s: float, args) -> dict:
+    cuda = args.device == "cuda"
+    world = SLICES * SLICE_CARDS
+    agents = "agents on cards 0,1 and 2,3" if cuda else "two hosts of declared cards"
+    print(f"two NVLink domains ({domain} x {SLICES}; {agents}): "
+          f"slice_placement_group(num_slices={SLICES}) reserved in {reserve_s:.2f} s, the workers "
+          f"ran in {run_s:.1f} s; each worker (slice, rank, CUDA_VISIBLE_DEVICES, devices seen, "
+          f"dcn coordinate): "
+          + ", ".join(f"({r['slice']}, {r['rank']}, {r['visible']}, {r['cards']}, {r['dcn']})"
+                      for r in recs)
+          + f"; process group {recs[0]['backend']} of {recs[0]['world']} at one coordinator "
+          f"{sorted({r['coordinator'] for r in recs})}, joined in "
+          f"{', '.join(f'{r['pg_init_ms']:.0f}' for r in recs)} ms [{card}]", flush=True)
+    by_slice = {}
+    for r in recs:
+        by_slice.setdefault(r["slice"], []).append(r)
+    if any(r["slice"] != r["rank"] // SLICE_CARDS or r["dcn"] != r["slice"] for r in recs):
+        _fail(f"ranks are not domain-major or the dcn axis is not the domain boundary: {recs}")
+    if len({r["coordinator"] for r in recs}) != 1 or any(
+            r["world"] != world or r["backend"] != ("nccl" if cuda else "gloo") for r in recs):
+        _fail(f"the workers did not join one group of {world}: {recs}")
+    if len({r["node"] for r in recs}) != SLICES or any(
+            len({r["node"] for r in rs}) != 1 for rs in by_slice.values()):
+        _fail(f"each slice is not on one host of its own: {recs}")
+    seen = {s: sorted(r["visible"] for r in rs) for s, rs in by_slice.items()}
+    # on the card each agent's own cards: one domain 0,1, the other 2,3
+    domains = sorted(seen.values())
+    want = ([[str(s * SLICE_CARDS + i) for i in range(SLICE_CARDS)] for s in range(SLICES)]
+            if cuda else [[str(i) for i in range(SLICE_CARDS)]] * SLICES)
+    if domains != want or (cuda and (any(r["cards"] != 1 for r in recs)
+                                     or len({r["uuid"] for r in recs}) != world)):
+        _fail(f"the slices' workers did not each see one card of their own domain: {seen}")
+    for r in recs:
+        if not (abs(r["loss"] - r["ref_loss"]) <= LOSS_TOL
+                and r["worst_relnorm"] <= GRAD_RELNORM_TOL):
+            _fail(f"rank {r['rank']}: loss {r['loss']} vs {r['ref_loss']}, gradient "
+                  f"{r['worst_leaf']} relnorm {r['worst_relnorm']}")
+        if r["launches"] != dict.fromkeys(r["launches"], design) or not r["launches"]:
+            _fail(f"rank {r['rank']} launched {r['launches']} a step; the design says {design} "
+                  f"of each")
+    r0 = min(recs, key=lambda r: r["rank"])
+    meds = [statistics.median(r["step_ms"]) for r in sorted(recs, key=lambda r: r["rank"])]
+    tokens = args.batch * args.seq
+    slowest = max(meds)
+    print(f"  dcn 2 x tp 2 across the two domains: loss {r0['loss']:.6f} (unsharded "
+          f"{r0['ref_loss']:.6f}, gap {abs(r0['loss'] - r0['ref_loss']):.3e}, limit {LOSS_TOL}); "
+          f"gradients over {r0['leaves']} leaves, the worst of the ranks' largest relnorms "
+          f"{max(r['worst_relnorm'] for r in recs):.3e} (limit {GRAD_RELNORM_TOL}); step: every "
+          f"rank's median of {STEPS} {', '.join(f'{m:.2f}' for m in meds)} ms, the slowest "
+          f"{slowest:.2f} ms ({tokens / slowest * 1e3:.1f} tokens/s); rank 0: device busy "
+          f"{r0['busy_ms']:.2f} ms of a profiled step, peak {r0['peak_gib']:.2f} GiB; launches a "
+          f"step per worker {r0['launches']}; sharded_cards' dcn 2 x tp 2 (recorded): "
+          f"{SHARDED_DCN_TP_MS} [{card}]", flush=True)
+    return {"slices": {str(s): v for s, v in seen.items()}, "step_ms": meds,
+            "slowest_step_ms": slowest, "loss_gap": abs(r0["loss"] - r0["ref_loss"]),
+            "worst_relnorm": max(r["worst_relnorm"] for r in recs),
+            "launches_a_step_per_worker": r0["launches"], "busy_ms_rank0": r0["busy_ms"],
+            "pg_init_ms": [r["pg_init_ms"] for r in recs], "reserve_s": reserve_s}
+
+
 def one_card_step(args, card: str) -> float:
     """Part 1: the unsharded step on card 0 of this process. Returns its
     median ms."""
@@ -356,9 +543,11 @@ def main(argv=None) -> None:
         launches = chip_smoke.pipeline_parallel(card, one, stage_gpus=1, summary=pipe)
         summary["pipeline"] = dict(pipe, launches_a_step_per_stage=launches)
         summary["serve"] = serve_on_cards(card)
+        summary["multislice"] = multislice(args, card)
     else:
         card = "CPU rehearsal, gloo: no time here is the card's"
         summary["train"] = trainers(args, card, float("nan"))
+        summary["multislice"] = multislice(args, card)
     print("every path placed a worker a card, held to its one-card reference", flush=True)
     print(json.dumps({"card": card, **summary}, default=str))
 

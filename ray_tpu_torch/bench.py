@@ -19,14 +19,16 @@ Also how a run of that step is timed and its launches counted
 (``timed_steps``, for ``chip_smoke.py`` and ``sharded_cards``), the
 agreement rule that ``chip_smoke.py`` and the CUDA tests hold a kernel to
 against its plain version (``disagreement``), the timer of a call on the
-card (``time_ms``) and its device busy time under torch.profiler
-(``busy_ms``).
+card (``time_ms``), its device busy time under torch.profiler
+(``busy_ms``) and that time split between named kernels and the rest
+(``device_split``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -435,6 +437,34 @@ def busy_ms(fn: Callable[[], object]) -> float:
     if not kernels:
         raise RuntimeError("the profiler recorded no device time")
     return union_us([(ev.time_range.start, ev.time_range.end) for ev in kernels]) / 1e3
+
+
+# The three flash kernels' names, bf16 or f32 operands (``device_split``).
+FLASH_KERNELS = r"flash_(f32_)?(fwd|dq|dkv)_kernel"
+
+
+def device_split(fn: Callable[[], object], pattern: str = FLASH_KERNELS) -> tuple:
+    """One call of ``fn`` on the card under torch.profiler: (device ms in the
+    kernels whose name matches ``pattern``, device ms in every other kernel,
+    copy and fill, the four largest of those as (name, ms)). Raises if the
+    trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device time")
+    matched, by_name = 0.0, {}
+    for ev in kernels:
+        ms = ev.time_range.elapsed_us() / 1e3
+        if re.search(pattern, ev.name):
+            matched += ms
+        else:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return matched, sum(by_name.values()), top
 
 
 def time_ms(fn: Callable[[], object], iters: int = 20, warmup: int = 3) -> float:

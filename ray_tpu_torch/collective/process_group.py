@@ -18,9 +18,13 @@ A worker joins with the card its lease gave it: the node agent spawns it
 seeing only its own cards (``CUDA_VISIBLE_DEVICES``), so its rank's card
 is ``cuda:0`` whatever the rank, one rank a card.
 
-No counterpart: the multislice variables (``MEGASCALE_*``, TPU slices
-joined over the data-center network). One NCCL group spans nodes by
-itself, and ``coordinator_env`` refuses ``num_slices > 1``.
+Several NVLink domains (``num_slices > 1``, the counterpart of TPU slices
+joined over the data-center network) join one group: every slice's workers
+get the one coordinator and ``WORLD_SIZE`` over all slices, ranks
+domain-major, and the slice count and id under ``RT_NUM_SLICES`` and
+``RT_SLICE_ID`` (the counterpart of ``MEGASCALE_NUM_SLICES`` and
+``MEGASCALE_SLICE_ID``). NCCL spans the hosts by itself; the mesh's
+outermost axis, ``dcn``, then falls on the domain boundary.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import time
 from typing import Dict, Optional
 
 BACKENDS = ("nccl", "gloo")
+NUM_SLICES_ENV, SLICE_ID_ENV = "RT_NUM_SLICES", "RT_SLICE_ID"
 # The backend a train worker joins with: the controller sets it beside
 # RT_XLA_GROUP, RT_XLA_RANK and RT_XLA_WORLD (train/controller.py).
 BACKEND_ENV = "RT_XLA_BACKEND"
@@ -79,14 +84,20 @@ def get_coordinator(group_name: str, rank: int, timeout_s: float = 60.0) -> str:
 def coordinator_env(group_name: str, rank: int, world_size: int,
                     num_slices: int = 1, slice_id: int = 0) -> Dict[str, str]:
     """The ``torch.distributed`` env:// variables for a worker joining the
-    group (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``)."""
-    if num_slices > 1:
-        raise NotImplementedError(
-            "multislice groups (num_slices > 1) have no counterpart: one NCCL group spans "
-            "the cards of every node")
+    group (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``); with
+    ``num_slices > 1`` also ``RT_NUM_SLICES`` and ``RT_SLICE_ID``. Ranks are
+    domain-major: slice s holds ranks s W .. (s+1) W - 1 of
+    W = world_size / num_slices."""
+    if num_slices > 1 and (world_size % num_slices
+                           or rank // (world_size // num_slices) != slice_id):
+        raise ValueError(f"rank {rank} of {world_size} is not in slice {slice_id} of "
+                         f"{num_slices}: ranks are domain-major")
     host, port = get_coordinator(group_name, rank).rsplit(":", 1)
-    return {"MASTER_ADDR": host, "MASTER_PORT": port,
-            "WORLD_SIZE": str(world_size), "RANK": str(rank)}
+    env = {"MASTER_ADDR": host, "MASTER_PORT": port,
+           "WORLD_SIZE": str(world_size), "RANK": str(rank)}
+    if num_slices > 1:
+        env.update({NUM_SLICES_ENV: str(num_slices), SLICE_ID_ENV: str(slice_id)})
+    return env
 
 
 def initialize_process_group(group_name: str, rank: int, world_size: int,

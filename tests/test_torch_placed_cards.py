@@ -2,9 +2,12 @@
 trainer path rehearsed on the CPU (four cards declared on a host that has
 none, a bundle of one card a worker, gloo, gpt2-tiny). Each worker of a
 group of 2 and of 4 holds a card id of its own, the data-parallel mesh
-step is held to the unsharded step, and grad_sync's mean to all_reduce's;
-the script exits non-zero otherwise. On a host with four GPUs it runs as
-``python3 placed_cards.py``."""
+step is held to the unsharded step, and grad_sync's mean to all_reduce's.
+Then its two-domain part: two hosts of two declared cards, a slice each
+(``num_slices=2``), four workers in one gloo group, ranks domain-major,
+the dcn 2 x tp 2 step held to the unsharded step. The script exits
+non-zero otherwise. On a host with four GPUs it runs as ``python3
+placed_cards.py``."""
 
 import json
 
@@ -25,3 +28,11 @@ def test_placed_cards_rehearses_the_trainer_on_the_cpu(capsys, monkeypatch):
         assert got["loss_gap"] <= placed_cards.LOSS_TOL
         assert got["worst_relnorm"] <= placed_cards.GRAD_RELNORM_TOL
         assert got["grad_bytes"] > 0 and len(got["grad_sync_ms"]) == world
+    slices = summary["multislice"]
+    # each host's two declared cards, one a worker of its slice
+    assert slices["slices"] == {str(s): ["0", "1"] for s in range(placed_cards.SLICES)}
+    assert slices["loss_gap"] <= placed_cards.LOSS_TOL
+    assert slices["worst_relnorm"] <= placed_cards.GRAD_RELNORM_TOL
+    assert slices["launches_a_step_per_worker"] == dict.fromkeys(
+        slices["launches_a_step_per_worker"], 0.0)
+    assert len(slices["step_ms"]) == placed_cards.SLICES * placed_cards.SLICE_CARDS

@@ -313,6 +313,9 @@ def test_gpt2_tiny_step_on_a_dp2_mesh_over_the_trainers_group(rt, tmp_path):
 
 
 def test_coordinator_env_and_no_multislice(rt):
+    """One slice: the env:// variables alone. Several: accepted, the slice
+    vars beside them, and a rank outside its slice (ranks are
+    domain-major) refused before the store is touched."""
     from ray_tpu_torch.collective import coordinator_env
 
     env0 = coordinator_env("env_group", rank=0, world_size=2)
@@ -321,8 +324,26 @@ def test_coordinator_env_and_no_multislice(rt):
         assert env0[k] == env1[k]
     assert (env0["RANK"], env1["RANK"], env0["WORLD_SIZE"]) == ("0", "1", "2")
     assert int(env0["MASTER_PORT"]) > 0
-    with pytest.raises(NotImplementedError, match="num_slices > 1"):
-        coordinator_env("ms_group", rank=0, world_size=4, num_slices=2, slice_id=0)
+    assert "RT_NUM_SLICES" not in env0 and "RT_SLICE_ID" not in env1
+    env = coordinator_env("ms_group", rank=0, world_size=4, num_slices=2, slice_id=0)
+    assert (env["RT_NUM_SLICES"], env["RT_SLICE_ID"], env["WORLD_SIZE"]) == ("2", "0", "4")
+    with pytest.raises(ValueError, match="domain-major"):
+        coordinator_env("ms_group", rank=1, world_size=4, num_slices=2, slice_id=1)
+
+
+def test_multislice_env_includes_slice_vars(rt):
+    """Twin of tests/test_train_xla_backend.py::test_multislice_env_includes_megascale:
+    both slices get the one coordinator, and the slice count and their id
+    (RT_NUM_SLICES, RT_SLICE_ID: the MEGASCALE variables' counterparts)."""
+    from ray_tpu_torch.collective import coordinator_env
+
+    env0 = coordinator_env("ms_twin", rank=0, world_size=4, num_slices=2, slice_id=0)
+    env1 = coordinator_env("ms_twin", rank=2, world_size=4, num_slices=2, slice_id=1)
+    assert (env0["MASTER_ADDR"], env0["MASTER_PORT"]) == (env1["MASTER_ADDR"], env1["MASTER_PORT"])
+    for e, sid in ((env0, 0), (env1, 1)):
+        assert e["RT_NUM_SLICES"] == "2"
+        assert e["RT_SLICE_ID"] == str(sid)
+        assert e["WORLD_SIZE"] == "4"
 
 
 def test_nccl_init_raises_without_a_card():
