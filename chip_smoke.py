@@ -245,7 +245,36 @@ Phases (any failure exits non-zero and prints no result):
      step, 3 timed steps (median beside phase 3's), and 12 launches a step
      of each kernel's own instance (head dim and operand dtype) and no
      other;
- 15. print the kernel line (one JSON object; beside the contract's keys,
+ 15. the library and control-plane modules. (a) Tune: ray_tpu_torch.init on
+     the card, then tune.Tuner(tune.with_resources(trainable, {"GPU": 1}))
+     over lr in (1e-4, 3e-4, 1e-3) with max_concurrent_trials=3, each trial
+     gpt2-small from phase 3's init and tokens (B 32, T 1024) for 5 steps
+     at its lr, tune.report after each: the trials ran one at a time (the
+     card gates them: their workers' start and end times do not overlap),
+     each worker saw exactly this card (CUDA_VISIBLE_DEVICES one id, one
+     device, this card's UUID), step 0's loss within LOSS_REF_TOL of phase
+     3's, losses finite, 12 launches of each kernel a step,
+     get_best_result() the lowest final loss; prints each worker's start,
+     ms a step beside phase 3's and wall. (b) python -m ray_tpu_torch
+     status in a process of its own (exit 0, GPU 1 and the domain head),
+     and a job submitted through JobSubmissionClient whose entrypoint
+     joins through RT_ADDRESS, sees no card, and runs one num_gpus=1 task
+     taking phase 3's first step (SUCCEEDED; the loss and 12 launches of
+     each kernel in its log). (c) The dashboard on a free port:
+     /api/status and /api/nodes show the card and its head,
+     /api/metrics/history answers. (d) The autoscaler: a Cluster whose
+     head node's agent sees no card (no GPU before the autoscaler starts),
+     an Autoscaler over GpuDomainProvider with the card as its one set: a
+     pending slice_placement_group makes exactly one domain, whose agent
+     was started seeing card 0 only, and is reserved on it, a num_gpus=1
+     worker pinned to its bundle sees card 0 and takes phase 3's first
+     step, and after remove() the domain is terminated within
+     AS_TERMINATE_S, its set back in the pool and its agent gone (the
+     launch counts of each step of (a), (b) and (d) are set to 0 just
+     before it, in the worker that takes it); prints the seconds from the
+     group's creation to the domain's registration and to the
+     reservation, and from removal to termination;
+ 16. print the kernel line (one JSON object; beside the contract's keys,
      each kernel's SASS counts per instance from phase 1, held_at (every
      head dim and operand->output type a check held it at in this run),
      the times of each timed instance (Dh 64, 128, 32 bf16; Dh 64 f32 at B
@@ -253,9 +282,10 @@ Phases (any failure exits non-zero and prints no result):
      instantiation's gap, times and ring launches from phase 5 and the f32
      ring's launches, its launches a step in each stage process from phase
      8, in the train worker and a grad_sync rank from phase 9 and in phase
-     14's steps: every number in it was measured or, for bound_ms,
-     computed in this run, and launches come from phase 3);
- 16. print the contract line (one JSON object, the last line).
+     14's steps, in phase 15's trials, the job's task and the domain's
+     worker: every number in it was measured or, for bound_ms, computed
+     in this run, and launches come from phase 3);
+ 17. print the contract line (one JSON object, the last line).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -3820,6 +3850,422 @@ def head_dim_steps(card: str, phase3_ms: float) -> dict:
     return table
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: Tune, the CLI, job submission, the dashboard, the autoscaler
+# ---------------------------------------------------------------------------
+
+TUNE_LRS = (1e-4, 3e-4, 1e-3)  # (a)'s grid: a trial each, all gated by the one card
+JOB_TIMEOUT_S = 600.0
+# The autoscaler of (d) and of placed_cards.py part 7: a drained domain is
+# terminated after AS_IDLE_S idle, and a removed gang's domains must be gone
+# within AS_TERMINATE_S (the idle timeout, then polls, the agent's drain
+# probe, its exit); a pending gang must be provisioned and reserved within
+# AS_RESERVE_S.
+AS_IDLE_S, AS_POLL_S, AS_COOLDOWN_S = 4.0, 0.5, 1.0
+AS_TERMINATE_S = AS_IDLE_S + 30.0
+AS_RESERVE_S = 180.0
+# The job's entrypoint: it joins the cluster through RT_ADDRESS, prints what
+# it sees, and takes phase 3's first step in a num_gpus=1 task.
+JOB_SCRIPT = """import json, os
+import ray_tpu_torch
+
+print("entrypoint CUDA_VISIBLE_DEVICES=" + repr(os.environ.get("CUDA_VISIBLE_DEVICES")), flush=True)
+ray_tpu_torch.init(address=os.environ["RT_ADDRESS"])
+
+
+@ray_tpu_torch.remote(num_gpus=1)
+def one_step():
+    import torch
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    run = bench.setup(1)
+    for counts in (fa.launches, fa.launches_f32):  # set to 0 just before the step
+        counts.update(dict.fromkeys(counts, 0))
+    loss = run.step(run.batches[0]).item()
+    torch.cuda.synchronize()
+    return {"loss": loss, "launches": dict(fa.launches),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"), "cards": torch.cuda.device_count()}
+
+
+print("JOB_RESULT " + json.dumps(ray_tpu_torch.get(one_step.remote(), timeout=600)), flush=True)
+ray_tpu_torch.shutdown()
+"""
+
+
+def counted_step(run, tokens) -> tuple:
+    """One train step, the launch counts set to 0 just before it: (loss,
+    ms, launches of each kernel in it)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    sync = torch.cuda.synchronize if tokens.is_cuda else (lambda: None)
+    _zero_launches()
+    sync()
+    t0 = time.perf_counter()
+    loss = run.step(tokens).item()
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    return loss, ms, dict(fa.launches)
+
+
+def tune_trainable(config: dict) -> None:
+    """Phase 15 (a)'s trial, and placed_cards part 6's: gpt2-small from
+    phase 3's seeded init and tokens (``bench.setup``: B 32, T 1024, flash,
+    fused CE, AdamW; ``config["setup"]`` overrides them, as the CPU
+    rehearsal does) at the trial's lr, ``config.get("steps", N_STEPS)``
+    steps, a ``tune.report`` after each: its loss, ms and each kernel's
+    launches, and what the worker sees (its CUDA_VISIBLE_DEVICES, the cards
+    torch counts, card 0's UUID, its pid), the trial's start and the
+    report's time on the host clock."""
+    from ray_tpu_torch import bench, tune
+
+    start = time.time()
+    run = bench.setup(config.get("steps", N_STEPS), **config.get("setup", {}))
+    for group in run.optimizer.param_groups:
+        group["lr"] = config["lr"]
+    seen = {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"), "pid": os.getpid(),
+            "cards": torch.cuda.device_count(), "uuid": ""}
+    if seen["cards"]:
+        seen["uuid"] = str(getattr(torch.cuda.get_device_properties(0), "uuid", ""))
+    for i, tokens in enumerate(run.batches):
+        loss, ms, launches = counted_step(run, tokens)
+        tune.report(loss=loss, step=i, ms=ms, launches=launches, start=start, t=time.time(),
+                    **seen)
+
+
+def tune_trials(card: str, phase3: tuple) -> list:
+    """Phase 15 (a): three trials at {"GPU": 1} on the one card through
+    ``tune.Tuner``. Returns each trial's launches a step."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch import bench, tune
+
+    _, losses3, step_ms3 = phase3
+    mine = str(getattr(torch.cuda.get_device_properties(0), "uuid", ""))
+    design = design_launches(bench.config(), remat=False)
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    t0 = time.time()
+    try:
+        grid = tune.Tuner(
+            tune.with_resources(tune_trainable, {"GPU": 1}),
+            param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+            tune_config=tune.TuneConfig(metric="loss", mode="min", max_concurrent_trials=3),
+            run_dir=run_dir).fit()
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    fit_s = time.time() - t0
+    if grid.num_errors or len(grid) != len(TUNE_LRS):
+        fail(f"the Tune run: {len(grid)} trials, errors {[r.error for r in grid if r.error]}")
+    # (lr, its reports) a trial, in the order the trials started
+    recs = sorted(((r.config["lr"], r.all_reports) for r in grid),
+                  key=lambda rec: rec[1][0]["start"] if rec[1] else math.inf)
+    prev_end = t0
+    for lr, reps in recs:
+        ms = statistics.median(r["ms"] for r in reps[1:])
+        print(f"tune: trial lr {lr:g} (pid {reps[0]['pid']}, CUDA_VISIBLE_DEVICES "
+              f"{reps[0]['visible']!r}, {reps[0]['cards']} card seen, UUID {reps[0]['uuid']}): its "
+              f"code started {reps[0]['start'] - prev_end:.2f} s after "
+              f"{'fit() began' if prev_end == t0 else 'the trial before it ended'}; losses "
+              + ", ".join(f"{r['loss']:.5f}" for r in reps)
+              + f"; median step {ms:.2f} ms (phase 3: {step_ms3:.2f} ms); wall "
+              f"{reps[-1]['t'] - reps[0]['start']:.2f} s; launches a step {reps[-1]['launches']} "
+              f"[{card}]", flush=True)
+        prev_end = reps[-1]["t"]
+    best = grid.get_best_result()
+    lowest = min(grid, key=lambda r: r.metrics["loss"])
+    print(f"tune: fit() {fit_s:.2f} s for {len(recs)} trials one card at a time; best lr "
+          f"{best.config['lr']:g} (final loss {best.metrics['loss']:.5f}) [{card}]", flush=True)
+    for (lr, reps), (_, later) in zip(recs, recs[1:]):
+        if later[0]["start"] < reps[-1]["t"]:
+            fail(f"two trials held the one card at once: lr {lr:g} and the next")
+    for lr, reps in recs:
+        if len(reps) != N_STEPS or not all(math.isfinite(r["loss"]) for r in reps):
+            fail(f"trial lr {lr:g}: {len(reps)} reports, losses {[r['loss'] for r in reps]}")
+        if any(r["visible"] in (None, "") or "," in r["visible"] or r["cards"] != 1
+               or r["uuid"] != mine for r in reps):
+            fail(f"trial lr {lr:g} did not see exactly this card: {reps[0]}")
+        if not abs(reps[0]["loss"] - losses3[0]) <= LOSS_REF_TOL:
+            fail(f"trial lr {lr:g}: step-0 loss {reps[0]['loss']} vs phase 3's {losses3[0]}")
+        if any(r["launches"] != design for r in reps):
+            fail(f"trial lr {lr:g} launched {[r['launches'] for r in reps]}; the design says "
+                 f"{design} a step")
+    if best.trial_id != lowest.trial_id:
+        fail(f"get_best_result() is {best.config}, the lowest final loss {lowest.config}")
+    return [reps[-1]["launches"] for _, reps in recs]
+
+
+def cli_status(addr: str, head: str, card: str) -> None:
+    """Phase 15 (b): ``python -m ray_tpu_torch --address <addr> status`` in a
+    process of its own shows the card as GPU 1 and the domain head."""
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-m", "ray_tpu_torch", "--address", addr, "status"],
+                         capture_output=True, text=True, timeout=120, env=env, cwd=root)
+    lines = [ln.strip() for ln in out.stdout.splitlines()]
+    shown = [ln for ln in lines if ln.startswith(("GPU:", head + ":"))]
+    print(f"cli: python -m ray_tpu_torch status exited {out.returncode}: {shown} [{card}]",
+          flush=True)
+    if out.returncode != 0:
+        fail(f"rt status exited {out.returncode}: {out.stderr[-2000:]}")
+    if not any(ln.startswith("GPU:") and ln.endswith("/1 available") for ln in shown) or not any(
+            ln.startswith(head + ":") and ln.endswith("/1 available") for ln in shown):
+        fail(f"rt status does not show GPU 1 and {head}: {out.stdout}")
+
+
+def submitted_job(card: str, phase3: tuple) -> dict:
+    """Phase 15 (b): an entrypoint submitted through JobSubmissionClient.
+    Returns its task's launches in its one step."""
+    import shlex
+    import tempfile
+
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.job_submission import JobStatus, JobSubmissionClient
+
+    design = design_launches(bench.config(), remat=False)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_job_") as tmp:
+        script = Path(tmp) / "entrypoint.py"
+        script.write_text(JOB_SCRIPT)
+        client = JobSubmissionClient()
+        t0 = time.perf_counter()
+        sid = client.submit_job(
+            entrypoint=f"{shlex.quote(sys.executable)} {shlex.quote(str(script))}")
+        status = client.wait_until_finished(sid, timeout_s=JOB_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        logs = client.get_job_logs(sid)
+        client.delete_job(sid)
+    result = [ln for ln in logs.splitlines() if ln.startswith("JOB_RESULT ")]
+    print(f"job: {sid} {status} in {wall:.2f} s; its log: "
+          + " | ".join(ln for ln in logs.splitlines()
+                       if ln.startswith(("entrypoint", "JOB_RESULT")))
+          + f" [{card}]", flush=True)
+    if status != JobStatus.SUCCEEDED or not result:
+        fail(f"the job ended {status}: {logs[-3000:]}")
+    got = json.loads(result[-1].removeprefix("JOB_RESULT "))
+    if "entrypoint CUDA_VISIBLE_DEVICES=''" not in logs:
+        fail(f"the job's entrypoint saw a card: {logs[-2000:]}")
+    if got["cards"] != 1 or got["visible"] in (None, "") or "," in got["visible"]:
+        fail(f"the job's num_gpus=1 task did not see one card: {got}")
+    if got["launches"] != design or not abs(got["loss"] - phase3[1][0]) <= LOSS_REF_TOL:
+        fail(f"the job's step: loss {got['loss']} (phase 3 {phase3[1][0]}), launches "
+             f"{got['launches']} (design {design})")
+    return got["launches"]
+
+
+def dashboard_routes(addr: str, head: str, card: str) -> None:
+    """Phase 15 (c): the dashboard on a free port answers /api/status,
+    /api/nodes and /api/metrics/history with the card and its domain."""
+    from ray_tpu_torch.dashboard import Dashboard
+
+    dash = Dashboard(addr, port=0)
+    dash.start()
+    try:
+        got = {path: http_json(dash.address, path, timeout=60) for path in (
+            "/api/status", "/api/nodes",
+            "/api/metrics/history?name=rt_lease_requests_total&window_s=120")}
+    finally:
+        dash.stop()
+    (s1, status), (s2, nodes), (s3, hist) = got.values()
+    total = status.get("resources_total", {}) if s1 == 200 else {}
+    print(f"dashboard at {dash.address}: /api/status {s1} (GPU {total.get('GPU')}, {head} "
+          f"{total.get(head)}), /api/nodes {s2} ({len(nodes) if s2 == 200 else nodes}), "
+          f"/api/metrics/history {s3} (enabled {hist.get('enabled')}, "
+          f"{len(hist.get('points') or [])} points) [{card}]", flush=True)
+    if s1 != 200 or total.get("GPU") != 1.0 or total.get(head) != 1.0:
+        fail(f"/api/status: {s1} {status}")
+    if s2 != 200 or not any(n["resources_total"].get("GPU") == 1.0
+                            and n["resources_total"].get(head) == 1.0 for n in nodes):
+        fail(f"/api/nodes: {s2} {nodes}")
+    if s3 != 200 or not hist.get("enabled") or hist.get("name") != "rt_lease_requests_total":
+        fail(f"/api/metrics/history: {s3} {hist}")
+
+
+class DomainWorker:
+    """Phase 15 (d)'s worker, pinned to the provisioned domain's bundle: what
+    it sees, and one step of phase 3's model."""
+
+    def run(self, setup: dict) -> dict:
+        import ray_tpu_torch
+        from ray_tpu_torch import bench
+
+        out = placed_probe()
+        out["node"] = ray_tpu_torch.get_runtime_context().get_node_id()
+        run = bench.setup(1, **setup)
+        out["loss"], out["ms"], out["launches"] = counted_step(run, run.batches[0])
+        return out
+
+
+def agent_environ(pid: int) -> dict:
+    """The environment process ``pid`` was started with."""
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        pairs = [kv.split(b"=", 1) for kv in f.read().split(b"\0") if b"=" in kv]
+    return {k.decode(): v.decode() for k, v in pairs}
+
+
+def autoscaled_domains(domain: str, card_sets, num_slices: int, work) -> dict:
+    """A Cluster whose head node's agent sees no card, and an Autoscaler
+    over ``GpuDomainProvider(domain=domain, card_sets=card_sets)`` with room
+    for ``num_slices`` domains (``card_sets`` None, as on the CPU: each
+    domain declares its cards and head). A pending
+    ``slice_placement_group(domain, num_slices=num_slices)`` is provisioned
+    and reserved, ``work(spg)`` runs while the gang holds its domains, then
+    ``remove()`` and the wait for the domains and their agents to go.
+    Returns the seconds from the gang's creation to its domains'
+    registration and to its reservation, the domains made, their nodes, the
+    nodes of the gang's bundles, the CUDA_VISIBLE_DEVICES each agent was
+    started with, ``work``'s result, the seconds from ``remove()`` until
+    the domains were gone, and the free card sets then. Phase 15 (d) and
+    placed_cards.py part 7 make their checks on it."""
+    import ray_tpu_torch
+    from ray_tpu_torch.accelerators import slice_placement_group
+    from ray_tpu_torch.autoscaler import Autoscaler, GpuDomainProvider
+    from ray_tpu_torch.core.cluster_utils import Cluster
+
+    c = Cluster()
+    scaler = None
+    try:
+        saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+        os.environ["CUDA_VISIBLE_DEVICES"] = ""  # the head node's agent sees no card
+        try:
+            c.add_node(num_cpus=2)
+        finally:
+            if saved is None:
+                os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+            else:
+                os.environ["CUDA_VISIBLE_DEVICES"] = saved
+        ray_tpu_torch.init(address=c.address)
+        before = ray_tpu_torch.cluster_resources()
+        if before.get("GPU", 0) or any(k.endswith("-head") for k in before):
+            fail(f"the head node offers cards: {before}")
+        provider = GpuDomainProvider(c.address, c.session_id, domain=domain, card_sets=card_sets)
+        scaler = Autoscaler(c.address, provider, min_nodes=1, max_nodes=1 + num_slices,
+                            idle_timeout_s=AS_IDLE_S, poll_period_s=AS_POLL_S,
+                            upscale_cooldown_s=AS_COOLDOWN_S)
+        scaler.start()
+        t0 = time.perf_counter()
+        spg = slice_placement_group(domain, num_slices=num_slices)
+        out = {"registered_s": None}
+        while out["registered_s"] is None and time.perf_counter() - t0 < AS_RESERVE_S:
+            if sum(n.get("alive", True) and n.get("labels", {}).get("gpu-domain-type") == domain
+                   for n in ray_tpu_torch.nodes()) >= num_slices:
+                out["registered_s"] = time.perf_counter() - t0
+            else:
+                time.sleep(0.05)
+        if (out["registered_s"] is None
+                or not spg.wait(max(1.0, AS_RESERVE_S - (time.perf_counter() - t0)))):
+            fail(f"{num_slices} domains of {domain} not provisioned and reserved in "
+                 f"{AS_RESERVE_S} s ({provider._slices})")
+        out["reserved_s"] = time.perf_counter() - t0
+        # an agent registers, and the gang may be reserved on it, before its
+        # start-up handshake reaches the provider, which books it only then
+        while (len(provider.all_slice_members()) < num_slices
+               and time.perf_counter() - t0 < AS_RESERVE_S):
+            time.sleep(0.05)
+        procs = [proc for members in provider._slices.values() for _, proc in members]
+        out.update(made=provider._next_slice, nodes=provider.all_slice_members(),
+                   locs={node for pg in spg.placement_groups
+                         for node in pg.table()["bundle_locations"].values()},
+                   agents_visible=sorted(
+                       agent_environ(p.pid).get("CUDA_VISIBLE_DEVICES", "<unset>")
+                       for p in procs))
+        out["result"] = work(spg)
+        t1 = time.perf_counter()
+        spg.remove()
+        while ((provider._slices or any(p.poll() is None for p in procs))
+               and time.perf_counter() - t1 < AS_TERMINATE_S):
+            time.sleep(0.1)
+        out["gone_s"] = time.perf_counter() - t1
+        out["free"] = provider.free_card_sets
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        ray_tpu_torch.shutdown()
+        c.shutdown()
+    return out
+
+
+def autoscaled_domain(card: str, phase3: tuple) -> dict:
+    """Phase 15 (d): the autoscaler with the card as its one set makes one
+    domain for a pending gang (``autoscaled_domains``), a worker pinned to
+    its bundle takes a step on the card, and after remove() the domain
+    goes. Returns the worker's launches in its step."""
+    import ray_tpu_torch
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.accelerators.gpu import domain_type
+
+    mine = str(getattr(torch.cuda.get_device_properties(0), "uuid", ""))
+    domain = domain_type(torch.cuda.get_device_name(0), 1)
+    design = design_launches(bench.config(), remat=False)
+
+    def work(spg) -> dict:
+        worker = ray_tpu_torch.remote(num_gpus=1, num_cpus=0)(DomainWorker).options(
+            scheduling_strategy=spg.worker_strategy(0, 0)).remote()
+        got = ray_tpu_torch.get(worker.run.remote({}), timeout=FRONT_TIMEOUT_S)
+        ray_tpu_torch.kill(worker)
+        return got
+
+    d = autoscaled_domains(domain, [["0"]], 1, work)
+    got = d["result"]
+    print(f"autoscaler: domain {domain} on card set ['0']: the pending group's domain registered "
+          f"{d['registered_s']:.2f} s and the group reserved {d['reserved_s']:.2f} s after the "
+          f"group's creation; {d['made']} domain provisioned, nodes {d['nodes']}, its agent's "
+          f"CUDA_VISIBLE_DEVICES "
+          f"{d['agents_visible']}, the group on {d['locs']}; the pinned worker (pid {got['pid']}) "
+          f"saw CUDA_VISIBLE_DEVICES {got['visible']!r}, {got['cards']} card, UUID "
+          f"{got.get('uuid')}; its step: loss {got['loss']:.5f} (phase 3 step 0 "
+          f"{phase3[1][0]:.5f}), {got['ms']:.2f} ms, launches {got['launches']}; after remove() "
+          f"the domain was terminated in {d['gone_s']:.2f} s (idle timeout {AS_IDLE_S} s, poll "
+          f"{AS_POLL_S} s), free sets {d['free']} [{card}]", flush=True)
+    if (d["made"] != 1 or len(d["nodes"]) != 1
+            or d["locs"] != set(d["nodes"]) or d["agents_visible"] != ["0"]):
+        fail(f"the autoscaler did not make exactly one domain on card 0 for the group: {d}")
+    if (got["visible"] != "0" or got["cards"] != 1 or got.get("uuid") != mine
+            or got["node"] != d["nodes"][0]):
+        fail(f"the domain's worker did not see exactly card 0 of its domain: {got}")
+    if got["launches"] != design or not abs(got["loss"] - phase3[1][0]) <= LOSS_REF_TOL:
+        fail(f"the domain's step: loss {got['loss']}, launches {got['launches']}")
+    if d["gone_s"] >= AS_TERMINATE_S or d["free"] != [["0"]]:
+        fail(f"the drained domain was not terminated within {AS_TERMINATE_S} s "
+             f"({d['gone_s']:.2f} s; free sets {d['free']})")
+    return {"launches": got["launches"], "registered_s": d["registered_s"],
+            "reserved_s": d["reserved_s"], "terminated_s": d["gone_s"]}
+
+
+def library_modules(card: str, phase3: tuple) -> dict:
+    """Phase 15: (a) Tune, (b) the CLI and job submission, (c) the
+    dashboard, on one ray_tpu_torch.init of this card; then (d) the
+    autoscaler on a Cluster of its own. Returns the launches a step of
+    each kernel in the trials, the job's task and the domain's worker."""
+    import ray_tpu_torch
+    from ray_tpu_torch.core import worker as worker_mod
+
+    ray_tpu_torch.init(num_cpus=4)
+    session = worker_mod.global_worker().session_id
+    try:
+        addr = worker_mod.global_worker().control_address
+        heads = [k for k in ray_tpu_torch.cluster_resources()
+                 if k.startswith("GPU-") and k.endswith("-head")]
+        if len(heads) != 1:
+            fail(f"the card's node should carry one domain head: {heads}")
+        head = heads[0]
+        trials = tune_trials(card, phase3)
+        cli_status(addr, head, card)
+        job = submitted_job(card, phase3)
+        dashboard_routes(addr, head, card)
+    finally:
+        ray_tpu_torch.shutdown()
+    deadline = time.monotonic() + 30
+    while True:
+        pids, files = session_leftovers(session)
+        if not (pids or files) or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    if pids or files:
+        fail(f"the Tune/job session left processes {pids} and files {files}")
+    domain = autoscaled_domain(card, phase3)
+    return {"trials": trials, "job": job, "domain": domain["launches"]}
+
+
 def main() -> None:
     card = identify()
     sass = build()
@@ -3839,6 +4285,7 @@ def main() -> None:
     device_objects(card, pp["hop_ms"])
     ppo_learner(card)
     head_dims = head_dim_steps(card, step_ms)
+    libs = library_modules(card, (counts, losses, step_ms))
     kernels = []
     for name in KERNELS:
         entry = dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
@@ -3850,7 +4297,10 @@ def main() -> None:
                      train_library_launches_a_step=trained[name],
                      head_dim_steps_launches_a_step={
                          label: {k: n for k, n in per_step.items() if k.startswith(name + " ")}
-                         for label, (_, per_step) in head_dims.items()})
+                         for label, (_, per_step) in head_dims.items()},
+                     tune_trial_launches_a_step=[t[name] for t in libs["trials"]],
+                     job_task_launches_a_step=libs["job"][name],
+                     autoscaled_domain_launches_a_step=libs["domain"][name])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -41,25 +41,43 @@ attention, fused CE, AdamW, seeded init, ``bench.py``'s tokens):
      and runs the step on ``build_mesh(MeshConfig(dcn=2, dp=1, tp=2))``,
      whose dcn axis is the domain boundary: held to the unsharded step as
      in part 2 and timed, beside ``sharded_cards``' "dcn 2 x tp 2" (the
-     same mesh over one group of four processes, recorded).
+     same mesh over one group of four processes, recorded);
+  6. Tune on the four cards: six trials of ``chip_smoke.py`` phase 15's
+     trainable (gpt2-small's step at the trial's lr, ``tune.report`` after
+     each of 5 steps) over an lr grid at ``{"GPU": 1}`` with
+     ``max_concurrent_trials=6``: at most four run at once, those running
+     at once see distinct single cards, every card is used, the last two
+     start only once a card is freed, each trial launches each kernel once
+     a layer a step; then the same search under ``ASHAScheduler`` (the
+     trials 200 steps long): a stopped trial's card goes back and a waiting
+     trial takes it;
+  7. the autoscaler with two domains: a ``Cluster`` whose head node sees no
+     card, an ``Autoscaler`` over ``GpuDomainProvider`` with the card sets
+     0,1 and 2,3; a pending ``slice_placement_group(..., num_slices=2)``
+     makes exactly two domains, one agent each seeing only its set, the
+     gang is reserved on them, and part 5's workers run ``dcn 2 x tp 2``
+     over the provisioned agents, held and timed as in part 5; after
+     ``remove()`` both domains are terminated and their sets are back.
 
 Prints each reading with the card's name and power limit, then one JSON
 line of the numbers (the last line); a disagreement, a launch count off
 the design, a worker that sees other than its own card, or a failed run
-exits non-zero. ``--device cpu`` rehearses parts 2 and 5 on the CPU: four
-cards declared on a host that has none, each worker's bundle asking for one
-through ``resources_per_worker`` (``DataParallelTrainer``, whose workers
-join gloo when ``gpus_per_worker`` is 0); then two hosts of two declared
-cards, each with its domain's head, the slice workers joining gloo; a
-smaller ``--model``, ``--batch`` and ``--seq``; nothing is timed as the
-card's. It shares phases 8 and 10 with ``chip_smoke.py``, beside it at the
-repository root.
+exits non-zero. ``--device cpu`` rehearses parts 2, 5 and 7 on the CPU:
+four cards declared on a host that has none, each worker's bundle asking
+for one through ``resources_per_worker`` (``DataParallelTrainer``, whose
+workers join gloo when ``gpus_per_worker`` is 0); then two hosts of two
+declared cards, each with its domain's head, the slice workers joining
+gloo; then the provider's domains declaring their two cards and head (no
+card sets); a smaller ``--model``, ``--batch`` and ``--seq``; nothing is
+timed as the card's. It shares phases 8, 10 and 15 with ``chip_smoke.py``,
+beside it at the repository root.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -69,6 +87,7 @@ import time
 
 import torch
 
+from chip_smoke import AS_IDLE_S, AS_TERMINATE_S, autoscaled_domains
 from ray_tpu_torch import bench
 
 WORLDS = (2, 4)
@@ -86,6 +105,11 @@ RECORDS = "placed_cards"  # the workers' records in the control store KV
 SLICES, SLICE_CARDS = 2, 2
 SLICE_MESH = dict(dcn=2, dp=1, tp=2)
 CPU_CARD_NAME = "NVIDIA H100 80GB HBM3"  # the cards the CPU rehearsal declares
+# Part 6: six trials over an lr grid, a card each; the ASHA search's trials
+# run ASHA_STEPS steps (by device), long enough that the controller, which
+# polls each trial in turn, reads a rung's report while the trial still runs.
+TUNE_LRS = (1e-4, 2e-4, 3e-4, 6e-4, 1e-3, 2e-3)
+ASHA_STEPS = {"cuda": 200, "cpu": 600}
 # sharded_cards' "dcn 2 x tp 2" (the same mesh over one group of four
 # processes, gpt2-small, B 32, T 1024) on four NVIDIA H100 80GB HBM3 at
 # 700 W, the run before this script's in one call: recorded, printed as
@@ -367,22 +391,36 @@ def multislice(args, card: str) -> dict:
         if not spg.wait(120):
             _fail(f"{SLICES} domains of {domain} not reserved in 120 s (heads: {heads})")
         reserve_s = time.perf_counter() - t0
-        worker = ray_tpu_torch.remote(num_gpus=1, num_cpus=0)(SliceWorker)
-        config = dict(device=args.device, model=args.model, batch=args.batch, seq=args.seq,
-                      group="placed_cards_slices")
-        actors = [worker.options(scheduling_strategy=spg.worker_strategy(s, w)).remote()
-                  for s in range(SLICES) for w in range(spg.num_workers_per_slice)]
-        refs = [a.run.remote(config, rank, rank // spg.num_workers_per_slice)
-                for rank, a in enumerate(actors)]
-        t0 = time.perf_counter()
-        recs = ray_tpu_torch.get(refs, timeout=900)
-        run_s = time.perf_counter() - t0
+        recs, run_s = _slice_workers(spg, args, "placed_cards_slices")
         spg.remove()
     finally:
         ray_tpu_torch.shutdown()
         c.shutdown()
     design = bench.config(args.model).n_layer if cuda else 0
     return _check_slices(recs, design, card, domain, reserve_s, run_s, args)
+
+
+def _slice_workers(spg, args, group: str) -> tuple:
+    """A ``num_gpus=1`` SliceWorker pinned to each bundle of the reserved
+    gang, all joining one process group ``group``: (their records, the
+    seconds they took)."""
+    import ray_tpu_torch
+
+    worker = ray_tpu_torch.remote(num_gpus=1, num_cpus=0)(SliceWorker)
+    config = dict(device=args.device, model=args.model, batch=args.batch, seq=args.seq,
+                  group=group)
+    # the handles stay in this list until the records are in: a dropped
+    # handle kills its actor
+    actors = [worker.options(scheduling_strategy=spg.worker_strategy(s, w)).remote()
+              for s in range(spg.num_slices) for w in range(spg.num_workers_per_slice)]
+    refs = [a.run.remote(config, rank, rank // spg.num_workers_per_slice)
+            for rank, a in enumerate(actors)]
+    t0 = time.perf_counter()
+    recs = ray_tpu_torch.get(refs, timeout=900)
+    run_s = time.perf_counter() - t0
+    for a in actors:
+        ray_tpu_torch.kill(a)
+    return recs, run_s
 
 
 def _check_slices(recs: list, design: int, card: str, domain: str, reserve_s: float,
@@ -444,6 +482,157 @@ def _check_slices(recs: list, design: int, card: str, domain: str, reserve_s: fl
             "worst_relnorm": max(r["worst_relnorm"] for r in recs),
             "launches_a_step_per_worker": r0["launches"], "busy_ms_rank0": r0["busy_ms"],
             "pg_init_ms": [r["pg_init_ms"] for r in recs], "reserve_s": reserve_s}
+
+
+def _intervals_overlap(a: dict, b: dict) -> bool:
+    return a["start"] < b["end"] and b["start"] < a["end"]
+
+
+def _trials(grid, cards: list, design: int, cuda: bool, card: str, what: str) -> list:
+    """Each trial of a search as a record (lr, card, start, end, reports),
+    in start order, after the checks every search of part 6 shares: no
+    error, finite losses, every trial's step 0 the same loss, each kernel
+    ``design`` launches a step, and each trial's worker seeing one card."""
+    if grid.num_errors:
+        _fail(f"{what}: {[r.error for r in grid if r.error]}")
+    recs = []
+    for r in grid:
+        reps = r.all_reports
+        if not reps or not all(math.isfinite(x["loss"]) for x in reps):
+            _fail(f"{what}: trial lr {r.config['lr']:g} reported {reps}")
+        recs.append({"lr": r.config["lr"], "visible": reps[0]["visible"], "uuid": reps[0]["uuid"],
+                     "cards": reps[0]["cards"], "start": reps[0]["start"], "end": reps[-1]["t"],
+                     "stopped": r.stopped_early, "reports": reps})
+    recs.sort(key=lambda x: x["start"])
+    loss0 = {x["reports"][0]["loss"] for x in recs}
+    if max(loss0) - min(loss0) > LOSS_TOL:
+        _fail(f"{what}: the trials' step-0 losses differ: {sorted(loss0)}")
+    for x in recs:
+        if x["visible"] not in cards or x["cards"] != (1 if cuda else 0):
+            _fail(f"{what}: trial lr {x['lr']:g} saw {x['visible']!r} ({x['cards']} cards)")
+        if any(rep["launches"] != dict.fromkeys(rep["launches"], design) or not rep["launches"]
+               for rep in x["reports"]):
+            _fail(f"{what}: trial lr {x['lr']:g} launched "
+                  f"{[rep['launches'] for rep in x['reports']]}; the design says {design} of each")
+    # the trials running at any one moment: at most one a card, each on
+    # a card of its own
+    for x in recs:
+        at_start = [y for y in recs if y["start"] <= x["start"] < y["end"]]
+        if len(at_start) > len(cards):
+            _fail(f"{what}: {len(at_start)} trials at once on {len(cards)} cards")
+    for i, x in enumerate(recs):
+        for y in recs[i + 1:]:
+            if _intervals_overlap(x, y) and (x["visible"] == y["visible"]
+                                             or (cuda and x["uuid"] == y["uuid"])):
+                _fail(f"{what}: trials lr {x['lr']:g} and {y['lr']:g} ran at once on one "
+                      f"card ({x['visible']}, {x['uuid']})")
+    t0 = recs[0]["start"]
+    for x in recs:
+        ms = statistics.median(rep["ms"] for rep in x["reports"][1:])
+        print(f"  {what}: lr {x['lr']:g} on CUDA_VISIBLE_DEVICES {x['visible']!r} from "
+              f"{x['start'] - t0:.2f} s to {x['end'] - t0:.2f} s, {len(x['reports'])} steps "
+              f"(median {ms:.2f} ms), stopped early {x['stopped']}, launches a step "
+              f"{x['reports'][-1]['launches']} [{card}]", flush=True)
+    return recs
+
+
+def tune_on_cards(args, card: str) -> dict:
+    """Part 6: six trials at {"GPU": 1} on the four cards, under FIFO and
+    under ASHA. Returns the numbers."""
+    import chip_smoke
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+
+    cuda = args.device == "cuda"
+    design = bench.config(args.model).n_layer if cuda else 0
+    cards = [str(i) for i in range(CARDS)]
+    setup = {} if cuda else dict(model=args.model, batch=args.batch, seq=args.seq, device="cpu")
+    base = tempfile.mkdtemp(prefix="placed_cards_tune_")
+    ray_tpu_torch.init(num_cpus=CARDS + 2, **({} if cuda else {"num_gpus": CARDS}))
+    out = {}
+    try:
+        for name, steps, scheduler in (
+                ("fifo", chip_smoke.N_STEPS, None),
+                ("asha", ASHA_STEPS[args.device],
+                 tune.ASHAScheduler(metric="loss", mode="min", max_t=ASHA_STEPS[args.device] + 1,
+                                    grace_period=1, reduction_factor=2))):
+            t0 = time.perf_counter()
+            grid = tune.Tuner(
+                tune.with_resources(chip_smoke.tune_trainable, {"GPU": 1}),
+                param_space={"lr": tune.grid_search(list(TUNE_LRS)), "steps": steps,
+                             "setup": setup},
+                tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                            max_concurrent_trials=len(TUNE_LRS),
+                                            scheduler=scheduler),
+                run_dir=os.path.join(base, name)).fit()
+            fit_s = time.perf_counter() - t0
+            what = f"tune {name}, {len(TUNE_LRS)} trials on {CARDS} cards"
+            print(f"{what}: fit() {fit_s:.1f} s [{card}]", flush=True)
+            recs = _trials(grid, cards, design, cuda, card, what)
+            if len(recs) != len(TUNE_LRS) or {x["visible"] for x in recs} != set(cards):
+                _fail(f"{what}: {len(recs)} trials on cards {sorted({x['visible'] for x in recs})}")
+            if cuda and len({x["uuid"] for x in recs}) != CARDS:
+                _fail(f"{what}: the trials' cards {sorted({x['uuid'] for x in recs})}")
+            late = recs[CARDS:]
+            for x in late:  # it waited for a card that a trial before it gave back
+                freed = [y for y in recs if y["end"] <= x["start"] and y["visible"] == x["visible"]]
+                if not freed:
+                    _fail(f"{what}: trial lr {x['lr']:g} started on {x['visible']} before a "
+                          f"trial gave that card back")
+            if name == "fifo":
+                if any(x["stopped"] or len(x["reports"]) != steps for x in recs):
+                    _fail(f"{what}: a trial stopped early or short")
+            else:
+                stopped = [x for x in recs if x["stopped"]]
+                took = [(y, x) for x in late for y in stopped
+                        if y["end"] <= x["start"] and y["visible"] == x["visible"]]
+                print(f"  {what}: {len(stopped)} stopped early (lr "
+                      f"{[y['lr'] for y in stopped]}); a waiting trial took a stopped trial's "
+                      f"card: {[(y['lr'], x['lr'], x['visible']) for y, x in took]} [{card}]",
+                      flush=True)
+                if not stopped or not took:
+                    _fail(f"{what}: no stopped trial's card went to a waiting trial")
+            best = grid.get_best_result()
+            out[name] = {"fit_s": fit_s, "best_lr": best.config["lr"],
+                         "cards": {str(x["lr"]): x["visible"] for x in recs},
+                         "stopped": [x["lr"] for x in recs if x["stopped"]],
+                         "step_ms": {str(x["lr"]): statistics.median(
+                             rep["ms"] for rep in x["reports"][1:]) for x in recs},
+                         "launches_a_step": recs[0]["reports"][-1]["launches"]}
+    finally:
+        ray_tpu_torch.shutdown()
+    return out
+
+
+def autoscaled_slices(args, card: str) -> dict:
+    """Part 7: the autoscaler provisions two NVLink domains for a pending
+    gang of two (``chip_smoke.autoscaled_domains``), part 5's workers run
+    on them, and the domains go after ``remove()``. Returns the numbers."""
+    from ray_tpu_torch.accelerators.gpu import domain_type
+
+    cuda = args.device == "cuda"
+    domain = domain_type(torch.cuda.get_device_name(0) if cuda else CPU_CARD_NAME, SLICE_CARDS)
+    sets = [[str(s * SLICE_CARDS + i) for i in range(SLICE_CARDS)] for s in range(SLICES)]
+    # on the CPU, no card sets: each domain declares its cards and head
+    d = autoscaled_domains(domain, sets if cuda else None, SLICES,
+                           lambda spg: _slice_workers(spg, args, "placed_cards_autoscaled"))
+    seen, (recs, run_s) = d["agents_visible"], d["result"]
+    print(f"autoscaler: {d['made']} domains of {domain} provisioned for a pending gang of "
+          f"{SLICES}, registered {d['registered_s']:.2f} s and reserved {d['reserved_s']:.2f} s "
+          f"after the gang's creation; the agents' CUDA_VISIBLE_DEVICES {seen} [{card}]",
+          flush=True)
+    if d["made"] != SLICES or len(d["nodes"]) != SLICES or d["locs"] != set(d["nodes"]):
+        _fail(f"the autoscaler made {d['made']} domains for a gang of {SLICES}: {d}")
+    if cuda and seen != [",".join(cs) for cs in sets]:
+        _fail(f"the domains' agents did not each see only their set: {seen}")
+    print(f"autoscaler: after remove() both domains were terminated in {d['gone_s']:.2f} s "
+          f"(idle timeout {AS_IDLE_S} s); free card sets {d['free']} [{card}]", flush=True)
+    if d["gone_s"] >= AS_TERMINATE_S or (cuda and sorted(d["free"]) != sets):
+        _fail(f"the removed gang's domains did not go: {d['gone_s']:.2f} s, free sets "
+              f"{d['free']}")
+    design = bench.config(args.model).n_layer if cuda else 0
+    got = _check_slices(recs, design, card, domain, d["reserved_s"], run_s, args)
+    return dict(got, terminated_s=d["gone_s"], agents_visible=seen)
 
 
 def one_card_step(args, card: str) -> float:
@@ -544,10 +733,12 @@ def main(argv=None) -> None:
         summary["pipeline"] = dict(pipe, launches_a_step_per_stage=launches)
         summary["serve"] = serve_on_cards(card)
         summary["multislice"] = multislice(args, card)
+        summary["tune"] = tune_on_cards(args, card)
     else:
         card = "CPU rehearsal, gloo: no time here is the card's"
         summary["train"] = trainers(args, card, float("nan"))
         summary["multislice"] = multislice(args, card)
+    summary["autoscaled"] = autoscaled_slices(args, card)
     print("every path placed a worker a card, held to its one-card reference", flush=True)
     print(json.dumps({"card": card, **summary}, default=str))
 

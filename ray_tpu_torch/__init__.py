@@ -6,8 +6,9 @@ PyTorch, and every Pallas kernel on a ported path is a CUDA C++ kernel
 written by hand for Hopper (``ops/csrc/``), built with nvcc at first use.
 The runtime under it (``core/``, ``data/``, ``utils/``, ``observability/``,
 and the Train library and host collectives in ``train/`` and
-``collective/``, the state API and the metrics history and alerts) is a
-copy of the JAX package's, pinned file by file
+``collective/``, the state API and the metrics history and alerts, Tune,
+the autoscaler, the CLI, the dashboard and job submission) is a copy of
+the JAX package's, pinned file by file
 (``tests/test_torch_runtime_copy.py``); ``accelerators/`` counts NVIDIA
 cards instead of TPU chips, ``core/device_objects.py`` keeps torch tensors
 (on the CPU or a card) for ``tensor_transport="device"``, and
@@ -52,7 +53,7 @@ from ray_tpu_torch.core.placement import (
 from ray_tpu_torch.core import exceptions
 
 _SUBPACKAGES = ("dag", "data", "models", "ops", "parallel", "serve", "accelerators",
-                "collective", "train")
+                "collective", "train", "tune")
 
 
 def __getattr__(name):

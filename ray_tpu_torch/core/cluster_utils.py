@@ -162,6 +162,7 @@ def _spawn_with_handshake(
     session_id: str,
     log_prefix: str,
     startup_timeout_s: float = 60.0,
+    env: Optional[Dict[str, str]] = None,
 ):
     """Spawn a cluster daemon and wait for its one-line JSON startup
     handshake — THE spawn protocol, shared by node agents and standalone
@@ -169,7 +170,7 @@ def _spawn_with_handshake(
     repo_root = os.path.dirname(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     )
-    env = dict(os.environ)
+    env = dict(os.environ, **(env or {}))
     env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
     env["RT_CONFIG_SNAPSHOT"] = config.snapshot()
     # stderr goes to a FILE, not a pipe: nothing drains daemon logs for
@@ -221,9 +222,11 @@ def spawn_node_agent(
     resources: Dict[str, float],
     labels: Optional[Dict[str, str]] = None,
     startup_timeout_s: float = 60.0,
+    env: Optional[Dict[str, str]] = None,
 ):
     """Start a node agent process (shared by the test Cluster and the
-    autoscaler's LocalNodeProvider)."""
+    autoscaler's node providers); ``env`` sets variables in its environment
+    only."""
     return _spawn_with_handshake(
         [
             sys.executable, "-m", "ray_tpu_torch.core.node_main",
@@ -232,7 +235,7 @@ def spawn_node_agent(
             "--resources", json.dumps(resources),
             "--labels", json.dumps(labels or {}),
         ],
-        session_id, "node", startup_timeout_s,
+        session_id, "node", startup_timeout_s, env=env,
     )
 
 

@@ -3,8 +3,8 @@ pinned copy of the JAX package's): the contracts of ``tests/test_alerts.py``,
 re-run. Default-rule-pack metric pinning, the threshold/burn-rate state
 machines over a real history store, extra-rule config parsing, and the
 end-to-end spike -> firing -> timeline -> resolved loop through a live
-port cluster. The port has no CLI: where the JAX test reads ``rt alerts``
-and ``rt top``, this one reads the state API they print."""
+port cluster, read through the port's ``rt alerts`` and ``rt top`` (as the
+JAX test reads them) and its dashboard's /api/alerts route."""
 
 import json
 import threading
@@ -220,9 +220,10 @@ def test_no_data_never_pages_and_bad_rule_is_isolated():
 # -- e2e: spike -> firing -> timeline + state API -> resolved -------------
 
 
-def test_alert_loop_e2e_cluster():
+def test_alert_loop_e2e_cluster(capsys):
     import ray_tpu_torch
     from ray_tpu_torch import state
+    from ray_tpu_torch.cli import main as cli_main
     from ray_tpu_torch.core import cluster_utils
     from ray_tpu_torch.core import worker as worker_mod
     from ray_tpu_torch.observability.history import HistorySampler
@@ -271,16 +272,36 @@ def test_alert_loop_e2e_cluster():
             assert any(
                 e["name"].endswith(":firing") for e in alert_evts
             ), f"no firing instant in timeline: {alert_evts}"
-            # what `rt alerts --json` prints while firing round-trips JSON
-            parsed = json.loads(json.dumps(state.alerts(addr)))
+            # rt alerts exits 2 while firing; --json round-trips
+            rc = cli_main(["--address", addr, "--json", "alerts"])
+            out = capsys.readouterr().out
+            assert rc == 2
+            parsed = json.loads(out)
             assert parsed["enabled"]
             assert any(
                 a["name"] == "serve_ttft_p95_burn"
                 and a["state"] == "firing" for a in parsed["alerts"]
             )
-            # the history `rt top --since 5` reads beside the alerts
-            hist = state.metrics_history(window_s=5.0, address=addr)
-            assert hist["enabled"] and hist["names"]
+            # the dashboard's route answers the same
+            from ray_tpu_torch.dashboard import Dashboard
+
+            dash = Dashboard(addr, port=0)
+            try:
+                status, _, body = dash._route("/api/alerts")
+                assert status == 200
+                assert any(a["name"] == "serve_ttft_p95_burn" and a["state"] == "firing"
+                           for a in json.loads(body)["alerts"])
+            finally:
+                dash._server.server_close()
+            # rt top --once --json carries the same alert + history data
+            rc = cli_main([
+                "--address", addr, "--json", "top", "--once", "--since", "5",
+            ])
+            out = capsys.readouterr().out
+            assert rc == 0
+            frame = json.loads(out)
+            assert frame["alerts"]["enabled"]
+            assert frame["history"] is not None
             # spike over: short window drains first, rule resolves
             deadline = time.time() + 20.0
             resolved = False
@@ -298,8 +319,10 @@ def test_alert_loop_e2e_cluster():
                 and e["name"] == "alert:serve_ttft_p95_burn:resolved"
                 for e in tl
             )
-            # nothing firing any more
-            assert not [a for a in state.alerts(addr)["alerts"] if a["state"] == "firing"]
+            rc = cli_main(["--address", addr, "alerts"])
+            out = capsys.readouterr().out
+            assert rc == 0  # nothing firing any more
+            assert "serve_ttft_p95_burn" in out
         finally:
             ray_tpu_torch.shutdown()
     finally:

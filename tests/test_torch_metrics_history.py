@@ -3,9 +3,8 @@ a pinned copy of the JAX package's) and the sampler plane its control
 store starts: the contracts of ``tests/test_metrics_history.py``, re-run.
 Reset-aware deltas, multi-resolution ring folding, windowed percentiles
 against a direct reference, the head-side sampler plane end-to-end at the
-default interval and at 0. The port has no dashboard: the e2e test reads
-the route's query (name, window, step) through the control store's RPC,
-which the dashboard's /api/metrics/history route forwards."""
+default interval and at 0; the e2e test reads the series through the
+port's dashboard route (/api/metrics/history), as the JAX test does."""
 
 import json
 import threading
@@ -223,7 +222,7 @@ def test_derived_request_gauges_land_in_history():
     assert q["points"][0]["value"] == pytest.approx(0.4)
 
 
-# -- cluster e2e: sampler thread + state API + the control store's RPC ----
+# -- cluster e2e: sampler thread + state API + dashboard route -----------
 
 
 def test_history_sampler_e2e_cluster():
@@ -263,20 +262,24 @@ def test_history_sampler_e2e_cluster():
             inv = state.metrics_history()
             assert inv["enabled"] and inv["ticks"] >= 1
             assert "rt_lease_requests_total" in inv["names"]
-            # the query the dashboard's route forwards, over the RPC
+            # dashboard route parses query params and round-trips JSON
             from ray_tpu_torch.core import worker as worker_mod
-            from ray_tpu_torch.utils.rpc import RpcClient
+            from ray_tpu_torch.dashboard import Dashboard
 
             addr = worker_mod.global_worker().control_address
-            client = RpcClient(addr, name="history-test")
+            dash = Dashboard(addr, port=0)
             try:
-                rep = client.call("metrics_history", name="rt_lease_requests_total",
-                                  window_s=30.0, step_s=0.2, timeout_s=10.0)
-                rep = json.loads(json.dumps(rep))
+                status, ctype, body = dash._route(
+                    "/api/metrics/history?name=rt_lease_requests_total"
+                    "&window_s=30&step_s=0.2"
+                )
+                assert status == 200 and ctype == "application/json"
+                rep = json.loads(body)
                 assert rep["enabled"] and rep["name"] == \
                     "rt_lease_requests_total"
+                assert sum(p["delta"] for p in rep["points"]) >= 5.0
             finally:
-                client.close()
+                dash._server.server_close()
         finally:
             ray_tpu_torch.shutdown()
     finally:

@@ -5,9 +5,12 @@ group of 2 and of 4 holds a card id of its own, the data-parallel mesh
 step is held to the unsharded step, and grad_sync's mean to all_reduce's.
 Then its two-domain part: two hosts of two declared cards, a slice each
 (``num_slices=2``), four workers in one gloo group, ranks domain-major,
-the dcn 2 x tp 2 step held to the unsharded step. The script exits
-non-zero otherwise. On a host with four GPUs it runs as ``python3
-placed_cards.py``."""
+the dcn 2 x tp 2 step held to the unsharded step. Then its autoscaler
+part: the same gang pending on a cluster whose head node has no card, an
+``Autoscaler`` over ``GpuDomainProvider`` provisioning exactly two domains
+of two declared cards for it, the same step on them, and both domains
+terminated after ``remove()``. The script exits non-zero otherwise. On a
+host with four GPUs it runs as ``python3 placed_cards.py``."""
 
 import json
 
@@ -36,3 +39,9 @@ def test_placed_cards_rehearses_the_trainer_on_the_cpu(capsys, monkeypatch):
     assert slices["launches_a_step_per_worker"] == dict.fromkeys(
         slices["launches_a_step_per_worker"], 0.0)
     assert len(slices["step_ms"]) == placed_cards.SLICES * placed_cards.SLICE_CARDS
+    scaled = summary["autoscaled"]
+    assert scaled["slices"] == {str(s): ["0", "1"] for s in range(placed_cards.SLICES)}
+    assert scaled["loss_gap"] <= placed_cards.LOSS_TOL
+    assert scaled["worst_relnorm"] <= placed_cards.GRAD_RELNORM_TOL
+    assert scaled["terminated_s"] < placed_cards.AS_TERMINATE_S
+    assert len(scaled["step_ms"]) == placed_cards.SLICES * placed_cards.SLICE_CARDS

@@ -52,6 +52,9 @@ serve/autoscale/__init__.py serve/autoscale/admission.py serve/autoscale/policy.
 serve/openai/__init__.py serve/openai/protocol.py serve/openai/tokenizer.py
 serve/openai/ingress.py
 rllib/__init__.py rllib/env.py
+tune/__init__.py tune/session.py tune/trainable.py tune/search.py tune/schedulers.py
+tune/tuner.py
+job_submission.py dashboard.py cli.py __main__.py autoscaler.py
 """.split()
 
 # Files of the runtime packages that are written for the port, not copied.
@@ -59,12 +62,13 @@ PORTED = {"accelerators/__init__.py", "accelerators/gpu.py", "accelerators/slice
           "collective/process_group.py", "core/device_objects.py",
           "serve/llm.py", "serve/kv_transfer.py", "serve/prefix_cache.py", "rllib/ppo.py"}
 RUNTIME_PACKAGES = ("core", "data", "utils", "observability", "accelerators", "native",
-                    "collective", "train", "serve", "rllib")
+                    "collective", "train", "serve", "rllib", "tune")
 
 # A region that the port writes itself, inside a copy: from a line
 # "# >>> ported: <what>" to a line "# <<< ported". The test pins the text
 # around it; the region is held to the JAX package by behaviour
-# (tests/test_torch_pipeline.py for parallel/pipeline.py).
+# (tests/test_torch_pipeline.py for parallel/pipeline.py,
+# tests/test_torch_autoscaler.py for autoscaler.py).
 _OWN_REGION = re.compile(r"(^[ \t]*# >>> ported: [^\n]*\n).*?(^[ \t]*# <<< ported\n)",
                          re.S | re.M)
 _OWN = "<the port's own code>\n"
@@ -85,6 +89,25 @@ _PLACEMENT = ("a worker is spawned seeing only its lease's cards (CUDA_VISIBLE_D
               "lease's ids taken from the node's free shares and given back at release, and "
               "the worker pool keyed by them, since a process cannot change its cards once "
               "CUDA has started")
+
+_TRIAL_CARDS = ("a trial's GPU asks for cards: its runner actor leases them through num_gpus "
+                "(whole cards or a share of one), so the node agent spawns it seeing only "
+                "them, and GPU leaves the custom resources; TPU stays num_tpus, which the "
+                "port's actors refuse")
+_QUEUED_TRIALS = ("a trial whose card another trial holds waits for its lease, where the JAX "
+                  "package's trials take CPUs that are rarely short: the controller polled "
+                  "such a runner with a drain that times out (5 s), counted each as a miss "
+                  "and finished the trial as unresponsive after 24, so queued trials failed "
+                  "once the trial before them ran for about two minutes; a runner is now "
+                  "polled only once its actor is up, and the poll's timeout is a module "
+                  "constant a test can shorten")
+_DOMAINS = ("the provider's atom is one NVLink domain, a host of N cards carrying "
+            "GPU-<domain>-head (accelerators/gpu.py), where the JAX package's is a TPU "
+            "slice; its demand is one host a pending STRICT_PACK group of a domain "
+            "(accelerators/slice_pg.py), where a TPU slice group asks one host a bundle")
+_AGENT_ENV = ("a node agent can be spawned with variables of its own (the NVLink-domain "
+              "provider hands one its card set as CUDA_VISIBLE_DEVICES) without touching "
+              "this process's environment, which another thread may be reading")
 
 _TORCH_STAGE = ("the stage on torch: autograd graphs in place of jax.vjp, an explicit "
                 "gradient accumulator, a torch optimizer from a factory in place of optax, "
@@ -284,6 +307,79 @@ HUNKS = {
          "        if sc.use_gpu and not sc.gpus_per_worker:\n"
          "            sc.gpus_per_worker = 1\n", _TORCH_BACKEND),
     ],
+    "tune/tuner.py": [
+        ("from ray_tpu_torch.utils import serialization\n",
+         "from ray_tpu_torch.utils import serialization\n"
+         "from ray_tpu_torch.utils.config import config\n", _OWN_FILES),
+        ('            "/tmp/ray_tpu_torch", "tune", f"run_{uuid.uuid4().hex[:8]}"\n',
+         '            str(config.temp_dir), "tune", f"run_{uuid.uuid4().hex[:8]}"\n', _OWN_FILES),
+        ('                    opts["num_cpus"] = cpus\n',
+         '                    opts["num_cpus"] = cpus\n'
+         '                gpus = resources.get("GPU")\n'
+         "                if gpus is not None:\n"
+         '                    opts["num_gpus"] = gpus\n', _TRIAL_CARDS),
+        ('                    if k not in ("CPU", "TPU")\n',
+         '                    if k not in ("CPU", "GPU", "TPU")\n', _TRIAL_CARDS),
+        ("logger = logging.getLogger(__name__)\n",
+         "logger = logging.getLogger(__name__)\n\n"
+         "# A drain that outlasts this is a miss; 24 misses in a row of a runner\n"
+         "# that holds its lease finish its trial as unresponsive.\n"
+         "DRAIN_TIMEOUT_S = 5.0\n", _QUEUED_TRIALS),
+        ("        while pending or running:\n",
+         "        def placed(rec: Dict[str, Any]) -> bool:\n"
+         "            # A runner whose actor still waits for its lease (the card it\n"
+         "            # asks for held by another trial) is queued, not wedged: it is\n"
+         "            # polled, and its misses counted, only once its actor is up.\n"
+         "            if not rec.get(\"placed\"):\n"
+         "                from ray_tpu_torch.core import worker as worker_mod\n\n"
+         "                info = worker_mod.global_worker().control.call(\n"
+         "                    \"get_actor_info\", actor_id=rec[\"actor\"]._actor_id\n"
+         "                )\n"
+         "                rec[\"placed\"] = info is not None and info[\"state\"] not in (\n"
+         "                    \"DEPENDENCIES_UNREADY\", \"PENDING_CREATION\"\n"
+         "                )\n"
+         "            return rec[\"placed\"]\n\n"
+         "        while pending or running:\n", _QUEUED_TRIALS),
+        ("                rec = running[tid]\n                try:\n",
+         "                rec = running[tid]\n"
+         "                if not placed(rec):\n"
+         "                    continue\n"
+         "                try:\n", _QUEUED_TRIALS),
+        ('rec["actor"].drain.remote(rec["cursor"]), timeout=5\n',
+         'rec["actor"].drain.remote(rec["cursor"]),\n'
+         "                        timeout=DRAIN_TIMEOUT_S,\n", _QUEUED_TRIALS),
+    ],
+    "autoscaler.py": [
+        (re.compile(r"class TpuPodProvider\(NodeProvider\):\n.*?(?=\nclass Autoscaler:)", re.S),
+         "# >>> ported: NVLink-domain provider\n" + _OWN + "# <<< ported\n\n", _DOMAINS),
+        ("        hosts_needed = pending_slice_demand(\n"
+         "            pgs, provider.node_resources(),\n"
+         "            head_resource=f\"TPU-{provider.pod_type}-head\",\n",
+         "        hosts_needed = pending_domain_demand(\n"
+         "            pgs, provider.node_resources(),\n"
+         "            head_resource=provider.head_resource,\n", _DOMAINS),
+        ('        if hasattr(self.provider, "create_slice"):\n'
+         "            self._step_slices(client, nodes, n_alive)\n",
+         '        if hasattr(self.provider, "create_slice"):\n'
+         "            launched = len(self._launched)\n"
+         "            self._step_slices(client, nodes, n_alive)\n"
+         "            if len(self._launched) > launched:\n"
+         "                # the new slices registered after this step's view of the\n"
+         "                # nodes was read: judged against it, they would be dropped\n"
+         "                # from _launched below and never scaled down\n"
+         "                return\n",
+         "a fix the JAX package lacks (ROADMAP.md Queue C): the scale-down pass of the "
+         "step that launched a slice read the nodes from before the launch, dropped the "
+         "new slice's nodes from _launched as gone, and so never scaled a slice down"),
+        ('                        if st.get("leases"):\n',
+         "                        # a placement group's bundles reserved there hold\n"
+         "                        # the node too: a gang between its reservation and\n"
+         "                        # its workers' leases is not idle\n"
+         '                        if st.get("leases") or st.get("bundles"):\n',
+         "a fix the JAX package lacks (ROADMAP.md Queue C): the two-phase drain asked the "
+         "agent for leases only, so a node whose placement group was reserved and whose "
+         "workers had not leased yet was terminated under the group after idle_timeout_s"),
+    ],
     "serve/controller.py": [(
         '            num_tpus=res.pop("TPU", 0) or None,\n',
         '            num_gpus=(res.pop("GPU", 0) + res.pop("num_gpus", 0)) or None,\n',
@@ -423,6 +519,22 @@ for _names in NOT_PORTED_FLAGS.values():
          '    spill_glob = os.path.join(str(config.temp_dir), "rttspill_*")\n'
          "    for pattern in _SHM_DEBRIS_GLOBS + (spill_glob,):\n", _OWN_FILES),
         ("        num_tpus: float = 0,\n", "        num_gpus: float = 0,\n", _NUM_GPUS),
+        ("    log_prefix: str,\n    startup_timeout_s: float = 60.0,\n):\n",
+         "    log_prefix: str,\n    startup_timeout_s: float = 60.0,\n"
+         "    env: Optional[Dict[str, str]] = None,\n):\n", _AGENT_ENV),
+        ("    env = dict(os.environ)\n",
+         "    env = dict(os.environ, **(env or {}))\n", _AGENT_ENV),
+        ("    labels: Optional[Dict[str, str]] = None,\n    startup_timeout_s: float = 60.0,\n"
+         "):\n    \"\"\"Start a node agent process (shared by the test Cluster and the\n"
+         "    autoscaler's LocalNodeProvider).\"\"\"\n",
+         "    labels: Optional[Dict[str, str]] = None,\n    startup_timeout_s: float = 60.0,\n"
+         "    env: Optional[Dict[str, str]] = None,\n"
+         "):\n    \"\"\"Start a node agent process (shared by the test Cluster and the\n"
+         "    autoscaler's node providers); ``env`` sets variables in its environment\n"
+         "    only.\"\"\"\n", _AGENT_ENV),
+        ("        session_id, \"node\", startup_timeout_s,\n    )\n",
+         "        session_id, \"node\", startup_timeout_s, env=env,\n    )\n",
+         _AGENT_ENV),
         ('        res["TPU"] = float(num_tpus)\n', '        res["GPU"] = float(num_gpus)\n',
          _NUM_GPUS),
     ],
