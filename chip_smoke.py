@@ -9,10 +9,11 @@ Phases (any failure exits non-zero and prints no result):
      flash_attention.cu; f32 operands: flash_attention_f32.cu), print each
      instance's registers and spills; count each bf16 instance's wgmma
      (HGMMA) and TMA load (UTMALDG) instructions in the library's SASS
-     (cuobjdump -sass), per head dim (16, 32, 64, 128) and output type (bf16,
-     f32), and each f32 instance's (all three kernels are 3xTF32 on tf32
-     wgmma fed by TMA), and fail if an instance lacks them, an f32 instance
-     spills or a head dim has no instance;
+     (cuobjdump -sass), per head dim (16, 32, 64, 128, 256; dK/dV's 256 as
+     its dV and dK passes) and output type (bf16, f32), and each f32
+     instance's (all three kernels are 3xTF32 on tf32 wgmma fed by TMA), and
+     fail if an instance lacks them, an f32 instance spills or a head dim
+     has no instance;
   2. hold each kernel against its plain PyTorch version on the card, on bf16
      inputs from a seeded generator, at the train step's shape, at head dim
      16, at a ragged T, non-causal with Tk != Tq, and non-causal with Tk
@@ -21,20 +22,28 @@ Phases (any failure exits non-zero and prints no result):
      (ray_tpu_torch.bench.disagreement); the same at gpt2-small's width as
      H 6 x Dh 128 and H 24 x Dh 32 (B 32, T 1024, causal), ragged causal
      (T 1000), non-causal (Tq 200, Tk 333) and wrapping (Tq 300, Tk 1100),
-     in both output types; call dQ twice at each of the three train-step
-     shapes and fail unless both give the same bits (no atomics, no
-     dependence on run order); hold the autograd Function at the
-     train step's [B, T, H, Dh] against reference attention; time each
-     kernel at the three train-step shapes beside its bound, its plain
-     version and the library's attention (F.scaled_dot_product_attention,
-     a yardstick only). Then the f32 kernels (f32 operands) against their
+     in both output types; the head dims between and above those
+     instances (REACH_DIMS: 8, 20, 40, 48, 80, 96, 160, 192, 256; 20 by the
+     padding copy) causal, ragged causal, non-causal and wrapping, in both
+     output types, and at phase 14's shapes (8 heads of 96, 16 of 48, 3 of
+     256, B 32) and gpt2-large's width as 16 heads of 80 (B 8); call dQ
+     twice at each timed shape and fail unless both give the same bits (no
+     atomics, no dependence on run order); hold the autograd Function at
+     the train step's [B, T, H, Dh] against reference attention; time each
+     kernel at the seven timed shapes beside its bound (of the head dim's
+     own work), its plain version and the library's attention
+     (F.scaled_dot_product_attention, a yardstick only), and a padded
+     route's times beside its padded share and its instance's own time
+     scaled by heads; the padding copy's time beside its kernels' (bf16 Dh
+     20, f32 Dh 6); head dim 264 refused with nothing launched. Then the f32 kernels (f32 operands) against their
      plain versions in f32 (TF32 off, printed): gpt2-small's attention in
      f32 at B 8, the f32 ring's Dh 32 blocks, Dh 128, ragged and Dh 16,
      held at 1e-5 relnorm (o), 1e-4 (dq, dk, dv) and 1e-5 on lse; dQ twice
      at B 8 for the same bits; all three timed at B 8, at Dh 128 and at the
      f32 ring's Dh 32 blocks beside the bound at the 3xTF32 rate and SDPA on
      the same f32 inputs, with each kernel's device time (torch.profiler)
-     beside its CUDA-event time;
+     beside its CUDA-event time; the same reach head dims in f32 (6 by the
+     padding copy) and gpt2-small's width as 3 heads of 256 at B 8, timed;
   3. train gpt2-small at full width through the port's entry points
      (ray_tpu_torch.bench.setup: random init from a seeded generator,
      AdamW, flash attention, fused CE, B=32, T=1024): first hold step 0's
@@ -236,15 +245,17 @@ Phases (any failure exits non-zero and prints no result):
      iteration split into SGD and the rest, the ms per minibatch update,
      and what train()'s float(loss) after each update costs against one
      read at the end. No flash launch;
- 14. the train step at head dims 128 and 32 and in f32: gpt2-small's widths
-     as 6 heads of 128 and as 24 heads of 32 (bf16, B=32, T=1024), and
-     gpt2-small in f32 (B=8, T=1024), each from phase 3's seeded init and
+ 14. the train step at other head dims and in f32: gpt2-small's widths as
+     6 heads of 128, 24 of 32, 8 of 96, 16 of 48 and 3 of 256 (bf16, B=32,
+     T=1024), and gpt2-small in f32 at 12 heads of 64 and 3 of 256 (B=8,
+     T=1024), each from phase 3's seeded init and
      tokens: step 0's loss and every gradient against reference attention
      on the same init and batch (bf16: phase 3's limits; f32: the loss
      within 1e-5 relative, each gradient within 1e-4 relnorm), a warm-up
-     step, 3 timed steps (median beside phase 3's), and 12 launches a step
-     of each kernel's own instance (head dim and operand dtype) and no
-     other;
+     step, 3 timed steps (median beside phase 3's), and 12 calls a step
+     of each kernel's own instance (the head dim asked and the instance
+     that ran, and the operand dtype) and no other: 12 launches, 24 for
+     dK/dV at head dim 256 (a dV pass and a dK pass a call);
  15. the library and control-plane modules. (a) Tune: ray_tpu_torch.init on
      the card, then tune.Tuner(tune.with_resources(trainable, {"GPU": 1}))
      over lr in (1e-4, 3e-4, 1e-3) with max_concurrent_trials=3, each trial
@@ -277,8 +288,9 @@ Phases (any failure exits non-zero and prints no result):
  16. print the kernel line (one JSON object; beside the contract's keys,
      each kernel's SASS counts per instance from phase 1, held_at (every
      head dim and operand->output type a check held it at in this run),
-     the times of each timed instance (Dh 64, 128, 32 bf16; Dh 64 f32 at B
-     8) with their bounds, plain and library times, its f32-output
+     the times of each timed instance (Dh 64, 128, 32, 96, 48, 256 and 80
+     bf16, the padded ones with their padded share; Dh 64, 128, 32 and 256
+     f32) with their bounds, plain and library times, its f32-output
      instantiation's gap, times and ring launches from phase 5 and the f32
      ring's launches, its launches a step in each stage process from phase
      8, in the train worker and a grad_sync rank from phase 9 and in phase
@@ -326,18 +338,40 @@ PEAK_BYTES = 3.35e12
 # (B, T, Tk, H, Dh, causal): the train step's shape first, then a pipeline
 # stage's microbatch (phase 8: 8 rows, BH 96); then gpt2-small's width as
 # 6 heads of 128 and as 24 heads of 32 (the train step's FLOPs and bytes at
-# head dims 128 and 32, phase 14), each also ragged causal and non-causal.
+# head dims 128 and 32, phase 14), each also ragged causal and non-causal;
+# then the other head dims.
 MAIN_CASE = (32, 1024, 1024, 12, 64, True)
 MAIN_D128 = (32, 1024, 1024, 6, 128, True)
 MAIN_D32 = (32, 1024, 1024, 24, 32, True)
-TIMED_CASES = (MAIN_CASE, MAIN_D128, MAIN_D32)
+# Phase 14's head dims between and above the first instances, at
+# gpt2-small's width (B 32, T 1024): 8 heads of 96 and 16 of 48 (on the 128
+# and 64 instances, their tiles padded with zeros in shared memory) and 3
+# heads of 256; and gpt2-large's width, 1280, as 16 heads of 80 (B 8).
+MAIN_D96 = (32, 1024, 1024, 8, 96, True)
+MAIN_D48 = (32, 1024, 1024, 16, 48, True)
+MAIN_D256 = (32, 1024, 1024, 3, 256, True)
+LARGE_D80 = (8, 1024, 1024, 16, 80, True)
+TIMED_CASES = (MAIN_CASE, MAIN_D128, MAIN_D32, MAIN_D96, MAIN_D48, MAIN_D256, LARGE_D80)
+# Every head dim the instances' widths leave between them, and 256, each
+# causal, ragged causal, non-causal with Tk != Tq and wrapping (more key
+# tiles than any ring has stages); 20 takes the padding copy (its rows are
+# not 16-byte strided).
+REACH_DIMS = (8, 20, 40, 48, 80, 96, 160, 192, 256)
+REACH_SHAPES = ((2, 512, 512, 4, True), (2, 1000, 1000, 2, True), (2, 200, 333, 2, False),
+                (2, 300, 1100, 2, False))
 CASES = [MAIN_CASE, (8, 1024, 1024, 12, 64, True), (4, 512, 512, 4, 16, True),
          (2, 1000, 1000, 12, 64, True), (2, 200, 333, 4, 64, False),
          (2, 300, 1100, 4, 64, False),
          MAIN_D128, (2, 1000, 1000, 6, 128, True), (2, 200, 333, 2, 128, False),
          (2, 300, 1100, 2, 128, False),
          MAIN_D32, (2, 1000, 1000, 24, 32, True), (2, 200, 333, 8, 32, False),
-         (2, 300, 1100, 8, 32, False)]
+         (2, 300, 1100, 8, 32, False),
+         MAIN_D96, MAIN_D48, MAIN_D256, LARGE_D80,
+         *[(B, T, Tk, H, D, causal) for D in REACH_DIMS for B, T, Tk, H, causal in REACH_SHAPES]]
+# The padding copy's cost beside the kernels' (bf16 Dh 20, f32 Dh 6 at B 8,
+# T 1024, 12 heads): the route of a head dim whose rows are not 16-byte
+# strided.
+PAD_TIMED = ((8, 1024, 1024, 12, 20, True, torch.bfloat16), (8, 1024, 1024, 12, 6, True, torch.float32))
 # f32 operands (the f32 kernels): gpt2-small in f32 at phase 14's B 8; the
 # blocks of phase 5's f32 rings at Dh 32 (the JAX ring test's 16-row block
 # and the multi-tile ring's 1,024-row one, diagonal and earlier); Dh 128;
@@ -347,16 +381,20 @@ CASES = [MAIN_CASE, (8, 1024, 1024, 12, 64, True), (4, 512, 512, 4, 16, True),
 # F32_FWD_RELNORM, dq, dk, dv within F32_GRAD_RELNORM in relative norm, lse
 # within F32_LSE_TOL absolute.
 F32_MAIN = (8, 1024, 1024, 12, 64, True)
+F32_D256 = (8, 1024, 1024, 3, 256, True)  # phase 14's f32 run at 3 heads of 256
 F32_CASES = [F32_MAIN, (2, 16, 16, 4, 32, True), (2, 16, 16, 4, 32, False),
              (2, 1024, 1024, 4, 32, True), (2, 1024, 1024, 4, 32, False),
              (2, 1024, 1024, 6, 128, True), (8, 1024, 1024, 6, 128, True),
-             (2, 1000, 1000, 12, 64, True), (2, 200, 333, 4, 16, False)]
+             (2, 1000, 1000, 12, 64, True), (2, 200, 333, 4, 16, False), F32_D256,
+             *[(B, T, Tk, 2, D, causal) for D in (6, *[d for d in REACH_DIMS if d != 20])
+               for B, T, Tk, _, causal in REACH_SHAPES]]
 F32_FWD_RELNORM, F32_GRAD_RELNORM, F32_LSE_TOL = 1e-5, 1e-4, 1e-5
 # Timed beside their bounds, all three kernels: F32_MAIN, Dh 128 at
 # gpt2-small's width (B 8, 6 heads), and the f32 ring's Dh 32 blocks (phase
 # 5: 1,024 rows, the diagonal's causal and an earlier block's full).
 F32_TIMED = {F32_MAIN: "d64 f32", (8, 1024, 1024, 6, 128, True): "d128 f32",
-             (2, 1024, 1024, 4, 32, True): "d32 f32", (2, 1024, 1024, 4, 32, False): "d32 f32 earlier"}
+             (2, 1024, 1024, 4, 32, True): "d32 f32", (2, 1024, 1024, 4, 32, False): "d32 f32 earlier",
+             F32_D256: "d256 f32"}
 # Each kernel's (head dim, operands->outputs) instances that a check held
 # to its plain version in this run: the kernel line's held_at.
 HELD_AT = {}
@@ -479,8 +517,10 @@ def build() -> dict:
         entry = None
         for line in log.read_text().splitlines() if log.exists() else []:
             if "Compiling entry" in line:
-                found = re.search(r"(flash_\w+?_kernel)ILi(\d+)E(13__nv_bfloat16|f)?E", line)
-                entry = found and f"{found[1]}<{found[2]}{', ' + OUT_TYPES[found[3]] if found[3] else ''}>"
+                found = re.search(r"(flash_(?:f32_)?(?:fwd|dq|dkv)_kernel)ILi(\d+)E(13__nv_bfloat16|f)?(?:Li(\d)E)?E",
+                                  line)
+                entry = found and (f"{found[1]}<{found[2]}{', ' + OUT_TYPES[found[3]] if found[3] else ''}"
+                                   f"{', pass ' + found[4] if found[4] else ''}>")
             elif entry and ("registers" in line or "spill" in line):
                 print(f"  {lib} {entry}: {line.split(':', 1)[-1].strip()}")
                 if re.search(r"[1-9]\d* bytes spill", line):
@@ -489,10 +529,11 @@ def build() -> dict:
                 print(f"  {lib}: {line.strip()}")
     print(f"spills: {'; '.join(spills) if spills else 'none in any instance of either library'}",
           flush=True)
-    counts = sass_counts(paths["flash_attention"], r"({names})_kernelILi(\d+)E({outs})E", SASS_OPS)
+    counts = sass_counts(paths["flash_attention"], r"({names})_kernelILi(\d+)E({outs})(?:Li(\d)E)?E", SASS_OPS)
     if any(entry.startswith("flash_f32_") for entry in spills):
         fail(f"an f32 instance spills: {spills}")
-    f32_counts = sass_counts(paths["flash_attention_f32"], r"flash_f32_({short})_kernelILi(\d+)E()E", SASS_OPS)
+    f32_counts = sass_counts(paths["flash_attention_f32"], r"flash_f32_({short})_kernelILi(\d+)E()(?:Li(\d)E)?E",
+                             SASS_OPS)
     for name in KERNELS:
         # every instance of both libraries is a Hopper one: wgmma (bf16, or
         # tf32 for 3xTF32) fed by TMA
@@ -500,9 +541,17 @@ def build() -> dict:
             print(f"sass {name} {inst}: HGMMA {c['hgmma']}, UTMALDG {c['utmaldg']}", flush=True)
             if not (c["hgmma"] > 0 and c["utmaldg"] > 0):
                 fail(f"{name} {inst} issues no wgmma or no TMA load in its SASS: {c}")
-        if len(counts[name]) != 2 * len(fa.HEAD_DIMS) or len(f32_counts[name]) != len(fa.HEAD_DIMS):
+        # every head dim's instance, in both output types (bf16 operands) and
+        # in f32; dK/dV's head dim 256 as its two passes
+        want = {f"d{d} {ops}" for d in fa.HEAD_DIMS for ops in ("bf16->bf16", "bf16->f32", "f32->f32")}
+        got = {" ".join(inst.split()[:2]) for inst in [*counts[name], *f32_counts[name]]}
+        passes = {inst for inst in [*counts[name], *f32_counts[name]] if "pass" in inst}
+        want_passes = ({f"d256 {ops} pass {k}" for ops in ("bf16->bf16", "bf16->f32", "f32->f32") for k in (1, 2)}
+                       if name == "flash_dkv" else set())
+        if got != want or passes != want_passes:
             fail(f"{name}: the libraries hold instances {sorted(counts[name])} and "
-                 f"{sorted(f32_counts[name])}; expected every head dim of {fa.HEAD_DIMS}")
+                 f"{sorted(f32_counts[name])}; expected every head dim of {fa.HEAD_DIMS} (dK/dV's 256 in "
+                 f"two passes)")
         counts[name].update(f32_counts[name])
     return counts
 
@@ -515,8 +564,9 @@ def sass_counts(lib: Path, pattern: str, ops: dict) -> dict:
     """Instructions ``ops`` ({key: SASS opcode}) per kernel and instance in
     the SASS of a built library, read with cuobjdump: {name: {"d<D>
     <operands>-><outputs>": {key: count}}}. ``pattern`` matches a kernel's
-    mangled name, with groups for the kernel, the head dim and the output
-    type ({names}, {short} and {outs} are filled in)."""
+    mangled name, with groups for the kernel, the head dim, the output
+    type and dK/dV's pass ({names}, {short} and {outs} are filled in); an
+    instance of a pass other than 0 is keyed with " pass <n>"."""
     from ray_tpu_torch.ops import _build
 
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
@@ -533,7 +583,7 @@ def sass_counts(lib: Path, pattern: str, ops: dict) -> dict:
             if found:
                 name = found[1] if found[1] in counts else short[found[1]]
                 inst = (f"d{found[2]} bf16->{OUT_TYPES[found[3]]}" if found[3]
-                        else f"d{found[2]} f32->f32")
+                        else f"d{found[2]} f32->f32") + (f" pass {found[4]}" if found[4] not in (None, "0") else "")
                 current = counts[name].setdefault(inst, dict.fromkeys(ops, 0))
         elif current is not None:
             for key, op in ops.items():
@@ -656,8 +706,10 @@ def check_kernels(card: str) -> dict:
         q, k, v, do = _inputs(case, torch.bfloat16)
         o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
         delta = (do.float() * o_ref.float()).sum(-1)
-        # bf16 outputs; at the head dims this PR added, f32 outputs too
-        for out_f32 in (False, True) if D in (32, 128) else (False,):
+        # bf16 outputs; f32 outputs too at head dims 32 and 128 and at every
+        # reach head dim's check shapes
+        both = D in (32, 128) or (D in REACH_DIMS and case not in TIMED_CASES)
+        for out_f32 in (False, True) if both else (False,):
             o, lse = fa.flash_fwd(q, k, v, causal, out_f32=out_f32)
             dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, out_f32=out_f32)
             dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal, out_f32=out_f32)
@@ -700,13 +752,64 @@ def check_kernels(card: str) -> dict:
             if case == MAIN_CASE:
                 results[name].update(timed[name])
             results[name]["instances"][_instance_key(D, q.dtype)] = timed[name]
+        if D not in fa.HEAD_DIMS:
+            padded_route(case, timed, results, card)
         if case == MAIN_CASE:
             check_autograd(q, k, v, do, B, H)
+    time_pad_copy(card)
     check_refused_head_dim()
     return results
 
 
-REFUSED_HEAD_DIM = 48  # a multiple of 16 the Pallas kernels take and the CUDA kernels do not
+def padded_route(case, timed: dict, results: dict, card: str) -> None:
+    """A head dim that runs on a wider instance: its padded share (the
+    instance's width over the head dim: the products' share the zero columns
+    add; its bound counts the head dim's own work) and, beside its times,
+    the instance's own timed case in this run scaled by heads and batch (the
+    padded route should cost about that)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    B, T, Tk, H, D, causal = case
+    width = fa.instance_head_dim(D)
+    own = next((c for c in TIMED_CASES if c[4] == width and c[1:3] == (T, Tk) and c[5] == causal), None)
+    for name in KERNELS:
+        line = (f"padded route {name} Dh {D} on the {width} instance at B={B} H={H}: {timed[name]['ms']:.4f} ms, "
+                f"bound at Dh {D} {timed[name]['bound_ms']:.4f} ms, padded share {width}/{D} = {width / D:.3f}")
+        if own is not None:
+            ref = results[name]["instances"][_instance_key(width, torch.bfloat16)]["ms"] * (B * H) / (own[0] * own[3])
+            line += (f"; the {width} instance's own time at B={own[0]} H={own[3]} scaled to B={B} H={H}: "
+                     f"{ref:.4f} ms (this route {timed[name]['ms'] / ref:.2f}x that)")
+        print(line + f" [{card}]", flush=True)
+
+
+def time_pad_copy(card: str) -> None:
+    """The padding copy's cost: at PAD_TIMED, each wrapper's time (the copy
+    into zero-padded tensors, the kernel and the slice back), the copy of
+    q, k, v (and dO) alone and the slice of one output alone, CUDA events,
+    median of 20 calls."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    for B, T, Tk, H, D, causal, dtype in PAD_TIMED:
+        q, k, v, do = _inputs((B, T, Tk, H, D, causal), dtype, seed=9)
+        o, lse = fa.flash_fwd(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        width = fa.kernel_head_dim(D, dtype)
+        wide = fa._widen(q, k, v, do)
+        calls = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, causal),
+                 "flash_dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
+                 "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal),
+                 "copy q, k, v": lambda: fa._widen(q, k, v),
+                 "copy q, k, v, dO": lambda: fa._widen(q, k, v, do),
+                 "slice one output": lambda: fa._narrow(wide[0], D)}
+        ms = {name: bench.time_ms(call) for name, call in calls.items()}
+        print(f"padding copy at B={B} T={T} H={H} Dh {D} -> {width} ({dtype} operands, on the "
+              f"{fa.instance_head_dim(D)} instance): " + ", ".join(f"{n} {t:.4f} ms" for n, t in ms.items())
+              + f" [{card}]", flush=True)
+        del q, k, v, do, o, lse, delta, wide
+
+
+REFUSED_HEAD_DIM = 264  # a head dim the Pallas kernels take and the CUDA kernels do not (above 256)
 
 
 def check_refused_head_dim() -> None:
@@ -787,7 +890,7 @@ def check_f32_operands(card: str) -> dict:
         device = _device_ms({
             "flash_fwd": lambda: fa.flash_fwd(q, k, v, causal),
             "flash_dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
-            "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal)})
+            "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal)}, D)
         print(f"f32 kernels at {where}, CUDA events against the profiler's device time per call: " + ", ".join(
             f"{n} {timed[n]['ms']:.4f} / {device[n]:.4f} ms" for n in KERNELS) + f" [{card}]", flush=True)
         fwd = timed["flash_fwd"]
@@ -798,10 +901,15 @@ def check_f32_operands(card: str) -> dict:
     return results
 
 
-def _device_ms(calls: dict, rounds: int = 10) -> dict:
-    """Device ms per call of each f32 kernel ({kernel: call}), from one
-    torch.profiler window of ``rounds`` calls of each."""
+def _device_ms(calls: dict, head_dim: int, rounds: int = 10) -> dict:
+    """Device ms per call of each f32 kernel ({kernel: call} at
+    ``head_dim``), from one torch.profiler window of ``rounds`` calls of
+    each, which must show exactly the kernels those calls launch
+    (fa.kernel_passes: dK/dV's two passes at head dim 256), added up per
+    call."""
     from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.ops import flash_attention as fa
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(rounds):
@@ -813,8 +921,9 @@ def _device_ms(calls: dict, rounds: int = 10) -> dict:
     for name in calls:
         kernel = name.replace("flash_", "flash_f32_") + "_kernel"
         times = [ev.time_range.elapsed_us() for ev in kernels if kernel in ev.name]
-        if len(times) != rounds:
-            fail(f"the profiler saw {len(times)} launches of {name}'s f32 kernel, not {rounds}")
+        if len(times) != rounds * fa.kernel_passes(name, head_dim):
+            fail(f"the profiler saw {len(times)} launches of {name}'s f32 kernel in {rounds} calls "
+                 f"at head dim {head_dim} ({fa.kernel_passes(name, head_dim)} a call)")
         out[name] = sum(times) / rounds / 1e3
     return out
 
@@ -3784,21 +3893,27 @@ def ppo_learner(card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 14: the train step at head dims 128 and 32, and in f32
+# Phase 14: the train step at head dims 128, 32, 96, 48 and 256, and in f32
 # ---------------------------------------------------------------------------
 
 # (label, config overrides, batch rows, loss limit, relative?, gradient limit,
 # chunks of the gradient check). gpt2-small's widths (d_model 768) as 6
-# heads of 128 and as 24 heads of 32, bf16, B 32, T 1024: phase 3's init
-# (the weights do not depend on the head count), tokens and limits. The
-# Dh 32 check takes its reference pass in two halves of the batch (24
-# heads double reference attention's score tensors). gpt2-small in f32, B
-# 8, T 1024, held at the JAX package's f32 limits: the loss within 1e-5
-# relative, each gradient within 1e-4 in relative norm.
+# heads of 128, 24 of 32, 8 of 96 and 16 of 48 (on the 128 and 64 instances,
+# padded) and 3 of 256, bf16, B 32, T 1024: phase 3's init (the weights do
+# not depend on the head count), tokens and limits. The Dh 32 and 48 checks
+# take their reference pass in two halves of the batch (24 and 16 heads
+# double reference attention's score tensors). gpt2-small in f32, B 8, T
+# 1024, at 12 heads of 64 and 3 of 256, held at the JAX package's f32
+# limits: the loss within 1e-5 relative, each gradient within 1e-4 in
+# relative norm.
 HEAD_DIM_RUNS = (
     ("Dh 128 (6 heads)", {"n_head": 6}, 32, LOSS_REF_TOL, False, GRAD_RELNORM_TOL, 1),
     ("Dh 32 (24 heads)", {"n_head": 24}, 32, LOSS_REF_TOL, False, GRAD_RELNORM_TOL, 2),
     ("f32", {"dtype": torch.float32}, 8, 1e-5, True, 1e-4, 1),
+    ("Dh 96 (8 heads)", {"n_head": 8}, 32, LOSS_REF_TOL, False, GRAD_RELNORM_TOL, 1),
+    ("Dh 48 (16 heads)", {"n_head": 16}, 32, LOSS_REF_TOL, False, GRAD_RELNORM_TOL, 2),
+    ("Dh 256 (3 heads)", {"n_head": 3}, 32, LOSS_REF_TOL, False, GRAD_RELNORM_TOL, 1),
+    ("f32 Dh 256 (3 heads)", {"n_head": 3, "dtype": torch.float32}, 8, 1e-5, True, 1e-4, 1),
 )
 HEAD_DIM_STEPS = 3  # timed, after one warm-up step
 
@@ -3806,8 +3921,9 @@ HEAD_DIM_STEPS = 3  # timed, after one warm-up step
 def head_dim_steps(card: str, phase3_ms: float) -> dict:
     """Phase 14. Each run of HEAD_DIM_RUNS: the gradient check against
     reference attention on batch 0, one warm-up step, HEAD_DIM_STEPS timed
-    steps with each kernel's instance launches counted (n_layer a step of
-    the run's own instance, no other). Returns {label: (median ms, launches
+    steps with each kernel's instance launches counted (n_layer calls a
+    step of the run's own instance, no other; fa.kernel_passes kernels a
+    call). Returns {label: (median ms, launches
     a step by instance)}."""
     from ray_tpu_torch import bench
     from ray_tpu_torch.ops import flash_attention as fa
@@ -3832,7 +3948,8 @@ def head_dim_steps(card: str, phase3_ms: float) -> dict:
             losses.append(loss.item())
         per_step = {key: n / len(times) for key, n in _instance_counts().items()}
         med = statistics.median(times)
-        want = {fa.instance(name, cfg.head_dim, cfg.dtype): cfg.n_layer for name in KERNELS}
+        want = {fa.instance(name, cfg.head_dim, cfg.dtype): cfg.n_layer * fa.kernel_passes(name, cfg.head_dim)
+                for name in KERNELS}
         print(f"train {bench.MODEL} {label}: d_model {cfg.d_model}, {cfg.n_head} heads of "
               f"{cfg.head_dim}, {cfg.dtype}, B={batch} T={T}; losses {loss0:.5f} (warm-up), "
               + ", ".join(f"{x:.5f}" for x in losses) + f"; median step {med:.2f} ms "
@@ -4266,26 +4383,38 @@ def library_modules(card: str, phase3: tuple) -> dict:
     return {"trials": trials, "job": job, "domain": domain["launches"]}
 
 
+def timed_phase(label: str, fn, *args, **kwargs):
+    """Run one phase and print its seconds (and the run's so far)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    now = time.perf_counter()
+    print(f"phase {label}: {now - t0:.1f} s ({now - RUN_START:.1f} s into the run)", flush=True)
+    return out
+
+
+RUN_START = time.perf_counter()
+
+
 def main() -> None:
-    card = identify()
-    sass = build()
-    results = check_kernels(card)
-    f32_operands = check_f32_operands(card)
-    counts, losses, step_ms = train(card)
-    remat = remat_policies(card)
-    phase4 = serve(card)
-    f32 = parallel(card)
-    sharded_step(card, remat["no remat"])
-    pipeline_train(card, (counts, losses, step_ms))
+    card = timed_phase("1 (card)", identify)
+    sass = timed_phase("1 (build)", build)
+    results = timed_phase("2 (bf16 operands)", check_kernels, card)
+    f32_operands = timed_phase("2 (f32 operands)", check_f32_operands, card)
+    counts, losses, step_ms = timed_phase("3 (train)", train, card)
+    remat = timed_phase("3 (remat)", remat_policies, card)
+    phase4 = timed_phase("4", serve, card)
+    f32 = timed_phase("5", parallel, card)
+    timed_phase("6", sharded_step, card, remat["no remat"])
+    timed_phase("7", pipeline_train, card, (counts, losses, step_ms))
     pp = {}
-    stages = pipeline_parallel(card, step_ms, summary=pp)
-    trained = train_library(card, train_oracle(card))
-    serve_front_door(card, phase4)
-    placement(card)
-    device_objects(card, pp["hop_ms"])
-    ppo_learner(card)
-    head_dims = head_dim_steps(card, step_ms)
-    libs = library_modules(card, (counts, losses, step_ms))
+    stages = timed_phase("8", pipeline_parallel, card, step_ms, summary=pp)
+    trained = timed_phase("9", lambda: train_library(card, train_oracle(card)))
+    timed_phase("10", serve_front_door, card, phase4)
+    timed_phase("11", placement, card)
+    timed_phase("12", device_objects, card, pp["hop_ms"])
+    timed_phase("13", ppo_learner, card)
+    head_dims = timed_phase("14", head_dim_steps, card, step_ms)
+    libs = timed_phase("15", library_modules, card, (counts, losses, step_ms))
     kernels = []
     for name in KERNELS:
         entry = dict(name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],

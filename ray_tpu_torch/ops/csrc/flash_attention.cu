@@ -1,10 +1,17 @@
 // Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
 //
-// Operands are folded to [BH, T, D] row-major bf16 (D = head dim: 16, 32,
-// 64 or 128), lse and delta are [BH, Tq] f32. Scores and all accumulators are f32. Each
-// kernel is instantiated for two output types (OutRows): bf16, the train
-// path's, and f32, for ring attention's block entries; only the store of
-// the output rows differs.
+// Operands are folded to [BH, T, Dh] row-major bf16, lse and delta are
+// [BH, Tq] f32. Scores and all accumulators are f32. Each kernel is
+// instantiated for head dims D = 16, 32, 64, 128 and 256, and a head dim Dh
+// between two of them (a multiple of 8: TMA's rows are 16-byte strided) runs
+// on the next one up: its tensor maps have the true width and the
+// instance's boxes, so TMA fills the columns past Dh with zeros in shared
+// memory (the bytes read from HBM stay Dh's), the zero columns leave S, P,
+// dP and every gradient's real columns as they are, and the outputs' maps
+// (or f32 row stores) write only Dh columns. Each kernel is also
+// instantiated for two output types (OutRows): bf16, the train path's, and
+// f32, for ring attention's block entries; only the store of the output
+// rows differs.
 //
 // All three kernels are persistent and warp-specialised (hopper.cuh): one
 // block per SM walks a static list of work tiles; a producer warp streams
@@ -87,14 +94,17 @@ constexpr int DQ_WGS = 2;             // consumer warpgroups of dQ, 64 q rows ea
 constexpr int DQ_BQ = 64 * DQ_WGS;    // q rows per work tile
 constexpr int SMEM_LIMIT = 232448;    // dynamic shared memory a block may have on an H100
 // Per head dim: keys per K/V stage (FWD_BK, DQ_BK), q rows per Q/dO stage
-// (DKV_BQ), the three ring depths, and whether a dK/dV consumer holds its K
-// and V rows as register A operands (DKV_KV_IN_REGS) or reads them from
-// shared memory.
+// (DKV_BQ), the three ring depths, the forward's Q buffers (FWD_Q_BUFS:
+// two let the producer load the next work tile's Q early), whether a dK/dV
+// consumer holds its K and V rows as register A operands (DKV_KV_IN_REGS)
+// or reads them from shared memory, whether a dQ consumer holds its Q and
+// dO rows so (DQ_QDO_IN_REGS), and the passes of dK/dV (DKV_PASSES: 1, both
+// gradients at once; 2, dV and then dK, each pass recomputing S^T and P^T).
 template <int D>
 struct Tiles {  // head dims 16, 32 and 64
-  static constexpr int FWD_BK = 128, FWD_STAGES = RT_FWD_STAGES;
-  static constexpr int DKV_BQ = 64, DKV_STAGES = RT_DKV_STAGES, DKV_KV_IN_REGS = 1;
-  static constexpr int DQ_BK = 64, DQ_STAGES = RT_DQ_STAGES;
+  static constexpr int FWD_BK = 128, FWD_STAGES = RT_FWD_STAGES, FWD_Q_BUFS = 2;
+  static constexpr int DKV_BQ = 64, DKV_STAGES = RT_DKV_STAGES, DKV_KV_IN_REGS = 1, DKV_PASSES = 1;
+  static constexpr int DQ_BK = 64, DQ_STAGES = RT_DQ_STAGES, DQ_QDO_IN_REGS = 1;
 };
 // Head dim 128: rows of 256 bytes double every tile, so the forward's
 // ring is two stages deep (three would need 288 KiB), and the backward
@@ -104,9 +114,26 @@ struct Tiles {  // head dims 16, 32 and 64
 // registers), dQ 32 keys a stage.
 template <>
 struct Tiles<128> {
-  static constexpr int FWD_BK = 128, FWD_STAGES = RT_FWD_STAGES_128;
-  static constexpr int DKV_BQ = 32, DKV_STAGES = RT_DKV_STAGES_128, DKV_KV_IN_REGS = 0;
-  static constexpr int DQ_BK = 32, DQ_STAGES = RT_DQ_STAGES_128;
+  static constexpr int FWD_BK = 128, FWD_STAGES = RT_FWD_STAGES_128, FWD_Q_BUFS = 2;
+  static constexpr int DKV_BQ = 32, DKV_STAGES = RT_DKV_STAGES_128, DKV_KV_IN_REGS = 0, DKV_PASSES = 1;
+  static constexpr int DQ_BK = 32, DQ_STAGES = RT_DQ_STAGES_128, DQ_QDO_IN_REGS = 1;
+};
+// Head dim 256: rows of 512 bytes double every tile again. The forward's
+// 128-row Q tile is 64 KiB, so it has one Q buffer and 64-key K/V stages
+// (64 KiB a stage, two of them). dQ keeps Q and dO (128 KiB) in shared
+// memory as both products' A operands, since their register copies (128
+// registers) would not fit beside its [64 x 256] f32 accumulator (128), and
+// streams 32-key stages. dK/dV's two [64 x 256] accumulators would take 256
+// registers a thread, over the 240 a consumer has: it runs as two passes
+// (dV, then dK), each recomputing S^T and P^T and holding one accumulator,
+// with 32 q rows a stage and K and V read from shared memory. The outputs
+// go out through 128-column staging tiles in two parts. Every ring is two
+// stages deep: a third stage would pass SMEM_LIMIT, so no macro sets them.
+template <>
+struct Tiles<256> {
+  static constexpr int FWD_BK = 64, FWD_STAGES = 2, FWD_Q_BUFS = 1;
+  static constexpr int DKV_BQ = 32, DKV_STAGES = 2, DKV_KV_IN_REGS = 0, DKV_PASSES = 2;
+  static constexpr int DQ_BK = 32, DQ_STAGES = 2, DQ_QDO_IN_REGS = 0;
 };
 
 // The 1024-byte aligned start of dynamic shared memory (the 128B swizzle
@@ -198,32 +225,45 @@ __device__ __forceinline__ void warp_release(uint64_t* bar, bool pred = true) {
   hopper::mbar_arrive_if(bar, pred && threadIdx.x % 32 == 0);
 }
 
+// A warpgroup's output staging tile: [64 rows, D columns] up to D = 128; a
+// wider output (D = 256) goes out through it in parts of 128 columns.
+template <int D>
+using StageTile = hopper::Tile<(D > 128 ? 128 : D), 64>;
+
 // Store a warpgroup's [64 x D] f32 accumulator, scaled per row and cast to
-// bf16, to rows [row0, row0 + 64) of head bh by TMA (rows past T are not
-// written): each thread writes its pairs into the warpgroup's swizzled
-// staging tile in shared memory, one thread issues the store. Named barrier
-// `bar` (this warpgroup's 128 threads) guards the staging tile, which the
-// previous store must have finished reading.
+// bf16, to rows [row0, row0 + 64) of head bh by TMA (rows past T, and
+// columns past the map's width, are not written): each thread writes its
+// pairs into the warpgroup's swizzled staging tile in shared memory, one
+// thread issues the store, part by part. Named barrier `bar` (this
+// warpgroup's 128 threads) guards the staging tile, which the previous
+// store must have finished reading.
 template <int D>
 __device__ __forceinline__ void store_tile(bf16* stage, const CUtensorMap* map,
                                            const float (&acc)[D / 2], float mul_a, float mul_b,
                                            int row0, int bh, int tid, int bar) {
-  using T = hopper::Tile<D, 64>;
+  using T = StageTile<D>;
   const int lane = tid % 32, r = 16 * (tid / 32) + (lane >> 2), t = lane & 3;
-  if (tid == 0) hopper::tma_store_wait_read();
-  hopper::bar_sync(bar, WG_THREADS);
   uint8_t* base = reinterpret_cast<uint8_t*>(stage);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int col = 8 * j + 2 * t;
-    *reinterpret_cast<uint32_t*>(base + T::offset(r, col)) =
-        hopper::pack_bf16x2(acc[4 * j] * mul_a, acc[4 * j + 1] * mul_a);
-    *reinterpret_cast<uint32_t*>(base + T::offset(r + 8, col)) =
-        hopper::pack_bf16x2(acc[4 * j + 2] * mul_b, acc[4 * j + 3] * mul_b);
+  for (int part = 0; part < D / T::D; ++part) {
+    if (tid == 0) hopper::tma_store_wait_read();
+    hopper::bar_sync(bar, WG_THREADS);
+#pragma unroll
+    for (int j = 0; j < T::D / 8; ++j) {
+      const int col = 8 * j + 2 * t, a = 4 * (part * T::D / 8 + j);
+      *reinterpret_cast<uint32_t*>(base + T::offset(r, col)) =
+          hopper::pack_bf16x2(acc[a] * mul_a, acc[a + 1] * mul_a);
+      *reinterpret_cast<uint32_t*>(base + T::offset(r + 8, col)) =
+          hopper::pack_bf16x2(acc[a + 2] * mul_b, acc[a + 3] * mul_b);
+    }
+    hopper::fence_proxy_async();
+    hopper::bar_sync(bar, WG_THREADS);
+    if (tid == 0) {
+#pragma unroll
+      for (int h = 0; h < T::SUB; ++h)
+        hopper::tma_store_rows(map, stage + h * T::SUB_BYTES / 2, row0, bh, part * T::D + h * T::W);
+    }
   }
-  hopper::fence_proxy_async();
-  hopper::bar_sync(bar, WG_THREADS);
-  if (tid == 0) hopper::tma_store_tile<T>(map, stage, row0, bh);
 }
 
 // Where a kernel writes its output rows, by output type (each kernel is
@@ -231,8 +271,9 @@ __device__ __forceinline__ void store_tile(bf16* stage, const CUtensorMap* map,
 // warpgroup's staging tile (store_tile). f32, the outputs of ring
 // attention's block entries (ops/flash_attention.py flash_fwd_block,
 // flash_bwd_block), which the ring merges in f32: plain float2 stores from
-// the accumulator registers, rows past T not written. Each warp's store
-// fills eight whole 32-byte sectors, and the f32 instantiation leaves the
+// the accumulator registers, rows past T and columns past the tensor's
+// head dim not written. Each warp's store fills eight whole 32-byte sectors
+// (at an instance's own width), and the f32 instantiation leaves the
 // shared-memory layout, the tensor maps and the code of the bf16 one as
 // they are (its staging tile goes unused).
 template <int D, typename OutT>
@@ -240,7 +281,7 @@ struct OutRows;
 
 template <int D>
 struct OutRows<D, bf16> {
-  CUtensorMap map;  // rows_map over [bh, T, D], boxes of 64 rows (Tile<D, 64>)
+  CUtensorMap map;  // rows_map over [bh, T, Dh], boxes of 64 rows (StageTile<D>'s)
   __device__ __forceinline__ void store(bf16* stage, const float (&acc)[D / 2], float mul_a,
                                         float mul_b, int row0, int bh, int tid, int bar) const {
     store_tile<D>(stage, &map, acc, mul_a, mul_b, row0, bh, tid, bar);
@@ -249,18 +290,18 @@ struct OutRows<D, bf16> {
 
 template <int D>
 struct OutRows<D, float> {
-  float* ptr;  // contiguous [bh, T, D]
-  int T;
+  float* ptr;  // contiguous [bh, T, dh]
+  int T, dh;   // dh: the tensor's head dim, at most D (an even number)
   __device__ __forceinline__ void store(bf16*, const float (&acc)[D / 2], float mul_a, float mul_b,
                                         int row0, int bh, int tid, int) const {
-    const int lane = tid % 32, r = row0 + 16 * (tid / 32) + (lane >> 2);
-    float* dst = ptr + ((size_t)bh * T + r) * D + 2 * (lane & 3);
+    const int lane = tid % 32, r = row0 + 16 * (tid / 32) + (lane >> 2), c = 2 * (lane & 3);
+    float* dst = ptr + ((size_t)bh * T + r) * dh + c;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      if (r < T)
+      if (r < T && 8 * j + c < dh)
         *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[4 * j] * mul_a, acc[4 * j + 1] * mul_a);
-      if (r + 8 < T)
-        *reinterpret_cast<float2*>(dst + 8 * D + 8 * j) =
+      if (r + 8 < T && 8 * j + c < dh)
+        *reinterpret_cast<float2*>(dst + 8 * dh + 8 * j) =
             make_float2(acc[4 * j + 2] * mul_b, acc[4 * j + 3] * mul_b);
     }
   }
@@ -291,8 +332,9 @@ __device__ __forceinline__ void pack_a_frags(uint32_t (&a)[N / 16][4], const flo
 // Design: a work tile is (bh, FWD_BQ q rows), 64 per consumer warpgroup.
 // The producer loads the tile's Q once and streams 128-key K and V tiles
 // through TMA into a ring of FWD_STAGES stages (full and empty mbarriers
-// per stage). Q has two buffers of its own, so the producer runs on into
-// the next work tile (its Q and first K/V tiles) while this one finishes.
+// per stage). Q has two buffers of its own (one at head dim 256), so the
+// producer runs on into the next work tile (its Q and first K/V tiles)
+// while this one finishes.
 // Each consumer warpgroup computes S = Q K^T by wgmma (both operands in
 // shared memory, K-major), the online softmax in registers with exp2 and
 // scale * log2(e) folded into one FFMA, and O += P V by wgmma with P as the
@@ -308,19 +350,19 @@ __device__ __forceinline__ void pack_a_frags(uint32_t (&a)[N / 16][4], const flo
 // ---------------------------------------------------------------------------
 template <int D>
 struct FwdSmem {
-  static constexpr int BK = Tiles<D>::FWD_BK, STAGES = Tiles<D>::FWD_STAGES;
+  static constexpr int BK = Tiles<D>::FWD_BK, STAGES = Tiles<D>::FWD_STAGES, QB = Tiles<D>::FWD_Q_BUFS;
   using TQ = hopper::Tile<D, FWD_BQ>;  // Q of a work tile
   using TK = hopper::Tile<D, BK>;      // a K or V stage
-  using TO = hopper::Tile<D, 64>;      // a warpgroup's output staging tile
+  using TO = StageTile<D>;             // a warpgroup's output staging tile
   static constexpr int Q_BYTES = TQ::BYTES, KV_BYTES = TK::BYTES;
-  // Q twice (this work tile's and the next one's), the K/V ring, and the
-  // output staging tiles (one per consumer warpgroup).
-  static constexpr int K_OFF = 2 * Q_BYTES, V_OFF = K_OFF + STAGES * KV_BYTES;
+  // Q once or twice (this work tile's and the next one's), the K/V ring,
+  // and the output staging tiles (one per consumer warpgroup).
+  static constexpr int K_OFF = QB * Q_BYTES, V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int O_OFF = V_OFF + STAGES * KV_BYTES;
   static constexpr int BAR_OFF = O_OFF + FWD_WGS * TO::BYTES;
-  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (4 + 3 * STAGES);  // + alignment slack
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 * QB + 3 * STAGES);  // + alignment slack
   static constexpr int LAUNCH = BYTES > ONE_BLOCK_PER_SM_SMEM ? BYTES : ONE_BLOCK_PER_SM_SMEM;
-  static_assert(STAGES >= 2, "a ring of at least two stages");
+  static_assert(STAGES >= 2 && (QB == 1 || QB == 2), "a ring of at least two stages, one or two Q buffers");
   static_assert(LAUNCH <= SMEM_LIMIT, "the forward's shared memory does not fit");
 };
 
@@ -412,22 +454,22 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   using TQ = typename S::TQ;
   using TK = typename S::TK;
   using R = Roles<FWD_WGS>;
-  constexpr int FWD_BK = S::BK, FWD_STAGES = S::STAGES, W = TQ::W;
+  constexpr int FWD_BK = S::BK, FWD_STAGES = S::STAGES, QB = S::QB, W = TQ::W;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_base(smem_raw);
-  bf16* sq = reinterpret_cast<bf16*>(base);  // [2][FWD_BQ * D]
+  bf16* sq = reinterpret_cast<bf16*>(base);  // [QB][FWD_BQ * D]
   bf16* sk = reinterpret_cast<bf16*>(base + S::K_OFF);
   bf16* sv = reinterpret_cast<bf16*>(base + S::V_OFF);
   bf16* so = reinterpret_cast<bf16*>(base + S::O_OFF);
-  uint64_t* full_q = reinterpret_cast<uint64_t*>(base + S::BAR_OFF);  // [2]
-  uint64_t* empty_q = full_q + 2;                                     // [2]
-  uint64_t* full_k = empty_q + 2;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(base + S::BAR_OFF);  // [QB]
+  uint64_t* empty_q = full_q + QB;                                    // [QB]
+  uint64_t* full_k = empty_q + QB;
   uint64_t* full_v = full_k + FWD_STAGES;
   uint64_t* empty = full_v + FWD_STAGES;
   const int n_qt = (Tq + FWD_BQ - 1) / FWD_BQ;
 
   if (threadIdx.x == 0) {
-    for (int b = 0; b < 2; ++b) {
+    for (int b = 0; b < QB; ++b) {
       hopper::mbar_init(&full_q[b], 1);
       hopper::mbar_init(&empty_q[b], R::CONSUMER_WARPS);
     }
@@ -448,8 +490,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     if (threadIdx.x == 0) {
       for (; works.next(bh, qt); ++wc) {
         const int q0 = qt * FWD_BQ, n_k = key_tiles<FWD_BK>(q0 + FWD_BQ - 1, Tk, causal);
-        const int b = wc & 1;
-        hopper::mbar_wait(&empty_q[b], ((wc >> 1) & 1) ^ 1);
+        const int b = wc % QB;
+        hopper::mbar_wait(&empty_q[b], ((wc / QB) & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(&full_q[b], S::Q_BYTES);
         hopper::tma_load_tile<TQ>(sq + b * FWD_BQ * D, &tm_q, &full_q[b], q0, bh);
         for (int i = 0; i < n_k; ++i, ++it) {
@@ -481,9 +523,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-      const int b = wc & 1;
+      const int b = wc % QB;
       const uint64_t desc_q = TQ::desc(sq + b * FWD_BQ * D + 64 * c * W);
-      hopper::mbar_wait(&full_q[b], (wc >> 1) & 1);
+      hopper::mbar_wait(&full_q[b], (wc / QB) & 1);
       // Pipelined: S of key tile i and P V of key tile i - 1 go out in one
       // turn; P V runs on while this warpgroup takes the row maxima of tile
       // i (the compiler waits for it at their lane shuffles). The tiles that
@@ -572,14 +614,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         warp_release(&empty[s]);
         turns.skip();
       }
-      warp_release(&empty_q[b]);  // the producer may load Q of the work tile after next
+      warp_release(&empty_q[b]);  // the producer may load Q of the work tile QB on
 
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
         l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
         l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
       }
-      out_o.store(so + 64 * c * D, acc, 1.f / l_a, 1.f / l_b, wq0, bh, tid, 1 + FWD_WGS + c);
+      out_o.store(so + c * S::TO::BYTES / 2, acc, 1.f / l_a, 1.f / l_b, wq0, bh, tid, 1 + FWD_WGS + c);
       if (t == 0) {  // lse in natural log: (m + log2 l) ln 2
         float* lse_bh = lse + (size_t)bh * Tq;
         if (row_a < Tq) lse_bh[row_a] = (m_a + log2f(l_a)) * LN2;
@@ -625,22 +667,27 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 // operands there), since their register copies (64 registers) would not fit
 // beside the two [64 x 128] accumulators; the K/V buffer is released when
 // the work tile's last product is in, so the next one's K and V load then.
+// Head dim 256 (DKV_PASSES 2): the kernel runs twice, PASS 1 computing dV
+// alone (S^T and P^T, then dV += P^T dO) and PASS 2 dK alone (S^T, dP^T, dS^T,
+// then dK += dS^T Q), each with one [64 x 256] accumulator and one set of
+// staging tiles.
 // ---------------------------------------------------------------------------
 template <int D>
 struct DkvSmem {
   static constexpr int BQ = Tiles<D>::DKV_BQ, STAGES = Tiles<D>::DKV_STAGES;
+  static constexpr int OUTS = Tiles<D>::DKV_PASSES == 1 ? 2 : 1;  // outputs a pass writes
   using TK = hopper::Tile<D, DKV_BK>;  // K or V of a work tile
   using TQ = hopper::Tile<D, BQ>;      // a Q or dO stage
-  using TO = hopper::Tile<D, 64>;      // a warpgroup's dK or dV staging tile
+  using TO = StageTile<D>;             // a warpgroup's dK or dV staging tile
   static constexpr int KV_BYTES = TK::BYTES, QS_BYTES = TQ::BYTES;
   // K and V, the Q/dO ring, the ring's lse and delta, and the dK/dV
-  // staging tiles.
+  // staging tiles (dK's and dV's, or one set a pass).
   static constexpr int K_OFF = 0, V_OFF = KV_BYTES, Q_OFF = 2 * KV_BYTES;
   static constexpr int DO_OFF = Q_OFF + STAGES * QS_BYTES;
   static constexpr int LSE_OFF = DO_OFF + STAGES * QS_BYTES;
   static constexpr int DELTA_OFF = LSE_OFF + STAGES * BQ * 4;
   static constexpr int DK_OFF = (DELTA_OFF + STAGES * BQ * 4 + 1023) / 1024 * 1024;
-  static constexpr int DV_OFF = DK_OFF + 2 * TO::BYTES;
+  static constexpr int DV_OFF = DK_OFF + (OUTS - 1) * 2 * TO::BYTES;
   static constexpr int BAR_OFF = DV_OFF + 2 * TO::BYTES;
   static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + 2 * STAGES);
   static constexpr int LAUNCH = BYTES > ONE_BLOCK_PER_SM_SMEM ? BYTES : ONE_BLOCK_PER_SM_SMEM;
@@ -654,7 +701,8 @@ __device__ __forceinline__ int dkv_first_q_tile(int k0, int causal) {
   return causal ? k0 / BQ : 0;
 }
 
-template <int D, typename OutT>
+// PASS 0: dK and dV; 1: dV alone; 2: dK alone (DKV_PASSES 2).
+template <int D, typename OutT, int PASS>
 __global__ void __launch_bounds__(Roles<2>::THREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -667,7 +715,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   using TQ = typename S::TQ;
   using R = Roles<2>;
   constexpr int DKV_BQ = S::BQ, DKV_STAGES = S::STAGES, W = TK::W;
-  constexpr bool KV_IN_REGS = Tiles<D>::DKV_KV_IN_REGS;
+  constexpr bool KV_IN_REGS = Tiles<D>::DKV_KV_IN_REGS, DO_DK = PASS != 1, DO_DV = PASS != 2;
+  static_assert((PASS == 0) == (Tiles<D>::DKV_PASSES == 1), "one pass, or a dV pass and a dK pass");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_base(smem_raw);
   bf16* sk = reinterpret_cast<bf16*>(base + S::K_OFF);  // [DKV_BK * D]
@@ -741,9 +790,11 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       // Causal: the first q tile with a row at or after this warpgroup's
       // first key; the tiles before it see none of its keys.
       const int i_own = dkv_first_q_tile<DKV_BQ>(wk0, causal);
-      float dk_acc[D / 2], dv_acc[D / 2];
+      float dk_acc[DO_DK ? D / 2 : 1], dv_acc[DO_DV ? D / 2 : 1];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+      for (int i = 0; i < (DO_DK ? D / 2 : 1); ++i) dk_acc[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < (DO_DV ? D / 2 : 1); ++i) dv_acc[i] = 0.f;
 
       hopper::mbar_wait(full_kv, wc & 1);
       // K and V of this warpgroup's keys as register A operands, for the
@@ -768,14 +819,14 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       // takes the next stage and issues its products. The tiles that need
       // a mask (the diagonal's, the ragged last one) run in loops of their
       // own: no branch may sit between a wgmma's issue and its wait.
-      uint32_t pa[DKV_BQ / 16][4], da[DKV_BQ / 16][4];  // P^T and dS^T cast to bf16 first
+      uint32_t pa[DO_DV ? DKV_BQ / 16 : 1][4], da[DO_DK ? DKV_BQ / 16 : 1][4];  // P^T, dS^T cast to bf16 first
       int prev = -1;  // the stage whose gradient products may still run
       auto qtile = [&](auto masked, int i) {
         const int s = (it + i - i_own) % DKV_STAGES, q0 = i * DKV_BQ;
         const bf16* qs = sq + s * DKV_BQ * D;
         const bf16* dos = sdo + s * DKV_BQ * D;
         const float* ls = slse + s * DKV_BQ;
-        const float* ds = sdelta + s * DKV_BQ;
+        [[maybe_unused]] const float* ds = sdelta + s * DKV_BQ;  // (read when dK is computed)
         hopper::mbar_wait(&full[s], ((it + i - i_own) / DKV_STAGES) & 1);
 
         float st[DKV_BQ / 2], dpt[DKV_BQ / 2];  // S^T and dP^T, [64 keys x DKV_BQ q]
@@ -793,15 +844,19 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
             hopper::Wgmma<DKV_BQ>::ss(st, desc_ks + TK::k_step(kk), desc_qs + TQ::k_step(kk), kk > 0);
         }
         hopper::wgmma_commit();
+        if constexpr (DO_DK) {
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          if constexpr (KV_IN_REGS)
-            hopper::Wgmma<DKV_BQ>::rsk(dpt, va[kk], desc_dos + TQ::k_step(kk), kk > 0);
-          else
-            hopper::Wgmma<DKV_BQ>::ss(dpt, desc_vs + TK::k_step(kk), desc_dos + TQ::k_step(kk), kk > 0);
+          for (int kk = 0; kk < D / 16; ++kk) {
+            if constexpr (KV_IN_REGS)
+              hopper::Wgmma<DKV_BQ>::rsk(dpt, va[kk], desc_dos + TQ::k_step(kk), kk > 0);
+            else
+              hopper::Wgmma<DKV_BQ>::ss(dpt, desc_vs + TK::k_step(kk), desc_dos + TQ::k_step(kk), kk > 0);
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();  // the last tile's gradients and S^T are in; dP^T may still run
+        } else {
+          hopper::wgmma_wait<0>();  // the last tile's dV and S^T are in
         }
-        hopper::wgmma_commit();
-        hopper::wgmma_wait<1>();  // the last tile's gradients and S^T are in; dP^T may still run
         hopper::fence_regs(st);
         hopper::fence_regs(dv_acc);
         hopper::fence_regs(dk_acc);
@@ -831,29 +886,35 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         // (released only now: the release's warp barrier would make the
         // compiler wait for dP^T before P^T)
         warp_release(&empty[prev < 0 ? 0 : prev], prev >= 0);
+        if constexpr (DO_DK) {
 #pragma unroll
-        for (int j = 0; j < DKV_BQ / 8; ++j) {
-          const float2 dl2 = *reinterpret_cast<const float2*>(ds + 8 * j + 2 * t);
+          for (int j = 0; j < DKV_BQ / 8; ++j) {
+            const float2 dl2 = *reinterpret_cast<const float2*>(ds + 8 * j + 2 * t);
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float dls = (e ? dl2.y : dl2.x) * scale;
-            dpt[4 * j + e] = st[4 * j + e] * fmaf(dpt[4 * j + e], scale, -dls);  // dS
-            dpt[4 * j + 2 + e] = st[4 * j + 2 + e] * fmaf(dpt[4 * j + 2 + e], scale, -dls);
+            for (int e = 0; e < 2; ++e) {
+              const float dls = (e ? dl2.y : dl2.x) * scale;
+              dpt[4 * j + e] = st[4 * j + e] * fmaf(dpt[4 * j + e], scale, -dls);  // dS
+              dpt[4 * j + 2 + e] = st[4 * j + 2 + e] * fmaf(dpt[4 * j + 2 + e], scale, -dls);
+            }
           }
+          pack_a_frags<DKV_BQ>(da, dpt);
         }
-        pack_a_frags<DKV_BQ>(pa, st);
-        pack_a_frags<DKV_BQ>(da, dpt);
+        if constexpr (DO_DV) pack_a_frags<DKV_BQ>(pa, st);
         hopper::fence_regs(dv_acc);
         hopper::fence_regs(dk_acc);
         hopper::fence_regs(pa);
         hopper::fence_regs(da);
         hopper::wgmma_fence();
+        if constexpr (DO_DV) {
 #pragma unroll
-        for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-          hopper::Wgmma<D>::rs(dv_acc, pa[kk], TQ::mn(dos, kk * 16));
+          for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+            hopper::Wgmma<D>::rs(dv_acc, pa[kk], TQ::mn(dos, kk * 16));
+        }
+        if constexpr (DO_DK) {
 #pragma unroll
-        for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-          hopper::Wgmma<D>::rs(dk_acc, da[kk], TQ::mn(qs, kk * 16));
+          for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+            hopper::Wgmma<D>::rs(dk_acc, da[kk], TQ::mn(qs, kk * 16));
+        }
         hopper::wgmma_commit();
         prev = s;
       };
@@ -876,8 +937,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       // dS = P (dP scale - delta scale) took the scale before its bf16
       // rounding, as the Pallas kernel's dS does (1/sqrt(Dh) is a power of
       // two only at head dims 16 and 64).
-      out_dk.store(sdk + 64 * c * D, dk_acc, 1.f, 1.f, wk0, bh, tid, 3 + c);
-      out_dv.store(sdv + 64 * c * D, dv_acc, 1.f, 1.f, wk0, bh, tid, 3 + c);
+      if constexpr (DO_DK) out_dk.store(sdk + c * S::TO::BYTES / 2, dk_acc, 1.f, 1.f, wk0, bh, tid, 3 + c);
+      if constexpr (DO_DV) out_dv.store(sdv + c * S::TO::BYTES / 2, dv_acc, 1.f, 1.f, wk0, bh, tid, 3 + c);
     }
     if (tid == 0) hopper::tma_store_wait();
   }
@@ -911,14 +972,16 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 // diagonal; the warpgroup whose rows end earlier releases the key tile past
 // its rows without computing, and one whose rows all lie past Tq skips its
 // tiles. Only the diagonal and ragged-end tiles are masked, in a loop of
-// their own. dQ goes out by TMA from a staging tile.
+// their own. dQ goes out by TMA from a staging tile. Head dim 256
+// (DQ_QDO_IN_REGS 0): S and dP read Q and dO from shared memory, where they
+// stay until the work tile's last product is in.
 // ---------------------------------------------------------------------------
 template <int D>
 struct DqSmem {
   static constexpr int BK = Tiles<D>::DQ_BK, STAGES = Tiles<D>::DQ_STAGES;
   using TQ = hopper::Tile<D, DQ_BQ>;  // Q or dO of a work tile
   using TK = hopper::Tile<D, BK>;     // a K or V stage
-  using TO = hopper::Tile<D, 64>;     // a warpgroup's dQ staging tile
+  using TO = StageTile<D>;            // a warpgroup's dQ staging tile
   static constexpr int Q_BYTES = TQ::BYTES, KV_BYTES = TK::BYTES;
   // Q and dO of one work tile, the K/V ring, and the dQ staging tiles (one
   // per consumer warpgroup).
@@ -944,6 +1007,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   using TK = typename S::TK;
   using R = Roles<DQ_WGS>;
   constexpr int DQ_BK = S::BK, DQ_STAGES = S::STAGES, W = TQ::W;
+  constexpr bool QDO_IN_REGS = Tiles<D>::DQ_QDO_IN_REGS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_base(smem_raw);
   bf16* sq = reinterpret_cast<bf16*>(base);  // [DQ_BQ * D]
@@ -1013,12 +1077,17 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
       // Q and dO of this warpgroup's rows as register A operands, for the
-      // whole work tile; the producer may load the next work tile's.
+      // whole work tile; the producer may load the next work tile's. At
+      // head dim 256 they are read from shared memory instead, and the
+      // buffer is released at the end of the work tile.
       hopper::mbar_wait(full_q, wc & 1);
-      uint32_t qa[D / 16][4], doa[D / 16][4];
-      hopper::load_a_rows<TQ>(qa, sq + 64 * c * W, warp, lane);
-      hopper::load_a_rows<TQ>(doa, sdo + 64 * c * W, warp, lane);
-      warp_release(empty_q);
+      uint32_t qa[QDO_IN_REGS ? D / 16 : 1][4], doa[QDO_IN_REGS ? D / 16 : 1][4];
+      const uint64_t desc_qs = TQ::desc(sq + 64 * c * W), desc_dos = TQ::desc(sdo + 64 * c * W);
+      if constexpr (QDO_IN_REGS) {
+        hopper::load_a_rows<TQ>(qa, sq + 64 * c * W, warp, lane);
+        hopper::load_a_rows<TQ>(doa, sdo + 64 * c * W, warp, lane);
+        warp_release(empty_q);
+      }
 
       // Pipelined: S of key tile i, dQ of tile i - 1 and dP of tile i go out
       // together; the wait for S leaves the other two running while the
@@ -1047,13 +1116,21 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         const uint64_t desc_k = TK::desc(sk + s * DQ_BK * D);
         const uint64_t desc_v = TK::desc(sv + s * DQ_BK * D);
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          hopper::Wgmma<DQ_BK>::rsk(sc, qa[kk], desc_k + TK::k_step(kk), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          if constexpr (QDO_IN_REGS)
+            hopper::Wgmma<DQ_BK>::rsk(sc, qa[kk], desc_k + TK::k_step(kk), kk > 0);
+          else
+            hopper::Wgmma<DQ_BK>::ss(sc, desc_qs + TQ::k_step(kk), desc_k + TK::k_step(kk), kk > 0);
+        }
         hopper::wgmma_commit();
         if constexpr (kAfterFirst) issue_dq(i - 1);
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          hopper::Wgmma<DQ_BK>::rsk(dp, doa[kk], desc_v + TK::k_step(kk), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) {
+          if constexpr (QDO_IN_REGS)
+            hopper::Wgmma<DQ_BK>::rsk(dp, doa[kk], desc_v + TK::k_step(kk), kk > 0);
+          else
+            hopper::Wgmma<DQ_BK>::ss(dp, desc_dos + TQ::k_step(kk), desc_v + TK::k_step(kk), kk > 0);
+        }
         hopper::wgmma_commit();
         if constexpr (kAfterFirst)
           hopper::wgmma_wait<2>();  // S is in; dQ(i - 1) and dP may still run
@@ -1117,7 +1194,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         hopper::mbar_wait(&full[s], (it / DQ_STAGES) & 1);
         warp_release(&empty[s]);
       }
-      out_dq.store(sdq + 64 * c * D, acc, 1.f, 1.f, wq0, bh, tid, 1 + c);
+      if constexpr (!QDO_IN_REGS) warp_release(empty_q);  // the last product that read Q and dO is in
+      out_dq.store(sdq + c * S::TO::BYTES / 2, acc, 1.f, 1.f, wq0, bh, tid, 1 + c);
     }
     if (tid == 0) hopper::tma_store_wait();
   }
@@ -1129,9 +1207,11 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 // C entry points (loaded with ctypes). Pointers are device pointers of
 // contiguous [bh, T, d] tensors (bf16 operands; outputs bf16, or f32 when
 // out_f32 is set) and f32 [bh, Tq] lse/delta; the stream is the caller's
-// cudaStream_t. Each returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a head dim the kernels do not take, or a tensor
-// map the driver refuses).
+// cudaStream_t. d is the tensors' head dim, 1 to 256 and a multiple of 8: it
+// runs on the instance of the narrowest head dim of 16, 32, 64, 128 and 256
+// that holds it; scale is the caller's (1 / sqrt(d)). Each returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a head dim
+// no instance takes, or a tensor map the driver refuses).
 // ---------------------------------------------------------------------------
 extern "C" const char* rt_cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
@@ -1146,9 +1226,9 @@ static int persistent_grid(int n_units) {
   return n_units < sms ? n_units : sms;
 }
 
-// Calls launch(head dim, output type) with the head dim as an
-// std::integral_constant and the output type as a Type tag, for the head
-// dims the kernels are instantiated for; cudaErrorInvalidValue for others.
+// Calls launch(instance head dim, output type) with the instance's head dim
+// as an std::integral_constant and the output type as a Type tag, for the
+// instance that serves head dim d; cudaErrorInvalidValue for a d none takes.
 template <class T>
 struct Type {
   using type = T;
@@ -1156,36 +1236,37 @@ struct Type {
 template <class F>
 static int by_head_dim(int d, int out_f32, F launch) {
   auto with = [&](auto dd) { return out_f32 ? launch(dd, Type<float>{}) : launch(dd, Type<bf16>{}); };
-  switch (d) {
-    case 16: return with(std::integral_constant<int, 16>{});
-    case 32: return with(std::integral_constant<int, 32>{});
-    case 64: return with(std::integral_constant<int, 64>{});
-    case 128: return with(std::integral_constant<int, 128>{});
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (d < 1 || d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (d <= 16) return with(std::integral_constant<int, 16>{});
+  if (d <= 32) return with(std::integral_constant<int, 32>{});
+  if (d <= 64) return with(std::integral_constant<int, 64>{});
+  if (d <= 128) return with(std::integral_constant<int, 128>{});
+  if (d <= 256) return with(std::integral_constant<int, 256>{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The output rows of a [bh, T, D] tensor at p, as OutRows describes them.
+// The output rows of a [bh, T, dh] tensor at p, as OutRows describes them.
 template <int D>
-static bool out_rows(OutRows<D, bf16>& out, void* p, int bh, int T) {
-  return hopper::rows_map(&out.map, p, bh, T, D, 64);
+static bool out_rows(OutRows<D, bf16>& out, void* p, int bh, int T, int dh) {
+  return hopper::rows_map(&out.map, p, bh, T, dh, D, 64);
 }
 template <int D>
-static bool out_rows(OutRows<D, float>& out, void* p, int, int T) {
+static bool out_rows(OutRows<D, float>& out, void* p, int, int T, int dh) {
   out.ptr = static_cast<float*>(p);
   out.T = T;
+  out.dh = dh;
   return true;
 }
 
 template <int D, typename OutT>
 static int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                      int tq, int tk, float scale, int causal, cudaStream_t st) {
+                      int tq, int tk, int dh, float scale, int causal, cudaStream_t st) {
   CUtensorMap tq_map, tk_map, tv_map;
   OutRows<D, OutT> o_rows;
   constexpr int bk = FwdSmem<D>::BK;
-  if (!hopper::rows_map(&tq_map, q, bh, tq, D, FWD_BQ) ||
-      !hopper::rows_map(&tk_map, k, bh, tk, D, bk) ||
-      !hopper::rows_map(&tv_map, v, bh, tk, D, bk) || !out_rows(o_rows, o, bh, tq))
+  if (!hopper::rows_map(&tq_map, q, bh, tq, dh, D, FWD_BQ) ||
+      !hopper::rows_map(&tk_map, k, bh, tk, dh, D, bk) ||
+      !hopper::rows_map(&tv_map, v, bh, tk, dh, D, bk) || !out_rows(o_rows, o, bh, tq, dh))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = FwdSmem<D>::LAUNCH, threads = Roles<FWD_WGS>::THREADS;
   cudaFuncSetAttribute(flash_fwd_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1201,21 +1282,21 @@ extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o
                             void* stream) {
   return by_head_dim(d, out_f32, [&](auto dd, auto out) {
     return launch_fwd<decltype(dd)::value, typename decltype(out)::type>(
-        q, k, v, o, lse, bh, tq, tk, scale, causal, static_cast<cudaStream_t>(stream));
+        q, k, v, o, lse, bh, tq, tk, d, scale, causal, static_cast<cudaStream_t>(stream));
   });
 }
 
 template <int D, typename OutT>
 static int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                     const void* delta, void* dq, int bh, int tq, int tk, float scale, int causal,
-                     cudaStream_t st) {
+                     const void* delta, void* dq, int bh, int tq, int tk, int dh, float scale,
+                     int causal, cudaStream_t st) {
   CUtensorMap tq_map, tk_map, tv_map, tdo_map;
   OutRows<D, OutT> dq_rows;
   constexpr int bk = DqSmem<D>::BK;
-  if (!hopper::rows_map(&tq_map, q, bh, tq, D, DQ_BQ) ||
-      !hopper::rows_map(&tk_map, k, bh, tk, D, bk) ||
-      !hopper::rows_map(&tv_map, v, bh, tk, D, bk) ||
-      !hopper::rows_map(&tdo_map, dout, bh, tq, D, DQ_BQ) || !out_rows(dq_rows, dq, bh, tq))
+  if (!hopper::rows_map(&tq_map, q, bh, tq, dh, D, DQ_BQ) ||
+      !hopper::rows_map(&tk_map, k, bh, tk, dh, D, bk) ||
+      !hopper::rows_map(&tv_map, v, bh, tk, dh, D, bk) ||
+      !hopper::rows_map(&tdo_map, dout, bh, tq, dh, D, DQ_BQ) || !out_rows(dq_rows, dq, bh, tq, dh))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = DqSmem<D>::LAUNCH, threads = Roles<DQ_WGS>::THREADS;
   cudaFuncSetAttribute(flash_dq_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1232,30 +1313,48 @@ extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const vo
                            int d, float scale, int causal, int out_f32, void* stream) {
   return by_head_dim(d, out_f32, [&](auto dd, auto out) {
     return launch_dq<decltype(dd)::value, typename decltype(out)::type>(
-        q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal, static_cast<cudaStream_t>(stream));
+        q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, causal, static_cast<cudaStream_t>(stream));
   });
+}
+
+// One launch of dK/dV's pass PASS (0: both gradients; 1: dV; 2: dK).
+template <int D, typename OutT, int PASS>
+static int launch_dkv_pass(const CUtensorMap& tq_map, const CUtensorMap& tk_map, const CUtensorMap& tv_map,
+                           const CUtensorMap& tdo_map, const OutRows<D, OutT>& dk_rows,
+                           const OutRows<D, OutT>& dv_rows, const void* lse, const void* delta, int bh,
+                           int tq, int tk, float scale, int causal, cudaStream_t st) {
+  constexpr int smem = DkvSmem<D>::LAUNCH, threads = Roles<2>::THREADS;
+  cudaFuncSetAttribute(flash_dkv_kernel<D, OutT, PASS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int grid = persistent_grid(units_of((tk + DKV_BK - 1) / DKV_BK, bh, causal));
+  flash_dkv_kernel<D, OutT, PASS><<<grid, threads, smem, st>>>(
+      tq_map, tk_map, tv_map, tdo_map, dk_rows, dv_rows, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), bh, tq, tk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, typename OutT>
 static int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                      const void* delta, void* dk, void* dv, int bh, int tq, int tk, float scale,
+                      const void* delta, void* dk, void* dv, int bh, int tq, int tk, int dh, float scale,
                       int causal, cudaStream_t st) {
   CUtensorMap tq_map, tk_map, tv_map, tdo_map;
   OutRows<D, OutT> dk_rows, dv_rows;
   constexpr int bq = DkvSmem<D>::BQ;
-  if (!hopper::rows_map(&tq_map, q, bh, tq, D, bq) ||
-      !hopper::rows_map(&tk_map, k, bh, tk, D, DKV_BK) ||
-      !hopper::rows_map(&tv_map, v, bh, tk, D, DKV_BK) ||
-      !hopper::rows_map(&tdo_map, dout, bh, tq, D, bq) || !out_rows(dk_rows, dk, bh, tk) ||
-      !out_rows(dv_rows, dv, bh, tk))
+  if (!hopper::rows_map(&tq_map, q, bh, tq, dh, D, bq) ||
+      !hopper::rows_map(&tk_map, k, bh, tk, dh, D, DKV_BK) ||
+      !hopper::rows_map(&tv_map, v, bh, tk, dh, D, DKV_BK) ||
+      !hopper::rows_map(&tdo_map, dout, bh, tq, dh, D, bq) || !out_rows(dk_rows, dk, bh, tk, dh) ||
+      !out_rows(dv_rows, dv, bh, tk, dh))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int smem = DkvSmem<D>::LAUNCH, threads = Roles<2>::THREADS;
-  cudaFuncSetAttribute(flash_dkv_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int grid = persistent_grid(units_of((tk + DKV_BK - 1) / DKV_BK, bh, causal));
-  flash_dkv_kernel<D, OutT><<<grid, threads, smem, st>>>(
-      tq_map, tk_map, tv_map, tdo_map, dk_rows, dv_rows, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), bh, tq, tk, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (Tiles<D>::DKV_PASSES == 1) {
+    return launch_dkv_pass<D, OutT, 0>(tq_map, tk_map, tv_map, tdo_map, dk_rows, dv_rows, lse, delta, bh, tq,
+                                       tk, scale, causal, st);
+  } else {
+    const int err = launch_dkv_pass<D, OutT, 1>(tq_map, tk_map, tv_map, tdo_map, dk_rows, dv_rows, lse, delta,
+                                                bh, tq, tk, scale, causal, st);
+    if (err != 0) return err;
+    return launch_dkv_pass<D, OutT, 2>(tq_map, tk_map, tv_map, tdo_map, dk_rows, dv_rows, lse, delta, bh, tq,
+                                       tk, scale, causal, st);
+  }
 }
 
 extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -1263,6 +1362,6 @@ extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v, const v
                             int tk, int d, float scale, int causal, int out_f32, void* stream) {
   return by_head_dim(d, out_f32, [&](auto dd, auto out) {
     return launch_dkv<decltype(dd)::value, typename decltype(out)::type>(
-        q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal, static_cast<cudaStream_t>(stream));
+        q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, causal, static_cast<cudaStream_t>(stream));
   });
 }

@@ -1,7 +1,10 @@
 // Flash attention for f32 operands (sm_90a): forward, dQ and dK/dV.
 //
-// The same three functions as flash_attention.cu, on f32 [BH, T, D]
-// operands (D = head dim: 16, 32, 64 or 128): they replace the Pallas
+// The same three functions as flash_attention.cu, on f32 [BH, T, Dh]
+// operands, instantiated for head dims D = 16, 32, 64, 128 and 256 (a Dh
+// between two of them, a multiple of 4, runs on the next one up: TMA fills
+// the columns past Dh with zeros in shared memory, the split leaves zeros
+// zero, and the output rows are written Dh columns wide): they replace the Pallas
 // kernels _fwd_kernel, _dq_kernel and _dkv_kernel
 // (ray_tpu/ops/flash_attention.py:72, :135, :168) where those run on f32
 // inputs (the ring's f32 path, an f32 model). Scores, softmax and every
@@ -61,6 +64,17 @@
 // Causal: the key loop stops at the diagonal (forward, dQ) and the q loop
 // starts at it (dK/dV); keys past Tk and q rows past Tq are masked or
 // zero-filled.
+//
+// Head dim 256 (A_SPLIT 0 in F32Tiles): the block's own rows, split, would
+// take 256 KB of shared memory (Q and dO, or K and V, big and small), so
+// they stay as TMA loaded them, raw f32 (128 KB), and each consumer splits
+// them into register A fragments four k-steps at a time, issues those
+// k-steps' products with the fragments and waits for them before the next
+// four (mma3_raw); the stages hold 8 keys or q rows.
+// Its dK/dV's two [64 x 256] accumulators would not fit in a consumer's
+// registers beside the rest: it runs twice (DKV_PASSES 2), a dV pass and a
+// dK pass, each recomputing S^T and P^T with one accumulator and splitting
+// only the tiles its products read.
 //
 // The forward differs in its block (FwdPlan): 128 q rows of one head, each
 // consumer warpgroup owning 64 of them, both reading every stage (a stage
@@ -123,6 +137,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 // against 0.0204 ms); 64 keys a stage at Dh 64 (0.169 ms against 0.197 at
 // 32) needs two loading warpgroups, whose consumers' 208 registers hold its
 // P fragments without a spill; head dim 128 keeps 16 keys (8: 0.353 ms).
+// A_SPLIT: the block's own rows split in shared memory (1), or kept raw and
+// split into register fragments a group of k-steps at a time (0: head dim
+// 256, see the note at the top); DKV_PASSES: dK/dV in one pass or two.
 // tests/test_torch_flash_f32_split.py reads this block.
 template <int D>
 struct F32Tiles;
@@ -131,24 +148,41 @@ struct F32Tiles<16> {
   static constexpr int DQ_BK = 64, DQ_STAGES = 4, DQ_RAW = 2, DKV_BQ = 32, DKV_STAGES = 4, DKV_RAW = 2;
   static constexpr int LOADER_WGS = 3;
   static constexpr int FWD_ROWS = 128, FWD_BK = 64, FWD_STAGES = 4, FWD_RAW = 2, FWD_LOADER_WGS = 3;
+  static constexpr int A_SPLIT = 1, DKV_PASSES = 1;
 };
 template <>
 struct F32Tiles<32> {
   static constexpr int DQ_BK = 64, DQ_STAGES = 3, DQ_RAW = 2, DKV_BQ = 32, DKV_STAGES = 4, DKV_RAW = 2;
   static constexpr int LOADER_WGS = 3;
   static constexpr int FWD_ROWS = 64, FWD_BK = 64, FWD_STAGES = 3, FWD_RAW = 2, FWD_LOADER_WGS = 3;
+  static constexpr int A_SPLIT = 1, DKV_PASSES = 1;
 };
 template <>
 struct F32Tiles<64> {
   static constexpr int DQ_BK = 32, DQ_STAGES = 3, DQ_RAW = 0, DKV_BQ = 32, DKV_STAGES = 2, DKV_RAW = 2;
   static constexpr int LOADER_WGS = 3;
   static constexpr int FWD_ROWS = 128, FWD_BK = 64, FWD_STAGES = 2, FWD_RAW = 0, FWD_LOADER_WGS = 2;
+  static constexpr int A_SPLIT = 1, DKV_PASSES = 1;
 };
 template <>
 struct F32Tiles<128> {
   static constexpr int DQ_BK = 16, DQ_STAGES = 2, DQ_RAW = 0, DKV_BQ = 8, DKV_STAGES = 2, DKV_RAW = 2;
   static constexpr int LOADER_WGS = 2;
   static constexpr int FWD_ROWS = 128, FWD_BK = 16, FWD_STAGES = 2, FWD_RAW = 2, FWD_LOADER_WGS = 2;
+  static constexpr int A_SPLIT = 1, DKV_PASSES = 1;
+};
+// Head dim 256: raw rows of the block (128 KB: Q and dO, K and V, or the
+// forward's 128 q rows), 8 keys or q rows a stage (dQ: K, V and K^T split,
+// 48 KB; dK/dV: six tiles of a pass, 48 KB; the forward: K and V^T split and
+// V as loaded, 40 KB), two stages landing in place, one loading warpgroup
+// (the consumers get 224 registers, the loaders 56: a [64 x 256]
+// accumulator is 128).
+template <>
+struct F32Tiles<256> {
+  static constexpr int DQ_BK = 8, DQ_STAGES = 2, DQ_RAW = 0, DKV_BQ = 8, DKV_STAGES = 2, DKV_RAW = 0;
+  static constexpr int LOADER_WGS = 1;
+  static constexpr int FWD_ROWS = 128, FWD_BK = 8, FWD_STAGES = 2, FWD_RAW = 0, FWD_LOADER_WGS = 1;
+  static constexpr int A_SPLIT = 0, DKV_PASSES = 2;
 };
 
 // A block's warpgroups: LOADER_WGS_ loading (warp 0 issues the TMA loads,
@@ -163,7 +197,10 @@ struct Roles {
   static constexpr int THREADS = (LOADER_WGS + 2) * WG_THREADS;
   static constexpr int SPLIT_THREADS = LOADER_WGS * WG_THREADS - 32;
   static constexpr int ENTRY_REGS = 65536 / THREADS / 8 * 8;
-  static constexpr int LOADER_REGS = 48;
+  // One loading warpgroup (head dim 256) keeps 56: its TMA warp issues
+  // eight boxes a tile, and at 48 ptxas spilled there (24 bytes); the
+  // consumers still get 224 (228 rounded down to 8).
+  static constexpr int LOADER_REGS = LOADER_WGS == 1 ? 56 : 48;
   static constexpr int CONSUMER_REGS_FIT =
       (ENTRY_REGS * THREADS - LOADER_WGS * WG_THREADS * LOADER_REGS) / (2 * WG_THREADS) / 8 * 8;
   static constexpr int CONSUMER_REGS = CONSUMER_REGS_FIT < 240 ? CONSUMER_REGS_FIT : 240;
@@ -323,6 +360,53 @@ __device__ __forceinline__ void mma3_rs(float (&d)[N / 2], const uint32_t (&a_bi
   }
 }
 
+// d (+)= A B over 8 KSTEPS columns, A raw f32 in shared memory (TA, this
+// warpgroup's 64 rows: warp w takes rows 16w..16w + 15), B split in shared
+// memory (TB K-major). Four k-steps (one 32-float sub-tile of A, 32
+// registers of fragments) at a time: each thread reads its A fragment
+// elements, (g, t), (g + 8, t), (g, t + 4) and (g + 8, t + 4) of each
+// k-step, splits them into big and small in registers, and the warpgroup
+// issues those k-steps' products in mma3_ss's order and waits for them
+// before the fragments are overwritten. The first product overwrites d;
+// nothing is left in flight.
+template <int N, int KSTEPS, class TA, class TB>
+__device__ __forceinline__ void mma3_raw(float (&d)[N / 2], const float* a, uint64_t b_big, uint64_t b_small,
+                                         int warp, int lane) {
+  constexpr int G = 4;
+  static_assert(KSTEPS % G == 0, "whole groups of four k-steps");
+  const uint8_t* base = reinterpret_cast<const uint8_t*>(a);
+  const int r = 16 * warp + (lane >> 2), t = lane & 3;
+#pragma unroll 1
+  for (int g0 = 0; g0 < KSTEPS; g0 += G) {
+    uint32_t big[G][4], small[G][4];
+#pragma unroll
+    for (int kk = 0; kk < G; ++kk) {
+      const int col = 8 * (g0 + kk) + t;
+      hopper::tf32_split(*reinterpret_cast<const float*>(base + TA::offset(r, col)), big[kk][0], small[kk][0]);
+      hopper::tf32_split(*reinterpret_cast<const float*>(base + TA::offset(r + 8, col)), big[kk][1], small[kk][1]);
+      hopper::tf32_split(*reinterpret_cast<const float*>(base + TA::offset(r, col + 4)), big[kk][2], small[kk][2]);
+      hopper::tf32_split(*reinterpret_cast<const float*>(base + TA::offset(r + 8, col + 4)), big[kk][3],
+                         small[kk][3]);
+    }
+    hopper::fence_regs(d);
+    hopper::fence_regs(big);
+    hopper::fence_regs(small);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < G; ++kk) {
+      const uint64_t kb = TB::k_step(g0 + kk);
+      hopper::WgmmaTF32<N>::rs(d, big[kk], b_small + kb, g0 + kk > 0);
+      hopper::WgmmaTF32<N>::rs(d, small[kk], b_big + kb, 1);
+      hopper::WgmmaTF32<N>::rs(d, big[kk], b_big + kb, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(d);
+    hopper::fence_regs(big);
+    hopper::fence_regs(small);
+  }
+}
+
 // Chunk j of an m64nN accumulator (this thread: rows g and g + 8, columns
 // 8j + 2t and 8j + 2t + 1) as the tf32 A fragment of k-step j, split:
 // a0..a3 sit at (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4), so position
@@ -359,15 +443,18 @@ __device__ __forceinline__ void meet(float (&acc)[N], float* park, int c, int ti
 }
 
 // A warpgroup's [64 x D] f32 accumulator to rows [row0, row0 + 64) of a
-// contiguous [T, D] matrix, rows past T not written.
+// contiguous [T, dh] matrix (dh <= D, even), rows past T and columns past dh
+// not written.
 template <int D>
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 2], int row0, int T, int tid) {
-  const int lane = tid % 32, r = row0 + 16 * (tid / 32) + (lane >> 2);
-  float* p = dst + (size_t)r * D + 2 * (lane & 3);
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 2], int row0, int T, int dh,
+                                           int tid) {
+  const int lane = tid % 32, r = row0 + 16 * (tid / 32) + (lane >> 2), c = 2 * (lane & 3);
+  float* p = dst + (size_t)r * dh + c;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    if (r < T) *reinterpret_cast<float2*>(p + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
-    if (r + 8 < T) *reinterpret_cast<float2*>(p + 8 * D + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    if (r < T && 8 * j + c < dh) *reinterpret_cast<float2*>(p + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (r + 8 < T && 8 * j + c < dh)
+      *reinterpret_cast<float2*>(p + 8 * dh + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
@@ -381,14 +468,15 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 2]
 template <int D>
 struct DqPlan {
   static constexpr int BK = F32Tiles<D>::DQ_BK, STAGES = F32Tiles<D>::DQ_STAGES, RAW = F32Tiles<D>::DQ_RAW;
-  using TA = hopper::TileF<D, ROWS_OWNED>;  // Q or dO of the block's rows, big or small
+  static constexpr bool A_SPLIT = F32Tiles<D>::A_SPLIT;
+  using TA = hopper::TileF<D, ROWS_OWNED>;  // Q or dO of the block's rows, big or small (or raw)
   using TK = hopper::TileF<D, BK>;          // a stage's K or V, big or small
   using TT = hopper::TileF<BK, D>;          // a stage's K^T, big or small
   using F = Feed<STAGES, RAW>;
-  // Q, Q small, dO, dO small; the ring, a stage being K, K small, V, V
-  // small, K^T, K^T small; the raw slots, K and V as loaded; the mbarriers
-  // (full and ready of Q/dO, then the feed's).
-  static constexpr int A_BYTES = 4 * TA::BYTES;
+  // Q, Q small, dO, dO small (A_SPLIT 0: Q and dO raw); the ring, a stage
+  // being K, K small, V, V small, K^T, K^T small; the raw slots, K and V as
+  // loaded; the mbarriers (full and ready of Q/dO, then the feed's).
+  static constexpr int A_BYTES = (A_SPLIT ? 4 : 2) * TA::BYTES;
   static constexpr int STAGE_BYTES = 4 * TK::BYTES + 2 * TT::BYTES;
   static constexpr int RAW_OFF = A_BYTES + STAGES * STAGE_BYTES;
   static constexpr int BAR_OFF = RAW_OFF + RAW * 2 * TK::BYTES;
@@ -402,7 +490,7 @@ __global__ void __launch_bounds__(Roles<F32Tiles<D>::LOADER_WGS>::THREADS, 1)
 flash_f32_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                     const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
-                    int Tq, int Tk, float scale, int causal) {
+                    int Tq, int Tk, int dh, float scale, int causal) {
   using P = DqPlan<D>;
   using TA = typename P::TA;
   using TK = typename P::TK;
@@ -412,8 +500,8 @@ flash_f32_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_base(smem_raw);
   float* sq = reinterpret_cast<float*>(base);
-  float* sq_s = sq + TA::BYTES / 4;
-  float* sdo = sq_s + TA::BYTES / 4;
+  float* sq_s = sq + TA::BYTES / 4;  // (A_SPLIT only, as dO small)
+  float* sdo = sq + (P::A_SPLIT ? 2 : 1) * TA::BYTES / 4;
   float* sdo_s = sdo + TA::BYTES / 4;
   // Stage s: K, K small, V, V small, K^T, K^T small.
   auto ring = [&](int s, int part) {
@@ -455,8 +543,10 @@ flash_f32_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
     } else if (threadIdx.x >= 32) {  // the split pass
       const int u = threadIdx.x - 32;
       hopper::mbar_wait(full_a, 0);
-      split_tile<TA::BYTES, NT>(sq, sq, sq_s, u);
-      split_tile<TA::BYTES, NT>(sdo, sdo, sdo_s, u);
+      if constexpr (P::A_SPLIT) {
+        split_tile<TA::BYTES, NT>(sq, sq, sq_s, u);
+        split_tile<TA::BYTES, NT>(sdo, sdo, sdo_s, u);
+      }
       split_done(ready_a);
       for (int i = 0; i < n_k; ++i) {
         const int s = i % STAGES;
@@ -491,12 +581,17 @@ flash_f32_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
       hopper::mbar_wait(&feed.ready[s], (i / STAGES) & 1);
       float sc[BK / 2], dp[BK / 2];  // S (then P) and dP (then dS), [64 q x BK keys]
       hopper::fence_regs(acc);
-      hopper::wgmma_fence();
-      mma3_ss<BK, D / 8, TA, TK>(sc, q_b, q_s, TK::desc(ring(s, 0)), TK::desc(ring(s, 1)));
-      hopper::wgmma_commit();
-      mma3_ss<BK, D / 8, TA, TK>(dp, do_b, do_s, TK::desc(ring(s, 2)), TK::desc(ring(s, 3)));
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<1>();  // S is in; dP may still run
+      if constexpr (P::A_SPLIT) {
+        hopper::wgmma_fence();
+        mma3_ss<BK, D / 8, TA, TK>(sc, q_b, q_s, TK::desc(ring(s, 0)), TK::desc(ring(s, 1)));
+        hopper::wgmma_commit();
+        mma3_ss<BK, D / 8, TA, TK>(dp, do_b, do_s, TK::desc(ring(s, 2)), TK::desc(ring(s, 3)));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // S is in; dP may still run
+      } else {  // both in when these return
+        mma3_raw<BK, D / 8, TA, TK>(sc, sq, TK::desc(ring(s, 0)), TK::desc(ring(s, 1)), warp, lane);
+        mma3_raw<BK, D / 8, TA, TK>(dp, sdo, TK::desc(ring(s, 2)), TK::desc(ring(s, 3)), warp, lane);
+      }
       hopper::fence_regs(sc);
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
@@ -545,7 +640,7 @@ flash_f32_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
     for (; i < n_plain; i += 2) ktile(std::false_type{}, i);
     for (; i < n_k; i += 2) ktile(std::true_type{}, i);
     meet(acc, sq, c, tid);  // Q's tile: no product reads it now
-    if (c == 0) store_rows<D>(dq + (size_t)bh * Tq * D, acc, q0, Tq, tid);
+    if (c == 0) store_rows<D>(dq + (size_t)bh * Tq * dh, acc, q0, Tq, dh, tid);
   }
 }
 
@@ -561,42 +656,53 @@ flash_f32_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
 template <int D>
 struct DkvPlan {
   static constexpr int BQ = F32Tiles<D>::DKV_BQ, STAGES = F32Tiles<D>::DKV_STAGES, RAW = F32Tiles<D>::DKV_RAW;
-  using TA = hopper::TileF<D, ROWS_OWNED>;  // K or V of the block's keys, big or small
+  static constexpr bool A_SPLIT = F32Tiles<D>::A_SPLIT;
+  static constexpr int PASSES = F32Tiles<D>::DKV_PASSES;
+  using TA = hopper::TileF<D, ROWS_OWNED>;  // K or V of the block's keys, big or small (or raw)
   using TQ = hopper::TileF<D, BQ>;          // a stage's Q or dO, big or small
   using TT = hopper::TileF<BQ, D>;          // a stage's Q^T or dO^T, big or small
   using F = Feed<STAGES, RAW>;
-  // K, K small, V, V small; the ring, a stage being Q, Q small, dO, dO
-  // small, Q^T, Q^T small, dO^T, dO^T small; the raw slots, Q and dO as
-  // loaded; each stage's lse and delta; the mbarriers.
-  static constexpr int A_BYTES = 4 * TA::BYTES;
-  static constexpr int STAGE_BYTES = 4 * TQ::BYTES + 4 * TT::BYTES;
+  // K, K small, V, V small (A_SPLIT 0: K and V raw); the ring, a stage
+  // being Q, Q small, dO, dO small, Q^T, Q^T small, dO^T, dO^T small (a dV
+  // pass: Q, Q small, dO as loaded, -, dO^T, dO^T small; a dK pass: Q, Q
+  // small, dO, dO small, Q^T, Q^T small); the raw slots, Q and dO as loaded;
+  // each stage's lse and delta; the mbarriers.
+  static constexpr int A_BYTES = (A_SPLIT ? 4 : 2) * TA::BYTES;
+  static constexpr int STAGE_BYTES = 4 * TQ::BYTES + (PASSES == 1 ? 4 : 2) * TT::BYTES;
   static constexpr int RAW_OFF = A_BYTES + STAGES * STAGE_BYTES;
   static constexpr int ROWS_OFF = RAW_OFF + RAW * 2 * TQ::BYTES;
   static constexpr int BAR_OFF = ROWS_OFF + STAGES * 2 * BQ * 4;
   static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + F::BARRIERS);  // + alignment slack
   static_assert(STAGES >= 2 && (RAW == 0 || RAW >= 2), "TMA rings of at least two stages");
+  static_assert(PASSES == 1 || PASSES == 2, "dK/dV in one pass or two");
   static_assert(BYTES <= SMEM_LIMIT, "dK/dV's shared memory does not fit");
 };
 
-template <int D>
+// PASS 0: dK and dV; 1: dV alone; 2: dK alone (DKV_PASSES 2).
+template <int D, int PASS>
 __global__ void __launch_bounds__(Roles<F32Tiles<D>::LOADER_WGS>::THREADS, 1)
 flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                      const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int Tq, int Tk, float scale, int causal) {
+                     float* __restrict__ dv, int Tq, int Tk, int dh, float scale, int causal) {
   using P = DkvPlan<D>;
   using TA = typename P::TA;
   using TQ = typename P::TQ;
   using TT = typename P::TT;
   using R = Roles<F32Tiles<D>::LOADER_WGS>;
   constexpr int BQ = P::BQ, STAGES = P::STAGES, NT = R::SPLIT_THREADS;
+  constexpr bool DO_DK = PASS != 1, DO_DV = PASS != 2;
+  static_assert((PASS == 0) == (P::PASSES == 1), "one pass, or a dV pass and a dK pass");
+  // The stage parts the gradient products read: dO^T's and Q^T's.
+  constexpr int DOT_PART = PASS == 0 ? 6 : 4, QT_PART = 4;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_base(smem_raw);
   float* sk = reinterpret_cast<float*>(base);
-  float* sk_s = sk + TA::BYTES / 4;
-  float* sv = sk_s + TA::BYTES / 4;
+  float* sk_s = sk + TA::BYTES / 4;  // (A_SPLIT only, as V small)
+  float* sv = sk + (P::A_SPLIT ? 2 : 1) * TA::BYTES / 4;
   float* sv_s = sv + TA::BYTES / 4;
-  // Stage s: Q, Q small, dO, dO small, Q^T, Q^T small, dO^T, dO^T small.
+  // Stage s: Q, Q small, dO, dO small, Q^T, Q^T small, dO^T, dO^T small
+  // (a pass of two: the six parts its products read, see DkvPlan).
   auto ring = [&](int s, int part) {
     const int at = part < 4 ? part * TQ::BYTES : 4 * TQ::BYTES + (part - 4) * TT::BYTES;
     return reinterpret_cast<float*>(base + P::A_BYTES + s * P::STAGE_BYTES + at);
@@ -640,14 +746,24 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
       const float* lse_bh = lse + (size_t)bh * Tq;
       const float* delta_bh = delta + (size_t)bh * Tq;
       hopper::mbar_wait(full_a, 0);
-      split_tile<TA::BYTES, NT>(sk, sk, sk_s, u);
-      split_tile<TA::BYTES, NT>(sv, sv, sv_s, u);
+      if constexpr (P::A_SPLIT) {
+        split_tile<TA::BYTES, NT>(sk, sk, sk_s, u);
+        split_tile<TA::BYTES, NT>(sv, sv, sv_s, u);
+      }
       split_done(ready_a);
       for (int i = i_begin; i < n_qs; ++i) {
         const int j = i - i_begin, s = j % STAGES;
         feed.split_begin(j);
-        split_tile_t<TQ, NT>(loaded(j, 0), ring(s, 0), ring(s, 1), ring(s, 4), ring(s, 5), u);
-        split_tile_t<TQ, NT>(loaded(j, 2), ring(s, 2), ring(s, 3), ring(s, 6), ring(s, 7), u);
+        if constexpr (PASS == 0) {
+          split_tile_t<TQ, NT>(loaded(j, 0), ring(s, 0), ring(s, 1), ring(s, 4), ring(s, 5), u);
+          split_tile_t<TQ, NT>(loaded(j, 2), ring(s, 2), ring(s, 3), ring(s, 6), ring(s, 7), u);
+        } else if constexpr (PASS == 1) {  // S^T reads Q, dV reads dO^T
+          split_tile<TQ::BYTES, NT>(loaded(j, 0), ring(s, 0), ring(s, 1), u);
+          split_tile_t<TQ, NT, false>(loaded(j, 2), nullptr, nullptr, ring(s, 4), ring(s, 5), u);
+        } else {  // S^T reads Q, dP^T dO, dK Q^T
+          split_tile_t<TQ, NT>(loaded(j, 0), ring(s, 0), ring(s, 1), ring(s, 4), ring(s, 5), u);
+          split_tile<TQ::BYTES, NT>(loaded(j, 2), ring(s, 2), ring(s, 3), u);
+        }
         for (int r = u; r < BQ; r += NT) {  // zero past Tq, where Q and dO are zero-filled
           const int row = i * BQ + r;
           slse[s * BQ + r] = row < Tq ? lse_bh[row] * LOG2E : 0.f;
@@ -662,26 +778,38 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
     const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
     const int key_a = k0 + 16 * warp + g, key_b = key_a + 8;
     const float sl2 = scale * LOG2E;
-    float dk_acc[D / 2], dv_acc[D / 2];
+    float dk_acc[DO_DK ? D / 2 : 1], dv_acc[DO_DV ? D / 2 : 1];
 #pragma unroll
-    for (int r = 0; r < D / 2; ++r) dk_acc[r] = dv_acc[r] = 0.f;
+    for (int r = 0; r < (DO_DK ? D / 2 : 1); ++r) dk_acc[r] = 0.f;
+#pragma unroll
+    for (int r = 0; r < (DO_DV ? D / 2 : 1); ++r) dv_acc[r] = 0.f;
 
     hopper::mbar_wait(ready_a, 0);
     const uint64_t k_b = TA::desc(sk), k_s = TA::desc(sk_s), v_b = TA::desc(sv), v_s = TA::desc(sv_s);
     auto qtile = [&](auto masked, int i) {
       const int j = i - i_begin, s = j % STAGES, q0 = i * BQ;
       const float* ls = slse + s * BQ;
-      const float* ds = sdelta + s * BQ;
+      [[maybe_unused]] const float* ds = sdelta + s * BQ;  // (read by the dK pass)
       hopper::mbar_wait(&feed.ready[s], (j / STAGES) & 1);
       float st[BQ / 2], dpt[BQ / 2];  // S^T (then P^T) and dP^T (then dS^T), [64 keys x BQ q]
       hopper::fence_regs(dk_acc);
       hopper::fence_regs(dv_acc);
-      hopper::wgmma_fence();
-      mma3_ss<BQ, D / 8, TA, TQ>(st, k_b, k_s, TQ::desc(ring(s, 0)), TQ::desc(ring(s, 1)));
-      hopper::wgmma_commit();
-      mma3_ss<BQ, D / 8, TA, TQ>(dpt, v_b, v_s, TQ::desc(ring(s, 2)), TQ::desc(ring(s, 3)));
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<1>();  // S^T is in; dP^T may still run
+      if constexpr (P::A_SPLIT) {
+        hopper::wgmma_fence();
+        mma3_ss<BQ, D / 8, TA, TQ>(st, k_b, k_s, TQ::desc(ring(s, 0)), TQ::desc(ring(s, 1)));
+        hopper::wgmma_commit();
+        if constexpr (DO_DK) {
+          mma3_ss<BQ, D / 8, TA, TQ>(dpt, v_b, v_s, TQ::desc(ring(s, 2)), TQ::desc(ring(s, 3)));
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<1>();  // S^T is in; dP^T may still run
+        } else {
+          hopper::wgmma_wait<0>();
+        }
+      } else {  // both in when these return
+        mma3_raw<BQ, D / 8, TA, TQ>(st, sk, TQ::desc(ring(s, 0)), TQ::desc(ring(s, 1)), warp, lane);
+        if constexpr (DO_DK)
+          mma3_raw<BQ, D / 8, TA, TQ>(dpt, sv, TQ::desc(ring(s, 2)), TQ::desc(ring(s, 3)), warp, lane);
+      }
       hopper::fence_regs(st);
 #pragma unroll
       for (int jj = 0; jj < BQ / 8; ++jj) {
@@ -703,19 +831,22 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
       hopper::fence_regs(st);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dpt);
+      if constexpr (DO_DK) {
 #pragma unroll
-      for (int jj = 0; jj < BQ / 8; ++jj) {
-        const float2 dl2 = *reinterpret_cast<const float2*>(ds + 8 * jj + 2 * t);
+        for (int jj = 0; jj < BQ / 8; ++jj) {
+          const float2 dl2 = *reinterpret_cast<const float2*>(ds + 8 * jj + 2 * t);
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float dls = e ? dl2.y : dl2.x;
-          dpt[4 * jj + e] = st[4 * jj + e] * fmaf(dpt[4 * jj + e], scale, -dls);  // dS^T
-          dpt[4 * jj + 2 + e] = st[4 * jj + 2 + e] * fmaf(dpt[4 * jj + 2 + e], scale, -dls);
+          for (int e = 0; e < 2; ++e) {
+            const float dls = e ? dl2.y : dl2.x;
+            dpt[4 * jj + e] = st[4 * jj + e] * fmaf(dpt[4 * jj + e], scale, -dls);  // dS^T
+            dpt[4 * jj + 2 + e] = st[4 * jj + 2 + e] * fmaf(dpt[4 * jj + 2 + e], scale, -dls);
+          }
         }
       }
-      uint32_t p_b[BQ / 8][4], p_s[BQ / 8][4], ds_b[BQ / 8][4], ds_s[BQ / 8][4];
-      split_a_frags<BQ>(p_b, p_s, st);
-      split_a_frags<BQ>(ds_b, ds_s, dpt);
+      uint32_t p_b[DO_DV ? BQ / 8 : 1][4], p_s[DO_DV ? BQ / 8 : 1][4];
+      uint32_t ds_b[DO_DK ? BQ / 8 : 1][4], ds_s[DO_DK ? BQ / 8 : 1][4];
+      if constexpr (DO_DV) split_a_frags<BQ>(p_b, p_s, st);
+      if constexpr (DO_DK) split_a_frags<BQ>(ds_b, ds_s, dpt);
       hopper::fence_regs(dk_acc);
       hopper::fence_regs(dv_acc);
       hopper::fence_regs(p_b);
@@ -723,8 +854,10 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
       hopper::fence_regs(ds_b);
       hopper::fence_regs(ds_s);
       hopper::wgmma_fence();
-      mma3_rs<D, BQ / 8, TT>(dv_acc, p_b, p_s, TT::desc(ring(s, 6)), TT::desc(ring(s, 7)));
-      mma3_rs<D, BQ / 8, TT>(dk_acc, ds_b, ds_s, TT::desc(ring(s, 4)), TT::desc(ring(s, 5)));
+      if constexpr (DO_DV)
+        mma3_rs<D, BQ / 8, TT>(dv_acc, p_b, p_s, TT::desc(ring(s, DOT_PART)), TT::desc(ring(s, DOT_PART + 1)));
+      if constexpr (DO_DK)
+        mma3_rs<D, BQ / 8, TT>(dk_acc, ds_b, ds_s, TT::desc(ring(s, QT_PART)), TT::desc(ring(s, QT_PART + 1)));
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dk_acc);
@@ -743,11 +876,12 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
     for (; i < diag_end; i += 2) qtile(std::true_type{}, i);
     for (; i < plain_end; i += 2) qtile(std::false_type{}, i);
     for (; i < n_qs; i += 2) qtile(std::true_type{}, i);
-    meet(dk_acc, sk, c, tid);  // K's tiles: no product reads them now
-    meet(dv_acc, sk_s, c, tid);
+    // K's tiles (K and V raw: K's) park the partial sums: no product reads them now
+    if constexpr (DO_DK) meet(dk_acc, sk, c, tid);
+    if constexpr (DO_DV) meet(dv_acc, DO_DK ? sk_s : sk, c, tid);
     if (c == 0) {
-      store_rows<D>(dk + (size_t)bh * Tk * D, dk_acc, k0, Tk, tid);
-      store_rows<D>(dv + (size_t)bh * Tk * D, dv_acc, k0, Tk, tid);
+      if constexpr (DO_DK) store_rows<D>(dk + (size_t)bh * Tk * dh, dk_acc, k0, Tk, dh, tid);
+      if constexpr (DO_DV) store_rows<D>(dv + (size_t)bh * Tk * dh, dv_acc, k0, Tk, dh, tid);
     }
   }
 }
@@ -767,16 +901,17 @@ struct FwdPlan {
   // ROWS 128: consumer c owns rows 64c.., both read every stage; ROWS 64:
   // both own the 64 rows, c takes key tiles c, c + 2, ...
   static constexpr bool SHARED = ROWS == 2 * ROWS_OWNED;
+  static constexpr bool A_SPLIT = F32Tiles<D>::A_SPLIT;
   static constexpr int Q_TILES = ROWS / ROWS_OWNED;
-  using TA = hopper::TileF<D, ROWS_OWNED>;  // 64 rows of Q, big or small
+  using TA = hopper::TileF<D, ROWS_OWNED>;  // 64 rows of Q, big or small (or raw)
   using TK = hopper::TileF<D, BK>;          // a stage's K, big or small (and V as loaded)
   using TT = hopper::TileF<BK, D>;          // a stage's V^T, big or small
   using F = Feed<STAGES, RAW>;
-  // Q big, a tile per 64 rows, then Q small; the ring, a stage being K, K
-  // small, V^T, V^T small (and V as loaded, without raw slots); the raw
-  // slots, K and V as loaded; the mbarriers (full and ready of Q, then the
-  // feed's).
-  static constexpr int A_BYTES = 2 * Q_TILES * TA::BYTES;
+  // Q big, a tile per 64 rows, then Q small (A_SPLIT 0: Q raw); the ring, a
+  // stage being K, K small, V^T, V^T small (and V as loaded, without raw
+  // slots); the raw slots, K and V as loaded; the mbarriers (full and ready
+  // of Q, then the feed's).
+  static constexpr int A_BYTES = (A_SPLIT ? 2 : 1) * Q_TILES * TA::BYTES;
   static constexpr int STAGE_BYTES = 2 * TK::BYTES + 2 * TT::BYTES + (RAW == 0 ? TK::BYTES : 0);
   static constexpr int RAW_OFF = A_BYTES + STAGES * STAGE_BYTES;
   static constexpr int BAR_OFF = RAW_OFF + RAW * 2 * TK::BYTES;
@@ -790,7 +925,7 @@ template <int D>
 __global__ void __launch_bounds__(Roles<F32Tiles<D>::FWD_LOADER_WGS>::THREADS, 1)
 flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o, float* __restrict__ lse,
-                     int Tq, int Tk, float scale, int causal) {
+                     int Tq, int Tk, int dh, float scale, int causal) {
   using P = FwdPlan<D>;
   using TA = typename P::TA;
   using TK = typename P::TK;
@@ -843,8 +978,10 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
     } else if (threadIdx.x >= 32) {  // the split pass
       const int u = threadIdx.x - 32;
       hopper::mbar_wait(full_a, 0);
-      for (int h = 0; h < q_tiles; ++h)
-        split_tile<TA::BYTES, NT>(sq + h * TA::BYTES / 4, sq + h * TA::BYTES / 4, sq_s + h * TA::BYTES / 4, u);
+      if constexpr (P::A_SPLIT) {
+        for (int h = 0; h < q_tiles; ++h)
+          split_tile<TA::BYTES, NT>(sq + h * TA::BYTES / 4, sq + h * TA::BYTES / 4, sq_s + h * TA::BYTES / 4, u);
+      }
       split_done(ready_a);
       for (int i = 0; i < n_k; ++i) {
         const int s = i % STAGES;
@@ -876,10 +1013,15 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
       hopper::mbar_wait(&feed.ready[s], (i / STAGES) & 1);
       float sc[BK / 2];  // S (then P), [64 q x BK keys]
       hopper::fence_regs(acc);
-      hopper::wgmma_fence();
-      mma3_ss<BK, D / 8, TA, TK>(sc, q_b, q_s, TK::desc(ring(s, 0)), TK::desc(ring(s, 1)));
-      hopper::wgmma_commit();
-      hopper::wgmma_wait<0>();
+      if constexpr (P::A_SPLIT) {
+        hopper::wgmma_fence();
+        mma3_ss<BK, D / 8, TA, TK>(sc, q_b, q_s, TK::desc(ring(s, 0)), TK::desc(ring(s, 1)));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+      } else {
+        mma3_raw<BK, D / 8, TA, TK>(sc, sq + h * TA::BYTES / 4, TK::desc(ring(s, 0)), TK::desc(ring(s, 1)), warp,
+                                    lane);
+      }
       hopper::fence_regs(sc);
       float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
@@ -1006,7 +1148,7 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
       acc[4 * j + 2] *= inv_b;
       acc[4 * j + 3] *= inv_b;
     }
-    store_rows<D>(o + (size_t)bh * Tq * D, acc, r0, Tq, tid);
+    store_rows<D>(o + (size_t)bh * Tq * dh, acc, r0, Tq, dh, tid);
     if (t == 0) {
       if (row_a < Tq) lse[(size_t)bh * Tq + row_a] = (m_a + log2f(l_a)) / LOG2E;
       if (row_b < Tq) lse[(size_t)bh * Tq + row_b] = (m_b + log2f(l_b)) / LOG2E;
@@ -1014,70 +1156,91 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
   }
 }
 
+// Calls launch(instance head dim) with the head dim, as an
+// std::integral_constant, of the instance that serves head dim d (the
+// narrowest of 16, 32, 64, 128 and 256 that holds it; d a multiple of 4);
+// cudaErrorInvalidValue for a d none takes.
 template <class F>
 static int by_head_dim(int d, F launch) {
-  switch (d) {
-    case 16: return launch(std::integral_constant<int, 16>{});
-    case 32: return launch(std::integral_constant<int, 32>{});
-    case 64: return launch(std::integral_constant<int, 64>{});
-    case 128: return launch(std::integral_constant<int, 128>{});
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (d < 1 || d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (d <= 16) return launch(std::integral_constant<int, 16>{});
+  if (d <= 32) return launch(std::integral_constant<int, 32>{});
+  if (d <= 64) return launch(std::integral_constant<int, 64>{});
+  if (d <= 128) return launch(std::integral_constant<int, 128>{});
+  if (d <= 256) return launch(std::integral_constant<int, 256>{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int tq, int tk,
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int tq, int tk, int dh,
                float scale, int causal, cudaStream_t st) {
   using P = FwdPlan<D>;
   CUtensorMap mq, mk, mv;
-  if (!hopper::rows_map(&mq, q, bh, tq, D, ROWS_OWNED, 4) || !hopper::rows_map(&mk, k, bh, tk, D, P::BK, 4) ||
-      !hopper::rows_map(&mv, v, bh, tk, D, P::BK, 4))
+  if (!hopper::rows_map(&mq, q, bh, tq, dh, D, ROWS_OWNED, 4) || !hopper::rows_map(&mk, k, bh, tk, dh, D, P::BK, 4) ||
+      !hopper::rows_map(&mv, v, bh, tk, dh, D, P::BK, 4))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncSetAttribute(flash_f32_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
   const dim3 grid(bh, (tq + P::ROWS - 1) / P::ROWS);
   flash_f32_fwd_kernel<D><<<grid, Roles<F32Tiles<D>::FWD_LOADER_WGS>::THREADS, P::BYTES, st>>>(
-      mq, mk, mv, static_cast<float*>(o), static_cast<float*>(lse), tq, tk, scale, causal);
+      mq, mk, mv, static_cast<float*>(o), static_cast<float*>(lse), tq, tk, dh, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dq, int bh, int tq, int tk, float scale, int causal, cudaStream_t st) {
+              const void* delta, void* dq, int bh, int tq, int tk, int dh, float scale, int causal,
+              cudaStream_t st) {
   CUtensorMap mq, mk, mv, mdo;
   constexpr int bk = DqPlan<D>::BK, smem = DqPlan<D>::BYTES;
-  if (!hopper::rows_map(&mq, q, bh, tq, D, ROWS_OWNED, 4) || !hopper::rows_map(&mk, k, bh, tk, D, bk, 4) ||
-      !hopper::rows_map(&mv, v, bh, tk, D, bk, 4) || !hopper::rows_map(&mdo, dout, bh, tq, D, ROWS_OWNED, 4))
+  if (!hopper::rows_map(&mq, q, bh, tq, dh, D, ROWS_OWNED, 4) || !hopper::rows_map(&mk, k, bh, tk, dh, D, bk, 4) ||
+      !hopper::rows_map(&mv, v, bh, tk, dh, D, bk, 4) || !hopper::rows_map(&mdo, dout, bh, tq, dh, D, ROWS_OWNED, 4))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncSetAttribute(flash_f32_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid(bh, (tq + ROWS_OWNED - 1) / ROWS_OWNED);
-  flash_f32_dq_kernel<D><<<grid, Roles<F32Tiles<D>::LOADER_WGS>::THREADS, smem, st>>>(mq, mk, mv, mdo, static_cast<const float*>(lse),
-                                                          static_cast<const float*>(delta),
-                                                          static_cast<float*>(dq), tq, tk, scale, causal);
+  flash_f32_dq_kernel<D><<<grid, Roles<F32Tiles<D>::LOADER_WGS>::THREADS, smem, st>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dq),
+      tq, tk, dh, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of dK/dV's pass PASS (0: both gradients; 1: dV; 2: dK).
+template <int D, int PASS>
+int launch_dkv_pass(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, const CUtensorMap& mdo,
+                    const void* lse, const void* delta, void* dk, void* dv, int bh, int tq, int tk, int dh,
+                    float scale, int causal, cudaStream_t st) {
+  constexpr int smem = DkvPlan<D>::BYTES;
+  cudaFuncSetAttribute(flash_f32_dkv_kernel<D, PASS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const dim3 grid(bh, (tk + ROWS_OWNED - 1) / ROWS_OWNED);
+  flash_f32_dkv_kernel<D, PASS><<<grid, Roles<F32Tiles<D>::LOADER_WGS>::THREADS, smem, st>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), tq, tk, dh, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dk, void* dv, int bh, int tq, int tk, float scale, int causal,
+               const void* delta, void* dk, void* dv, int bh, int tq, int tk, int dh, float scale, int causal,
                cudaStream_t st) {
   CUtensorMap mq, mk, mv, mdo;
-  constexpr int bq = DkvPlan<D>::BQ, smem = DkvPlan<D>::BYTES;
-  if (!hopper::rows_map(&mq, q, bh, tq, D, bq, 4) || !hopper::rows_map(&mk, k, bh, tk, D, ROWS_OWNED, 4) ||
-      !hopper::rows_map(&mv, v, bh, tk, D, ROWS_OWNED, 4) || !hopper::rows_map(&mdo, dout, bh, tq, D, bq, 4))
+  constexpr int bq = DkvPlan<D>::BQ;
+  if (!hopper::rows_map(&mq, q, bh, tq, dh, D, bq, 4) || !hopper::rows_map(&mk, k, bh, tk, dh, D, ROWS_OWNED, 4) ||
+      !hopper::rows_map(&mv, v, bh, tk, dh, D, ROWS_OWNED, 4) || !hopper::rows_map(&mdo, dout, bh, tq, dh, D, bq, 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncSetAttribute(flash_f32_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const dim3 grid(bh, (tk + ROWS_OWNED - 1) / ROWS_OWNED);
-  flash_f32_dkv_kernel<D><<<grid, Roles<F32Tiles<D>::LOADER_WGS>::THREADS, smem, st>>>(
-      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), tq, tk, scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (DkvPlan<D>::PASSES == 1) {
+    return launch_dkv_pass<D, 0>(mq, mk, mv, mdo, lse, delta, dk, dv, bh, tq, tk, dh, scale, causal, st);
+  } else {
+    const int err = launch_dkv_pass<D, 1>(mq, mk, mv, mdo, lse, delta, dk, dv, bh, tq, tk, dh, scale, causal, st);
+    if (err != 0) return err;
+    return launch_dkv_pass<D, 2>(mq, mk, mv, mdo, lse, delta, dk, dv, bh, tq, tk, dh, scale, causal, st);
+  }
 }
 
 }  // namespace
 
 // ---------------------------------------------------------------------------
 // C entry points (loaded with ctypes): flash_attention.cu's signatures, on
-// contiguous f32 [bh, T, d] operands and f32 [bh, Tq] lse/delta.
+// contiguous f32 [bh, T, d] operands and f32 [bh, Tq] lse/delta; d, 1 to
+// 256 and a multiple of 4, runs on the instance that holds it.
 // ---------------------------------------------------------------------------
 extern "C" const char* rt_cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
@@ -1086,7 +1249,7 @@ extern "C" const char* rt_cuda_error_string(int status) {
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                             int tq, int tk, int d, float scale, int causal, int, void* stream) {
   return by_head_dim(d, [&](auto dd) {
-    return launch_fwd<decltype(dd)::value>(q, k, v, o, lse, bh, tq, tk, scale, causal,
+    return launch_fwd<decltype(dd)::value>(q, k, v, o, lse, bh, tq, tk, d, scale, causal,
                                            static_cast<cudaStream_t>(stream));
   });
 }
@@ -1095,7 +1258,7 @@ extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const vo
                            const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
                            int d, float scale, int causal, int, void* stream) {
   return by_head_dim(d, [&](auto dd) {
-    return launch_dq<decltype(dd)::value>(q, k, v, dout, lse, delta, dq, bh, tq, tk, scale, causal,
+    return launch_dq<decltype(dd)::value>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, causal,
                                           static_cast<cudaStream_t>(stream));
   });
 }
@@ -1104,7 +1267,7 @@ extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v, const v
                             const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
                             int tk, int d, float scale, int causal, int, void* stream) {
   return by_head_dim(d, [&](auto dd) {
-    return launch_dkv<decltype(dd)::value>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, scale, causal,
+    return launch_dkv<decltype(dd)::value>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, causal,
                                            static_cast<cudaStream_t>(stream));
   });
 }

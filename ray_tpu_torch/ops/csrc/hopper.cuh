@@ -5,9 +5,9 @@
 //
 // Shared-memory tiles are rows of D bf16 as TMA writes them with the
 // swizzle that matches their row length (32B, 64B and 128B for rows of 32,
-// 64 and 128 bytes). A row of 256 bytes (D = 128) is wider than a 128B
-// swizzle atom and than the TMA box that swizzle allows, so such a tile is
-// two [rows, 64] sub-tiles side by side (Tile<D, ROWS>). wgmma reads a tile
+// 64 and 128 bytes). A row of 256 or 512 bytes (D = 128, 256) is wider than
+// a 128B swizzle atom and than the TMA box that swizzle allows, so such a
+// tile is two or four [rows, 64] sub-tiles side by side (Tile<D, ROWS>). wgmma reads a tile
 // as a K-major operand (D is the contraction) or as an MN-major one (the
 // rows are the contraction, the transpose bit set), so no transposed copy is
 // ever made. f32 tiles (TileF) have the same byte geometry with 32 floats to
@@ -163,21 +163,21 @@ __device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo_bytes,
 
 // A [ROWS, D] bf16 tile in shared memory as TMA writes it (tma_load_tile).
 // Its columns are cut into SUB sub-tiles of W columns, each a [ROWS, W]
-// block of rows of at most 128 bytes, laid one after the other (only D =
-// 128 has two). Each sub-tile is swizzled by its row length (W = 16: 32B,
+// block of rows of at most 128 bytes, laid one after the other (D = 128
+// has two, D = 256 four). Each sub-tile is swizzled by its row length (W = 16: 32B,
 // 32: 64B, 64: 128B): the 16-byte chunks of a row are XORed with bits of
 // the row, in 8-row swizzle atoms of 16 * W bytes. It must start on 1024
 // bytes (the 128B swizzle repeats every 1024).
 //  - K-major (the contraction runs along D): slice kk (16 columns) starts
-//    32 bytes on within its sub-tile; the fifth slice of D = 128 starts the
-//    second sub-tile (desc() + k_step(kk));
+//    32 bytes on within its sub-tile; every fifth slice of D = 128 or 256
+//    starts the next sub-tile (desc() + k_step(kk));
 //  - MN-major (the contraction runs along the rows, D is N): 16 rows from
 //    row r0 start r0 * 2W bytes on (mn(tile, r0)); the next W columns of N
 //    are a sub-tile on, the descriptor's leading byte offset.
 template <int D_, int ROWS>
 struct Tile {
   static constexpr int D = D_;
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dims 16, 32, 64 and 128");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256, "head dims 16, 32, 64, 128 and 256");
   static constexpr int W = D > 64 ? 64 : D;  // columns of a sub-tile
   static constexpr int SUB = D / W;          // sub-tiles side by side
   static constexpr int SUB_BYTES = ROWS * W * 2;
@@ -390,6 +390,39 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// D[64 x 256] (+)= A[64 x 16] . B[16 x 256], A in registers, B in shared memory,
+// MN-major (the four 64-column quarters of N a leading byte offset apart).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));}
+
 // The register A operand of a warpgroup's 64 rows (this warp's 16 of them)
 // of a tile T that TMA wrote, one fragment per 16-wide slice of D. `rows`
 // points at the warpgroup's first row in the first sub-tile (tile + r0 * W).
@@ -419,6 +452,9 @@ template <> struct Wgmma<64> {
 template <> struct Wgmma<128> {
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) { wgmma_ss_n128(d, a, b, acc); }
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n128(d, a, b, 1); }
+};
+template <> struct Wgmma<256> {
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n256(d, a, b, 1); }
 };
 template <> struct Wgmma<32> {
   static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) { wgmma_ss_n32(d, a, b, acc); }
@@ -592,11 +628,55 @@ __device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// D[64 x 8] (+)= A[64 x 8] . B[8 x 8], tf32, A in registers (a[4]), B in shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_rs_n8(float (&d)[4], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));}
+
+// D[64 x 256] (+)= A[64 x 8] . B[8 x 256], tf32, A in registers (a[4]), B in shared memory, K-major.
+__device__ __forceinline__ void wgmma_tf32_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 template <int N> struct WgmmaTF32;
 // The tf32 products by their N: ss takes A and B from shared memory, rs A
 // from registers; B K-major in both. The shapes the f32 kernels issue.
 template <> struct WgmmaTF32<8> {
   static __device__ __forceinline__ void ss(float (&d)[4], uint64_t a, uint64_t b, int acc) { wgmma_tf32_ss_n8(d, a, b, acc); }
+  static __device__ __forceinline__ void rs(float (&d)[4], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_tf32_rs_n8(d, a, b, acc); }
 };
 
 template <> struct WgmmaTF32<16> {
@@ -616,6 +696,10 @@ template <> struct WgmmaTF32<64> {
 
 template <> struct WgmmaTF32<128> {
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_tf32_rs_n128(d, a, b, acc); }
+};
+
+template <> struct WgmmaTF32<256> {
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_tf32_rs_n256(d, a, b, acc); }
 };
 
 // ---------------------------------------------------------------------------
@@ -653,19 +737,28 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// A rank-3 map over a contiguous [bh, T, D] tensor of bf16 (elem_bytes 2)
-// or f32 (4), innermost first ({D, T, bh}), whose box is [box_rows, W] of
-// one head, W the columns of a 128-byte row at most (min(D, 64) bf16, a
-// sub-tile of Tile<D, box_rows>; min(D, 32) f32, of TileF<D, box_rows>: D =
-// 128 takes two or four boxes a tile): rows past T are zero-filled within
-// the head (a flat [bh * T, D] map would read the next head's rows
-// instead). Swizzled by the box's row length: 32B, 64B or 128B.
-inline bool rows_map(CUtensorMap* map, const void* ptr, int bh, int T, int D, int box_rows, int elem_bytes = 2) {
+// A rank-3 map over a contiguous [bh, T, width] tensor of bf16 (elem_bytes
+// 2) or f32 (4), innermost first ({width, T, bh}), whose box is [box_rows, W]
+// of one head, W the columns of a 128-byte row at most of the instance's
+// head dim D (min(D, 64) bf16, a sub-tile of Tile<D, box_rows>; min(D, 32)
+// f32, of TileF<D, box_rows>: D = 128 or 256 takes two to eight boxes a
+// tile): rows past T are zero-filled within the head (a flat [bh * T, D]
+// map would read the next head's rows instead), and so are the columns
+// past `width` when the tensor is narrower than the instance (a head dim
+// between two instances runs on the wider one: a box may lie wholly past
+// the row's end, and TMA still writes its zeros and counts its bytes;
+// stores through such a map write only the `width` columns). The row
+// stride, width * elem_bytes, must be a multiple of 16 bytes. Swizzled by
+// the box's row length: 32B, 64B or 128B.
+inline bool rows_map(CUtensorMap* map, const void* ptr, int bh, int T, int width, int D, int box_rows,
+                     int elem_bytes = 2) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
-  if (!encode || (D != 16 && D != 32 && D != 64 && D != 128) || (elem_bytes != 2 && elem_bytes != 4)) return false;
+  if (!encode || (D != 16 && D != 32 && D != 64 && D != 128 && D != 256) || (elem_bytes != 2 && elem_bytes != 4) ||
+      width < 1 || width > D || (width * elem_bytes) % 16 != 0)
+    return false;
   const int W = D * elem_bytes > 128 ? 128 / elem_bytes : D, row_bytes = W * elem_bytes;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * elem_bytes, (cuuint64_t)T * D * elem_bytes};
+  const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)T, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)width * elem_bytes, (cuuint64_t)T * width * elem_bytes};
   const cuuint32_t box[3] = {(cuuint32_t)W, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUtensorMapSwizzle swizzle = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B

@@ -2,7 +2,15 @@
 
 Counterpart of ``ray_tpu/ops/flash_attention.py``. The three Pallas TPU
 kernels there (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) are
-CUDA C++ kernels here, for head dims 16, 32, 64 and 128 (``HEAD_DIMS``).
+CUDA C++ kernels here, instantiated for head dims 16, 32, 64, 128 and 256
+(``HEAD_DIMS``), and they take every head dim from 1 to 256: a head dim
+between two instances runs on the next one up (``instance_head_dim``), the
+tensors at their own width, TMA filling the columns past it with zeros in
+shared memory and the outputs written at the true width; a head dim whose
+rows are not 16-byte strided (not a multiple of 8 in bf16, of 4 in f32) is
+first copied into zero-padded tensors of the next such width
+(``kernel_head_dim``) and its outputs sliced back. Above 256 a CUDA tensor
+raises. The scale is always 1 / sqrt(the true head dim).
 bf16 operands go to ``csrc/flash_attention.cu`` (with the Hopper helpers of
 ``csrc/hopper.cuh``), f32 operands to ``csrc/flash_attention_f32.cu`` (the
 same functions at f32 accuracy, as the Pallas kernels compute them on f32
@@ -14,13 +22,17 @@ at a third of the TF32 rate); ``_build`` builds both. The bf16 library's
 kernels:
 
   - forward: persistent warp-specialised blocks (one per SM), a TMA-fed
-    ring of K/V tiles and wgmma, online softmax over 128-key tiles in
-    registers for 128 q rows at a time; writes o and the row lse;
+    ring of K/V tiles and wgmma, online softmax over 128-key tiles (64 at
+    head dim 256) in registers for 128 q rows at a time; writes o and the
+    row lse;
   - dq: the forward's structure, 128 q rows at a time, a TMA-fed ring of
     64-key K/V tiles (to the diagonal when causal), wgmma for S, dP and
     dQ = dS K with K read a second time through the transpose bit;
   - dkv: persistent warp-specialised blocks, 128 keys at a time, a TMA-fed
-    ring of Q/dO tiles from the diagonal on, wgmma.
+    ring of Q/dO tiles from the diagonal on, wgmma; at head dim 256 a dV
+    pass and a dK pass (one [64 x 256] accumulator each).
+The f32 library at head dim 256 keeps a block's own rows raw in shared
+memory and splits them into register fragments four k-steps at a time.
 
 Neither backward kernel uses atomics, so the gradients do not depend on
 run order. Each kernel has a plain PyTorch version of the same function
@@ -53,22 +65,53 @@ import torch
 from ray_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are instantiated for
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the kernels are instantiated for
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 OPERAND_DTYPES = {torch.bfloat16: "flash_attention", torch.float32: "flash_attention_f32"}
 
-# Kernel launches on CUDA tensors, one count per kernel (the plain versions
-# are not counted); of those the launches with f32 outputs (out_f32, or f32
-# operands); and per instance, keyed "<kernel> d<head dim> <operand dtype>"
-# (instance()). chip_smoke.py zeroes these before a path and reads them
-# after, to show the path went through the kernels it should.
+# Kernel launches on CUDA tensors, one count per kernel launched (the plain
+# versions are not counted; a dK/dV call at head dim 256 launches its two
+# passes, kernel_passes()); of those the launches with f32 outputs (out_f32,
+# or f32 operands); and per instance, keyed by the head dim asked and the
+# instance that ran (instance()). chip_smoke.py zeroes these before a path
+# and reads them after, to show the path went through the kernels it should.
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 launches_f32 = dict.fromkeys(launches, 0)
 launches_by_instance: dict = {}
+DKV_PASSES = {256: 2}  # dK/dV's kernels a call per instance (DKV_PASSES of Tiles<D>, F32Tiles<D>)
+
+
+def instance_head_dim(head_dim: int) -> int:
+    """The head dim of the instance that serves ``head_dim``: the narrowest
+    of ``HEAD_DIMS`` that holds it."""
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {head_dim} not supported (the kernels take 1 to {MAX_HEAD_DIM})")
+    return next(w for w in HEAD_DIMS if head_dim <= w)
+
+
+def kernel_head_dim(head_dim: int, dtype: torch.dtype) -> int:
+    """The width the kernel is given for ``head_dim``: the head dim itself
+    when its rows are 16-byte strided (TMA's rule: a multiple of 8 bf16 or 4
+    f32), else the next such width, to which the wrapper pads a copy."""
+    per_16_bytes = 16 // dtype.itemsize
+    return -(-head_dim // per_16_bytes) * per_16_bytes
+
+
+def kernel_passes(kernel: str, head_dim: int) -> int:
+    """The kernels one call of ``kernel`` at ``head_dim`` launches: two for
+    dK/dV on the head dim 256 instance (a dV pass, then a dK pass), else
+    one."""
+    return DKV_PASSES.get(instance_head_dim(head_dim), 1) if kernel == "flash_dkv" else 1
 
 
 def instance(kernel: str, head_dim: int, dtype: torch.dtype) -> str:
-    """The key of ``launches_by_instance`` for one kernel instance."""
-    return f"{kernel} d{head_dim} {str(dtype).removeprefix('torch.')}"
+    """The key of ``launches_by_instance`` for ``kernel`` called at
+    ``head_dim``: "flash_fwd d128 bfloat16" at an instance's own width,
+    "flash_fwd d96 on d128 bfloat16" for a head dim that runs on a wider
+    instance."""
+    width = instance_head_dim(head_dim)
+    on = "" if width == head_dim else f" on d{width}"
+    return f"{kernel} d{head_dim}{on} {str(dtype).removeprefix('torch.')}"
 
 Tensor = torch.Tensor
 
@@ -160,8 +203,7 @@ def _check(q: Tensor, k: Tensor, v: Tensor, causal: bool, *more: Tensor) -> None
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
     if q.is_cuda:  # the plain versions that serve CPU tensors take any head dim and dtype
-        if D not in HEAD_DIMS:
-            raise ValueError(f"head dim {D} not supported (kernels take {HEAD_DIMS})")
+        instance_head_dim(D)  # raises above MAX_HEAD_DIM
         if q.dtype not in OPERAND_DTYPES:
             raise ValueError(f"the CUDA kernels take bf16 or f32 operands, got {q.dtype}")
         for t in (q, k, v, *more):
@@ -173,12 +215,13 @@ def _check(q: Tensor, k: Tensor, v: Tensor, causal: bool, *more: Tensor) -> None
                 raise ValueError("kernel operands must be contiguous and 16-byte aligned")
 
 
-def _launch(entry: str, counter: str, out_f32: bool, *args) -> None:
+def _launch(entry: str, counter: str, head_dim: int, out_f32: bool, *args) -> None:
     """Call C entry point ``entry`` of the kernel library for the operands'
     dtype (``args[0]`` is q) on the current stream with ``args`` and
     ``out_f32`` last: tensors go as device pointers, floats as float, the
-    rest as int. Counts the launch once the entry point has reported no
-    error."""
+    rest as int. Counts the kernels it launched once the entry point has
+    reported no error, under the head dim the caller asked for
+    (``head_dim``)."""
     q = args[0]
     lib = _build.load(OPERAND_DTYPES[q.dtype])
     fn = getattr(lib, entry)
@@ -196,15 +239,32 @@ def _launch(entry: str, counter: str, out_f32: bool, *args) -> None:
     fn.argtypes = types + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _build.check(lib, fn(*vals, torch.cuda.current_stream().cuda_stream), entry)
-    launches[counter] += 1
-    launches_f32[counter] += bool(out_f32) or q.dtype == torch.float32
-    key = instance(counter, q.shape[-1], q.dtype)
-    launches_by_instance[key] = launches_by_instance.get(key, 0) + 1
+    n = kernel_passes(counter, head_dim)
+    launches[counter] += n
+    launches_f32[counter] += n if out_f32 or q.dtype == torch.float32 else 0
+    key = instance(counter, head_dim, q.dtype)
+    launches_by_instance[key] = launches_by_instance.get(key, 0) + n
 
 
 def _empty_out(like: Tensor, out_f32: bool) -> Tensor:
     dtype = torch.float32 if out_f32 else like.dtype
     return torch.empty(like.shape, dtype=dtype, device=like.device)
+
+
+def _widen(*xs: Tensor) -> Tuple[Tensor, ...]:
+    """The [BH, T, Dh] operands as the kernel takes them: themselves, or
+    copies zero-padded to ``kernel_head_dim`` (zero columns change no score
+    and no real column of a result)."""
+    D = xs[0].shape[-1]
+    width = kernel_head_dim(D, xs[0].dtype)
+    if width == D:
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, width - D)) for x in xs)
+
+
+def _narrow(x: Tensor, D: int) -> Tensor:
+    """A kernel's [BH, T, width] output back at head dim D."""
+    return x if x.shape[-1] == D else x[..., :D].contiguous()
 
 
 @torch.no_grad()
@@ -216,11 +276,12 @@ def flash_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     if not q.is_cuda:
         return flash_fwd_reference(q, k, v, causal, out_f32)
     (BH, Tq, D), Tk = q.shape, k.shape[1]
-    o = _empty_out(q, out_f32)
+    qw, kw, vw = _widen(q, k, v)
+    o = _empty_out(qw, out_f32)
     lse = torch.empty(BH, Tq, dtype=torch.float32, device=q.device)
-    _launch("rt_flash_fwd", "flash_fwd", out_f32, q, k, v, o, lse, BH, Tq, Tk, D,
+    _launch("rt_flash_fwd", "flash_fwd", D, out_f32, qw, kw, vw, o, lse, BH, Tq, Tk, qw.shape[-1],
             1.0 / math.sqrt(D), causal)
-    return o, lse
+    return _narrow(o, D), lse
 
 
 @torch.no_grad()
@@ -232,10 +293,11 @@ def flash_dq(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor, delta: Te
     if not q.is_cuda:
         return flash_dq_reference(q, k, v, do, lse, delta, causal, out_f32)
     (BH, Tq, D), Tk = q.shape, k.shape[1]
-    dq = _empty_out(q, out_f32)
-    _launch("rt_flash_dq", "flash_dq", out_f32, q, k, v, do, lse, delta, dq,
-            BH, Tq, Tk, D, 1.0 / math.sqrt(D), causal)
-    return dq
+    qw, kw, vw, dow = _widen(q, k, v, do)
+    dq = _empty_out(qw, out_f32)
+    _launch("rt_flash_dq", "flash_dq", D, out_f32, qw, kw, vw, dow, lse, delta, dq,
+            BH, Tq, Tk, qw.shape[-1], 1.0 / math.sqrt(D), causal)
+    return _narrow(dq, D)
 
 
 @torch.no_grad()
@@ -247,10 +309,11 @@ def flash_dkv(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor, delta: T
     if not q.is_cuda:
         return flash_dkv_reference(q, k, v, do, lse, delta, causal, out_f32)
     (BH, Tq, D), Tk = q.shape, k.shape[1]
-    dk, dv = _empty_out(k, out_f32), _empty_out(v, out_f32)
-    _launch("rt_flash_dkv", "flash_dkv", out_f32, q, k, v, do, lse, delta, dk, dv,
-            BH, Tq, Tk, D, 1.0 / math.sqrt(D), causal)
-    return dk, dv
+    qw, kw, vw, dow = _widen(q, k, v, do)
+    dk, dv = _empty_out(kw, out_f32), _empty_out(vw, out_f32)
+    _launch("rt_flash_dkv", "flash_dkv", D, out_f32, qw, kw, vw, dow, lse, delta, dk, dv,
+            BH, Tq, Tk, qw.shape[-1], 1.0 / math.sqrt(D), causal)
+    return _narrow(dk, D), _narrow(dv, D)
 
 
 def _fold(x: Tensor) -> Tensor:  # [B, T, H, D] -> [B*H, T, D], contiguous

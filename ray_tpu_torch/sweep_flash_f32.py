@@ -20,9 +20,9 @@ times: median of 20 calls with CUDA events around each call (which
 includes the host's launch when it is slower than the kernel), and the
 device time of the kernels alone from ``torch.profiler``, side by side.
 ``--variants`` runs only the variants whose names start with one of those
-given ("chosen" always runs). Each variant runs in a process of its own
-with a time limit, so a variant that hangs the card is reported, not
-waited for. Needs one NVIDIA card; the builds run at once (about 15 s).
+given ("chosen" always runs; "raw" picks head dim 256's). Each variant
+runs in a process of its own with a time limit, so a variant that hangs
+the card is reported, not waited for. Needs one NVIDIA card; the builds run at once (about 15 s).
 """
 
 from __future__ import annotations
@@ -49,17 +49,29 @@ SOURCE, HEADER = "flash_attention_f32.cu", "hopper.cuh"
 TRAITS = {  # F32Tiles<D> as the .cu has them, the text the variants edit
     16: "DQ_BK = 64, DQ_STAGES = 4, DQ_RAW = 2, DKV_BQ = 32, DKV_STAGES = 4, DKV_RAW = 2;\n"
         "  static constexpr int LOADER_WGS = 3;\n"
-        "  static constexpr int FWD_ROWS = 128, FWD_BK = 64, FWD_STAGES = 4, FWD_RAW = 2, FWD_LOADER_WGS = 3;",
+        "  static constexpr int FWD_ROWS = 128, FWD_BK = 64, FWD_STAGES = 4, FWD_RAW = 2, FWD_LOADER_WGS = 3;\n"
+        "  static constexpr int A_SPLIT = 1, DKV_PASSES = 1;",
     32: "DQ_BK = 64, DQ_STAGES = 3, DQ_RAW = 2, DKV_BQ = 32, DKV_STAGES = 4, DKV_RAW = 2;\n"
         "  static constexpr int LOADER_WGS = 3;\n"
-        "  static constexpr int FWD_ROWS = 64, FWD_BK = 64, FWD_STAGES = 3, FWD_RAW = 2, FWD_LOADER_WGS = 3;",
+        "  static constexpr int FWD_ROWS = 64, FWD_BK = 64, FWD_STAGES = 3, FWD_RAW = 2, FWD_LOADER_WGS = 3;\n"
+        "  static constexpr int A_SPLIT = 1, DKV_PASSES = 1;",
     64: "DQ_BK = 32, DQ_STAGES = 3, DQ_RAW = 0, DKV_BQ = 32, DKV_STAGES = 2, DKV_RAW = 2;\n"
         "  static constexpr int LOADER_WGS = 3;\n"
-        "  static constexpr int FWD_ROWS = 128, FWD_BK = 64, FWD_STAGES = 2, FWD_RAW = 0, FWD_LOADER_WGS = 2;",
+        "  static constexpr int FWD_ROWS = 128, FWD_BK = 64, FWD_STAGES = 2, FWD_RAW = 0, FWD_LOADER_WGS = 2;\n"
+        "  static constexpr int A_SPLIT = 1, DKV_PASSES = 1;",
     128: "DQ_BK = 16, DQ_STAGES = 2, DQ_RAW = 0, DKV_BQ = 8, DKV_STAGES = 2, DKV_RAW = 2;\n"
          "  static constexpr int LOADER_WGS = 2;\n"
-         "  static constexpr int FWD_ROWS = 128, FWD_BK = 16, FWD_STAGES = 2, FWD_RAW = 2, FWD_LOADER_WGS = 2;",
+         "  static constexpr int FWD_ROWS = 128, FWD_BK = 16, FWD_STAGES = 2, FWD_RAW = 2, FWD_LOADER_WGS = 2;\n"
+         "  static constexpr int A_SPLIT = 1, DKV_PASSES = 1;",
+    256: "DQ_BK = 8, DQ_STAGES = 2, DQ_RAW = 0, DKV_BQ = 8, DKV_STAGES = 2, DKV_RAW = 0;\n"
+         "  static constexpr int LOADER_WGS = 1;\n"
+         "  static constexpr int FWD_ROWS = 128, FWD_BK = 8, FWD_STAGES = 2, FWD_RAW = 0, FWD_LOADER_WGS = 1;\n"
+         "  static constexpr int A_SPLIT = 0, DKV_PASSES = 2;",
 }
+# The instances whose block rows are split in shared memory: the variants
+# below are about their layout (head dim 256 keeps its rows raw, at the
+# smallest stages its shared memory allows).
+SPLIT_DIMS = (16, 32, 64, 128)
 CVT_RNA = ('  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;',
            '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n  return r;')
 
@@ -83,7 +95,7 @@ def _edits(**per_dim) -> list:
 
 
 def _every(**values) -> list:
-    return _edits(**{f"d{d}": values for d in TRAITS})
+    return _edits(**{f"d{d}": values for d in SPLIT_DIMS})
 
 
 # name: (what it tries, [(file, old text, new text), ...])
@@ -107,7 +119,7 @@ VARIANTS = {
     "forward 128-row blocks at Dh 32": ("both consumers on every stage at head dim 32 too",
                                         _edits(d32={"FWD_ROWS": 128})),
     "forward half the keys a stage": ("FWD_BK halved (64 -> 32, 16 -> 8)",
-                                      _edits(**{f"d{d}": {"FWD_BK": _trait(d, "FWD_BK") // 2} for d in TRAITS})),
+                                      _edits(**{f"d{d}": {"FWD_BK": _trait(d, "FWD_BK") // 2} for d in SPLIT_DIMS})),
     "forward 32 keys a stage at Dh 64, three loading warpgroups": (
         "head dim 64 at 32 keys a stage, 3 stages behind 2 raw slots, 168 registers a consumer thread",
         _edits(d64={"FWD_BK": 32, "FWD_STAGES": 3, "FWD_RAW": 2, "FWD_LOADER_WGS": 3})),
@@ -119,13 +131,20 @@ VARIANTS = {
                              _every(FWD_RAW=0)),
     "forward two loading warpgroups": ("224 threads split in the forward at head dims 16 and 32",
                                        _edits(d16={"FWD_LOADER_WGS": 2}, d32={"FWD_LOADER_WGS": 2})),
+    "raw rows two k-steps at a time": ("head dim 256's register fragments of the block's raw rows split and "
+                                       "waited for two k-steps at a time, not four",
+                                       [(SOURCE, "  constexpr int G = 4;", "  constexpr int G = 2;")]),
+    "raw rows, loaders at 48 registers": ("one loading warpgroup (head dim 256) at the others' 48 registers",
+                                          [(SOURCE, "LOADER_REGS = LOADER_WGS == 1 ? 56 : 48;",
+                                            "LOADER_REGS = 48;")]),
 }
 # (B, T, H, Dh, causal): gpt2-small in f32 at B 8 (phase 14's attention),
-# its width as 6 heads of 128, and the f32 ring's Dh 32 diagonal and
-# earlier blocks.
-SHAPES = [(8, 1024, 12, 64, True), (8, 1024, 6, 128, True), (2, 1024, 4, 32, True), (2, 1024, 4, 32, False)]
+# its width as 6 heads of 128, the f32 ring's Dh 32 diagonal and earlier
+# blocks, and its width as 3 heads of 256 (phase 14's f32 Dh 256 run).
+SHAPES = [(8, 1024, 12, 64, True), (8, 1024, 6, 128, True), (2, 1024, 4, 32, True), (2, 1024, 4, 32, False),
+          (8, 1024, 3, 256, True)]
 CHECK_SHAPES = [(1, 200, 2, 64, True), (1, 200, 2, 128, True), (1, 130, 2, 32, False), (1, 130, 4, 16, True),
-                (2, 16, 4, 32, True)]
+                (2, 16, 4, 32, True), (1, 200, 2, 256, True)]
 GRAD_RELNORM = 1e-4
 FWD_RELNORM, LSE_TOL = 1e-5, 1e-5
 VARIANT_SECONDS = 180
@@ -195,16 +214,19 @@ def measure(name: str) -> dict:
                  "dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal)}
         for kernel, call in calls.items():
             out[f"{kernel} Dh {D}{'' if causal else ' full'} ms"] = bench.time_ms(call)
+        rounds = 10
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
+            for _ in range(rounds):
                 for call in calls.values():
                     call()
             torch.cuda.synchronize()
+        totals = dict.fromkeys(calls, 0.0)  # a call's kernels added up (dK/dV's two passes at Dh 256)
         for ev in prof.key_averages():
             for kernel in calls:
                 if f"flash_f32_{kernel}_kernel" in ev.key:
-                    total = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-                    out[f"{kernel} Dh {D}{'' if causal else ' full'} device ms"] = total / ev.count / 1e3
+                    totals[kernel] += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for kernel, total in totals.items():
+            out[f"{kernel} Dh {D}{'' if causal else ' full'} device ms"] = total / rounds / 1e3
         del q, k, v, do, lse, delta
     return out
 

@@ -4,7 +4,9 @@
 
 ``csrc/flash_attention.cu`` takes its ring depths from three macros per
 tile set: ``RT_FWD_STAGES``, ``RT_DKV_STAGES``, ``RT_DQ_STAGES`` for head
-dims 16, 32 and 64, and the same with ``_128`` for head dim 128. This
+dims 16, 32 and 64, and the same with ``_128`` for head dim 128. The head
+dim 256 instance has no such macros: two stages are the most its shared
+memory holds. This
 builds the library once per setting with a ``-D`` override of one of the
 head dim's macros, prints nvcc's register and spill lines for each kernel
 at that head dim, holds the three kernels against their plain versions at
@@ -39,6 +41,7 @@ from ray_tpu_torch.ops import flash_attention as fa
 # forward, dK/dV, dQ.
 DEPTHS = {64: ((2, 3, 4), (2, 3, 4, 5, 6), (2, 3, 4, 6)),
           128: ((2,), (2, 3, 4, 5), (2, 3, 4, 6, 8))}
+SWEPT_HEAD_DIMS = (16, 32, 64, 128)  # the head dims of the tile sets above
 ROUNDS = 2
 T, D_MODEL = 1024, 768  # gpt2-small's train step, B 32
 # Each kernel and the prefix of the macro that sets its ring depth.
@@ -69,7 +72,7 @@ def _ptxas_report(path, head_dim: int) -> str:
     for line in path.with_name(path.name + ".log").read_text().splitlines():
         if "Compiling entry" in line:
             kernel = next((k for k in KERNELS if k + "_kernel" in line), None)
-            found = re.search(r"ILi(\d+)E(13__nv_bfloat16|f)E", line)
+            found = re.search(r"ILi(\d+)E(13__nv_bfloat16|f)(?:Li\dE)?E", line)
             kernel = (kernel if found and int(found[1]) == head_dim else None) and \
                 f"{kernel}<{found[1]}, {'bf16' if found[2] != 'f' else 'f32'}>"
         elif kernel and ("spill" in line or "registers" in line):
@@ -79,7 +82,7 @@ def _ptxas_report(path, head_dim: int) -> str:
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--head-dim", type=int, default=64, choices=fa.HEAD_DIMS,
+    parser.add_argument("--head-dim", type=int, default=64, choices=SWEPT_HEAD_DIMS,
                         help="the tile set to sweep (16, 32 and 64 share one)")
     D = parser.parse_args(argv).head_dim
     if not torch.cuda.is_available():

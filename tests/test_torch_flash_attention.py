@@ -191,10 +191,10 @@ class _ReportsCuda(torch.Tensor):
 def test_wrapper_rejects_what_the_kernels_do_not_take(bad):
     x = torch.zeros(2, 32, 16)
     if bad == "head_dim":
-        # the kernels take HEAD_DIMS only (48 is none of them); the plain
+        # the kernels take head dims up to 256 (264 is wider); the plain
         # versions that serve CPU tensors take any head dim, as the Pallas
         # kernels do
-        y = torch.zeros(2, 32, 48)
+        y = torch.zeros(2, 32, 264)
         assert tfa.flash_fwd(y, y, y, True)[0].shape == y.shape
         cuda_like = torch.Tensor._make_subclass(_ReportsCuda, y)
         before = dict(tfa.launches)

@@ -39,7 +39,7 @@ from ray_tpu_torch import bench
 from ray_tpu_torch.ops import flash_attention as tfa
 
 CU = Path(tfa.__file__).resolve().parent / "csrc" / "flash_attention_f32.cu"
-HEAD_DIMS = tuple(tfa.HEAD_DIMS)  # 16, 32, 64, 128
+HEAD_DIMS = tuple(tfa.HEAD_DIMS)  # 16, 32, 64, 128, 256
 SMEM_LIMIT = 232448  # dynamic shared memory a block may have on an H100
 # The JAX package's limit for its f32 kernels' gradients
 # (tests/test_ring_attention.py:104), in relative norm.
@@ -62,6 +62,18 @@ def cu_f32_tiles(source: str) -> dict:
 
 
 TILES = cu_f32_tiles(CU.read_text())
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The models' products are small and many: one intra-op thread keeps
+    them from contending for the cores with the other workers of a
+    parallel run (with the default thread count this file took ten times
+    its time alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -312,7 +324,11 @@ def dkv_model(q, k, v, do, lse, delta, causal, single=False):
 # (B, Tq, Tk, causal): causal over several tiles and a ragged end, causal on
 # whole tiles, non-causal with Tk != Tq and both ends ragged.
 SHAPES = [(2, 130, 130, True), (2, 64, 64, True), (2, 100, 170, False)]
-CASES = [(*shape, d) for d in HEAD_DIMS for shape in SHAPES]
+# Head dim 256 (8-row stages: the model's longest loops) at one head and
+# shorter sequences: causal over several stages, and non-causal with both
+# ends ragged.
+SHAPES_256 = [(1, 64, 64, True), (1, 37, 45, False)]
+CASES = [(*shape, d) for d in HEAD_DIMS if d != 256 for shape in SHAPES] + [(*shape, 256) for shape in SHAPES_256]
 
 
 def _id(case):
@@ -407,7 +423,7 @@ def test_single_tf32_lands_ten_times_further(d, kernel):
     product (big.big) lands at least 10x further from the plain f32
     versions than 3xTF32 does, in dq, dk and dv (missing 1e-4), and in o
     (missing 1e-5)."""
-    B, Tq, Tk, causal = SHAPES[0]
+    B, Tq, Tk, causal = SHAPES_256[0] if d == 256 else SHAPES[0]
     q, k, v, do = _inputs(B, Tq, Tk, d, seed=7)
     if kernel == "forward":
         limit, names = FWD_RELNORM, ("o",)
@@ -615,7 +631,11 @@ def test_tile_block_is_read_from_the_cu():
     source = CU.read_text()
     for d, t in TILES.items():
         assert set(t) == {"DQ_BK", "DQ_STAGES", "DQ_RAW", "DKV_BQ", "DKV_STAGES", "DKV_RAW", "LOADER_WGS",
-                          "FWD_ROWS", "FWD_BK", "FWD_STAGES", "FWD_RAW", "FWD_LOADER_WGS", "ROWS_OWNED"}
+                          "FWD_ROWS", "FWD_BK", "FWD_STAGES", "FWD_RAW", "FWD_LOADER_WGS", "A_SPLIT", "DKV_PASSES",
+                          "ROWS_OWNED"}
+        assert t["A_SPLIT"] in (0, 1) and t["DKV_PASSES"] in (1, 2)
+        if not t["A_SPLIT"]:  # raw rows, split a sub-tile of k-steps at a time (mma3_raw)
+            assert d % 32 == 0
         assert t["DQ_RAW"] in (0, 2, 3, 4) and t["DKV_RAW"] in (0, 2, 3, 4) and t["FWD_RAW"] in (0, 2, 3, 4)
         assert t["LOADER_WGS"] in (1, 2, 3) and t["FWD_LOADER_WGS"] in (1, 2, 3)
         assert t["ROWS_OWNED"] == 64 and t["FWD_ROWS"] in (64, 128)

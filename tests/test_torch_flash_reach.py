@@ -1,8 +1,9 @@
 """The flash kernels' full reach: head dims 32 and 128, and f32 operands.
 
-The CUDA kernels take head dims 16, 32, 64 and 128, bf16 operands (bf16
-or f32 outputs) and f32 operands (``csrc/flash_attention_f32.cu``), as the
-Pallas kernels do. On the CPU the wrappers run their plain versions; here
+The CUDA kernels take head dims up to 256 (instances at 16, 32, 64, 128
+and 256; tests/test_torch_flash_head_dims.py holds the widths between),
+bf16 operands (bf16 or f32 outputs) and f32 operands
+(``csrc/flash_attention_f32.cu``), as the Pallas kernels do. On the CPU the wrappers run their plain versions; here
 those are held to the JAX package's functions (the Pallas kernels in
 interpret mode, one tile per call, as ``tests/test_torch_flash_tiles.py``
 runs them) at Dh 32 and 128, in f32 and in bf16, causal and not, with a
@@ -195,7 +196,7 @@ def test_check_takes_every_head_dim_in_bf16_and_f32(head_dim, dtype):
     tfa._check(q, q, q, True, q, lse, lse)
 
 
-@pytest.mark.parametrize("bad", ["k_f32", "do_f32", "lse_bf16", "f16_operands", "head_dim_48"])
+@pytest.mark.parametrize("bad", ["k_f32", "do_f32", "lse_bf16", "f16_operands", "head_dim_264"])
 def test_check_rejects_mixed_dtypes_and_other_head_dims(bad):
     bf, f32 = torch.bfloat16, torch.float32
     q, k, do = (_cuda_like(2, 32, 32, dtype=bf) for _ in range(3))
@@ -209,8 +210,8 @@ def test_check_rejects_mixed_dtypes_and_other_head_dims(bad):
     elif bad == "f16_operands":
         q = k = do = _cuda_like(2, 32, 32, dtype=torch.float16)
     else:
-        q = k = do = _cuda_like(2, 32, 48, dtype=bf)
-    with pytest.raises(ValueError, match="head dim" if bad == "head_dim_48" else "dtype|bf16 or f32"):
+        q = k = do = _cuda_like(2, 32, 264, dtype=bf)
+    with pytest.raises(ValueError, match="head dim" if bad == "head_dim_264" else "dtype|bf16 or f32"):
         tfa._check(q, k, k, True, do, lse, lse)
 
 

@@ -3,7 +3,8 @@
 The forward, dQ and dK/dV kernels of ``ray_tpu_torch/ops/csrc/flash_attention.cu``
 run only on the card. This file writes their schedules out in PyTorch at
 the tile sizes the ``.cu`` settles on for each head dim (``Tiles<D>``: 16,
-32 and 64 share one set, 128 has its own): which work tiles each persistent
+32 and 64 share one set, 128 and 256 have their own; at 256 dK/dV runs as
+a dV pass and a dK pass): which work tiles each persistent
 block takes and in what order, which (q tile, key tile) pairs each
 consumer warpgroup visits, which of those it masks, and the arithmetic in
 that order (the forward's exp2 with scale * log2 e folded in and P rounded
@@ -34,7 +35,21 @@ from ray_tpu_torch.ops import flash_attention as tfa
 CU = Path(tfa.__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 
-HEAD_DIMS = tuple(tfa.HEAD_DIMS)  # 16, 32, 64, 128
+HEAD_DIMS = tuple(tfa.HEAD_DIMS)  # 16, 32, 64, 128, 256
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The models' products are small and many: one intra-op thread keeps
+    them from contending for the cores with the other workers of a
+    parallel run (with the default thread count this file took ten times
+    its time alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMEM_LIMIT = 232448  # dynamic shared memory a block may have on an H100
 
 
@@ -68,8 +83,9 @@ class Tiles:
         self.d = d
         self.FWD_WGS, self.FWD_BK, self.FWD_STAGES = t["FWD_WGS"], t["FWD_BK"], t["FWD_STAGES"]
         self.DKV_BK, self.DKV_BQ, self.DKV_STAGES = t["DKV_BK"], t["DKV_BQ"], t["DKV_STAGES"]
-        self.DKV_KV_IN_REGS = t["DKV_KV_IN_REGS"]
+        self.DKV_KV_IN_REGS, self.DKV_PASSES = t["DKV_KV_IN_REGS"], t["DKV_PASSES"]
         self.DQ_WGS, self.DQ_BK, self.DQ_STAGES = t["DQ_WGS"], t["DQ_BK"], t["DQ_STAGES"]
+        self.FWD_Q_BUFS, self.DQ_QDO_IN_REGS = t["FWD_Q_BUFS"], t["DQ_QDO_IN_REGS"]
         self.FWD_BQ = WG_ROWS * self.FWD_WGS
         self.DQ_BQ = WG_ROWS * self.DQ_WGS
 
@@ -82,8 +98,12 @@ LSE_TOL = 1e-4  # f32 in both, summed in other orders (as on the card)
 # (Tq, Tk, causal)
 SHAPES = [(1, 1, True), (65, 65, True), (256, 256, True), (1000, 1000, True),
           (100, 37, False), (300, 1100, False)]
+# Head dim 256's models at the shapes under 1,000 rows (its tiles are the
+# smallest, so the longer shapes cost the most; its schedules are checked at
+# every shape below).
 CASES = ([(*shape, d) for shape in SHAPES for d in (16, 64)]
-         + [(*shape, d) for shape in SHAPES for d in (32, 128)])
+         + [(*shape, d) for shape in SHAPES for d in (32, 128)]
+         + [(*shape, 256) for shape in SHAPES if max(shape[:2]) < 1000])
 BH = 2  # B 1, H 2
 
 
@@ -238,7 +258,9 @@ def dq_model(q, k, v, do, lse, delta, causal):
 
 def dkv_model(q, k, v, do, lse, delta, causal):
     """dk, dv by the dK/dV kernel's schedule: P^T = 2^(S^T sl2 - lse log2 e),
-    dS^T = P^T (dP^T - delta) scale rounded to bf16 before its product."""
+    dS^T = P^T (dP^T - delta) scale rounded to bf16 before its product. With
+    DKV_PASSES 2 the schedule runs twice, dV in the first pass and dK in the
+    second, each recomputing S^T and P^T."""
     BHn, Tq, D = q.shape
     Tk = k.shape[1]
     t = TILES[D]
@@ -247,7 +269,9 @@ def dkv_model(q, k, v, do, lse, delta, causal):
     sl2 = scale * LOG2E
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     dk, dv = torch.zeros(BHn, Tk, D), torch.zeros(BHn, Tk, D)
-    for works in work_list(_ceil(Tk, t.DKV_BK), BHn, causal, longest_high=False):
+    passes = [("dk", "dv")] if t.DKV_PASSES == 1 else [("dv",), ("dk",)]
+    for outs, works in ((o, w) for o in passes
+                        for w in work_list(_ceil(Tk, t.DKV_BK), BHn, causal, longest_high=False)):
         for bh, kt in works:
             for wk0, tiles in dkv_visits(kt, Tq, Tk, causal, t):
                 keys = torch.arange(wk0, wk0 + WG_ROWS)
@@ -266,11 +290,15 @@ def dkv_model(q, k, v, do, lse, delta, causal):
                     if masked:
                         off = (rows[None] >= Tq) | (causal & (keys[:, None] > rows[None]))
                         p = p.masked_fill(off, 0.0)
-                    dst = p * (vr @ dot.T - ds[None]) * scale
-                    dv_acc += p.bfloat16().float() @ dot
-                    dk_acc += dst.bfloat16().float() @ qt
-                dk[bh, keys[live]] = dk_acc[live]
-                dv[bh, keys[live]] = dv_acc[live]
+                    if "dv" in outs:
+                        dv_acc += p.bfloat16().float() @ dot
+                    if "dk" in outs:
+                        dst = p * (vr @ dot.T - ds[None]) * scale
+                        dk_acc += dst.bfloat16().float() @ qt
+                if "dk" in outs:
+                    dk[bh, keys[live]] = dk_acc[live]
+                if "dv" in outs:
+                    dv[bh, keys[live]] = dv_acc[live]
     return dk.bfloat16(), dv.bfloat16()
 
 
@@ -435,7 +463,7 @@ def _check_schedule(kernel, shape, t):
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: _id((*s, 0))[:-3])
 def test_schedule_covers_each_kept_pair_once(kernel, shape):
     """The schedules of head dims 16, 32 and 64 (one set of tiles)."""
-    assert len({(t.FWD_BK, t.DKV_BQ, t.DQ_BK) for d, t in TILES.items() if d != 128}) == 1
+    assert len({(t.FWD_BK, t.DKV_BQ, t.DQ_BK) for d, t in TILES.items() if d < 128}) == 1
     _check_schedule(kernel, shape, TILES[64])
 
 
@@ -446,16 +474,32 @@ def test_schedule_covers_each_kept_pair_once_at_head_dim_128(kernel, shape):
     _check_schedule(kernel, shape, TILES[128])
 
 
+@pytest.mark.parametrize("kernel", ["forward", "dq", "dkv"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: _id((*s, 0))[:-3])
+def test_schedule_covers_each_kept_pair_once_at_head_dim_256(kernel, shape):
+    """Head dim 256's schedules: 64 keys a forward stage, 32 keys a dQ
+    stage, 32 q rows a dK/dV stage; dK/dV's two passes (dV, then dK) each
+    walk the whole schedule, so each covers every kept pair once."""
+    t = TILES[256]
+    assert (t.FWD_Q_BUFS, t.DKV_PASSES, t.DQ_QDO_IN_REGS, t.DKV_KV_IN_REGS) == (1, 2, 0, 0)
+    for _ in range(t.DKV_PASSES if kernel == "dkv" else 1):
+        _check_schedule(kernel, shape, t)
+
+
 def smem_plan(t: Tiles) -> dict:
     """Each kernel's dynamic shared memory at head dim t.d, by the layout of
     FwdSmem, DkvSmem and DqSmem in the .cu (1,024 bytes of alignment slack,
-    the tiles, the mbarriers)."""
+    the tiles, the mbarriers): FWD_Q_BUFS Q tiles; a warpgroup's output
+    staging tile of 64 rows and at most 128 columns (StageTile); dK/dV's two
+    sets of staging tiles, or one a pass with DKV_PASSES 2."""
     d, row = t.d, 2 * t.d  # bytes of a bf16 row
-    fwd = (2 * t.FWD_BQ * row + 2 * t.FWD_STAGES * t.FWD_BK * row + t.FWD_WGS * WG_ROWS * row
-           + 8 * (4 + 3 * t.FWD_STAGES))
+    stage_row = 2 * min(d, 128)
+    outs = 2 if t.DKV_PASSES == 1 else 1
+    fwd = (t.FWD_Q_BUFS * t.FWD_BQ * row + 2 * t.FWD_STAGES * t.FWD_BK * row
+           + t.FWD_WGS * WG_ROWS * stage_row + 8 * (2 * t.FWD_Q_BUFS + 3 * t.FWD_STAGES))
     ring = 2 * t.DKV_BK * row + 2 * t.DKV_STAGES * t.DKV_BQ * row + 2 * t.DKV_STAGES * t.DKV_BQ * 4
-    dkv = _ceil(ring, 1024) * 1024 + 2 * t.DKV_BK * row + 8 * (2 + 2 * t.DKV_STAGES)
-    dq = (2 * t.DQ_BQ * row + 2 * t.DQ_STAGES * t.DQ_BK * row + t.DQ_WGS * WG_ROWS * row
+    dkv = _ceil(ring, 1024) * 1024 + outs * 2 * WG_ROWS * stage_row + 8 * (2 + 2 * t.DKV_STAGES)
+    dq = (2 * t.DQ_BQ * row + 2 * t.DQ_STAGES * t.DQ_BK * row + t.DQ_WGS * WG_ROWS * stage_row
           + 8 * (2 + 2 * t.DQ_STAGES))
     assert d in HEAD_DIMS
     return {"flash_fwd": 1024 + fwd, "flash_dkv": 1024 + dkv, "flash_dq": 1024 + dq}
@@ -470,20 +514,23 @@ def f32_smem_plan(d: int) -> dict:
     small and V^T big and small, FWD_BK keys, and V as loaded without raw
     slots; dQ: K and V big and small and K^T big and small, DQ_BK keys;
     dK/dV: Q and dO big and small, natural and transposed, DKV_BQ rows, and
-    the rows' lse and delta); RAW raw slots (the two operands as loaded);
-    two mbarriers, two a load slot (a raw slot, or a stage without them)
-    and two a stage (Feed)."""
+    the rows' lse and delta; a pass of two: the six tiles its products
+    read); RAW raw slots (the two operands as loaded); two mbarriers, two a
+    load slot (a raw slot, or a stage without them) and two a stage (Feed).
+    With A_SPLIT 0 the block's own rows are kept raw, not split."""
     source = (CU.parent / "flash_attention_f32.cu").read_text()
     rows = int(re.search(r"^constexpr int ROWS_OWNED = (\d+);", source, re.M)[1])
     body = re.search(rf"^struct F32Tiles<{d}> \{{(.*?)^\}};", source, re.M | re.S)[1]
     t = {name: int(v) for name, v in re.findall(r"(\w+) = (\d+)", body)}
-    owned = 4 * rows * d * 4
+    parts = 2 if t["A_SPLIT"] else 1  # big and small, or raw
+    owned = 2 * parts * rows * d * 4
     bars = lambda stages, raw: 8 * (2 + 2 * (raw or stages) + 2 * stages)  # noqa: E731
     fwd_tile = t["FWD_BK"] * d * 4
     fwd_stage = 4 * fwd_tile + (fwd_tile if t["FWD_RAW"] == 0 else 0)
     dq_stage, dq_raw = 6 * t["DQ_BK"] * d * 4, 2 * t["DQ_BK"] * d * 4
-    dkv_stage, dkv_raw = 8 * t["DKV_BQ"] * d * 4 + 2 * t["DKV_BQ"] * 4, 2 * t["DKV_BQ"] * d * 4
-    return {"flash_fwd": 1024 + 2 * t["FWD_ROWS"] * d * 4 + t["FWD_STAGES"] * fwd_stage
+    dkv_tiles = 8 if t["DKV_PASSES"] == 1 else 6
+    dkv_stage, dkv_raw = dkv_tiles * t["DKV_BQ"] * d * 4 + 2 * t["DKV_BQ"] * 4, 2 * t["DKV_BQ"] * d * 4
+    return {"flash_fwd": 1024 + parts * t["FWD_ROWS"] * d * 4 + t["FWD_STAGES"] * fwd_stage
             + t["FWD_RAW"] * 2 * fwd_tile + bars(t["FWD_STAGES"], t["FWD_RAW"]),
             "flash_dq": 1024 + owned + t["DQ_STAGES"] * dq_stage + t["DQ_RAW"] * dq_raw
             + bars(t["DQ_STAGES"], t["DQ_RAW"]),
@@ -512,8 +559,9 @@ def test_tile_block_is_read_from_the_cu():
     so all three rings wrap."""
     source = CU.read_text()
     for d in HEAD_DIMS:
-        assert set(_TILES[d]) == {"FWD_WGS", "FWD_BK", "FWD_STAGES", "DKV_BK", "DKV_BQ", "DKV_STAGES",
-                                  "DKV_KV_IN_REGS", "DQ_WGS", "DQ_BK", "DQ_STAGES"}
+        assert set(_TILES[d]) == {"FWD_WGS", "FWD_BK", "FWD_STAGES", "FWD_Q_BUFS", "DKV_BK", "DKV_BQ",
+                                  "DKV_STAGES", "DKV_KV_IN_REGS", "DKV_PASSES", "DQ_WGS", "DQ_BK", "DQ_STAGES",
+                                  "DQ_QDO_IN_REGS"}
     assert f"constexpr int FWD_BQ = {WG_ROWS} * FWD_WGS;" in source
     assert f"constexpr int DQ_BQ = {WG_ROWS} * DQ_WGS;" in source
     for macro, name, d in (("RT_FWD_STAGES", "FWD_STAGES", 64), ("RT_DQ_STAGES", "DQ_STAGES", 16),
