@@ -2,11 +2,12 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/<name>-<hash>.so``: a shared library
 with a plain C interface, compiled for ``sm_90a`` by nvcc at first use. The
-hash covers the source, every header beside it (``csrc/*.cuh``) and the
-flags, so a stale library is never loaded after an edit to any of them.
+hash covers the source, the ``.cu`` files it includes, every header beside
+it (``csrc/*.cuh``) and the flags, so a stale library is never loaded after
+an edit to any of them.
 A lock file per library in the build directory guards concurrent builds of
-it (several test or training processes starting at once); two libraries
-build at once. No PyTorch header is compiled, which keeps a build to
+it (several test or training processes starting at once); libraries build
+at once. No PyTorch header is compiled, which keeps a build to
 seconds.
 
 Nothing here is imported or run at import time of the kernels' modules:
@@ -21,6 +22,7 @@ import fcntl
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from contextlib import contextmanager
@@ -50,6 +52,14 @@ def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
     return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
 
 
+def _included(cu: Path) -> list:
+    """The ``.cu`` files that ``cu`` includes (``flash_attention_f16.cu``
+    instantiates ``flash_attention.cu``'s kernels for f16): a library's hash
+    covers them too."""
+    names = re.findall(r'^#include "(\w+\.cu)"', cu.read_text(), re.M)
+    return [CSRC / n for n in names]
+
+
 def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     """Where ``build`` puts the library of ``csrc/<name>.cu`` compiled with
     the macro definitions ``defines`` ("NAME=VALUE"; the tile sweep's
@@ -58,7 +68,7 @@ def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     if not cu.exists():
         raise FileNotFoundError(cu)
     h = hashlib.sha256(" ".join(_flags(defines)).encode())
-    for src in [cu, *sorted(CSRC.glob("*.cuh"))]:
+    for src in [cu, *_included(cu), *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,7 +1,12 @@
 // Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
 //
-// Operands are folded to [BH, T, Dh] row-major bf16, lse and delta are
-// [BH, Tq] f32. Scores and all accumulators are f32. Each kernel is
+// Operands are folded to [BH, T, Dh] row-major 16-bit elements, bf16 or f16
+// (E, a template parameter of every kernel: the library built from this file
+// instantiates bf16, flash_attention_f16.cu includes it for f16), lse and
+// delta are [BH, Tq] f32. Scores and all accumulators are f32; P and dS are
+// rounded to E (to nearest even, f16 keeping its subnormals) where they
+// become a product's operand, as the Pallas kernels cast them to the
+// operands' dtype. Each kernel is
 // instantiated for head dims D = 16, 32, 64, 128 and 256, and a head dim Dh
 // between two of them (a multiple of 8: TMA's rows are 16-byte strided) runs
 // on the next one up: its tensor maps have the true width and the
@@ -9,7 +14,7 @@
 // memory (the bytes read from HBM stay Dh's), the zero columns leave S, P,
 // dP and every gradient's real columns as they are, and the outputs' maps
 // (or f32 row stores) write only Dh columns. Each kernel is also
-// instantiated for two output types (OutRows): bf16, the train path's, and
+// instantiated for two output types (OutRows): E, the train path's, and
 // f32, for ring attention's block entries; only the store of the output
 // rows differs.
 //
@@ -17,7 +22,7 @@
 // block per SM walks a static list of work tiles; a producer warp streams
 // tiles by TMA into a ring of shared-memory stages, and two consumer
 // warpgroups run wgmma on them, the score tile never leaving registers (the
-// f32 accumulator of one product, packed to bf16, is the register A operand
+// f32 accumulator of one product, packed to E, is the register A operand
 // of the next). A tile in shared memory is read K-major or, through the
 // transpose bit, MN-major, so no transposed copy is made. The backward
 // kernels use no atomics: each block owns the rows of the gradient it
@@ -27,6 +32,7 @@
 // cudaGetLastError(); nothing here allocates or synchronises.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,9 +40,13 @@
 
 #include "hopper.cuh"
 
-namespace {
+// The operand type of this library's entry points: bf16, or what the file
+// that includes this one sets (flash_attention_f16.cu: __half).
+#ifndef RT_OPERAND
+#define RT_OPERAND __nv_bfloat16
+#endif
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 // ---------------------------------------------------------------------------
 // Shared by the three kernels: warp-specialised persistent blocks. Warpgroup 0 is the producer (TMA loads; it gives its registers up
@@ -231,14 +241,14 @@ template <int D>
 using StageTile = hopper::Tile<(D > 128 ? 128 : D), 64>;
 
 // Store a warpgroup's [64 x D] f32 accumulator, scaled per row and cast to
-// bf16, to rows [row0, row0 + 64) of head bh by TMA (rows past T, and
+// E, to rows [row0, row0 + 64) of head bh by TMA (rows past T, and
 // columns past the map's width, are not written): each thread writes its
 // pairs into the warpgroup's swizzled staging tile in shared memory, one
 // thread issues the store, part by part. Named barrier `bar` (this
 // warpgroup's 128 threads) guards the staging tile, which the previous
 // store must have finished reading.
-template <int D>
-__device__ __forceinline__ void store_tile(bf16* stage, const CUtensorMap* map,
+template <int D, typename E>
+__device__ __forceinline__ void store_tile(void* stage, const CUtensorMap* map,
                                            const float (&acc)[D / 2], float mul_a, float mul_b,
                                            int row0, int bh, int tid, int bar) {
   using T = StageTile<D>;
@@ -252,39 +262,36 @@ __device__ __forceinline__ void store_tile(bf16* stage, const CUtensorMap* map,
     for (int j = 0; j < T::D / 8; ++j) {
       const int col = 8 * j + 2 * t, a = 4 * (part * T::D / 8 + j);
       *reinterpret_cast<uint32_t*>(base + T::offset(r, col)) =
-          hopper::pack_bf16x2(acc[a] * mul_a, acc[a + 1] * mul_a);
+          hopper::pack2<E>(acc[a] * mul_a, acc[a + 1] * mul_a);
       *reinterpret_cast<uint32_t*>(base + T::offset(r + 8, col)) =
-          hopper::pack_bf16x2(acc[a + 2] * mul_b, acc[a + 3] * mul_b);
+          hopper::pack2<E>(acc[a + 2] * mul_b, acc[a + 3] * mul_b);
     }
     hopper::fence_proxy_async();
     hopper::bar_sync(bar, WG_THREADS);
     if (tid == 0) {
 #pragma unroll
       for (int h = 0; h < T::SUB; ++h)
-        hopper::tma_store_rows(map, stage + h * T::SUB_BYTES / 2, row0, bh, part * T::D + h * T::W);
+        hopper::tma_store_rows(map, base + h * T::SUB_BYTES, row0, bh, part * T::D + h * T::W);
     }
   }
 }
 
 // Where a kernel writes its output rows, by output type (each kernel is
-// instantiated for both). bf16, the train path's outputs: by TMA from the
-// warpgroup's staging tile (store_tile). f32, the outputs of ring
+// instantiated for both). The operand type E (bf16 or f16), the train path's
+// outputs: by TMA from the warpgroup's staging tile (store_tile). f32, the outputs of ring
 // attention's block entries (ops/flash_attention.py flash_fwd_block,
 // flash_bwd_block), which the ring merges in f32: plain float2 stores from
 // the accumulator registers, rows past T and columns past the tensor's
 // head dim not written. Each warp's store fills eight whole 32-byte sectors
 // (at an instance's own width), and the f32 instantiation leaves the
-// shared-memory layout, the tensor maps and the code of the bf16 one as
+// shared-memory layout, the tensor maps and the code of the 16-bit one as
 // they are (its staging tile goes unused).
 template <int D, typename OutT>
-struct OutRows;
-
-template <int D>
-struct OutRows<D, bf16> {
+struct OutRows {  // OutT: the operands' 16-bit type
   CUtensorMap map;  // rows_map over [bh, T, Dh], boxes of 64 rows (StageTile<D>'s)
-  __device__ __forceinline__ void store(bf16* stage, const float (&acc)[D / 2], float mul_a,
+  __device__ __forceinline__ void store(void* stage, const float (&acc)[D / 2], float mul_a,
                                         float mul_b, int row0, int bh, int tid, int bar) const {
-    store_tile<D>(stage, &map, acc, mul_a, mul_b, row0, bh, tid, bar);
+    store_tile<D, OutT>(stage, &map, acc, mul_a, mul_b, row0, bh, tid, bar);
   }
 };
 
@@ -292,7 +299,7 @@ template <int D>
 struct OutRows<D, float> {
   float* ptr;  // contiguous [bh, T, dh]
   int T, dh;   // dh: the tensor's head dim, at most D (an even number)
-  __device__ __forceinline__ void store(bf16*, const float (&acc)[D / 2], float mul_a, float mul_b,
+  __device__ __forceinline__ void store(void*, const float (&acc)[D / 2], float mul_a, float mul_b,
                                         int row0, int bh, int tid, int) const {
     const int lane = tid % 32, r = row0 + 16 * (tid / 32) + (lane >> 2), c = 2 * (lane & 3);
     float* dst = ptr + ((size_t)bh * T + r) * dh + c;
@@ -307,16 +314,16 @@ struct OutRows<D, float> {
   }
 };
 
-// Chunks 2kk, 2kk + 1 of an m64nN accumulator as the bf16 A fragments of
-// the next product (see hopper.cuh).
-template <int N>
+// Chunks 2kk, 2kk + 1 of an m64nN accumulator as the E A fragments of the
+// next product (see hopper.cuh): P and dS rounded to the operand type.
+template <int N, typename E>
 __device__ __forceinline__ void pack_a_frags(uint32_t (&a)[N / 16][4], const float (&c)[N / 2]) {
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = hopper::pack_bf16x2(c[8 * kk + 0], c[8 * kk + 1]);
-    a[kk][1] = hopper::pack_bf16x2(c[8 * kk + 2], c[8 * kk + 3]);
-    a[kk][2] = hopper::pack_bf16x2(c[8 * kk + 4], c[8 * kk + 5]);
-    a[kk][3] = hopper::pack_bf16x2(c[8 * kk + 6], c[8 * kk + 7]);
+    a[kk][0] = hopper::pack2<E>(c[8 * kk + 0], c[8 * kk + 1]);
+    a[kk][1] = hopper::pack2<E>(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = hopper::pack2<E>(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = hopper::pack2<E>(c[8 * kk + 6], c[8 * kk + 7]);
   }
 }
 
@@ -338,7 +345,7 @@ __device__ __forceinline__ void pack_a_frags(uint32_t (&a)[N / 16][4], const flo
 // Each consumer warpgroup computes S = Q K^T by wgmma (both operands in
 // shared memory, K-major), the online softmax in registers with exp2 and
 // scale * log2(e) folded into one FFMA, and O += P V by wgmma with P as the
-// register A operand (the S accumulator packed to bf16) and V read MN-major
+// register A operand (the S accumulator packed to E) and V read MN-major
 // through the transpose bit. S of key tile i and P V of key tile i - 1 go
 // out together, one turn per key tile, and the warpgroups take turns at
 // issuing (TakeTurns), so one warpgroup's softmax runs while the other's
@@ -445,7 +452,7 @@ __device__ __forceinline__ void fwd_exp(float (&sc)[BK / 2], float m_a, float m_
   l_b = l_b * alpha_b + ((ps_b[0] + ps_b[1]) + (ps_b[2] + ps_b[3]));
 }
 
-template <int D, typename OutT>
+template <int D, typename E, typename OutT>
 __global__ void __launch_bounds__(Roles<FWD_WGS>::THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ OutRows<D, OutT> out_o,
@@ -457,10 +464,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   constexpr int FWD_BK = S::BK, FWD_STAGES = S::STAGES, QB = S::QB, W = TQ::W;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_base(smem_raw);
-  bf16* sq = reinterpret_cast<bf16*>(base);  // [QB][FWD_BQ * D]
-  bf16* sk = reinterpret_cast<bf16*>(base + S::K_OFF);
-  bf16* sv = reinterpret_cast<bf16*>(base + S::V_OFF);
-  bf16* so = reinterpret_cast<bf16*>(base + S::O_OFF);
+  E* sq = reinterpret_cast<E*>(base);  // [QB][FWD_BQ * D]
+  E* sk = reinterpret_cast<E*>(base + S::K_OFF);
+  E* sv = reinterpret_cast<E*>(base + S::V_OFF);
+  E* so = reinterpret_cast<E*>(base + S::O_OFF);
   uint64_t* full_q = reinterpret_cast<uint64_t*>(base + S::BAR_OFF);  // [QB]
   uint64_t* empty_q = full_q + QB;                                    // [QB]
   uint64_t* full_k = empty_q + QB;
@@ -532,14 +539,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       // need a mask run in a loop of their own: a branch between a wgmma's
       // issue and its wait makes the compiler wait for the wgmma there.
       const int it0 = it, n_plain = plain_tiles<FWD_BK>(wq0, Tk, causal);
-      uint32_t pa[FWD_BK / 16][4];  // P of the last tile, bf16 (cast before p@v, as in JAX)
+      uint32_t pa[FWD_BK / 16][4];  // P of the last tile in E (cast before p@v, as in JAX)
       auto stage = [&](int i) { return (it0 + i) % FWD_STAGES; };
       auto parity = [&](int i) { return ((it0 + i) / FWD_STAGES) & 1; };
       auto issue_pv = [&](int i) {  // O += P V of key tile i, not waited for
-        const bf16* vs = sv + stage(i) * FWD_BK * D;
+        const E* vs = sv + stage(i) * FWD_BK * D;
 #pragma unroll
         for (int kk = 0; kk < FWD_BK / 16; ++kk)
-          hopper::Wgmma<D>::rs(acc, pa[kk], TK::mn(vs, kk * 16));
+          hopper::Wgmma<D, E>::rs(acc, pa[kk], TK::mn(vs, kk * 16));
         hopper::wgmma_commit();
       };
       auto tile = [&](auto masked, auto after_first, int i) {
@@ -554,7 +561,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         const uint64_t desc_k = TK::desc(sk + stage(i) * FWD_BK * D);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          hopper::Wgmma<FWD_BK>::ss(sc, desc_q + TQ::k_step(kk), desc_k + TK::k_step(kk), kk > 0);
+          hopper::Wgmma<FWD_BK, E>::ss(sc, desc_q + TQ::k_step(kk), desc_k + TK::k_step(kk), kk > 0);
         hopper::wgmma_commit();
         if constexpr (kAfterFirst) issue_pv(i - 1);
         turns.end();
@@ -580,7 +587,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
             acc[4 * j + 3] *= alpha_b;
           }
         }
-        pack_a_frags<FWD_BK>(pa, sc);
+        pack_a_frags<FWD_BK, E>(pa, sc);
       };
       // Each warpgroup takes n_k + 1 turns per work tile: one per key tile
       // and one for the last P V.
@@ -702,7 +709,7 @@ __device__ __forceinline__ int dkv_first_q_tile(int k0, int causal) {
 }
 
 // PASS 0: dK and dV; 1: dV alone; 2: dK alone (DKV_PASSES 2).
-template <int D, typename OutT, int PASS>
+template <int D, typename E, typename OutT, int PASS>
 __global__ void __launch_bounds__(Roles<2>::THREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -719,14 +726,14 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   static_assert((PASS == 0) == (Tiles<D>::DKV_PASSES == 1), "one pass, or a dV pass and a dK pass");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_base(smem_raw);
-  bf16* sk = reinterpret_cast<bf16*>(base + S::K_OFF);  // [DKV_BK * D]
-  bf16* sv = reinterpret_cast<bf16*>(base + S::V_OFF);  // [DKV_BK * D]
-  bf16* sq = reinterpret_cast<bf16*>(base + S::Q_OFF);
-  bf16* sdo = reinterpret_cast<bf16*>(base + S::DO_OFF);
+  E* sk = reinterpret_cast<E*>(base + S::K_OFF);  // [DKV_BK * D]
+  E* sv = reinterpret_cast<E*>(base + S::V_OFF);  // [DKV_BK * D]
+  E* sq = reinterpret_cast<E*>(base + S::Q_OFF);
+  E* sdo = reinterpret_cast<E*>(base + S::DO_OFF);
   float* slse = reinterpret_cast<float*>(base + S::LSE_OFF);
   float* sdelta = reinterpret_cast<float*>(base + S::DELTA_OFF);
-  bf16* sdk = reinterpret_cast<bf16*>(base + S::DK_OFF);
-  bf16* sdv = reinterpret_cast<bf16*>(base + S::DV_OFF);
+  E* sdk = reinterpret_cast<E*>(base + S::DK_OFF);
+  E* sdv = reinterpret_cast<E*>(base + S::DV_OFF);
   uint64_t* full_kv = reinterpret_cast<uint64_t*>(base + S::BAR_OFF);
   uint64_t* empty_kv = full_kv + 1;
   uint64_t* full = empty_kv + 1;
@@ -819,12 +826,12 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       // takes the next stage and issues its products. The tiles that need
       // a mask (the diagonal's, the ragged last one) run in loops of their
       // own: no branch may sit between a wgmma's issue and its wait.
-      uint32_t pa[DO_DV ? DKV_BQ / 16 : 1][4], da[DO_DK ? DKV_BQ / 16 : 1][4];  // P^T, dS^T cast to bf16 first
+      uint32_t pa[DO_DV ? DKV_BQ / 16 : 1][4], da[DO_DK ? DKV_BQ / 16 : 1][4];  // P^T, dS^T cast to E first
       int prev = -1;  // the stage whose gradient products may still run
       auto qtile = [&](auto masked, int i) {
         const int s = (it + i - i_own) % DKV_STAGES, q0 = i * DKV_BQ;
-        const bf16* qs = sq + s * DKV_BQ * D;
-        const bf16* dos = sdo + s * DKV_BQ * D;
+        const E* qs = sq + s * DKV_BQ * D;
+        const E* dos = sdo + s * DKV_BQ * D;
         const float* ls = slse + s * DKV_BQ;
         [[maybe_unused]] const float* ds = sdelta + s * DKV_BQ;  // (read when dK is computed)
         hopper::mbar_wait(&full[s], ((it + i - i_own) / DKV_STAGES) & 1);
@@ -839,18 +846,18 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           if constexpr (KV_IN_REGS)
-            hopper::Wgmma<DKV_BQ>::rsk(st, ka[kk], desc_qs + TQ::k_step(kk), kk > 0);
+            hopper::Wgmma<DKV_BQ, E>::rsk(st, ka[kk], desc_qs + TQ::k_step(kk), kk > 0);
           else
-            hopper::Wgmma<DKV_BQ>::ss(st, desc_ks + TK::k_step(kk), desc_qs + TQ::k_step(kk), kk > 0);
+            hopper::Wgmma<DKV_BQ, E>::ss(st, desc_ks + TK::k_step(kk), desc_qs + TQ::k_step(kk), kk > 0);
         }
         hopper::wgmma_commit();
         if constexpr (DO_DK) {
 #pragma unroll
           for (int kk = 0; kk < D / 16; ++kk) {
             if constexpr (KV_IN_REGS)
-              hopper::Wgmma<DKV_BQ>::rsk(dpt, va[kk], desc_dos + TQ::k_step(kk), kk > 0);
+              hopper::Wgmma<DKV_BQ, E>::rsk(dpt, va[kk], desc_dos + TQ::k_step(kk), kk > 0);
             else
-              hopper::Wgmma<DKV_BQ>::ss(dpt, desc_vs + TK::k_step(kk), desc_dos + TQ::k_step(kk), kk > 0);
+              hopper::Wgmma<DKV_BQ, E>::ss(dpt, desc_vs + TK::k_step(kk), desc_dos + TQ::k_step(kk), kk > 0);
           }
           hopper::wgmma_commit();
           hopper::wgmma_wait<1>();  // the last tile's gradients and S^T are in; dP^T may still run
@@ -897,9 +904,9 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
               dpt[4 * j + 2 + e] = st[4 * j + 2 + e] * fmaf(dpt[4 * j + 2 + e], scale, -dls);
             }
           }
-          pack_a_frags<DKV_BQ>(da, dpt);
+          pack_a_frags<DKV_BQ, E>(da, dpt);
         }
-        if constexpr (DO_DV) pack_a_frags<DKV_BQ>(pa, st);
+        if constexpr (DO_DV) pack_a_frags<DKV_BQ, E>(pa, st);
         hopper::fence_regs(dv_acc);
         hopper::fence_regs(dk_acc);
         hopper::fence_regs(pa);
@@ -908,12 +915,12 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         if constexpr (DO_DV) {
 #pragma unroll
           for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-            hopper::Wgmma<D>::rs(dv_acc, pa[kk], TQ::mn(dos, kk * 16));
+            hopper::Wgmma<D, E>::rs(dv_acc, pa[kk], TQ::mn(dos, kk * 16));
         }
         if constexpr (DO_DK) {
 #pragma unroll
           for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-            hopper::Wgmma<D>::rs(dk_acc, da[kk], TQ::mn(qs, kk * 16));
+            hopper::Wgmma<D, E>::rs(dk_acc, da[kk], TQ::mn(qs, kk * 16));
         }
         hopper::wgmma_commit();
         prev = s;
@@ -934,7 +941,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       hopper::fence_regs(da);
       warp_release(&empty[prev < 0 ? 0 : prev], prev >= 0);
       if constexpr (!KV_IN_REGS) warp_release(empty_kv);  // the last product that read K and V is in
-      // dS = P (dP scale - delta scale) took the scale before its bf16
+      // dS = P (dP scale - delta scale) took the scale before its E
       // rounding, as the Pallas kernel's dS does (1/sqrt(Dh) is a power of
       // two only at head dims 16 and 64).
       if constexpr (DO_DK) out_dk.store(sdk + c * S::TO::BYTES / 2, dk_acc, 1.f, 1.f, wk0, bh, tid, 3 + c);
@@ -962,7 +969,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 // dO as register A operands and K and V K-major from shared memory, P =
 // exp2(S scale log2 e - lse log2 e) in one FFMA and one MUFU op per score,
 // and dS = P (dP scale - delta scale) (one FFMA: the scale comes in before
-// dS is rounded, as in the Pallas kernel) packed to bf16 A fragments; dQ +=
+// dS is rounded, as in the Pallas kernel) packed to E A fragments; dQ +=
 // dS K by wgmma reads the same K tile MN-major through the transpose bit. S
 // of key tile i, dQ of tile i - 1 and dP of tile i go out together, so the
 // exponentials of tile i can start while dQ(i - 1) and dP(i) run; the stage
@@ -995,7 +1002,7 @@ struct DqSmem {
   static_assert(LAUNCH <= SMEM_LIMIT, "dQ's shared memory does not fit");
 };
 
-template <int D, typename OutT>
+template <int D, typename E, typename OutT>
 __global__ void __launch_bounds__(Roles<DQ_WGS>::THREADS, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -1010,11 +1017,11 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   constexpr bool QDO_IN_REGS = Tiles<D>::DQ_QDO_IN_REGS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_base(smem_raw);
-  bf16* sq = reinterpret_cast<bf16*>(base);  // [DQ_BQ * D]
-  bf16* sdo = reinterpret_cast<bf16*>(base + S::DO_OFF);
-  bf16* sk = reinterpret_cast<bf16*>(base + S::K_OFF);
-  bf16* sv = reinterpret_cast<bf16*>(base + S::V_OFF);
-  bf16* sdq = reinterpret_cast<bf16*>(base + S::DQ_OFF);
+  E* sq = reinterpret_cast<E*>(base);  // [DQ_BQ * D]
+  E* sdo = reinterpret_cast<E*>(base + S::DO_OFF);
+  E* sk = reinterpret_cast<E*>(base + S::K_OFF);
+  E* sv = reinterpret_cast<E*>(base + S::V_OFF);
+  E* sdq = reinterpret_cast<E*>(base + S::DQ_OFF);
   uint64_t* full_q = reinterpret_cast<uint64_t*>(base + S::BAR_OFF);
   uint64_t* empty_q = full_q + 1;
   uint64_t* full = empty_q + 1;
@@ -1095,14 +1102,14 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       // the first use of dP). The tiles that need a mask (the diagonal's,
       // the ragged last one) run in a loop of their own: no branch may sit
       // between a wgmma's issue and its wait.
-      uint32_t da[DQ_BK / 16][4];  // dS of the last tile, cast to bf16 first
+      uint32_t da[DQ_BK / 16][4];  // dS of the last tile, cast to E first
       auto stage = [&](int i) { return (it + i) % DQ_STAGES; };
       auto parity = [&](int i) { return ((it + i) / DQ_STAGES) & 1; };
       auto issue_dq = [&](int i) {  // dQ += dS K of key tile i, not waited for
-        const bf16* ks = sk + stage(i) * DQ_BK * D;
+        const E* ks = sk + stage(i) * DQ_BK * D;
 #pragma unroll
         for (int kk = 0; kk < DQ_BK / 16; ++kk)
-          hopper::Wgmma<D>::rs(acc, da[kk], TK::mn(ks, kk * 16));
+          hopper::Wgmma<D, E>::rs(acc, da[kk], TK::mn(ks, kk * 16));
         hopper::wgmma_commit();
       };
       auto ktile = [&](auto masked, auto after_first, int i) {
@@ -1118,18 +1125,18 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           if constexpr (QDO_IN_REGS)
-            hopper::Wgmma<DQ_BK>::rsk(sc, qa[kk], desc_k + TK::k_step(kk), kk > 0);
+            hopper::Wgmma<DQ_BK, E>::rsk(sc, qa[kk], desc_k + TK::k_step(kk), kk > 0);
           else
-            hopper::Wgmma<DQ_BK>::ss(sc, desc_qs + TQ::k_step(kk), desc_k + TK::k_step(kk), kk > 0);
+            hopper::Wgmma<DQ_BK, E>::ss(sc, desc_qs + TQ::k_step(kk), desc_k + TK::k_step(kk), kk > 0);
         }
         hopper::wgmma_commit();
         if constexpr (kAfterFirst) issue_dq(i - 1);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           if constexpr (QDO_IN_REGS)
-            hopper::Wgmma<DQ_BK>::rsk(dp, doa[kk], desc_v + TK::k_step(kk), kk > 0);
+            hopper::Wgmma<DQ_BK, E>::rsk(dp, doa[kk], desc_v + TK::k_step(kk), kk > 0);
           else
-            hopper::Wgmma<DQ_BK>::ss(dp, desc_dos + TQ::k_step(kk), desc_v + TK::k_step(kk), kk > 0);
+            hopper::Wgmma<DQ_BK, E>::ss(dp, desc_dos + TQ::k_step(kk), desc_v + TK::k_step(kk), kk > 0);
         }
         hopper::wgmma_commit();
         if constexpr (kAfterFirst)
@@ -1166,7 +1173,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
             dp[4 * j + 2 + e] = sc[4 * j + 2 + e] * fmaf(dp[4 * j + 2 + e], scale, -dl_b);
           }
         }
-        pack_a_frags<DQ_BK>(da, dp);
+        pack_a_frags<DQ_BK, E>(da, dp);
       };
       // Each warpgroup takes its n_own key tiles, then the last dQ product.
       const int n_plain = min(plain_tiles<DQ_BK>(wq0, Tk, causal), n_own);
@@ -1205,8 +1212,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 
 // ---------------------------------------------------------------------------
 // C entry points (loaded with ctypes). Pointers are device pointers of
-// contiguous [bh, T, d] tensors (bf16 operands; outputs bf16, or f32 when
-// out_f32 is set) and f32 [bh, Tq] lse/delta; the stream is the caller's
+// contiguous [bh, T, d] tensors (RT_OPERAND operands, bf16 or f16; outputs
+// of that type, or f32 when out_f32 is set) and f32 [bh, Tq] lse/delta; the stream is the caller's
 // cudaStream_t. d is the tensors' head dim, 1 to 256 and a multiple of 8: it
 // runs on the instance of the narrowest head dim of 16, 32, 64, 128 and 256
 // that holds it; scale is the caller's (1 / sqrt(d)). Each returns
@@ -1227,15 +1234,16 @@ static int persistent_grid(int n_units) {
 }
 
 // Calls launch(instance head dim, output type) with the instance's head dim
-// as an std::integral_constant and the output type as a Type tag, for the
-// instance that serves head dim d; cudaErrorInvalidValue for a d none takes.
+// as an std::integral_constant and the output type (the operands' E, or
+// f32) as a Type tag, for the instance that serves head dim d;
+// cudaErrorInvalidValue for a d none takes.
 template <class T>
 struct Type {
   using type = T;
 };
-template <class F>
+template <class E, class F>
 static int by_head_dim(int d, int out_f32, F launch) {
-  auto with = [&](auto dd) { return out_f32 ? launch(dd, Type<float>{}) : launch(dd, Type<bf16>{}); };
+  auto with = [&](auto dd) { return out_f32 ? launch(dd, Type<float>{}) : launch(dd, Type<E>{}); };
   if (d < 1 || d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (d <= 16) return with(std::integral_constant<int, 16>{});
   if (d <= 32) return with(std::integral_constant<int, 32>{});
@@ -1246,9 +1254,9 @@ static int by_head_dim(int d, int out_f32, F launch) {
 }
 
 // The output rows of a [bh, T, dh] tensor at p, as OutRows describes them.
-template <int D>
-static bool out_rows(OutRows<D, bf16>& out, void* p, int bh, int T, int dh) {
-  return hopper::rows_map(&out.map, p, bh, T, dh, D, 64);
+template <int D, typename E>
+static bool out_rows(OutRows<D, E>& out, void* p, int bh, int T, int dh) {
+  return hopper::rows_map(&out.map, p, bh, T, dh, D, 64, hopper::tma_type<E>());
 }
 template <int D>
 static bool out_rows(OutRows<D, float>& out, void* p, int, int T, int dh) {
@@ -1258,20 +1266,20 @@ static bool out_rows(OutRows<D, float>& out, void* p, int, int T, int dh) {
   return true;
 }
 
-template <int D, typename OutT>
+template <int D, typename E, typename OutT>
 static int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                       int tq, int tk, int dh, float scale, int causal, cudaStream_t st) {
   CUtensorMap tq_map, tk_map, tv_map;
   OutRows<D, OutT> o_rows;
   constexpr int bk = FwdSmem<D>::BK;
-  if (!hopper::rows_map(&tq_map, q, bh, tq, dh, D, FWD_BQ) ||
-      !hopper::rows_map(&tk_map, k, bh, tk, dh, D, bk) ||
-      !hopper::rows_map(&tv_map, v, bh, tk, dh, D, bk) || !out_rows(o_rows, o, bh, tq, dh))
+  if (!hopper::rows_map(&tq_map, q, bh, tq, dh, D, FWD_BQ, hopper::tma_type<E>()) ||
+      !hopper::rows_map(&tk_map, k, bh, tk, dh, D, bk, hopper::tma_type<E>()) ||
+      !hopper::rows_map(&tv_map, v, bh, tk, dh, D, bk, hopper::tma_type<E>()) || !out_rows(o_rows, o, bh, tq, dh))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = FwdSmem<D>::LAUNCH, threads = Roles<FWD_WGS>::THREADS;
-  cudaFuncSetAttribute(flash_fwd_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(flash_fwd_kernel<D, E, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int grid = persistent_grid(units_of((tq + FWD_BQ - 1) / FWD_BQ, bh, causal));
-  flash_fwd_kernel<D, OutT><<<grid, threads, smem, st>>>(tq_map, tk_map, tv_map, o_rows,
+  flash_fwd_kernel<D, E, OutT><<<grid, threads, smem, st>>>(tq_map, tk_map, tv_map, o_rows,
                                                             static_cast<float*>(lse), bh, tq, tk,
                                                             scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -1280,28 +1288,28 @@ static int launch_fwd(const void* q, const void* k, const void* v, void* o, void
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                             int tq, int tk, int d, float scale, int causal, int out_f32,
                             void* stream) {
-  return by_head_dim(d, out_f32, [&](auto dd, auto out) {
-    return launch_fwd<decltype(dd)::value, typename decltype(out)::type>(
+  return by_head_dim<RT_OPERAND>(d, out_f32, [&](auto dd, auto out) {
+    return launch_fwd<decltype(dd)::value, RT_OPERAND, typename decltype(out)::type>(
         q, k, v, o, lse, bh, tq, tk, d, scale, causal, static_cast<cudaStream_t>(stream));
   });
 }
 
-template <int D, typename OutT>
+template <int D, typename E, typename OutT>
 static int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                      const void* delta, void* dq, int bh, int tq, int tk, int dh, float scale,
                      int causal, cudaStream_t st) {
   CUtensorMap tq_map, tk_map, tv_map, tdo_map;
   OutRows<D, OutT> dq_rows;
   constexpr int bk = DqSmem<D>::BK;
-  if (!hopper::rows_map(&tq_map, q, bh, tq, dh, D, DQ_BQ) ||
-      !hopper::rows_map(&tk_map, k, bh, tk, dh, D, bk) ||
-      !hopper::rows_map(&tv_map, v, bh, tk, dh, D, bk) ||
-      !hopper::rows_map(&tdo_map, dout, bh, tq, dh, D, DQ_BQ) || !out_rows(dq_rows, dq, bh, tq, dh))
+  if (!hopper::rows_map(&tq_map, q, bh, tq, dh, D, DQ_BQ, hopper::tma_type<E>()) ||
+      !hopper::rows_map(&tk_map, k, bh, tk, dh, D, bk, hopper::tma_type<E>()) ||
+      !hopper::rows_map(&tv_map, v, bh, tk, dh, D, bk, hopper::tma_type<E>()) ||
+      !hopper::rows_map(&tdo_map, dout, bh, tq, dh, D, DQ_BQ, hopper::tma_type<E>()) || !out_rows(dq_rows, dq, bh, tq, dh))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = DqSmem<D>::LAUNCH, threads = Roles<DQ_WGS>::THREADS;
-  cudaFuncSetAttribute(flash_dq_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(flash_dq_kernel<D, E, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int grid = persistent_grid(units_of((tq + DQ_BQ - 1) / DQ_BQ, bh, causal));
-  flash_dq_kernel<D, OutT><<<grid, threads, smem, st>>>(tq_map, tk_map, tv_map, tdo_map, dq_rows,
+  flash_dq_kernel<D, E, OutT><<<grid, threads, smem, st>>>(tq_map, tk_map, tv_map, tdo_map, dq_rows,
                                                            static_cast<const float*>(lse),
                                                            static_cast<const float*>(delta), bh, tq,
                                                            tk, scale, causal);
@@ -1311,48 +1319,48 @@ static int launch_dq(const void* q, const void* k, const void* v, const void* do
 extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
                            int d, float scale, int causal, int out_f32, void* stream) {
-  return by_head_dim(d, out_f32, [&](auto dd, auto out) {
-    return launch_dq<decltype(dd)::value, typename decltype(out)::type>(
+  return by_head_dim<RT_OPERAND>(d, out_f32, [&](auto dd, auto out) {
+    return launch_dq<decltype(dd)::value, RT_OPERAND, typename decltype(out)::type>(
         q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, causal, static_cast<cudaStream_t>(stream));
   });
 }
 
 // One launch of dK/dV's pass PASS (0: both gradients; 1: dV; 2: dK).
-template <int D, typename OutT, int PASS>
+template <int D, typename E, typename OutT, int PASS>
 static int launch_dkv_pass(const CUtensorMap& tq_map, const CUtensorMap& tk_map, const CUtensorMap& tv_map,
                            const CUtensorMap& tdo_map, const OutRows<D, OutT>& dk_rows,
                            const OutRows<D, OutT>& dv_rows, const void* lse, const void* delta, int bh,
                            int tq, int tk, float scale, int causal, cudaStream_t st) {
   constexpr int smem = DkvSmem<D>::LAUNCH, threads = Roles<2>::THREADS;
-  cudaFuncSetAttribute(flash_dkv_kernel<D, OutT, PASS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(flash_dkv_kernel<D, E, OutT, PASS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int grid = persistent_grid(units_of((tk + DKV_BK - 1) / DKV_BK, bh, causal));
-  flash_dkv_kernel<D, OutT, PASS><<<grid, threads, smem, st>>>(
+  flash_dkv_kernel<D, E, OutT, PASS><<<grid, threads, smem, st>>>(
       tq_map, tk_map, tv_map, tdo_map, dk_rows, dv_rows, static_cast<const float*>(lse),
       static_cast<const float*>(delta), bh, tq, tk, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, typename OutT>
+template <int D, typename E, typename OutT>
 static int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                       const void* delta, void* dk, void* dv, int bh, int tq, int tk, int dh, float scale,
                       int causal, cudaStream_t st) {
   CUtensorMap tq_map, tk_map, tv_map, tdo_map;
   OutRows<D, OutT> dk_rows, dv_rows;
   constexpr int bq = DkvSmem<D>::BQ;
-  if (!hopper::rows_map(&tq_map, q, bh, tq, dh, D, bq) ||
-      !hopper::rows_map(&tk_map, k, bh, tk, dh, D, DKV_BK) ||
-      !hopper::rows_map(&tv_map, v, bh, tk, dh, D, DKV_BK) ||
-      !hopper::rows_map(&tdo_map, dout, bh, tq, dh, D, bq) || !out_rows(dk_rows, dk, bh, tk, dh) ||
+  if (!hopper::rows_map(&tq_map, q, bh, tq, dh, D, bq, hopper::tma_type<E>()) ||
+      !hopper::rows_map(&tk_map, k, bh, tk, dh, D, DKV_BK, hopper::tma_type<E>()) ||
+      !hopper::rows_map(&tv_map, v, bh, tk, dh, D, DKV_BK, hopper::tma_type<E>()) ||
+      !hopper::rows_map(&tdo_map, dout, bh, tq, dh, D, bq, hopper::tma_type<E>()) || !out_rows(dk_rows, dk, bh, tk, dh) ||
       !out_rows(dv_rows, dv, bh, tk, dh))
     return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (Tiles<D>::DKV_PASSES == 1) {
-    return launch_dkv_pass<D, OutT, 0>(tq_map, tk_map, tv_map, tdo_map, dk_rows, dv_rows, lse, delta, bh, tq,
+    return launch_dkv_pass<D, E, OutT, 0>(tq_map, tk_map, tv_map, tdo_map, dk_rows, dv_rows, lse, delta, bh, tq,
                                        tk, scale, causal, st);
   } else {
-    const int err = launch_dkv_pass<D, OutT, 1>(tq_map, tk_map, tv_map, tdo_map, dk_rows, dv_rows, lse, delta,
+    const int err = launch_dkv_pass<D, E, OutT, 1>(tq_map, tk_map, tv_map, tdo_map, dk_rows, dv_rows, lse, delta,
                                                 bh, tq, tk, scale, causal, st);
     if (err != 0) return err;
-    return launch_dkv_pass<D, OutT, 2>(tq_map, tk_map, tv_map, tdo_map, dk_rows, dv_rows, lse, delta, bh, tq,
+    return launch_dkv_pass<D, E, OutT, 2>(tq_map, tk_map, tv_map, tdo_map, dk_rows, dv_rows, lse, delta, bh, tq,
                                        tk, scale, causal, st);
   }
 }
@@ -1360,8 +1368,8 @@ static int launch_dkv(const void* q, const void* k, const void* v, const void* d
 extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
                             int tk, int d, float scale, int causal, int out_f32, void* stream) {
-  return by_head_dim(d, out_f32, [&](auto dd, auto out) {
-    return launch_dkv<decltype(dd)::value, typename decltype(out)::type>(
+  return by_head_dim<RT_OPERAND>(d, out_f32, [&](auto dd, auto out) {
+    return launch_dkv<decltype(dd)::value, RT_OPERAND, typename decltype(out)::type>(
         q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, causal, static_cast<cudaStream_t>(stream));
   });
 }

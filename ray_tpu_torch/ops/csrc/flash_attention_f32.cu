@@ -89,11 +89,25 @@
 // alternate stages of the same rows, their (m, l, O) merged in a fixed
 // order at the end.
 //
+// Mixed operand dtypes (ROUND): operands of several dtypes (bf16, f16, f32)
+// run on these kernels, cast up to f32 by the caller (exactly: a bf16 or
+// f16 value is its own tf32 big part, its small part zero). The Pallas
+// kernels round P and dS to specific operands' dtypes before the products
+// that take them (the forward's P to v's, dQ's dS to k's, dK/dV's P to dO's
+// and dS to q's), so the kernels take a rounding type for P and one for dS
+// (Round: none, bf16 or f16; round_p, round_ds) and round in registers
+// before the split. The rounding is a template parameter: the f32 library
+// built from this file instantiates ROUND = false, whose code is the plain
+// f32 kernels', and flash_attention_mixed.cu includes it for ROUND = true.
+//
 // Every C entry point launches on the caller's stream and returns
 // cudaGetLastError(); nothing here allocates or synchronises. The
 // signatures are flash_attention.cu's (out_f32 is taken and ignored: the
-// outputs are f32).
+// outputs are f32) with the rounding types after out_f32 (both 0 unless the
+// library was built with RT_ROUNDED).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -101,6 +115,12 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+
+// Whether this library's entry points round P and dS (the mixed-dtype
+// route: flash_attention_mixed.cu sets it) or not (the f32 operands').
+#ifndef RT_ROUNDED
+#define RT_ROUNDED 0
+#endif
 
 namespace {
 
@@ -407,20 +427,36 @@ __device__ __forceinline__ void mma3_raw(float (&d)[N / 2], const float* a, uint
   }
 }
 
+// The rounding of P or dS before a product on the mixed-dtype route: to the
+// nearest (even) bf16 or f16 value (f16 keeping its subnormals, as the
+// Pallas kernels' casts do), or none. `to` is uniform over the block: the
+// select costs no branch.
+enum Round : int { ROUND_NONE = 0, ROUND_BF16 = 1, ROUND_F16 = 2 };
+template <bool ROUND>
+__device__ __forceinline__ float rounded(float x, int to) {
+  if constexpr (!ROUND) {
+    return x;
+  } else {
+    const float b = __bfloat162float(__float2bfloat16_rn(x)), h = __half2float(__float2half_rn(x));
+    return to == ROUND_BF16 ? b : to == ROUND_F16 ? h : x;
+  }
+}
+
 // Chunk j of an m64nN accumulator (this thread: rows g and g + 8, columns
 // 8j + 2t and 8j + 2t + 1) as the tf32 A fragment of k-step j, split:
 // a0..a3 sit at (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4), so position
 // t holds column 2t and t + 4 column 2t + 1 -- the permutation the
-// transposed tiles carry.
-template <int N>
+// transposed tiles carry. With ROUND, each value is rounded to `to` first
+// (a bf16 or f16 value splits exactly: its small part is 0).
+template <int N, bool ROUND>
 __device__ __forceinline__ void split_a_frags(uint32_t (&big)[N / 8][4], uint32_t (&small)[N / 8][4],
-                                              const float (&c)[N / 2]) {
+                                              const float (&c)[N / 2], int to) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    hopper::tf32_split(c[4 * j + 0], big[j][0], small[j][0]);
-    hopper::tf32_split(c[4 * j + 2], big[j][1], small[j][1]);
-    hopper::tf32_split(c[4 * j + 1], big[j][2], small[j][2]);
-    hopper::tf32_split(c[4 * j + 3], big[j][3], small[j][3]);
+    hopper::tf32_split(rounded<ROUND>(c[4 * j + 0], to), big[j][0], small[j][0]);
+    hopper::tf32_split(rounded<ROUND>(c[4 * j + 2], to), big[j][1], small[j][1]);
+    hopper::tf32_split(rounded<ROUND>(c[4 * j + 1], to), big[j][2], small[j][2]);
+    hopper::tf32_split(rounded<ROUND>(c[4 * j + 3], to), big[j][3], small[j][3]);
   }
 }
 
@@ -485,12 +521,12 @@ struct DqPlan {
   static_assert(BYTES <= SMEM_LIMIT, "dQ's shared memory does not fit");
 };
 
-template <int D>
+template <int D, bool ROUND>
 __global__ void __launch_bounds__(Roles<F32Tiles<D>::LOADER_WGS>::THREADS, 1)
 flash_f32_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                     const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
-                    int Tq, int Tk, int dh, float scale, int causal) {
+                    int Tq, int Tk, int dh, float scale, int causal, int round_ds) {
   using P = DqPlan<D>;
   using TA = typename P::TA;
   using TK = typename P::TK;
@@ -620,7 +656,7 @@ flash_f32_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_const
         }
       }
       uint32_t ds_b[BK / 8][4], ds_s[BK / 8][4];
-      split_a_frags<BK>(ds_b, ds_s, dp);
+      split_a_frags<BK, ROUND>(ds_b, ds_s, dp, round_ds);
       hopper::fence_regs(acc);
       hopper::fence_regs(ds_b);
       hopper::fence_regs(ds_s);
@@ -679,12 +715,13 @@ struct DkvPlan {
 };
 
 // PASS 0: dK and dV; 1: dV alone; 2: dK alone (DKV_PASSES 2).
-template <int D, int PASS>
+template <int D, int PASS, bool ROUND>
 __global__ void __launch_bounds__(Roles<F32Tiles<D>::LOADER_WGS>::THREADS, 1)
 flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                      const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int Tq, int Tk, int dh, float scale, int causal) {
+                     float* __restrict__ dv, int Tq, int Tk, int dh, float scale, int causal, int round_p,
+                     int round_ds) {
   using P = DkvPlan<D>;
   using TA = typename P::TA;
   using TQ = typename P::TQ;
@@ -845,8 +882,8 @@ flash_f32_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
       }
       uint32_t p_b[DO_DV ? BQ / 8 : 1][4], p_s[DO_DV ? BQ / 8 : 1][4];
       uint32_t ds_b[DO_DK ? BQ / 8 : 1][4], ds_s[DO_DK ? BQ / 8 : 1][4];
-      if constexpr (DO_DV) split_a_frags<BQ>(p_b, p_s, st);
-      if constexpr (DO_DK) split_a_frags<BQ>(ds_b, ds_s, dpt);
+      if constexpr (DO_DV) split_a_frags<BQ, ROUND>(p_b, p_s, st, round_p);
+      if constexpr (DO_DK) split_a_frags<BQ, ROUND>(ds_b, ds_s, dpt, round_ds);
       hopper::fence_regs(dk_acc);
       hopper::fence_regs(dv_acc);
       hopper::fence_regs(p_b);
@@ -921,11 +958,11 @@ struct FwdPlan {
   static_assert(BYTES <= SMEM_LIMIT, "the forward's shared memory does not fit");
 };
 
-template <int D>
+template <int D, bool ROUND>
 __global__ void __launch_bounds__(Roles<F32Tiles<D>::FWD_LOADER_WGS>::THREADS, 1)
 flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o, float* __restrict__ lse,
-                     int Tq, int Tk, int dh, float scale, int causal) {
+                     int Tq, int Tk, int dh, float scale, int causal, int round_p) {
   using P = FwdPlan<D>;
   using TA = typename P::TA;
   using TK = typename P::TK;
@@ -1074,7 +1111,7 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
         acc[4 * j + 3] *= al_b;
       }
       uint32_t p_b[BK / 8][4], p_s[BK / 8][4];
-      split_a_frags<BK>(p_b, p_s, sc);
+      split_a_frags<BK, ROUND>(p_b, p_s, sc, round_p);
       hopper::fence_regs(acc);
       hopper::fence_regs(p_b);
       hopper::fence_regs(p_s);
@@ -1159,9 +1196,13 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
 // Calls launch(instance head dim) with the head dim, as an
 // std::integral_constant, of the instance that serves head dim d (the
 // narrowest of 16, 32, 64, 128 and 256 that holds it; d a multiple of 4);
-// cudaErrorInvalidValue for a d none takes.
+// cudaErrorInvalidValue for a d none takes, or for a rounding type that is
+// not a Round, or not ROUND_NONE where this library does not round.
 template <class F>
-static int by_head_dim(int d, F launch) {
+static int by_head_dim(int d, int round_p, int round_ds, F launch) {
+  for (int r : {round_p, round_ds})
+    if (r < ROUND_NONE || r > ROUND_F16 || (!RT_ROUNDED && r != ROUND_NONE))
+      return static_cast<int>(cudaErrorInvalidValue);
   if (d < 1 || d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (d <= 16) return launch(std::integral_constant<int, 16>{});
   if (d <= 32) return launch(std::integral_constant<int, 32>{});
@@ -1171,35 +1212,38 @@ static int by_head_dim(int d, F launch) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+constexpr CUtensorMapDataType F32 = hopper::tma_type<float>();
+constexpr bool ROUNDED = RT_ROUNDED;
+
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int tq, int tk, int dh,
-               float scale, int causal, cudaStream_t st) {
+               float scale, int causal, int round_p, cudaStream_t st) {
   using P = FwdPlan<D>;
   CUtensorMap mq, mk, mv;
-  if (!hopper::rows_map(&mq, q, bh, tq, dh, D, ROWS_OWNED, 4) || !hopper::rows_map(&mk, k, bh, tk, dh, D, P::BK, 4) ||
-      !hopper::rows_map(&mv, v, bh, tk, dh, D, P::BK, 4))
+  if (!hopper::rows_map(&mq, q, bh, tq, dh, D, ROWS_OWNED, F32) || !hopper::rows_map(&mk, k, bh, tk, dh, D, P::BK, F32) ||
+      !hopper::rows_map(&mv, v, bh, tk, dh, D, P::BK, F32))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncSetAttribute(flash_f32_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
+  cudaFuncSetAttribute(flash_f32_fwd_kernel<D, ROUNDED>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
   const dim3 grid(bh, (tq + P::ROWS - 1) / P::ROWS);
-  flash_f32_fwd_kernel<D><<<grid, Roles<F32Tiles<D>::FWD_LOADER_WGS>::THREADS, P::BYTES, st>>>(
-      mq, mk, mv, static_cast<float*>(o), static_cast<float*>(lse), tq, tk, dh, scale, causal);
+  flash_f32_fwd_kernel<D, ROUNDED><<<grid, Roles<F32Tiles<D>::FWD_LOADER_WGS>::THREADS, P::BYTES, st>>>(
+      mq, mk, mv, static_cast<float*>(o), static_cast<float*>(lse), tq, tk, dh, scale, causal, round_p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, int bh, int tq, int tk, int dh, float scale, int causal,
-              cudaStream_t st) {
+              int round_ds, cudaStream_t st) {
   CUtensorMap mq, mk, mv, mdo;
   constexpr int bk = DqPlan<D>::BK, smem = DqPlan<D>::BYTES;
-  if (!hopper::rows_map(&mq, q, bh, tq, dh, D, ROWS_OWNED, 4) || !hopper::rows_map(&mk, k, bh, tk, dh, D, bk, 4) ||
-      !hopper::rows_map(&mv, v, bh, tk, dh, D, bk, 4) || !hopper::rows_map(&mdo, dout, bh, tq, dh, D, ROWS_OWNED, 4))
+  if (!hopper::rows_map(&mq, q, bh, tq, dh, D, ROWS_OWNED, F32) || !hopper::rows_map(&mk, k, bh, tk, dh, D, bk, F32) ||
+      !hopper::rows_map(&mv, v, bh, tk, dh, D, bk, F32) || !hopper::rows_map(&mdo, dout, bh, tq, dh, D, ROWS_OWNED, F32))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaFuncSetAttribute(flash_f32_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(flash_f32_dq_kernel<D, ROUNDED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid(bh, (tq + ROWS_OWNED - 1) / ROWS_OWNED);
-  flash_f32_dq_kernel<D><<<grid, Roles<F32Tiles<D>::LOADER_WGS>::THREADS, smem, st>>>(
+  flash_f32_dq_kernel<D, ROUNDED><<<grid, Roles<F32Tiles<D>::LOADER_WGS>::THREADS, smem, st>>>(
       mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dq),
-      tq, tk, dh, scale, causal);
+      tq, tk, dh, scale, causal, round_ds);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1207,31 +1251,34 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 template <int D, int PASS>
 int launch_dkv_pass(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, const CUtensorMap& mdo,
                     const void* lse, const void* delta, void* dk, void* dv, int bh, int tq, int tk, int dh,
-                    float scale, int causal, cudaStream_t st) {
+                    float scale, int causal, int round_p, int round_ds, cudaStream_t st) {
   constexpr int smem = DkvPlan<D>::BYTES;
-  cudaFuncSetAttribute(flash_f32_dkv_kernel<D, PASS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(flash_f32_dkv_kernel<D, PASS, ROUNDED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid(bh, (tk + ROWS_OWNED - 1) / ROWS_OWNED);
-  flash_f32_dkv_kernel<D, PASS><<<grid, Roles<F32Tiles<D>::LOADER_WGS>::THREADS, smem, st>>>(
+  flash_f32_dkv_kernel<D, PASS, ROUNDED><<<grid, Roles<F32Tiles<D>::LOADER_WGS>::THREADS, smem, st>>>(
       mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), tq, tk, dh, scale, causal);
+      static_cast<float*>(dv), tq, tk, dh, scale, causal, round_p, round_ds);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int bh, int tq, int tk, int dh, float scale, int causal,
-               cudaStream_t st) {
+               int round_p, int round_ds, cudaStream_t st) {
   CUtensorMap mq, mk, mv, mdo;
   constexpr int bq = DkvPlan<D>::BQ;
-  if (!hopper::rows_map(&mq, q, bh, tq, dh, D, bq, 4) || !hopper::rows_map(&mk, k, bh, tk, dh, D, ROWS_OWNED, 4) ||
-      !hopper::rows_map(&mv, v, bh, tk, dh, D, ROWS_OWNED, 4) || !hopper::rows_map(&mdo, dout, bh, tq, dh, D, bq, 4))
+  if (!hopper::rows_map(&mq, q, bh, tq, dh, D, bq, F32) || !hopper::rows_map(&mk, k, bh, tk, dh, D, ROWS_OWNED, F32) ||
+      !hopper::rows_map(&mv, v, bh, tk, dh, D, ROWS_OWNED, F32) || !hopper::rows_map(&mdo, dout, bh, tq, dh, D, bq, F32))
     return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (DkvPlan<D>::PASSES == 1) {
-    return launch_dkv_pass<D, 0>(mq, mk, mv, mdo, lse, delta, dk, dv, bh, tq, tk, dh, scale, causal, st);
+    return launch_dkv_pass<D, 0>(mq, mk, mv, mdo, lse, delta, dk, dv, bh, tq, tk, dh, scale, causal, round_p,
+                                 round_ds, st);
   } else {
-    const int err = launch_dkv_pass<D, 1>(mq, mk, mv, mdo, lse, delta, dk, dv, bh, tq, tk, dh, scale, causal, st);
+    const int err = launch_dkv_pass<D, 1>(mq, mk, mv, mdo, lse, delta, dk, dv, bh, tq, tk, dh, scale, causal,
+                                          round_p, round_ds, st);
     if (err != 0) return err;
-    return launch_dkv_pass<D, 2>(mq, mk, mv, mdo, lse, delta, dk, dv, bh, tq, tk, dh, scale, causal, st);
+    return launch_dkv_pass<D, 2>(mq, mk, mv, mdo, lse, delta, dk, dv, bh, tq, tk, dh, scale, causal, round_p,
+                                 round_ds, st);
   }
 }
 
@@ -1239,35 +1286,38 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 
 // ---------------------------------------------------------------------------
 // C entry points (loaded with ctypes): flash_attention.cu's signatures, on
-// contiguous f32 [bh, T, d] operands and f32 [bh, Tq] lse/delta; d, 1 to
-// 256 and a multiple of 4, runs on the instance that holds it.
+// contiguous f32 [bh, T, d] operands and f32 [bh, Tq] lse/delta, with the
+// rounding types of P and dS (Round) after out_f32; d, 1 to 256 and a
+// multiple of 4, runs on the instance that holds it.
 // ---------------------------------------------------------------------------
 extern "C" const char* rt_cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                            int tq, int tk, int d, float scale, int causal, int, void* stream) {
-  return by_head_dim(d, [&](auto dd) {
-    return launch_fwd<decltype(dd)::value>(q, k, v, o, lse, bh, tq, tk, d, scale, causal,
+                            int tq, int tk, int d, float scale, int causal, int, int round_p, int round_ds,
+                            void* stream) {
+  return by_head_dim(d, round_p, round_ds, [&](auto dd) {
+    return launch_fwd<decltype(dd)::value>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, round_p,
                                            static_cast<cudaStream_t>(stream));
   });
 }
 
 extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
-                           int d, float scale, int causal, int, void* stream) {
-  return by_head_dim(d, [&](auto dd) {
-    return launch_dq<decltype(dd)::value>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, causal,
+                           int d, float scale, int causal, int, int round_p, int round_ds, void* stream) {
+  return by_head_dim(d, round_p, round_ds, [&](auto dd) {
+    return launch_dq<decltype(dd)::value>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, causal, round_ds,
                                           static_cast<cudaStream_t>(stream));
   });
 }
 
 extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
-                            int tk, int d, float scale, int causal, int, void* stream) {
-  return by_head_dim(d, [&](auto dd) {
+                            int tk, int d, float scale, int causal, int, int round_p, int round_ds,
+                            void* stream) {
+  return by_head_dim(d, round_p, round_ds, [&](auto dd) {
     return launch_dkv<decltype(dd)::value>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, causal,
-                                           static_cast<cudaStream_t>(stream));
+                                           round_p, round_ds, static_cast<cudaStream_t>(stream));
   });
 }

@@ -3,8 +3,8 @@
 // their fences) and setmaxnreg. Plain inline PTX, no CUTLASS: each helper is
 // one instruction or a short fixed sequence, named after what it issues.
 //
-// Shared-memory tiles are rows of D bf16 as TMA writes them with the
-// swizzle that matches their row length (32B, 64B and 128B for rows of 32,
+// Shared-memory tiles are rows of D 16-bit elements (bf16 or f16, E below)
+// as TMA writes them with the swizzle that matches their row length (32B, 64B and 128B for rows of 32,
 // 64 and 128 bytes). A row of 256 or 512 bytes (D = 128, 256) is wider than
 // a 128B swizzle atom and than the TMA box that swizzle allows, so such a
 // tile is two or four [rows, 64] sub-tiles side by side (Tile<D, ROWS>). wgmma reads a tile
@@ -12,15 +12,22 @@
 // rows are the contraction, the transpose bit set), so no transposed copy is
 // ever made. f32 tiles (TileF) have the same byte geometry with 32 floats to
 // a 128-byte row; tf32 wgmma reads them K-major only (the transpose bit
-// exists for 16-bit types alone).
+// exists for 16-bit types alone). The 16-bit helpers are templates on the
+// element type E, __nv_bfloat16 or __half: the two share wgmma's shapes,
+// its f32 accumulation, TMA's 2-byte elements and the swizzles, and differ
+// in the operand types wgmma's opcode names, the tensor map's data type and
+// the rounding that packs f32 values into operands.
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled_v12000
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -161,7 +168,7 @@ __device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo_bytes,
   return d;
 }
 
-// A [ROWS, D] bf16 tile in shared memory as TMA writes it (tma_load_tile).
+// A [ROWS, D] tile of 16-bit elements in shared memory as TMA writes it (tma_load_tile).
 // Its columns are cut into SUB sub-tiles of W columns, each a [ROWS, W]
 // block of rows of at most 128 bytes, laid one after the other (D = 128
 // has two, D = 256 four). Each sub-tile is swizzled by its row length (W = 16: 32B,
@@ -185,14 +192,14 @@ struct Tile {
   static constexpr Swizzle SW = W == 64 ? SW128 : W == 32 ? SW64 : SW32;
   static_assert(ROWS % 8 == 0 && SUB_BYTES % 1024 == 0, "sub-tiles start on 1024 bytes");
 
-  static __device__ __forceinline__ uint64_t desc(const __nv_bfloat16* tile) {
+  static __device__ __forceinline__ uint64_t desc(const void* tile) {
     return gmma_desc(tile, SUB > 1 ? SUB_BYTES : 16, 16 * W, SW);
   }
   static __host__ __device__ constexpr uint64_t k_step(int kk) {
     return static_cast<uint64_t>(((kk % (W / 16)) * 32 + (kk / (W / 16)) * SUB_BYTES) >> 4);
   }
-  static __device__ __forceinline__ uint64_t mn(const __nv_bfloat16* tile, int r0) {
-    return desc(tile + r0 * W);
+  static __device__ __forceinline__ uint64_t mn(const void* tile, int r0) {
+    return desc(static_cast<const uint8_t*>(tile) + r0 * W * 2);
   }
   // Byte offset of element (row, col).
   static __device__ __forceinline__ uint32_t offset(int row, int col) {
@@ -213,10 +220,10 @@ __device__ __forceinline__ void tma_load_tile(E* dst, const CUtensorMap* map, ui
 
 // The TMA stores of a whole tile, rows [row, row + ROWS) of head bh.
 template <class T>
-__device__ __forceinline__ void tma_store_tile(const CUtensorMap* map, const __nv_bfloat16* src, int row,
-                                               int bh) {
+__device__ __forceinline__ void tma_store_tile(const CUtensorMap* map, const void* src, int row, int bh) {
 #pragma unroll
-  for (int h = 0; h < T::SUB; ++h) tma_store_rows(map, src + h * T::SUB_BYTES / 2, row, bh, h * T::W);
+  for (int h = 0; h < T::SUB; ++h)
+    tma_store_rows(map, static_cast<const uint8_t*>(src) + h * T::SUB_BYTES, row, bh, h * T::W);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -246,189 +253,238 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 // (warp w, g = lane / 4, t = lane % 4), for each 8-column chunk j:
 //   d[4j + 0..1] = D[16w + g][8j + 2t .. +1],  d[4j + 2..3] = D[16w + g + 8][8j + 2t .. +1].
 // The register A operand of m64k16 has the mma.m16n8k16 A layout per warp,
-// so chunks 2kk and 2kk + 1 of one result, packed to bf16, are the A
+// so chunks 2kk and 2kk + 1 of one result, packed to E (pack2), are the A
 // fragment of the next product's k-slice kk.
+//
+// The 16-bit products below are written once each, their operand types a
+// macro argument, and RT_WGMMA_16 expands the one for E's types (PTX names
+// them in the opcode: .bf16.bf16 or .f16.f16).
+#define RT_WGMMA_16(E, ASM)                                                         \
+  do {                                                                             \
+    if constexpr (std::is_same<E, __half>::value) {                                \
+      ASM(".f16.f16");                                                             \
+    } else {                                                                       \
+      static_assert(std::is_same<E, __nv_bfloat16>::value, "bf16 or f16 operands"); \
+      ASM(".bf16.bf16");                                                           \
+    }                                                                              \
+  } while (0)
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B in shared memory, both K-major.
+template <class E>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
-  
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+#define RT_ASM(AB)                                                                                              \
+  asm volatile(                                                                                                 \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" AB " {"                                                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"                          \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                                                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
+      : "l"(a), "l"(b), "r"(accumulate))
+  RT_WGMMA_16(E, RT_ASM);
+#undef RT_ASM
 }
 
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B in shared memory, both K-major.
+template <class E>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
-  
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
+#define RT_ASM(AB)                                                                                              \
+  asm volatile(                                                                                                 \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" AB " {"                                                     \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                        \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                        \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"                          \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                                                                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
+      : "l"(a), "l"(b), "r"(accumulate))
+  RT_WGMMA_16(E, RT_ASM);
+#undef RT_ASM
 }
 
 // D[64 x 16] += A[64 x 16] . B[16 x 16], A in registers (a[4], the m16n8k16 A layout per warp),
 // B in shared memory, MN-major (transpose bit set).
+template <class E>
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b, int accumulate) {
-  
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+#define RT_ASM(AB)                                                                                     \
+  asm volatile(                                                                                        \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                                                     \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32" AB " {"                                             \
+      "%0, %1, %2, %3, %4, %5, %6, %7"                                                                 \
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"                                                   \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
+  RT_WGMMA_16(E, RT_ASM);
+#undef RT_ASM
 }
 
 // D[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (a[4], the m16n8k16 A layout per warp),
 // B in shared memory, MN-major (transpose bit set).
+template <class E>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int accumulate) {
-  
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+#define RT_ASM(AB)                                                                                              \
+  asm volatile(                                                                                                 \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" AB " {"                                                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"                          \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
+  RT_WGMMA_16(E, RT_ASM);
+#undef RT_ASM
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A in registers, B in shared memory, K-major.
+template <class E>
 __device__ __forceinline__ void wgmma_rs_n64_k(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+#define RT_ASM(AB)                                                                                              \
+  asm volatile(                                                                                                 \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" AB " {"                                                      \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"                          \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"                                                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
+  RT_WGMMA_16(E, RT_ASM);
+#undef RT_ASM
 }
 
 // D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A and B in shared memory, both K-major.
+template <class E>
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(accumulate));
+#define RT_ASM(AB)                                                                                           \
+  asm volatile(                                                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                                                           \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32" AB " {"                                                   \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"                                 \
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                                                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),      \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "l"(a), "l"(b), "r"(accumulate))
+  RT_WGMMA_16(E, RT_ASM);
+#undef RT_ASM
 }
 
 // D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A in registers, B in shared memory, MN-major.
+template <class E>
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+#define RT_ASM(AB)                                                                                           \
+  asm volatile(                                                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                                           \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32" AB " {"                                                   \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"                                 \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                                                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),      \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
+  RT_WGMMA_16(E, RT_ASM);
+#undef RT_ASM
 }
 
 // D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A in registers, B in shared memory, K-major.
+template <class E>
 __device__ __forceinline__ void wgmma_rs_n32_k(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+#define RT_ASM(AB)                                                                                           \
+  asm volatile(                                                                                              \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                                           \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32" AB " {"                                                   \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"                                 \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"                                                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),      \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
+  RT_WGMMA_16(E, RT_ASM);
+#undef RT_ASM
 }
 
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A in registers, B in shared memory,
 // MN-major (the two 64-column halves of N a leading byte offset apart).
+template <class E>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+#define RT_ASM(AB)                                                                                              \
+  asm volatile(                                                                                                 \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" AB " {"                                                     \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                        \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                        \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"                          \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                                                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),         \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
+  RT_WGMMA_16(E, RT_ASM);
+#undef RT_ASM
 }
 
 // D[64 x 256] (+)= A[64 x 16] . B[16 x 256], A in registers, B in shared memory,
 // MN-major (the four 64-column quarters of N a leading byte offset apart).
+template <class E>
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));}
+#define RT_ASM(AB)                                                                                                      \
+  asm volatile(                                                                                                         \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                                                     \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32" AB " {"                                                             \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                                          \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "                                \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "                                \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "                                \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "                                \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "                                \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "                    \
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"                  \
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"                                                             \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                 \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),           \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),         \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),         \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),         \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),         \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),         \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),         \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),         \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),         \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),         \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),     \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate))
+  RT_WGMMA_16(E, RT_ASM);
+#undef RT_ASM
+}
 
 // The register A operand of a warpgroup's 64 rows (this warp's 16 of them)
 // of a tile T that TMA wrote, one fragment per 16-wide slice of D. `rows`
 // points at the warpgroup's first row in the first sub-tile (tile + r0 * W).
 template <class T>
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[T::D / 16][4], const __nv_bfloat16* rows, int warp,
-                                            int lane) {
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[T::D / 16][4], const void* rows, int warp, int lane) {
   const uint8_t* base = reinterpret_cast<const uint8_t*>(rows);
   const int r = 16 * warp + (lane >> 2), c = 2 * (lane & 3);
 #pragma unroll
@@ -440,29 +496,29 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&a)[T::D / 16][4], const _
   }
 }
 
-// The products by their N: ss takes A and B from shared memory, both
-// K-major; rs takes A from registers and B MN-major, and accumulates; rsk
-// takes A from registers and B K-major.
-template <int N> struct Wgmma;
-template <> struct Wgmma<64> {
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) { wgmma_ss_n64(d, a, b, acc); }
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n64(d, a, b, 1); }
-  static __device__ __forceinline__ void rsk(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_rs_n64_k(d, a, b, acc); }
+// The products by their N, on E operands: ss takes A and B from shared
+// memory, both K-major; rs takes A from registers and B MN-major, and
+// accumulates; rsk takes A from registers and B K-major.
+template <int N, class E> struct Wgmma;
+template <class E> struct Wgmma<64, E> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) { wgmma_ss_n64<E>(d, a, b, acc); }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n64<E>(d, a, b, 1); }
+  static __device__ __forceinline__ void rsk(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_rs_n64_k<E>(d, a, b, acc); }
 };
-template <> struct Wgmma<128> {
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) { wgmma_ss_n128(d, a, b, acc); }
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n128(d, a, b, 1); }
+template <class E> struct Wgmma<128, E> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) { wgmma_ss_n128<E>(d, a, b, acc); }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n128<E>(d, a, b, 1); }
 };
-template <> struct Wgmma<256> {
-  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n256(d, a, b, 1); }
+template <class E> struct Wgmma<256, E> {
+  static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n256<E>(d, a, b, 1); }
 };
-template <> struct Wgmma<32> {
-  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) { wgmma_ss_n32(d, a, b, acc); }
-  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n32(d, a, b, 1); }
-  static __device__ __forceinline__ void rsk(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_rs_n32_k(d, a, b, acc); }
+template <class E> struct Wgmma<32, E> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t a, uint64_t b, int acc) { wgmma_ss_n32<E>(d, a, b, acc); }
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n32<E>(d, a, b, 1); }
+  static __device__ __forceinline__ void rsk(float (&d)[16], const uint32_t (&a)[4], uint64_t b, int acc) { wgmma_rs_n32_k<E>(d, a, b, acc); }
 };
-template <> struct Wgmma<16> {
-  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n16(d, a, b, 1); }
+template <class E> struct Wgmma<16, E> {
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) { wgmma_rs_n16<E>(d, a, b, 1); }
 };
 
 
@@ -712,9 +768,20 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x, one MUFU op; ex2(-inf) 
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two f32 values rounded to nearest (even) into E, lo in the low half: the
+// cast of P and dS to an operand's type before a product. f16 keeps its
+// subnormals (cvt.rn.f16x2.f32 without .ftz), as the Pallas kernels' casts
+// do; dS is often that small.
+template <class E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<E, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    static_assert(std::is_same<E, __nv_bfloat16>::value, "bf16 or f16 operands");
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -737,10 +804,23 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// A rank-3 map over a contiguous [bh, T, width] tensor of bf16 (elem_bytes
-// 2) or f32 (4), innermost first ({width, T, bh}), whose box is [box_rows, W]
+// The tensor-map data type of an element type. TMA copies bytes, but the
+// type is named, not derived from the element's size: bf16 and f16 are both
+// two bytes.
+template <class E>
+constexpr CUtensorMapDataType tma_type() {
+  if constexpr (std::is_same<E, float>::value) return CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  else if constexpr (std::is_same<E, __half>::value) return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  else {
+    static_assert(std::is_same<E, __nv_bfloat16>::value, "f32, f16 or bf16 elements");
+    return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  }
+}
+
+// A rank-3 map over a contiguous [bh, T, width] tensor of `type` (bf16, f16
+// or f32: tma_type<E>()), innermost first ({width, T, bh}), whose box is [box_rows, W]
 // of one head, W the columns of a 128-byte row at most of the instance's
-// head dim D (min(D, 64) bf16, a sub-tile of Tile<D, box_rows>; min(D, 32)
+// head dim D (min(D, 64) 16-bit elements, a sub-tile of Tile<D, box_rows>; min(D, 32)
 // f32, of TileF<D, box_rows>: D = 128 or 256 takes two to eight boxes a
 // tile): rows past T are zero-filled within the head (a flat [bh * T, D]
 // map would read the next head's rows instead), and so are the columns
@@ -751,10 +831,13 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
 // stride, width * elem_bytes, must be a multiple of 16 bytes. Swizzled by
 // the box's row length: 32B, 64B or 128B.
 inline bool rows_map(CUtensorMap* map, const void* ptr, int bh, int T, int width, int D, int box_rows,
-                     int elem_bytes = 2) {
+                     CUtensorMapDataType type) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
-  if (!encode || (D != 16 && D != 32 && D != 64 && D != 128 && D != 256) || (elem_bytes != 2 && elem_bytes != 4) ||
-      width < 1 || width > D || (width * elem_bytes) % 16 != 0)
+  const int elem_bytes = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4
+                         : type == CU_TENSOR_MAP_DATA_TYPE_FLOAT16 || type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2
+                                                                                                                : 0;
+  if (!encode || (D != 16 && D != 32 && D != 64 && D != 128 && D != 256) || elem_bytes == 0 || width < 1 ||
+      width > D || (width * elem_bytes) % 16 != 0)
     return false;
   const int W = D * elem_bytes > 128 ? 128 / elem_bytes : D, row_bytes = W * elem_bytes;
   const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)T, (cuuint64_t)bh};
@@ -764,7 +847,7 @@ inline bool rows_map(CUtensorMap* map, const void* ptr, int bh, int T, int width
   const CUtensorMapSwizzle swizzle = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                        : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  return encode(map, type, 3,
                 const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -12,14 +12,17 @@ first copied into zero-padded tensors of the next such width
 (``kernel_head_dim``) and its outputs sliced back. Above 256 a CUDA tensor
 raises. The scale is always 1 / sqrt(the true head dim).
 bf16 operands go to ``csrc/flash_attention.cu`` (with the Hopper helpers of
-``csrc/hopper.cuh``), f32 operands to ``csrc/flash_attention_f32.cu`` (the
+``csrc/hopper.cuh``), f16 operands to the same kernels instantiated for f16
+(``csrc/flash_attention_f16.cu``), f32 operands to
+``csrc/flash_attention_f32.cu`` (the
 same functions at f32 accuracy, as the Pallas kernels compute them on f32
 inputs: all three as 3xTF32 products on tf32 wgmma fed by TMA, each operand
 split into two tf32 parts in shared memory; the forward, for
 ``_fwd_kernel``, with 128 q rows a block and an online softmax in
 registers, bound by its 4 FLOPs per kept (q, key) pair and head-dim element
-at a third of the TF32 rate); ``_build`` builds both. The bf16 library's
-kernels:
+at a third of the TF32 rate), and operands of mixed dtypes to those f32
+kernels instantiated with rounding (``csrc/flash_attention_mixed.cu``);
+``_build`` builds the four libraries. The bf16 (and f16) library's kernels:
 
   - forward: persistent warp-specialised blocks (one per SM), a TMA-fed
     ring of K/V tiles and wgmma, online softmax over 128-key tiles (64 at
@@ -45,9 +48,19 @@ package's model layout) and folds to [B*H, T, Dh] for the kernels. lse and
 delta are [B*H, T] f32; the JAX kernel's [BH, 8, T] sublane layout is a
 TPU tiling artefact and is not carried over.
 
-Types: the operands are all bf16 or all f32 (lse and delta f32). The bf16
-kernels write their outputs in bf16, or in f32 with ``out_f32=True`` (a
-second instantiation of each kernel); the f32 kernels write f32. Ring
+Types: lse and delta are f32; the operands are bf16, f16 or f32, all of one
+dtype or mixed. All bf16 or all f16: the 16-bit kernels of that type, which
+round P and dS to it before the products and write their outputs in it, or
+in f32 with ``out_f32=True`` (a second instantiation of each kernel). All
+f32: the f32 kernels, f32 outputs. Mixed (any q, k, v and dO whose dtypes
+are not all one, a bf16/f16 mix included, as ``torch.promote_types`` does):
+every operand cast up to f32 (exact), the f32 kernels built with rounding,
+which round P and dS where the Pallas kernels cast them -- the forward's P
+to v's dtype, dQ's dS to k's, dK/dV's P to dO's and dS to q's
+(flash_attention.py:96, :158, :190, :197) -- and each f32 result cast back
+to its operand's dtype (o and dq to q's, dk to k's, dv to v's) unless
+``out_f32``. The plain versions round at the same places. Any other dtype
+(f64, integers) on a CUDA tensor raises. Ring
 attention merges and accumulates its blocks in f32
 (``ops/ring_attention.py``), as the JAX package's block entries
 ``flash_fwd_block`` and ``flash_bwd_block`` do (flash_attention.py:376-398);
@@ -67,13 +80,21 @@ from ray_tpu_torch.ops import _build
 _NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the kernels are instantiated for
 MAX_HEAD_DIM = HEAD_DIMS[-1]
-OPERAND_DTYPES = {torch.bfloat16: "flash_attention", torch.float32: "flash_attention_f32"}
+# The kernel library of each operand dtype, and of a mix of them.
+OPERAND_DTYPES = {torch.bfloat16: "flash_attention", torch.float16: "flash_attention_f16",
+                  torch.float32: "flash_attention_f32"}
+MIXED_LIBRARY = "flash_attention_mixed"
+LIBRARIES = (*OPERAND_DTYPES.values(), MIXED_LIBRARY)
+# The rounding types the f32-operand entry points take for P and dS (Round in
+# csrc/flash_attention_f32.cu): to an operand's dtype before the product.
+ROUNDING = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # Kernel launches on CUDA tensors, one count per kernel launched (the plain
 # versions are not counted; a dK/dV call at head dim 256 launches its two
 # passes, kernel_passes()); of those the launches with f32 outputs (out_f32,
-# or f32 operands); and per instance, keyed by the head dim asked and the
-# instance that ran (instance()). chip_smoke.py zeroes these before a path
+# or f32 operands, a mix's among them); and per instance, keyed by the head
+# dim asked, the instance that ran and the operands' dtype or "mixed"
+# (instance()). chip_smoke.py zeroes these before a path
 # and reads them after, to show the path went through the kernels it should.
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 launches_f32 = dict.fromkeys(launches, 0)
@@ -104,11 +125,12 @@ def kernel_passes(kernel: str, head_dim: int) -> int:
     return DKV_PASSES.get(instance_head_dim(head_dim), 1) if kernel == "flash_dkv" else 1
 
 
-def instance(kernel: str, head_dim: int, dtype: torch.dtype) -> str:
+def instance(kernel: str, head_dim: int, dtype) -> str:
     """The key of ``launches_by_instance`` for ``kernel`` called at
-    ``head_dim``: "flash_fwd d128 bfloat16" at an instance's own width,
-    "flash_fwd d96 on d128 bfloat16" for a head dim that runs on a wider
-    instance."""
+    ``head_dim`` on operands of ``dtype`` (a torch dtype, or "mixed"):
+    "flash_fwd d128 bfloat16" at an instance's own width, "flash_fwd d96 on
+    d128 bfloat16" for a head dim that runs on a wider instance, "flash_fwd
+    d64 mixed" for operands of several dtypes."""
     width = instance_head_dim(head_dim)
     on = "" if width == head_dim else f" on d{width}"
     return f"{kernel} d{head_dim}{on} {str(dtype).removeprefix('torch.')}"
@@ -204,29 +226,47 @@ def _check(q: Tensor, k: Tensor, v: Tensor, causal: bool, *more: Tensor) -> None
         raise ValueError(f"operands on several devices: {devs}")
     if q.is_cuda:  # the plain versions that serve CPU tensors take any head dim and dtype
         instance_head_dim(D)  # raises above MAX_HEAD_DIM
-        if q.dtype not in OPERAND_DTYPES:
-            raise ValueError(f"the CUDA kernels take bf16 or f32 operands, got {q.dtype}")
         for t in (q, k, v, *more):
-            want = torch.float32 if t.dim() == 2 else q.dtype  # lse/delta vs operands
-            if t.dtype != want:
-                raise ValueError(f"the CUDA kernels take operands of one dtype (bf16 or f32) and "
-                                 f"f32 lse/delta; got {t.dtype} beside {q.dtype} operands")
+            if t.dim() == 3 and t.dtype not in OPERAND_DTYPES:
+                raise ValueError(f"the CUDA kernels take bf16, f16 or f32 operands, got {t.dtype}")
+            if t.dim() == 2 and t.dtype != torch.float32:
+                raise ValueError(f"the CUDA kernels take f32 lse and delta, got {t.dtype}")
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError("kernel operands must be contiguous and 16-byte aligned")
 
 
-def _launch(entry: str, counter: str, head_dim: int, out_f32: bool, *args) -> None:
+def _mixed(*operands: Tensor) -> bool:
+    """Whether the operands are of several dtypes (the mixed route)."""
+    return len({t.dtype for t in operands}) > 1
+
+
+def _as_f32(mixed: bool, *operands: Tensor) -> Tuple[Tensor, ...]:
+    """The operands as the kernels take them: a mix's cast up to f32 (exact
+    for bf16 and f16), else themselves."""
+    return tuple(t.float() for t in operands) if mixed else operands
+
+
+def _back(x: Tensor, like: Tensor, mixed: bool, out_f32: bool) -> Tensor:
+    """A mix's f32 result in its operand's dtype (``like``), unless f32
+    outputs were asked for; any other result as it is."""
+    return x.to(like.dtype) if mixed and not out_f32 else x
+
+
+def _launch(entry: str, counter: str, head_dim: int, out_f32: bool, *args, rounding=None) -> None:
     """Call C entry point ``entry`` of the kernel library for the operands'
-    dtype (``args[0]`` is q) on the current stream with ``args`` and
-    ``out_f32`` last: tensors go as device pointers, floats as float, the
-    rest as int. Counts the kernels it launched once the entry point has
-    reported no error, under the head dim the caller asked for
-    (``head_dim``)."""
+    dtype (``args[0]`` is q), or of a mix when ``rounding`` is given (the
+    ROUNDING types of P and of dS, the operands already cast to f32), on the
+    current stream with ``args`` and ``out_f32`` last (then the two rounding
+    types, for the f32 and mixed libraries): tensors go as device pointers,
+    floats as float, the rest as int. Counts the kernels it launched once
+    the entry point has reported no error, under the head dim the caller
+    asked for (``head_dim``)."""
     q = args[0]
-    lib = _build.load(OPERAND_DTYPES[q.dtype])
+    lib = _build.load(OPERAND_DTYPES[q.dtype] if rounding is None else MIXED_LIBRARY)
     fn = getattr(lib, entry)
     types, vals = [], []
-    for a in (*args, out_f32):
+    tail = (out_f32, *(rounding or (0, 0))) if q.dtype == torch.float32 else (out_f32,)
+    for a in (*args, *tail):
         if isinstance(a, torch.Tensor):
             types.append(ctypes.c_void_p)
             vals.append(a.data_ptr())
@@ -242,7 +282,7 @@ def _launch(entry: str, counter: str, head_dim: int, out_f32: bool, *args) -> No
     n = kernel_passes(counter, head_dim)
     launches[counter] += n
     launches_f32[counter] += n if out_f32 or q.dtype == torch.float32 else 0
-    key = instance(counter, head_dim, q.dtype)
+    key = instance(counter, head_dim, q.dtype if rounding is None else "mixed")
     launches_by_instance[key] = launches_by_instance.get(key, 0) + n
 
 
@@ -270,18 +310,20 @@ def _narrow(x: Tensor, D: int) -> Tensor:
 @torch.no_grad()
 def flash_fwd(q: Tensor, k: Tensor, v: Tensor, causal: bool,
               out_f32: bool = False) -> Tuple[Tensor, Tensor]:
-    """Folded forward: q [BH, Tq, Dh], k/v [BH, Tk, Dh] (bf16 or f32) ->
-    (o in q's dtype, or f32 with ``out_f32``, lse [BH, Tq] f32)."""
+    """Folded forward: q [BH, Tq, Dh], k/v [BH, Tk, Dh] (bf16, f16 or f32,
+    or a mix) -> (o in q's dtype, or f32 with ``out_f32``, lse [BH, Tq]
+    f32)."""
     _check(q, k, v, causal)
     if not q.is_cuda:
         return flash_fwd_reference(q, k, v, causal, out_f32)
     (BH, Tq, D), Tk = q.shape, k.shape[1]
-    qw, kw, vw = _widen(q, k, v)
+    mixed = _mixed(q, k, v)
+    qw, kw, vw = _widen(*_as_f32(mixed, q, k, v))
     o = _empty_out(qw, out_f32)
     lse = torch.empty(BH, Tq, dtype=torch.float32, device=q.device)
     _launch("rt_flash_fwd", "flash_fwd", D, out_f32, qw, kw, vw, o, lse, BH, Tq, Tk, qw.shape[-1],
-            1.0 / math.sqrt(D), causal)
-    return _narrow(o, D), lse
+            1.0 / math.sqrt(D), causal, rounding=(ROUNDING[v.dtype], 0) if mixed else None)
+    return _back(_narrow(o, D), q, mixed, out_f32), lse
 
 
 @torch.no_grad()
@@ -293,11 +335,13 @@ def flash_dq(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor, delta: Te
     if not q.is_cuda:
         return flash_dq_reference(q, k, v, do, lse, delta, causal, out_f32)
     (BH, Tq, D), Tk = q.shape, k.shape[1]
-    qw, kw, vw, dow = _widen(q, k, v, do)
+    mixed = _mixed(q, k, v, do)
+    qw, kw, vw, dow = _widen(*_as_f32(mixed, q, k, v, do))
     dq = _empty_out(qw, out_f32)
     _launch("rt_flash_dq", "flash_dq", D, out_f32, qw, kw, vw, dow, lse, delta, dq,
-            BH, Tq, Tk, qw.shape[-1], 1.0 / math.sqrt(D), causal)
-    return _narrow(dq, D)
+            BH, Tq, Tk, qw.shape[-1], 1.0 / math.sqrt(D), causal,
+            rounding=(0, ROUNDING[k.dtype]) if mixed else None)
+    return _back(_narrow(dq, D), q, mixed, out_f32)
 
 
 @torch.no_grad()
@@ -309,11 +353,13 @@ def flash_dkv(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor, delta: T
     if not q.is_cuda:
         return flash_dkv_reference(q, k, v, do, lse, delta, causal, out_f32)
     (BH, Tq, D), Tk = q.shape, k.shape[1]
-    qw, kw, vw, dow = _widen(q, k, v, do)
+    mixed = _mixed(q, k, v, do)
+    qw, kw, vw, dow = _widen(*_as_f32(mixed, q, k, v, do))
     dk, dv = _empty_out(kw, out_f32), _empty_out(vw, out_f32)
     _launch("rt_flash_dkv", "flash_dkv", D, out_f32, qw, kw, vw, dow, lse, delta, dk, dv,
-            BH, Tq, Tk, qw.shape[-1], 1.0 / math.sqrt(D), causal)
-    return _narrow(dk, D), _narrow(dv, D)
+            BH, Tq, Tk, qw.shape[-1], 1.0 / math.sqrt(D), causal,
+            rounding=(ROUNDING[do.dtype], ROUNDING[q.dtype]) if mixed else None)
+    return _back(_narrow(dk, D), k, mixed, out_f32), _back(_narrow(dv, D), v, mixed, out_f32)
 
 
 def _fold(x: Tensor) -> Tensor:  # [B, T, H, D] -> [B*H, T, D], contiguous

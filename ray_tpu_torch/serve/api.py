@@ -125,6 +125,9 @@ def run(dep: Deployment, *, wait_ready: bool = True,
     )
     if wait_ready and not _wait_ready(controller, dep.name, ready_timeout_s):
         raise TimeoutError(f"deployment {dep.name!r} did not become ready")
+    if wait_ready:
+        # ready at the controller is not yet routable at every proxy
+        ray_tpu_torch.get(controller.refresh_proxy_routes.remote(), timeout=ready_timeout_s)
     return DeploymentHandle(dep.name)
 
 

@@ -684,6 +684,21 @@ class ServeController:
             with self._lock:
                 self._proxies[nid] = proxy
 
+    def refresh_proxy_routes(self) -> int:
+        """Every proxy takes the current routing table (serve.run, once a
+        deployment is ready); a proxy that does not answer is skipped.
+        Returns how many did."""
+        with self._lock:
+            proxies = list(self._proxies.values())
+        done = 0
+        for p in proxies:
+            try:
+                ray_tpu_torch.get(p.refresh_routes.remote(), timeout=30)
+                done += 1
+            except Exception:  # noqa: BLE001
+                pass
+        return done
+
     def proxy_addresses(self) -> List[str]:
         with self._lock:
             proxies = list(self._proxies.values())

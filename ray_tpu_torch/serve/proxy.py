@@ -466,3 +466,11 @@ class ServeProxy:
 
     def health(self) -> bool:
         return True
+
+    def refresh_routes(self) -> int:
+        """Take the controller's routing table now (serve.run asks once a
+        deployment is ready, so traffic sent after run() returns is routed
+        over all of its replicas, not the ones this proxy had heard of).
+        Returns the table's version."""
+        self._router._refresh(force=True)
+        return self._router._version

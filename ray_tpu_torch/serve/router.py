@@ -84,7 +84,9 @@ class Router:
                 continue
             if reply.get("table") is not None:
                 with self._lock:
-                    if reply["version"] != self._version:
+                    # only a newer table: a reply computed before a forced
+                    # refresh (serve.run's) may land after it
+                    if reply["version"] > self._version:
                         self._version = reply["version"]
                         self._table = reply["table"]
                         self._last_refresh = time.monotonic()

@@ -605,8 +605,9 @@ def main(argv=None) -> None:
         print(f"{WORLD} x {args.card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
               flush=True)
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(fa.OPERAND_DTYPES)) as pool:  # one nvcc a library, at once
-            list(pool.map(_build.build, fa.OPERAND_DTYPES.values()))
+        libraries = [fa.OPERAND_DTYPES[torch.bfloat16], fa.OPERAND_DTYPES[torch.float32]]  # the ones it runs
+        with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc a library, at once
+            list(pool.map(_build.build, libraries))
         print(f"kernel libraries built in {time.perf_counter() - t0:.2f} s", flush=True)
     else:
         args.card = "CPU rehearsal, gloo: no time here is the card's"

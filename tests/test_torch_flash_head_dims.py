@@ -225,10 +225,12 @@ def test_routes_each_head_dim_to_its_instance(monkeypatch, head_dim, dtype):
     assert all(x.shape == (BH, Tq, head_dim) for x in (o, dq, dk, dv))
     lib = tfa.OPERAND_DTYPES[dtype]
     assert [(n, e) for n, e, _ in calls] == [(lib, e) for e in ("rt_flash_fwd", "rt_flash_dq", "rt_flash_dkv")]
-    # the C signatures: (q, k, v, [dO, lse, delta,] outputs..., bh, tq, tk, d, scale, causal, out_f32, stream)
+    # the C signatures: (q, k, v, [dO, lse, delta,] outputs..., bh, tq, tk, d, scale, causal, out_f32,
+    # [round_p, round_ds: the f32 library's, none for f32 operands,] stream)
     for (_, entry, args), n_ptrs in zip(calls, (5, 7, 8)):
-        bh, tq, tk, d, scale, causal, out_f32, _ = args[n_ptrs:]
+        bh, tq, tk, d, scale, causal, out_f32, *rounding, _ = args[n_ptrs:]
         assert (bh, tq, tk, d, causal, out_f32) == (BH, Tq, Tq, width, 1, 0), entry
+        assert rounding == ([0, 0] if dtype == torch.float32 else []), entry
         assert scale == pytest.approx(1 / math.sqrt(head_dim), rel=1e-7), entry
         if width == head_dim:  # the caller's own tensors, no copy
             assert args[0] == q.data_ptr(), entry
@@ -279,9 +281,11 @@ def test_head_dims_above_256_raise_and_launch_nothing(monkeypatch, head_dim):
     assert tfa.flash_fwd(x, x, x, True)[0].shape == x.shape
 
 
-def _emulated_launch(entry, counter, head_dim, out_f32, *args):
+def _emulated_launch(entry, counter, head_dim, out_f32, *args, rounding=None):
     """The kernel stood in for by its plain version at the width and scale
-    the entry point is given: writes the outputs in place."""
+    the entry point is given: writes the outputs in place (operands of one
+    dtype: ``rounding`` is None)."""
+    assert rounding is None
     q, k, v = args[:3]
     scale = next(a for a in args if isinstance(a, float))
     causal = bool(args[-1])

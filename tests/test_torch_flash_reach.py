@@ -196,22 +196,45 @@ def test_check_takes_every_head_dim_in_bf16_and_f32(head_dim, dtype):
     tfa._check(q, q, q, True, q, lse, lse)
 
 
-@pytest.mark.parametrize("bad", ["k_f32", "do_f32", "lse_bf16", "f16_operands", "head_dim_264"])
-def test_check_rejects_mixed_dtypes_and_other_head_dims(bad):
+def _operands(case):
+    """q, k, dO (v is k) and lse/delta for one of the cases below: bf16
+    operands and f32 lse, with the case's change."""
     bf, f32 = torch.bfloat16, torch.float32
     q, k, do = (_cuda_like(2, 32, 32, dtype=bf) for _ in range(3))
     lse = _cuda_like(2, 32, dtype=f32)
-    if bad == "k_f32":
+    if case == "k_f32":
         k = _cuda_like(2, 32, 32, dtype=f32)
-    elif bad == "do_f32":
+    elif case == "do_f32":
         do = _cuda_like(2, 32, 32, dtype=f32)
-    elif bad == "lse_bf16":
+    elif case == "lse_bf16":
         lse = _cuda_like(2, 32, dtype=bf)
-    elif bad == "f16_operands":
+    elif case == "f16_operands":
         q = k = do = _cuda_like(2, 32, 32, dtype=torch.float16)
-    else:
+    elif case == "f64_operands":
+        q = k = do = _cuda_like(2, 32, 32, dtype=torch.float64)
+    elif case == "int_operands":
+        q = k = do = _cuda_like(2, 32, 32, dtype=torch.int32)
+    elif case == "head_dim_264":
         q = k = do = _cuda_like(2, 32, 264, dtype=bf)
-    with pytest.raises(ValueError, match="head dim" if bad == "head_dim_264" else "dtype|bf16 or f32"):
+    return q, k, do, lse
+
+
+@pytest.mark.parametrize("case", ["k_f32", "do_f32", "f16_operands"])
+def test_check_takes_f16_and_mixed_operands(case):
+    """f16 operands, and operands of mixed dtypes (an f32 K beside bf16 Q
+    and V, an f32 dO), are taken on a CUDA tensor: the f16 kernels, or the
+    mixed route, serve them."""
+    q, k, do, lse = _operands(case)
+    tfa._check(q, k, k, True, do, lse, lse)
+
+
+@pytest.mark.parametrize("case", ["lse_bf16", "head_dim_264", "f64_operands", "int_operands"])
+def test_check_rejects_other_dtypes_and_head_dims(case):
+    """lse or delta other than f32, a head dim above 256, and f64 or integer
+    operands raise on a CUDA tensor."""
+    q, k, do, lse = _operands(case)
+    match = {"lse_bf16": "f32 lse", "head_dim_264": "head dim"}.get(case, "bf16, f16 or f32 operands")
+    with pytest.raises(ValueError, match=match):
         tfa._check(q, k, k, True, do, lse, lse)
 
 

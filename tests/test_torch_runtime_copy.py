@@ -125,6 +125,16 @@ _TORCH_BACKEND = ("the train backend is torch.distributed (collective/process_gr
                   "NCCL on cards and gloo on the CPU, where the JAX package's is "
                   "jax.distributed (collective/xla_group.py); workers ask for GPU, not TPU")
 
+_ROUTES_READY = (
+    "a fix the JAX package lacks (ROADMAP.md Queue C item 2): serve.run returned once the "
+    "controller saw every replica healthy, before the proxies' routing tables held them "
+    "all, so traffic sent at once could all go to the replicas a proxy had heard of "
+    "(streams past a full replica's max_concurrency then waited there); run() now has "
+    "every proxy take the current table, and a router's long-poll applies only a newer "
+    "table than the one it holds")
+
+
+
 HUNKS = {
     "collective/__init__.py": [
         (re.compile(r"TPU-first backend mapping \(SURVEY\.md[^\n]*\n.*?jax\.distributed\.initialize "
@@ -385,6 +395,53 @@ HUNKS = {
         '            num_gpus=(res.pop("GPU", 0) + res.pop("num_gpus", 0)) or None,\n',
         "a replica asks for cards as GPU or num_gpus in ray_actor_options, where the JAX "
         "package's asks for TPU chips",
+    ), (
+        "    def proxy_addresses(self) -> List[str]:\n",
+        "    def refresh_proxy_routes(self) -> int:\n"
+        '        """Every proxy takes the current routing table (serve.run, once a\n'
+        "        deployment is ready); a proxy that does not answer is skipped.\n"
+        '        Returns how many did."""\n'
+        "        with self._lock:\n"
+        "            proxies = list(self._proxies.values())\n"
+        "        done = 0\n"
+        "        for p in proxies:\n"
+        "            try:\n"
+        "                ray_tpu_torch.get(p.refresh_routes.remote(), timeout=30)\n"
+        "                done += 1\n"
+        "            except Exception:  # noqa: BLE001\n"
+        "                pass\n"
+        "        return done\n\n"
+        "    def proxy_addresses(self) -> List[str]:\n",
+        _ROUTES_READY,
+    )],
+    "serve/proxy.py": [(
+        "    def health(self) -> bool:\n        return True\n",
+        "    def health(self) -> bool:\n        return True\n\n"
+        "    def refresh_routes(self) -> int:\n"
+        '        """Take the controller\'s routing table now (serve.run asks once a\n'
+        "        deployment is ready, so traffic sent after run() returns is routed\n"
+        "        over all of its replicas, not the ones this proxy had heard of).\n"
+        '        Returns the table\'s version."""\n'
+        "        self._router._refresh(force=True)\n"
+        "        return self._router._version\n",
+        _ROUTES_READY,
+    )],
+    "serve/api.py": [(
+        '        raise TimeoutError(f"deployment {dep.name!r} did not become ready")\n'
+        "    return DeploymentHandle(dep.name)\n",
+        '        raise TimeoutError(f"deployment {dep.name!r} did not become ready")\n'
+        "    if wait_ready:\n"
+        "        # ready at the controller is not yet routable at every proxy\n"
+        "        ray_tpu_torch.get(controller.refresh_proxy_routes.remote(), timeout=ready_timeout_s)\n"
+        "    return DeploymentHandle(dep.name)\n",
+        _ROUTES_READY,
+    )],
+    "serve/router.py": [(
+        '                    if reply["version"] != self._version:\n',
+        "                    # only a newer table: a reply computed before a forced\n"
+        "                    # refresh (serve.run's) may land after it\n"
+        '                    if reply["version"] > self._version:\n',
+        _ROUTES_READY,
     )],
     "core/channels.py": [
         ("import struct\nimport threading\n",
