@@ -15,8 +15,10 @@ Phases (any failure exits non-zero and prints no result):
      head dim (16, 32, 64, 128, 256; dK/dV's 256 as its dV and dK passes),
      operand type (bf16, f16) and output type (the operands', f32), and each
      f32 and mixed instance's (all three kernels are 3xTF32 on tf32 wgmma
-     fed by TMA), and fail if an instance lacks them, an f32 or mixed
-     instance spills or a head dim has no instance;
+     fed by TMA), and each column-window kernel's (head dims above 256,
+     csrc/flash_wide.cuh, in every library) mma.sync (HMMA) and cp.async
+     (LDGSTS) instructions, and fail if an instance lacks them, an f32,
+     mixed or column-window instance spills or a head dim has no instance;
   2. hold each kernel against its plain PyTorch version on the card, on bf16
      inputs from a seeded generator, at the train step's shape, at head dim
      16, at a ragged T, non-causal with Tk != Tq, and non-causal with Tk
@@ -39,7 +41,8 @@ Phases (any failure exits non-zero and prints no result):
      route's times beside its padded share and its instance's own time
      scaled by heads; the padding copy's time beside its kernels' (bf16 Dh
      20, f32 Dh 6) with their bounds, plain versions and SDPA's on the
-     same inputs; head dim 264, f64 and int32 operands refused with
+     same inputs; head dim 264 run on the column-window kernels (one
+     launch of each), head dim 0, f64 and int32 operands refused with
      nothing launched. Then the f32 kernels (f32 operands) against their
      plain versions in f32 (TF32 off, printed): gpt2-small's attention in
      f32 at B 8, the f32 ring's Dh 32 blocks, Dh 128, ragged and Dh 16,
@@ -62,7 +65,19 @@ Phases (any failure exits non-zero and prints no result):
      the plain versions: each output in its operand's dtype, 16-bit ones by
      the bf16 rule, f32 ones at 1e-5 (o) and 1e-4 (dq, dk, dv) relnorm
      (o by the bf16 rule where v is 16-bit: see MIXES), lse within 1e-5,
-     only mixed instances launched;
+     only mixed instances launched; the mixed route timed at B 8, H 12, Dh
+     64 ((q, k, v) bf16/f32/bf16) beside its bound, plain versions and
+     SDPA on the operands cast to f32. Then head dims above 256, the
+     column-window kernels (WIDE_CASES): gpt2-small's width as 3 heads of
+     264, 2 of 384 and 1 of 768 (B 32, T 1024, causal), gpt2-medium's as 2
+     of 512 and 1 of 1024 (B 8), f16 at 384, f32 at 384 and 512, a mix at
+     320, f32 outputs of bf16 operands at 384, ragged causal, non-causal
+     and wrapping, each held by its operands' gates with one launch of its
+     window instance a call, dQ twice for the same bits, the first ten
+     timed beside their bounds (the function's FLOPs, not the windows'
+     recompute), plain versions and SDPA with the backend it took; and the
+     window check: at Dh 512 with columns 256-511 of q, k, v and dO copied
+     from 0-255, each output's halves bitwise equal;
   3. train gpt2-small at full width through the port's entry points
      (ray_tpu_torch.bench.setup: random init from a seeded generator,
      AdamW, flash attention, fused CE, B=32, T=1024): first hold step 0's
@@ -267,9 +282,10 @@ Phases (any failure exits non-zero and prints no result):
      and what train()'s float(loss) after each update costs against one
      read at the end. No flash launch;
  14. the train step at other head dims and dtypes: gpt2-small's widths as
-     6 heads of 128, 24 of 32, 8 of 96, 16 of 48 and 3 of 256 (bf16, B=32,
-     T=1024), gpt2-small in f32 at 12 heads of 64 and 3 of 256 (B=8,
-     T=1024), and gpt2-small in f16 (12 heads of 64, B=32, T=1024: the f16
+     6 heads of 128, 24 of 32, 8 of 96, 16 of 48, 3 of 256, 2 of 384 and 1
+     of 768 (bf16, B=32, T=1024; the last two on the column-window
+     kernels), gpt2-small in f32 at 12 heads of 64, 3 of 256 and 2 of 384
+     (B=8, T=1024), and gpt2-small in f16 (12 heads of 64, B=32, T=1024: the f16
      instances on the train path), each from phase 3's seeded init and
      tokens: step 0's loss and every gradient against reference attention
      on the same init and batch (bf16: phase 3's limits; f32: the loss
@@ -279,8 +295,9 @@ Phases (any failure exits non-zero and prints no result):
      step, 3 timed steps (median beside phase 3's), and 12 calls a step
      of each kernel's own instance (the head dim asked and the instance
      that ran, and the operand dtype) and no other: 12 launches, 24 for
-     dK/dV at head dim 256 (a dV pass and a dK pass a call); the f16 step
-     12 of each f16 instance;
+     dK/dV at head dim 256 (a dV pass and a dK pass a call), 12 of each
+     column-window instance above 256 (its windows in one launch); the
+     f16 step 12 of each f16 instance;
  15. the library and control-plane modules. (a) Tune: ray_tpu_torch.init on
      the card, then tune.Tuner(tune.with_resources(trainable, {"GPU": 1}))
      over lr in (1e-4, 3e-4, 1e-3) with max_concurrent_trials=3, each trial
@@ -315,7 +332,10 @@ Phases (any failure exits non-zero and prints no result):
      head dim and operand->output type a check held it at in this run, the
      f16 instances and the mixed route among them), the times of each timed
      instance (Dh 64, 128, 32, 96, 48, 256 and 80 bf16, the padded ones with
-     their padded share; Dh 64, 128, 32 and 256 f32; Dh 64 and 128 f16)
+     their padded share; Dh 64, 128, 32 and 256 f32; Dh 64 and 128 f16;
+     the mixed route at Dh 64; the column-window kernels at Dh 264, 384,
+     768, 512 and 1024 bf16, 384 f16, 384 and 512 f32, 320 mixed and 384
+     bf16 -> f32, with SDPA's backend and the windows)
      with their bounds, plain and library times, the f16 step's launches
      a step, its f32-output
      instantiation's gap, times and ring launches from phase 5 and the f32
@@ -467,8 +487,15 @@ BEFORE_REDESIGN_MS = {"flash_fwd": 0.5302, "flash_dq": 0.6775, "flash_dkv": 1.09
 F32_BEFORE_REDESIGN_MS = {"flash_fwd": 0.6467, "flash_dq": 0.9051, "flash_dkv": 1.1923}
 
 
+_phase: list = []  # the running phase's label (timed_phase), for fail()'s line on stderr
+
+
 def fail(msg: str) -> None:
+    """Print the failed check on both streams (a caller that keeps only the
+    end of stderr still reads which check it was) and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    where = f" (phase {_phase[0]})" if _phase else ""
+    print(f"FAIL{where}: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -544,6 +571,12 @@ BUILD_S_TWO_LIBRARIES = 52.32
 KERNEL_NAME = (r"(flash_(?:f32_)?(?:fwd|dq|dkv)_kernel)ILi(\d+)E(?:(13__nv_bfloat16|6__half)"
                r"(13__nv_bfloat16|6__half|f|S\d*_))?(?:Li(\d)E)?(?:Lb([01])E)?E")
 ELEMENT_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}  # mangled types
+# The column-window kernels (head dims above 256, csrc/flash_wide.cuh; in
+# every library): the kernel, its operand type, its output type (a
+# back-reference when it is the operand type) and its rounding flag (1: the
+# mixed library's).
+WIDE_KERNEL_NAME = (r"(flash_wide_(?:fwd|dq|dkv)_kernel)I(13__nv_bfloat16|6__half|f)"
+                    r"(13__nv_bfloat16|6__half|f|S\d*_)Lb([01])E")
 
 
 def _instance_name(found) -> str:
@@ -554,6 +587,42 @@ def _instance_name(found) -> str:
     else:
         ops, outs = ("mixed" if found[6] == "1" else "f32"), "f32"
     return f"d{found[2]} {ops}->{outs}" + (f" pass {found[5]}" if found[5] not in (None, "0") else "")
+
+
+WIDE_SOURCE = "ray_tpu_torch/ops/csrc/flash_wide.cuh"  # the column-window kernels, in every library
+
+
+def wide_smem_plans(elem: int) -> dict:
+    """Each column-window kernel's dynamic shared memory in bytes for
+    operands of ``elem`` bytes (2 or 4), from WIDE_SOURCE's constants: two
+    chunk buffers of every operand's rows (128-byte chunks padded by 16),
+    then the value tiles (a window of each row, padded by 16)."""
+    text = (Path(__file__).resolve().parent / WIDE_SOURCE).read_text()
+    c = {name: int(value) for name, value in re.findall(r"\b([A-Z][A-Z0-9_]*) = (\d+)", text)}
+    chunk, rows = c["CHUNK_BYTES"] + 16, c["ROWS"]
+    fwd_bk = c["FWD_BK_F32"] if elem == 4 else c["FWD_BK"]  # fwd_bk<E>()
+    value = lambda win: win * elem + 16  # noqa: E731
+    return {
+        "flash_fwd": 2 * (rows + fwd_bk) * chunk + fwd_bk * value(c["FWD_WIN"]),
+        "flash_dq": 2 * (2 * rows + 2 * c["DQ_BK"]) * chunk + c["DQ_BK"] * value(c["DQ_WIN"]),
+        "flash_dkv": 2 * (2 * rows + 2 * c["DKV_BQ"]) * chunk + 2 * c["DKV_BQ"] * value(c["DKV_WIN"]),
+    }
+
+
+def _wide_instance_name(found) -> str:
+    """"wide <operands>-><outputs>" of a WIDE_KERNEL_NAME match."""
+    ops = "mixed" if found[4] == "1" else ELEMENT_TYPES[found[2]]
+    return f"wide {ops}->{ELEMENT_TYPES.get(found[3], 'f32' if ops == 'mixed' else ops)}"
+
+
+def _kernel_entry(line: str):
+    """(kernel name, instance name) of the kernel a ptxas or SASS line
+    names, or None."""
+    found = re.search(KERNEL_NAME, line)
+    if found:
+        return found[1], _instance_name(found)
+    found = re.search(WIDE_KERNEL_NAME, line)
+    return (found[1], _wide_instance_name(found)) if found else None
 
 
 def build() -> dict:
@@ -580,8 +649,8 @@ def build() -> dict:
         entry = None
         for line in log.read_text().splitlines() if log.exists() else []:
             if "Compiling entry" in line:
-                found = re.search(KERNEL_NAME, line)
-                entry = found and f"{found[1]}<{_instance_name(found)}>"
+                found = _kernel_entry(line)
+                entry = found and f"{found[0]}<{found[1]}>"
             elif entry and ("registers" in line or "spill" in line):
                 print(f"  {lib} {entry}: {line.split(':', 1)[-1].strip()}")
                 if re.search(r"[1-9]\d* bytes spill", line):
@@ -589,24 +658,34 @@ def build() -> dict:
             elif "warning" in line or "C751" in line:
                 print(f"  {lib}: {line.strip()}")
     print(f"spills: {'; '.join(spills) if spills else 'none in any instance of any library'}", flush=True)
-    if any(entry.startswith("flash_f32_") for entry in spills):
-        fail(f"an f32 or mixed instance spills: {spills}")
+    print("column-window kernels' shared memory (bytes, 16-bit / f32 operands): " + ", ".join(
+        f"{name} {wide_smem_plans(2)[name]} / {wide_smem_plans(4)[name]}" for name in KERNELS), flush=True)
+    if any(entry.startswith(("flash_f32_", "flash_wide_")) for entry in spills):
+        fail(f"an f32, mixed or column-window instance spills: {spills}")
     counts = {name: {} for name in KERNELS}
-    for lib, path in paths.items():
-        for name, insts in sass_counts(path, SASS_OPS).items():
+    with ThreadPoolExecutor(len(paths)) as pool:  # one cuobjdump each, at once
+        per_library = list(pool.map(lambda path: sass_counts(path, SASS_OPS), paths.values()))
+    for got in per_library:
+        for name, insts in got.items():
             counts[name].update(insts)
     operands = ("bf16->bf16", "bf16->f32", "f16->f16", "f16->f32", "f32->f32", "mixed->f32")
     for name in KERNELS:
-        # every instance of every library is a Hopper one: wgmma (bf16, f16,
-        # or tf32 for 3xTF32) fed by TMA
+        # every instanced kernel of every library is a Hopper one: wgmma
+        # (bf16, f16, or tf32 for 3xTF32) fed by TMA; the column-window
+        # kernels (above 256) run mma.sync (HMMA) fed by cp.async (LDGSTS)
         for inst, c in counts[name].items():
-            print(f"sass {name} {inst}: HGMMA {c['hgmma']}, UTMALDG {c['utmaldg']}", flush=True)
-            if not (c["hgmma"] > 0 and c["utmaldg"] > 0):
-                fail(f"{name} {inst} issues no wgmma or no TMA load in its SASS: {c}")
+            wide = inst.startswith("wide ")
+            ops = ("hmma", "ldgsts") if wide else ("hgmma", "utmaldg")
+            print(f"sass {name} {inst}: " + ", ".join(f"{SASS_OPS[o]} {c[o]}" for o in ops), flush=True)
+            if not all(c[o] > 0 for o in ops):
+                fail(f"{name} {inst} lacks {' or '.join(SASS_OPS[o] for o in ops)} in its SASS: {c}")
+        wide = {inst for inst in counts[name] if inst.startswith("wide ")}
+        if wide != {f"wide {ops}" for ops in operands}:
+            fail(f"{name}: the libraries hold column-window instances {sorted(wide)}; expected {operands}")
         # every head dim's instance, in every operand and output type; dK/dV's
         # head dim 256 as its two passes
         want = {f"d{d} {ops}" for d in fa.HEAD_DIMS for ops in operands}
-        got = {" ".join(inst.split()[:2]) for inst in counts[name]}
+        got = {" ".join(inst.split()[:2]) for inst in counts[name] if inst not in wide}
         passes = {inst for inst in counts[name] if "pass" in inst}
         want_passes = ({f"d256 {ops} pass {k}" for ops in operands for k in (1, 2)}
                        if name == "flash_dkv" else set())
@@ -616,31 +695,32 @@ def build() -> dict:
     return counts
 
 
-SASS_OPS = {"hgmma": "HGMMA", "utmaldg": "UTMALDG"}
+SASS_OPS = {"hgmma": "HGMMA", "utmaldg": "UTMALDG", "hmma": "HMMA", "ldgsts": "LDGSTS"}
 
 
 def sass_counts(lib: Path, ops: dict) -> dict:
     """Instructions ``ops`` ({key: SASS opcode}) per kernel and instance in
     the SASS of a built library, read with cuobjdump: {name: {"d<D>
     <operands>-><outputs>": {key: count}}}, kernels named by KERNEL_NAME; an
-    instance of a pass other than 0 is keyed with " pass <n>"."""
+    instance of a pass other than 0 is keyed with " pass <n>"; the
+    column-window kernels (WIDE_KERNEL_NAME) as "wide <operands>-><outputs>"."""
     from ray_tpu_torch.ops import _build
 
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120,
                           check=True).stdout
     counts = {name: {} for name in KERNELS}
-    current = None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            found = re.search(KERNEL_NAME, line)
-            current = None
-            if found:
-                name = found[1].replace("_f32", "").removesuffix("_kernel")
-                current = counts[name].setdefault(_instance_name(found), dict.fromkeys(ops, 0))
-        elif current is not None:
-            for key, op in ops.items():
-                current[key] += bool(re.search(rf"\b{op}\b", line))
+    lines_with = {key: re.compile(rf"^.*\b{op}\b", re.M) for key, op in ops.items()}
+    # a function's SASS runs from its "Function :" line to the next one;
+    # each op is counted by the lines of the body that hold it
+    for function in sass.split("Function :")[1:]:
+        head, _, body = function.partition("\n")
+        found = _kernel_entry("Function :" + head)
+        if found:
+            name = found[0].replace("_f32", "").replace("_wide", "").removesuffix("_kernel")
+            current = counts[name].setdefault(found[1], dict.fromkeys(ops, 0))
+            for key, pattern in lines_with.items():
+                current[key] += len(pattern.findall(body))
     return counts
 
 
@@ -655,18 +735,21 @@ def _visible_pairs(Tq: int, Tk: int, causal: bool) -> int:
 
 def bounds(B, T, Tk, H, D, causal, out_bytes=2, in_bytes=2, peak=PEAK_BF16_FLOPS):
     """Least time (ms) for each kernel's work on this card's published
-    peaks: (ms, "bytes" | "operations"). Each input (``in_bytes`` per
-    element: 2 for bf16 operands, 4 for f32) read once, each output
-    (``out_bytes``) written once, lse and delta f32; products counted over
-    the (q, k) pairs the mask keeps, at ``peak`` FLOP/s (the bf16 tensor
-    cores, or PEAK_F32_ACCURATE_FLOPS for the f32-operand kernels)."""
+    peaks: (ms, "bytes" | "operations"). Each input read once and each
+    output written once at its bytes per element (``in_bytes``,
+    ``out_bytes``: one number for every operand, 2 for bf16 and 4 for f32,
+    or one each for q, k and v, where dO, o and dq take q's, dk k's and dv
+    v's), lse and delta f32; products counted over the (q, k) pairs the
+    mask keeps, at ``peak`` FLOP/s (the bf16 tensor cores, or
+    PEAK_F32_ACCURATE_FLOPS for the f32-operand kernels)."""
+    qb, kb, vb = in_bytes if isinstance(in_bytes, tuple) else (in_bytes,) * 3
+    oq, ok, ov = out_bytes if isinstance(out_bytes, tuple) else (out_bytes,) * 3
     BH, pairs = B * H, _visible_pairs(T, Tk, causal)
-    q_bytes, kv_bytes, row_bytes = BH * T * D * in_bytes, BH * Tk * D * in_bytes, BH * T * 4
-    q_out, kv_out = q_bytes * out_bytes // in_bytes, kv_bytes * out_bytes // in_bytes
+    q_rows, kv_rows, row_bytes = BH * T * D, BH * Tk * D, BH * T * 4
     work = {  # name: (flops, bytes)
-        "flash_fwd": (4 * BH * pairs * D, q_bytes + 2 * kv_bytes + q_out + row_bytes),
-        "flash_dq": (6 * BH * pairs * D, 2 * q_bytes + 2 * kv_bytes + q_out + 2 * row_bytes),
-        "flash_dkv": (8 * BH * pairs * D, 2 * q_bytes + 2 * kv_bytes + 2 * kv_out + 2 * row_bytes),
+        "flash_fwd": (4 * BH * pairs * D, q_rows * (qb + oq) + kv_rows * (kb + vb) + row_bytes),
+        "flash_dq": (6 * BH * pairs * D, q_rows * (2 * qb + oq) + kv_rows * (kb + vb) + 2 * row_bytes),
+        "flash_dkv": (8 * BH * pairs * D, 2 * q_rows * qb + kv_rows * (kb + vb + ok + ov) + 2 * row_bytes),
     }
     out = {}
     for name, (flops, nbytes) in work.items():
@@ -815,7 +898,7 @@ def check_kernels(card: str) -> dict:
         if case == MAIN_CASE:
             check_autograd(q, k, v, do, B, H)
     time_pad_copy(card)
-    check_refused_head_dim()
+    check_wide_head_dim_runs()
     check_refused_dtypes()
     return results
 
@@ -889,30 +972,42 @@ def time_pad_copy(card: str) -> None:
         del q, k, v, do, o, lse, delta, wide, qs, ks, vs, out
 
 
-REFUSED_HEAD_DIM = 264  # a head dim the Pallas kernels take and the CUDA kernels do not (above 256)
+WIDE_RUN_HEAD_DIM = 264  # above the widest instance, 16-byte strided rows: no padding copy
 
 
-def check_refused_head_dim() -> None:
-    """A CUDA tensor with a head dim the kernels are not built for raises in
-    each wrapper, and nothing is launched (no fallback to the plain version)."""
+def check_wide_head_dim_runs() -> None:
+    """Head dim 264 (above the widest instance) on the card: each wrapper
+    launches its column-window kernel once, counted under its window
+    instance, and returns outputs of the head dim; head dim 0 raises in
+    each wrapper with nothing launched (no fallback to the plain version)."""
     from ray_tpu_torch.ops import flash_attention as fa
 
-    q = torch.zeros(2, 128, REFUSED_HEAD_DIM, device="cuda", dtype=torch.bfloat16)
+    q = torch.randn(2, 128, WIDE_RUN_HEAD_DIM, device="cuda", dtype=torch.bfloat16)
     lse = torch.zeros(2, 128, device="cuda")
     _zero_launches()
+    outs = [fa.flash_fwd(q, q, q, True)[0], fa.flash_dq(q, q, q, q, lse, lse, True),
+            *fa.flash_dkv(q, q, q, q, lse, lse, True)]
+    torch.cuda.synchronize()
+    counts, by_instance = _launch_counts()[0], _instance_counts()
+    want = {fa.instance(name, WIDE_RUN_HEAD_DIM, torch.bfloat16): 1 for name in KERNELS}
+    print(f"head dim {WIDE_RUN_HEAD_DIM} on the card: launches {counts}, by instance {by_instance}", flush=True)
+    if by_instance != want or any(o.shape != q.shape or not torch.isfinite(o.float()).all() for o in outs):
+        fail(f"head dim {WIDE_RUN_HEAD_DIM} launched {by_instance} (expected {want}) or gave wrong outputs")
+    empty = torch.zeros(2, 128, 0, device="cuda", dtype=torch.bfloat16)
+    _zero_launches()
     refused = 0
-    for call in (lambda: fa.flash_fwd(q, q, q, True), lambda: fa.flash_dq(q, q, q, q, lse, lse, True),
-                 lambda: fa.flash_dkv(q, q, q, q, lse, lse, True)):
+    for call in (lambda: fa.flash_fwd(empty, empty, empty, True),
+                 lambda: fa.flash_dq(empty, empty, empty, empty, lse, lse, True),
+                 lambda: fa.flash_dkv(empty, empty, empty, empty, lse, lse, True)):
         try:
             call()
         except ValueError as e:
             refused += "head dim" in str(e)
-    torch.cuda.synchronize()
     counts, by_instance = _launch_counts()[0], _instance_counts()
-    print(f"head dim {REFUSED_HEAD_DIM} on the card: {refused} of 3 wrappers raised; launches "
-          f"{counts}, by instance {by_instance}", flush=True)
+    print(f"head dim 0 on the card: {refused} of 3 wrappers raised; launches {counts}, by instance "
+          f"{by_instance}", flush=True)
     if refused != 3 or any(counts.values()) or by_instance:
-        fail(f"head dim {REFUSED_HEAD_DIM} was not refused by every wrapper, or launched a kernel")
+        fail("head dim 0 was not refused by every wrapper, or launched a kernel")
 
 
 def check_f32_operands(card: str) -> dict:
@@ -1146,6 +1241,228 @@ def check_refused_dtypes() -> None:
           f"by instance {by_instance}", flush=True)
     if refused != 6 or any(counts.values()) or by_instance:
         fail("f64 or integer operands were not refused by every wrapper, or launched a kernel")
+
+
+# Head dims above 256: the column-window kernels (csrc/flash_wide.cuh, in
+# every library). (case, (q, k, v) dtypes with dO in q's, f32 outputs):
+# gpt2-small's width as 3 heads of 264 (d 792), 2 of 384 and 1 of 768 (B 32,
+# phase 14's); gpt2-medium's as 2 heads of 512 and 1 of 1024 (B 8); f16 at
+# 384; f32 at 384 (phase 14's f32 run) and 512 (B 8); a mix at 320; 16-bit
+# operands with f32 outputs (ring attention's block entries) at 384; then
+# ragged causal, non-causal with Tk != Tq and wrapping, at widths the
+# padding copy does not take and does (520; 260 in bf16). Held by the
+# gates of their operands (phase 2's rule, f32's limits, a mix's), timed
+# all but the last three.
+BF16, F16, F32 = (torch.bfloat16,) * 3, (torch.float16,) * 3, (torch.float32,) * 3
+WIDE_CASES = (
+    ((32, 1024, 1024, 3, 264, True), BF16, False), ((32, 1024, 1024, 2, 384, True), BF16, False),
+    ((32, 1024, 1024, 1, 768, True), BF16, False), ((8, 1024, 1024, 2, 512, True), BF16, False),
+    ((8, 1024, 1024, 1, 1024, True), BF16, False), ((32, 1024, 1024, 2, 384, True), F16, False),
+    ((8, 1024, 1024, 2, 384, True), F32, False), ((8, 1024, 1024, 2, 512, True), F32, False),
+    ((8, 1024, 1024, 2, 320, True), (torch.bfloat16, torch.float32, torch.bfloat16), False),
+    ((32, 1024, 1024, 2, 384, True), BF16, True),
+    ((2, 1000, 1000, 2, 384, True), BF16, False), ((2, 200, 333, 2, 520, False), F32, False),
+    ((2, 300, 1100, 2, 260, False), BF16, False),
+)
+WIDE_TIMED = 10  # the first ten cases
+WIDE_WINDOW_CASE = (8, 1024, 1024, 2, 512, True)  # the window check's (bf16)
+
+
+def sdpa_backend(q, k, v, causal: bool) -> str:
+    """The backend F.scaled_dot_product_attention takes for these [B, H, T,
+    Dh] inputs (torch._fused_sdp_choice, the choice its dispatcher makes):
+    flash_attention, efficient_attention, cudnn_attention, or math (the
+    plain fallback: no fused kernel takes the head dim)."""
+    from torch.nn.attention import SDPBackend
+
+    choice = torch._fused_sdp_choice(q, k, v, is_causal=causal)
+    return next(n for n, m in SDPBackend.__members__.items() if int(m.value) == choice).lower()
+
+
+def _case_inputs(case, dtypes, seed):
+    """q, k, v, dO of ``case`` in ``dtypes`` (q, k, v; dO in q's), from one
+    seeded f32 draw on the card."""
+    return tuple(x.to(t) for x, t in zip(_inputs(case, torch.float32, seed=seed), (*dtypes, dtypes[0])))
+
+
+def check_wide_head_dims(card: str) -> dict:
+    """Phase 2's head dims above 256: each column-window kernel against its
+    plain version at WIDE_CASES, by the gates of its operands (16-bit
+    outputs by phase 2's rule, f32 outputs of f32 operands at F32_FWD_RELNORM
+    and F32_GRAD_RELNORM in relative norm, a mix's by check_mixed_operands'
+    limits; lse within LSE_TOL, F32_LSE_TOL for the f32 kernels), only the
+    case's window instances launched (one launch a call); dQ twice for the
+    same bits and each kernel timed (time_wide) at the first
+    WIDE_TIMED cases, with the backend SDPA took; then the window check
+    (window_check). Returns {kernel: {"d<D> <operands>[->f32]": the kernel
+    line's numbers}}."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    results = {name: {} for name in KERNELS}
+    for i, (case, dtypes, out_f32) in enumerate(WIDE_CASES):
+        B, T, Tk, H, D, causal = case
+        mixed = len(set(dtypes)) > 1
+        operands = "mixed" if mixed else dtypes[0]
+        f32_kernels = mixed or dtypes[0] == torch.float32
+        q, k, v, do = _case_inputs(case, dtypes, seed=31 + D)
+        _zero_launches()
+        o, lse = fa.flash_fwd(q, k, v, causal, out_f32=out_f32)
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal)
+        delta = (do.float() * o_ref.float()).sum(-1)
+        dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, out_f32=out_f32)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal, out_f32=out_f32)
+        torch.cuda.synchronize()
+        by_instance = _instance_counts()
+        want_launches = {fa.instance(name, D, operands): 1 for name in KERNELS}
+        o_want = fa.flash_fwd_reference(q, k, v, causal, out_f32=True)[0] if out_f32 else o_ref
+        refs = fa.flash_bwd_reference(q, k, v, do, lse_ref, delta, causal, out_f32=out_f32)
+        where = (f"B={B} T={T} Tk={Tk} H={H} Dh={D} causal={causal}, (q, k, v) "
+                 + "/".join(SHORT[t] for t in dtypes) + (", f32 outputs" if out_f32 else ""))
+        outs = {"o": (o, o_want), "dq": (dq, refs[0]), "dk": (dk, refs[1]), "dv": (dv, refs[2])}
+        if any(got.dtype != want.dtype or got.shape != want.shape for got, want in outs.values()):
+            fail(f"the column-window kernels returned {[(g.dtype, tuple(g.shape)) for g, _ in outs.values()]} "
+                 f"at {where}; the plain versions {[(w.dtype, tuple(w.shape)) for _, w in outs.values()]}")
+        limits = {"o": F32_FWD_RELNORM if dtypes[2] == torch.float32 else None, "dq": F32_GRAD_RELNORM,
+                  "dk": F32_GRAD_RELNORM, "dv": F32_GRAD_RELNORM}
+        gaps, bad = {}, []
+        for name, (got, want) in outs.items():
+            gaps[name] = bench.disagreement(got, want)
+            limit = limits[name] if got.dtype == torch.float32 and f32_kernels else None
+            if not (gaps[name]["relnorm"] <= limit if limit is not None else gaps[name]["ok"]):
+                bad.append(name)
+        lse_err = (lse - lse_ref).abs().max().item()
+        lse_tol = F32_LSE_TOL if f32_kernels else LSE_TOL
+        print(f"column-window kernels vs plain at {where}: " + _gap_text(gaps) + f"; lse max abs {lse_err:.3e}; "
+              f"launches {by_instance}", flush=True)
+        if bad or not lse_err <= lse_tol:
+            fail(f"the column-window kernels' {bad or 'lse'} disagree with the plain version at {where} "
+                 f"(f32 outputs of the f32 kernels: relnorm {limits}, else {_rule()}; lse {lse_tol})")
+        if by_instance != want_launches:
+            fail(f"the checks at {where} launched {by_instance}; expected {want_launches}")
+        for name in KERNELS:
+            _held(name, D, operands, out_f32)
+        del o_want, refs, outs
+        if i >= WIDE_TIMED:
+            continue
+        again = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, out_f32=out_f32)
+        if not torch.equal(dq, again):
+            fail(f"two flash_dq calls at {where} differ")
+        print(f"flash_dq at {where}: two calls give the same bits", flush=True)
+        del again
+        key = _instance_key(D, dtypes[0]) if not mixed else f"d{D} mixed"
+        key += "->f32" if out_f32 else ""
+        timed = time_wide(case, q, k, v, do, lse, delta, gaps, card, dtypes, out_f32)
+        for name in KERNELS:
+            results[name][key] = timed[name]
+        del q, k, v, do, o, lse, o_ref, lse_ref, delta, dq, dk, dv
+    window_check()
+    return results
+
+
+def time_wide(case, q, k, v, do, lse, delta, gaps, card, dtypes, out_f32: bool) -> dict:
+    """The three kernels at ``case`` (the wrappers, median of 20 calls, CUDA
+    events) beside their bounds (each operand at its own size; the 3xTF32
+    rate where one is f32), their plain versions and SDPA on the same
+    inputs (cast to f32 for a mix) with the backend it took. Returns
+    {kernel: the kernel line's numbers, with sdpa_backend}."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    B, T, Tk, H, D, causal = case
+    in_bytes = tuple(t.itemsize for t in dtypes)
+    bnd = bounds(*case, out_bytes=4 if out_f32 else in_bytes, in_bytes=in_bytes,
+                 peak=PEAK_F32_ACCURATE_FLOPS if torch.float32 in dtypes else PEAK_BF16_FLOPS)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal, out_f32=out_f32),
+                      lambda: fa.flash_fwd_reference(q, k, v, causal, out_f32)),
+        "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal, out_f32=out_f32),
+                     lambda: fa.flash_dq_reference(q, k, v, do, lse, delta, causal, out_f32)),
+        "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal, out_f32=out_f32),
+                      lambda: fa.flash_dkv_reference(q, k, v, do, lse, delta, causal, out_f32)),
+    }
+    ms = {name: bench.time_ms(kernel) for name, (kernel, _) in calls.items()}
+    plain_ms = {name: bench.time_ms(plain, iters=5) for name, (_, plain) in calls.items()}
+    like = torch.float32 if len(set(dtypes)) > 1 else dtypes[0]
+    qs, ks, vs = (x.to(like).view(B, H, -1, D).detach().requires_grad_() for x in (q, k, v))
+    dos = do.to(like).view(B, H, T, D)
+    backend = sdpa_backend(qs, ks, vs, causal)
+    with torch.no_grad():
+        sdpa_fwd = bench.time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    sdpa_bwd = bench.time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True))
+    library = {"flash_fwd": sdpa_fwd, "flash_dq": sdpa_bwd, "flash_dkv": sdpa_bwd}
+    err_of = {"flash_fwd": gaps["o"]["max_abs"], "flash_dq": gaps["dq"]["max_abs"],
+              "flash_dkv": max(gaps["dk"]["max_abs"], gaps["dv"]["max_abs"])}
+    results = {}
+    for name in KERNELS:
+        results[name] = {
+            "max_abs_err": err_of[name], "ms": ms[name], "plain_ms": plain_ms[name],
+            "bound_ms": bnd[name][0], "bound_by": bnd[name][1], "library_ms": library[name],
+            "sdpa_backend": backend, "launches_a_call": fa.kernel_passes(name, D),
+            "windows": fa.windows(name, D),
+        }
+        print(f"time {name} at B={B} T={T} Tk={Tk} H={H} Dh={D} causal={causal}, "
+              + "/".join(SHORT[t] for t in dtypes) + (" -> f32" if out_f32 else "")
+              + (f" ({fa.windows(name, D)} windows of {fa.WIDE_WINDOWS[name]})" if D > fa.HEAD_DIMS[-1] else "")
+              + f": kernel {ms[name]:.4f} ms, bound "
+              f"{bnd[name][0]:.4f} ms ({bnd[name][1]}), {ms[name] / bnd[name][0]:.1f}x; plain {plain_ms[name]:.4f} ms, "
+              f"SDPA ({backend}, {'backward: dq, dk and dv in one call' if name != 'flash_fwd' else 'forward'}) "
+              f"{library[name]:.4f} ms [{card}]", flush=True)
+    del qs, ks, vs, dos, out
+    return results
+
+
+def window_check() -> None:
+    """The windows compute the same scores: at WIDE_WINDOW_CASE (Dh 512,
+    two windows of 256 for o and dQ, four of 128 for dK and dV) with
+    columns 256-511 of q, k, v and dO copied from 0-255, each output's two
+    halves are bitwise equal (every window recomputes S, P and dS over the
+    whole head dim in one order, and the copied columns feed the same
+    products in the same places)."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    B, T, Tk, H, D, causal = WIDE_WINDOW_CASE
+    q, k, v, do = _case_inputs(WIDE_WINDOW_CASE, BF16, seed=512)
+    for x in (q, k, v, do):
+        x[..., D // 2:] = x[..., :D // 2]
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    equal = {n: torch.equal(x[..., :D // 2], x[..., D // 2:]) for n, x in (("o", o), ("dq", dq), ("dk", dk),
+                                                                           ("dv", dv))}
+    print(f"window check at B={B} T={T} H={H} Dh={D}, columns 256-511 of q, k, v, dO copied from 0-255: "
+          f"halves bitwise equal {equal}", flush=True)
+    if not all(equal.values()):
+        fail(f"the windows of the column-window kernels disagree: halves equal {equal}")
+
+
+# The mixed route timed (bf16 q and v, f32 k, dO in q's), the library call
+# SDPA on the operands cast to f32.
+MIXED_TIMED = ((8, 1024, 1024, 12, 64, True), (torch.bfloat16, torch.float32, torch.bfloat16))
+
+
+def time_mixed_operands(card: str) -> dict:
+    """The mixed route at MIXED_TIMED: each kernel (the wrapper: the casts
+    to f32, the f32 kernels rounding P and dS, the casts back) beside its
+    bound, its plain version and SDPA on f32 casts. Returns
+    {kernel: {"d64 mixed": the kernel line's numbers}}."""
+    from ray_tpu_torch import bench
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    case, dtypes = MIXED_TIMED
+    q, k, v, do = _case_inputs(case, dtypes, seed=5)
+    o_ref, lse = fa.flash_fwd_reference(q, k, v, case[5])
+    delta = (do.float() * o_ref.float()).sum(-1)
+    gaps = {n: bench.disagreement(got, want) for n, got, want in (
+        ("o", fa.flash_fwd(q, k, v, case[5])[0], o_ref),
+        ("dq", fa.flash_dq(q, k, v, do, lse, delta, case[5]), fa.flash_dq_reference(q, k, v, do, lse, delta, case[5])),
+        *zip(("dk", "dv"), fa.flash_dkv(q, k, v, do, lse, delta, case[5]),
+             fa.flash_dkv_reference(q, k, v, do, lse, delta, case[5])))}
+    timed = time_wide(case, q, k, v, do, lse, delta, gaps, card, dtypes, False)
+    return {name: {f"d{case[4]} mixed": timed[name]} for name in KERNELS}
 
 
 def _device_ms(calls: dict, head_dim: int, rounds: int = 10) -> dict:
@@ -4157,11 +4474,12 @@ def ppo_learner(card: str) -> None:
 # (label, config overrides, batch rows, loss limit, relative?, gradient limit,
 # chunks of the gradient check). gpt2-small's widths (d_model 768) as 6
 # heads of 128, 24 of 32, 8 of 96 and 16 of 48 (on the 128 and 64 instances,
-# padded) and 3 of 256, bf16, B 32, T 1024: phase 3's init (the weights do
-# not depend on the head count), tokens and limits. The Dh 32 and 48 checks
+# padded), 3 of 256, 2 of 384 and 1 of 768 (the column-window kernels),
+# bf16, B 32, T 1024: phase 3's init (the weights do not depend on the head
+# count), tokens and limits. The Dh 32 and 48 checks
 # take their reference pass in two halves of the batch (24 and 16 heads
 # double reference attention's score tensors). gpt2-small in f32, B 8, T
-# 1024, at 12 heads of 64 and 3 of 256, held at the JAX package's f32
+# 1024, at 12 heads of 64, 3 of 256 and 2 of 384, held at the JAX package's f32
 # limits: the loss within 1e-5 relative, each gradient within 1e-4 in
 # relative norm.
 HEAD_DIM_RUNS = (
@@ -4173,6 +4491,9 @@ HEAD_DIM_RUNS = (
     ("Dh 256 (3 heads)", {"n_head": 3}, 32, LOSS_REF_TOL, False, GRAD_RELNORM_TOL, 1),
     ("f32 Dh 256 (3 heads)", {"n_head": 3, "dtype": torch.float32}, 8, 1e-5, True, 1e-4, 1),
     ("f16", {"dtype": torch.float16}, 32, F16_LOSS_REF_TOL, False, F16_GRAD_RELNORM_TOL, 1),
+    ("Dh 384 (2 heads)", {"n_head": 2}, 32, LOSS_REF_TOL, False, GRAD_RELNORM_TOL, 1),
+    ("Dh 768 (1 head)", {"n_head": 1}, 32, LOSS_REF_TOL, False, GRAD_RELNORM_TOL, 1),
+    ("f32 Dh 384 (2 heads)", {"n_head": 2, "dtype": torch.float32}, 8, 1e-5, True, 1e-4, 1),
 )
 HEAD_DIM_STEPS = 3  # timed, after one warm-up step
 # The f16 run's gradient check under a static loss scale: at B 32, T 1024
@@ -4655,6 +4976,7 @@ def library_modules(card: str, phase3: tuple) -> dict:
 
 def timed_phase(label: str, fn, *args, **kwargs):
     """Run one phase and print its seconds (and the run's so far)."""
+    _phase[:] = [label]
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
     now = time.perf_counter()
@@ -4672,6 +4994,8 @@ def main() -> None:
     f32_operands = timed_phase("2 (f32 operands)", check_f32_operands, card)
     f16_operands = timed_phase("2 (f16 operands)", check_f16_operands, card, results)
     timed_phase("2 (mixed operands)", check_mixed_operands, card)
+    mixed_timed = timed_phase("2 (mixed operands, timed)", time_mixed_operands, card)
+    wide = timed_phase("2 (head dims above 256)", check_wide_head_dims, card)
     counts, losses, step_ms = timed_phase("3 (train)", train, card)
     remat = timed_phase("3 (remat)", remat_policies, card)
     phase4 = timed_phase("4", serve, card)
@@ -4693,6 +5017,8 @@ def main() -> None:
                      launches=counts[name], **results[name])
         entry["instances"].update(f32_operands[name])
         entry["instances"].update(f16_operands[name])
+        entry["instances"].update(mixed_timed[name])
+        entry["instances"].update(wide[name])
         entry.update(held_at=sorted(HELD_AT[name], key=lambda h: (int(h.split()[0][1:]), h)),
                      f32_operands_source=F32_SOURCE, f16_operands_source=F16_SOURCE,
                      mixed_operands_source=MIXED_SOURCE, f32=f32[name], sass=sass[name],

@@ -38,6 +38,7 @@
 
 #include <type_traits>
 
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 
 // The operand type of this library's entry points: bf16, or what the file
@@ -1214,11 +1215,12 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 // C entry points (loaded with ctypes). Pointers are device pointers of
 // contiguous [bh, T, d] tensors (RT_OPERAND operands, bf16 or f16; outputs
 // of that type, or f32 when out_f32 is set) and f32 [bh, Tq] lse/delta; the stream is the caller's
-// cudaStream_t. d is the tensors' head dim, 1 to 256 and a multiple of 8: it
+// cudaStream_t. d is the tensors' head dim, a multiple of 8: up to 256 it
 // runs on the instance of the narrowest head dim of 16, 32, 64, 128 and 256
-// that holds it; scale is the caller's (1 / sqrt(d)). Each returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a head dim
-// no instance takes, or a tensor map the driver refuses).
+// that holds it, above 256 on the column-window kernels of flash_wide.cuh;
+// scale is the caller's (1 / sqrt(d)). Each returns cudaGetLastError() after
+// the launch (cudaErrorInvalidValue for a head dim no kernel takes, or a
+// tensor map cuTensorMapEncodeTiled refuses).
 // ---------------------------------------------------------------------------
 extern "C" const char* rt_cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
@@ -1235,8 +1237,9 @@ static int persistent_grid(int n_units) {
 
 // Calls launch(instance head dim, output type) with the instance's head dim
 // as an std::integral_constant and the output type (the operands' E, or
-// f32) as a Type tag, for the instance that serves head dim d;
-// cudaErrorInvalidValue for a d none takes.
+// f32) as a Type tag, for the instance that serves head dim d (WIDE above
+// 256: the column-window kernels); cudaErrorInvalidValue for a d none takes.
+constexpr int WIDE = 0;
 template <class T>
 struct Type {
   using type = T;
@@ -1250,7 +1253,7 @@ static int by_head_dim(int d, int out_f32, F launch) {
   if (d <= 64) return with(std::integral_constant<int, 64>{});
   if (d <= 128) return with(std::integral_constant<int, 128>{});
   if (d <= 256) return with(std::integral_constant<int, 256>{});
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with(std::integral_constant<int, WIDE>{});
 }
 
 // The output rows of a [bh, T, dh] tensor at p, as OutRows describes them.
@@ -1289,8 +1292,12 @@ extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o
                             int tq, int tk, int d, float scale, int causal, int out_f32,
                             void* stream) {
   return by_head_dim<RT_OPERAND>(d, out_f32, [&](auto dd, auto out) {
-    return launch_fwd<decltype(dd)::value, RT_OPERAND, typename decltype(out)::type>(
-        q, k, v, o, lse, bh, tq, tk, d, scale, causal, static_cast<cudaStream_t>(stream));
+    using OutT = typename decltype(out)::type;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if constexpr (decltype(dd)::value == WIDE)
+      return wide::launch_fwd<RT_OPERAND, OutT, false>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, 0, st);
+    else
+      return launch_fwd<decltype(dd)::value, RT_OPERAND, OutT>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, st);
   });
 }
 
@@ -1320,8 +1327,14 @@ extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const vo
                            const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
                            int d, float scale, int causal, int out_f32, void* stream) {
   return by_head_dim<RT_OPERAND>(d, out_f32, [&](auto dd, auto out) {
-    return launch_dq<decltype(dd)::value, RT_OPERAND, typename decltype(out)::type>(
-        q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, causal, static_cast<cudaStream_t>(stream));
+    using OutT = typename decltype(out)::type;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if constexpr (decltype(dd)::value == WIDE)
+      return wide::launch_dq<RT_OPERAND, OutT, false>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, causal,
+                                                       0, st);
+    else
+      return launch_dq<decltype(dd)::value, RT_OPERAND, OutT>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale,
+                                                              causal, st);
   });
 }
 
@@ -1369,7 +1382,13 @@ extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v, const v
                             const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
                             int tk, int d, float scale, int causal, int out_f32, void* stream) {
   return by_head_dim<RT_OPERAND>(d, out_f32, [&](auto dd, auto out) {
-    return launch_dkv<decltype(dd)::value, RT_OPERAND, typename decltype(out)::type>(
-        q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, causal, static_cast<cudaStream_t>(stream));
+    using OutT = typename decltype(out)::type;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if constexpr (decltype(dd)::value == WIDE)
+      return wide::launch_dkv<RT_OPERAND, OutT, false>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale,
+                                                        causal, 0, 0, st);
+    else
+      return launch_dkv<decltype(dd)::value, RT_OPERAND, OutT>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d,
+                                                               scale, causal, st);
   });
 }

@@ -114,6 +114,7 @@
 
 #include <type_traits>
 
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 
 // Whether this library's entry points round P and dS (the mixed-dtype
@@ -427,20 +428,6 @@ __device__ __forceinline__ void mma3_raw(float (&d)[N / 2], const float* a, uint
   }
 }
 
-// The rounding of P or dS before a product on the mixed-dtype route: to the
-// nearest (even) bf16 or f16 value (f16 keeping its subnormals, as the
-// Pallas kernels' casts do), or none. `to` is uniform over the block: the
-// select costs no branch.
-enum Round : int { ROUND_NONE = 0, ROUND_BF16 = 1, ROUND_F16 = 2 };
-template <bool ROUND>
-__device__ __forceinline__ float rounded(float x, int to) {
-  if constexpr (!ROUND) {
-    return x;
-  } else {
-    const float b = __bfloat162float(__float2bfloat16_rn(x)), h = __half2float(__float2half_rn(x));
-    return to == ROUND_BF16 ? b : to == ROUND_F16 ? h : x;
-  }
-}
 
 // Chunk j of an m64nN accumulator (this thread: rows g and g + 8, columns
 // 8j + 2t and 8j + 2t + 1) as the tf32 A fragment of k-step j, split:
@@ -453,10 +440,10 @@ __device__ __forceinline__ void split_a_frags(uint32_t (&big)[N / 8][4], uint32_
                                               const float (&c)[N / 2], int to) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    hopper::tf32_split(rounded<ROUND>(c[4 * j + 0], to), big[j][0], small[j][0]);
-    hopper::tf32_split(rounded<ROUND>(c[4 * j + 2], to), big[j][1], small[j][1]);
-    hopper::tf32_split(rounded<ROUND>(c[4 * j + 1], to), big[j][2], small[j][2]);
-    hopper::tf32_split(rounded<ROUND>(c[4 * j + 3], to), big[j][3], small[j][3]);
+    hopper::tf32_split(hopper::rounded<ROUND>(c[4 * j + 0], to), big[j][0], small[j][0]);
+    hopper::tf32_split(hopper::rounded<ROUND>(c[4 * j + 2], to), big[j][1], small[j][1]);
+    hopper::tf32_split(hopper::rounded<ROUND>(c[4 * j + 1], to), big[j][2], small[j][2]);
+    hopper::tf32_split(hopper::rounded<ROUND>(c[4 * j + 3], to), big[j][3], small[j][3]);
   }
 }
 
@@ -1195,13 +1182,15 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
 
 // Calls launch(instance head dim) with the head dim, as an
 // std::integral_constant, of the instance that serves head dim d (the
-// narrowest of 16, 32, 64, 128 and 256 that holds it; d a multiple of 4);
+// narrowest of 16, 32, 64, 128 and 256 that holds it, or WIDE above 256:
+// the column-window kernels of flash_wide.cuh; d a multiple of 4);
 // cudaErrorInvalidValue for a d none takes, or for a rounding type that is
-// not a Round, or not ROUND_NONE where this library does not round.
+// not a hopper::Round, or not ROUND_NONE where this library does not round.
+constexpr int WIDE = 0;
 template <class F>
 static int by_head_dim(int d, int round_p, int round_ds, F launch) {
   for (int r : {round_p, round_ds})
-    if (r < ROUND_NONE || r > ROUND_F16 || (!RT_ROUNDED && r != ROUND_NONE))
+    if (r < hopper::ROUND_NONE || r > hopper::ROUND_F16 || (!RT_ROUNDED && r != hopper::ROUND_NONE))
       return static_cast<int>(cudaErrorInvalidValue);
   if (d < 1 || d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (d <= 16) return launch(std::integral_constant<int, 16>{});
@@ -1209,7 +1198,7 @@ static int by_head_dim(int d, int round_p, int round_ds, F launch) {
   if (d <= 64) return launch(std::integral_constant<int, 64>{});
   if (d <= 128) return launch(std::integral_constant<int, 128>{});
   if (d <= 256) return launch(std::integral_constant<int, 256>{});
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch(std::integral_constant<int, WIDE>{});
 }
 
 constexpr CUtensorMapDataType F32 = hopper::tma_type<float>();
@@ -1287,8 +1276,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 // ---------------------------------------------------------------------------
 // C entry points (loaded with ctypes): flash_attention.cu's signatures, on
 // contiguous f32 [bh, T, d] operands and f32 [bh, Tq] lse/delta, with the
-// rounding types of P and dS (Round) after out_f32; d, 1 to 256 and a
-// multiple of 4, runs on the instance that holds it.
+// rounding types of P and dS (Round) after out_f32; d, a multiple of 4, runs
+// on the instance that holds it, or above 256 on the column-window kernels.
 // ---------------------------------------------------------------------------
 extern "C" const char* rt_cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
@@ -1298,8 +1287,11 @@ extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o
                             int tq, int tk, int d, float scale, int causal, int, int round_p, int round_ds,
                             void* stream) {
   return by_head_dim(d, round_p, round_ds, [&](auto dd) {
-    return launch_fwd<decltype(dd)::value>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, round_p,
-                                           static_cast<cudaStream_t>(stream));
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if constexpr (decltype(dd)::value == WIDE)
+      return wide::launch_fwd<float, float, ROUNDED>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, round_p, st);
+    else
+      return launch_fwd<decltype(dd)::value>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, round_p, st);
   });
 }
 
@@ -1307,8 +1299,13 @@ extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const vo
                            const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
                            int d, float scale, int causal, int, int round_p, int round_ds, void* stream) {
   return by_head_dim(d, round_p, round_ds, [&](auto dd) {
-    return launch_dq<decltype(dd)::value>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, causal, round_ds,
-                                          static_cast<cudaStream_t>(stream));
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if constexpr (decltype(dd)::value == WIDE)
+      return wide::launch_dq<float, float, ROUNDED>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, causal,
+                                                    round_ds, st);
+    else
+      return launch_dq<decltype(dd)::value>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, causal, round_ds,
+                                            st);
   });
 }
 
@@ -1317,7 +1314,12 @@ extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v, const v
                             int tk, int d, float scale, int causal, int, int round_p, int round_ds,
                             void* stream) {
   return by_head_dim(d, round_p, round_ds, [&](auto dd) {
-    return launch_dkv<decltype(dd)::value>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, causal,
-                                           round_p, round_ds, static_cast<cudaStream_t>(stream));
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if constexpr (decltype(dd)::value == WIDE)
+      return wide::launch_dkv<float, float, ROUNDED>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale,
+                                                     causal, round_p, round_ds, st);
+    else
+      return launch_dkv<decltype(dd)::value>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, causal,
+                                             round_p, round_ds, st);
   });
 }

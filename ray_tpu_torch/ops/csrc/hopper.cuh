@@ -784,6 +784,22 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
+// The rounding of P or dS before a product on f32 operands of the
+// mixed-dtype route: to the nearest (even) bf16 or f16 value (f16 keeping
+// its subnormals, as the Pallas kernels' casts do), or none (ROUND false:
+// the f32 operands' route). `to` is uniform over the block: the select
+// costs no branch.
+enum Round : int { ROUND_NONE = 0, ROUND_BF16 = 1, ROUND_F16 = 2 };
+template <bool ROUND>
+__device__ __forceinline__ float rounded(float x, int to) {
+  if constexpr (!ROUND) {
+    return x;
+  } else {
+    const float b = __bfloat162float(__float2bfloat16_rn(x)), h = __half2float(__float2half_rn(x));
+    return to == ROUND_BF16 ? b : to == ROUND_F16 ? h : x;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Host: tensor maps. cuTensorMapEncodeTiled is a driver function; the CUDA
 // runtime hands out its entry point (asked for with the signature it has had

@@ -3,14 +3,18 @@
 Counterpart of ``ray_tpu/ops/flash_attention.py``. The three Pallas TPU
 kernels there (``_fwd_kernel``, ``_dq_kernel``, ``_dkv_kernel``) are
 CUDA C++ kernels here, instantiated for head dims 16, 32, 64, 128 and 256
-(``HEAD_DIMS``), and they take every head dim from 1 to 256: a head dim
+(``HEAD_DIMS``), and they take every head dim from 1 up: a head dim
 between two instances runs on the next one up (``instance_head_dim``), the
 tensors at their own width, TMA filling the columns past it with zeros in
-shared memory and the outputs written at the true width; a head dim whose
-rows are not 16-byte strided (not a multiple of 8 in bf16, of 4 in f32) is
-first copied into zero-padded tensors of the next such width
-(``kernel_head_dim``) and its outputs sliced back. Above 256 a CUDA tensor
-raises. The scale is always 1 / sqrt(the true head dim).
+shared memory and the outputs written at the true width; a head dim above
+256 runs on the column-window kernels (``csrc/flash_wide.cuh``, in every
+library), which write their results as windows of at most 256 columns
+(128 for dK/dV, ``WIDE_WINDOWS``), each window a grid slice of its own
+that recomputes the scores over the whole head dim (``windows``); a head
+dim whose rows are not 16-byte strided (not a multiple of 8 in bf16, of 4
+in f32) is first copied into zero-padded tensors of the next such width
+(``kernel_head_dim``) and its outputs sliced back. The scale is always 1 /
+sqrt(the true head dim).
 bf16 operands go to ``csrc/flash_attention.cu`` (with the Hopper helpers of
 ``csrc/hopper.cuh``), f16 operands to the same kernels instantiated for f16
 (``csrc/flash_attention_f16.cu``), f32 operands to
@@ -36,6 +40,9 @@ kernels instantiated with rounding (``csrc/flash_attention_mixed.cu``);
     pass and a dK pass (one [64 x 256] accumulator each).
 The f32 library at head dim 256 keeps a block's own rows raw in shared
 memory and splits them into register fragments four k-steps at a time.
+Above 256, all three functions in every library: blocks of (head, 64 rows,
+a window of output columns), the contraction over the head dim streamed
+in 128-byte chunks by cp.async, mma.sync (bf16/f16, or 3xTF32 on f32).
 
 Neither backward kernel uses atomics, so the gradients do not depend on
 run order. Each kernel has a plain PyTorch version of the same function
@@ -79,19 +86,22 @@ from ray_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the kernels are instantiated for
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+# Above the widest instance, the column-window kernels' output columns a
+# window (FWD_WIN, DQ_WIN and DKV_WIN of csrc/flash_wide.cuh).
+WIDE_WINDOWS = {"flash_fwd": 256, "flash_dq": 256, "flash_dkv": 128}
 # The kernel library of each operand dtype, and of a mix of them.
 OPERAND_DTYPES = {torch.bfloat16: "flash_attention", torch.float16: "flash_attention_f16",
                   torch.float32: "flash_attention_f32"}
 MIXED_LIBRARY = "flash_attention_mixed"
 LIBRARIES = (*OPERAND_DTYPES.values(), MIXED_LIBRARY)
 # The rounding types the f32-operand entry points take for P and dS (Round in
-# csrc/flash_attention_f32.cu): to an operand's dtype before the product.
+# csrc/hopper.cuh): to an operand's dtype before the product.
 ROUNDING = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # Kernel launches on CUDA tensors, one count per kernel launched (the plain
 # versions are not counted; a dK/dV call at head dim 256 launches its two
-# passes, kernel_passes()); of those the launches with f32 outputs (out_f32,
+# passes, kernel_passes(); a column-window kernel is one launch, all its
+# windows in its grid); of those the launches with f32 outputs (out_f32,
 # or f32 operands, a mix's among them); and per instance, keyed by the head
 # dim asked, the instance that ran and the operands' dtype or "mixed"
 # (instance()). chip_smoke.py zeroes these before a path
@@ -104,10 +114,19 @@ DKV_PASSES = {256: 2}  # dK/dV's kernels a call per instance (DKV_PASSES of Tile
 
 def instance_head_dim(head_dim: int) -> int:
     """The head dim of the instance that serves ``head_dim``: the narrowest
-    of ``HEAD_DIMS`` that holds it."""
-    if not 1 <= head_dim <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {head_dim} not supported (the kernels take 1 to {MAX_HEAD_DIM})")
-    return next(w for w in HEAD_DIMS if head_dim <= w)
+    of ``HEAD_DIMS`` that holds it, or ``head_dim`` itself above the widest
+    (the column-window kernels take the true width)."""
+    if head_dim < 1:
+        raise ValueError(f"head dim {head_dim} not supported (the kernels take 1 and up)")
+    return next((w for w in HEAD_DIMS if head_dim <= w), head_dim)
+
+
+def windows(kernel: str, head_dim: int) -> int:
+    """The column windows ``kernel`` writes its result in at ``head_dim``:
+    one up to the widest instance, else the head dim over the kernel's
+    window width (``WIDE_WINDOWS``), rounded up; each a grid slice of the
+    one launch."""
+    return 1 if instance_head_dim(head_dim) <= HEAD_DIMS[-1] else -(-head_dim // WIDE_WINDOWS[kernel])
 
 
 def kernel_head_dim(head_dim: int, dtype: torch.dtype) -> int:
@@ -121,7 +140,7 @@ def kernel_head_dim(head_dim: int, dtype: torch.dtype) -> int:
 def kernel_passes(kernel: str, head_dim: int) -> int:
     """The kernels one call of ``kernel`` at ``head_dim`` launches: two for
     dK/dV on the head dim 256 instance (a dV pass, then a dK pass), else
-    one."""
+    one (a column-window kernel's windows included)."""
     return DKV_PASSES.get(instance_head_dim(head_dim), 1) if kernel == "flash_dkv" else 1
 
 
@@ -130,9 +149,14 @@ def instance(kernel: str, head_dim: int, dtype) -> str:
     ``head_dim`` on operands of ``dtype`` (a torch dtype, or "mixed"):
     "flash_fwd d128 bfloat16" at an instance's own width, "flash_fwd d96 on
     d128 bfloat16" for a head dim that runs on a wider instance, "flash_fwd
-    d64 mixed" for operands of several dtypes."""
+    d384 on d256x2 bfloat16" above the widest (the column-window kernel,
+    two windows of 256 columns), "flash_fwd d64 mixed" for operands of
+    several dtypes."""
     width = instance_head_dim(head_dim)
-    on = "" if width == head_dim else f" on d{width}"
+    if width > HEAD_DIMS[-1]:
+        on = f" on d{WIDE_WINDOWS[kernel]}x{windows(kernel, head_dim)}"
+    else:
+        on = "" if width == head_dim else f" on d{width}"
     return f"{kernel} d{head_dim}{on} {str(dtype).removeprefix('torch.')}"
 
 Tensor = torch.Tensor
@@ -225,7 +249,7 @@ def _check(q: Tensor, k: Tensor, v: Tensor, causal: bool, *more: Tensor) -> None
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {devs}")
     if q.is_cuda:  # the plain versions that serve CPU tensors take any head dim and dtype
-        instance_head_dim(D)  # raises above MAX_HEAD_DIM
+        instance_head_dim(D)  # raises below 1
         for t in (q, k, v, *more):
             if t.dim() == 3 and t.dtype not in OPERAND_DTYPES:
                 raise ValueError(f"the CUDA kernels take bf16, f16 or f32 operands, got {t.dtype}")

@@ -191,12 +191,12 @@ class _ReportsCuda(torch.Tensor):
 def test_wrapper_rejects_what_the_kernels_do_not_take(bad):
     x = torch.zeros(2, 32, 16)
     if bad == "head_dim":
-        # the kernels take head dims up to 256 (264 is wider); the plain
-        # versions that serve CPU tensors take any head dim, as the Pallas
-        # kernels do
+        # the kernels take every head dim from 1 up (above 256 the
+        # column-window kernels), as the Pallas kernels and the plain
+        # versions that serve CPU tensors do; a head dim of 0 has no kernel
         y = torch.zeros(2, 32, 264)
         assert tfa.flash_fwd(y, y, y, True)[0].shape == y.shape
-        cuda_like = torch.Tensor._make_subclass(_ReportsCuda, y)
+        cuda_like = torch.Tensor._make_subclass(_ReportsCuda, torch.zeros(2, 32, 0))
         before = dict(tfa.launches)
         with pytest.raises(ValueError, match="head dim"):
             tfa.flash_fwd(cuda_like, cuda_like, cuda_like, True)

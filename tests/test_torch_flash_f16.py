@@ -169,7 +169,7 @@ def _cuda_like(x: torch.Tensor) -> torch.Tensor:
     return torch.Tensor._make_subclass(_ReportsCuda, x)
 
 
-ROUND = {"float32": 0, "bfloat16": 1, "float16": 2}  # Round in csrc/flash_attention_f32.cu
+ROUND = {"float32": 0, "bfloat16": 1, "float16": 2}  # Round in csrc/hopper.cuh
 
 
 def _recording_loads(monkeypatch):

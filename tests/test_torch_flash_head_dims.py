@@ -13,7 +13,7 @@ Tq and ragged; then GPT-2 with flash attention against the JAX model at
 head dims 96 and 256; then the wrappers' routing of a CUDA tensor under a
 fake library: the instance each head dim runs on, which head dims take the
 padding copy, the width and scale the entry point is given, the counters,
-and a head dim above 256 refused with nothing launched; and the padded
+and a head dim above 256 sent to the column-window kernels; and the padded
 route's arithmetic, the kernel stood in for by its plain version at the
 width and scale the entry point is given. Inputs come from seeded numpy
 generators.
@@ -263,21 +263,38 @@ def test_dkv_passes_are_the_cu_traits(head_dim):
 
 @pytest.mark.parametrize("head_dim", [257, 264, 512])
 def test_head_dims_above_256_raise_and_launch_nothing(monkeypatch, head_dim):
-    """A CUDA tensor wider than the widest instance raises in every wrapper
-    before any launch; on the CPU the plain versions take it."""
-    def no_load(name):
-        raise AssertionError("a refused head dim must not load a kernel library")
+    """A CUDA tensor wider than the widest instance no longer raises: each
+    wrapper launches the column-window kernel of its library once (the
+    width it is given is the padding copy's at 257), counted under the
+    window kernel's instance; on the CPU the plain versions take it."""
+    calls = []
 
-    monkeypatch.setattr(_build, "load", no_load)
+    def load(name):
+        def entry(entry_name):
+            def fn(*args):
+                calls.append((name, entry_name, args))
+                return 0
+            return fn
+        return types.SimpleNamespace(**{e: entry(e) for e in ("rt_flash_fwd", "rt_flash_dq", "rt_flash_dkv")})
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(tfa, "launches", dict.fromkeys(tfa.launches, 0))
+    monkeypatch.setattr(tfa, "launches_f32", dict.fromkeys(tfa.launches, 0))
     monkeypatch.setattr(tfa, "launches_by_instance", {})
-    before = dict(tfa.launches)
     x = torch.zeros(2, 16, head_dim, dtype=torch.bfloat16)
     q, lse = _cuda_like(x), _cuda_like(torch.zeros(2, 16))
-    for call in (lambda: tfa.flash_fwd(q, q, q, True), lambda: tfa.flash_dq(q, q, q, q, lse, lse, True),
-                 lambda: tfa.flash_dkv(q, q, q, q, lse, lse, True)):
-        with pytest.raises(ValueError, match="head dim"):
-            call()
-    assert tfa.launches == before and tfa.launches_by_instance == {}
+    outs = [tfa.flash_fwd(q, q, q, True)[0], tfa.flash_dq(q, q, q, q, lse, lse, True),
+            *tfa.flash_dkv(q, q, q, q, lse, lse, True)]
+    assert all(o.shape == x.shape for o in outs)
+    width = -(-head_dim // 8) * 8
+    assert [(n, e) for n, e, _ in calls] == [("flash_attention", e) for e in ("rt_flash_fwd", "rt_flash_dq",
+                                                                              "rt_flash_dkv")]
+    assert all(args[n_ptrs + 3] == width for (_, _, args), n_ptrs in zip(calls, (5, 7, 8)))
+    assert tfa.launches == dict.fromkeys(tfa.launches, 1)
+    assert tfa.launches_by_instance == {
+        f"{name} d{head_dim} on d{tfa.WIDE_WINDOWS[name]}x{-(-head_dim // tfa.WIDE_WINDOWS[name])} bfloat16": 1
+        for name in tfa.launches}
     assert tfa.flash_fwd(x, x, x, True)[0].shape == x.shape
 
 

@@ -216,24 +216,26 @@ def _operands(case):
         q = k = do = _cuda_like(2, 32, 32, dtype=torch.int32)
     elif case == "head_dim_264":
         q = k = do = _cuda_like(2, 32, 264, dtype=bf)
+    elif case == "head_dim_0":
+        q = k = do = _cuda_like(2, 32, 0, dtype=bf)
     return q, k, do, lse
 
 
-@pytest.mark.parametrize("case", ["k_f32", "do_f32", "f16_operands"])
+@pytest.mark.parametrize("case", ["k_f32", "do_f32", "f16_operands", "head_dim_264"])
 def test_check_takes_f16_and_mixed_operands(case):
-    """f16 operands, and operands of mixed dtypes (an f32 K beside bf16 Q
-    and V, an f32 dO), are taken on a CUDA tensor: the f16 kernels, or the
-    mixed route, serve them."""
+    """f16 operands, operands of mixed dtypes (an f32 K beside bf16 Q and
+    V, an f32 dO) and a head dim above 256 are taken on a CUDA tensor: the
+    f16 kernels, the mixed route or the column-window kernels serve them."""
     q, k, do, lse = _operands(case)
     tfa._check(q, k, k, True, do, lse, lse)
 
 
-@pytest.mark.parametrize("case", ["lse_bf16", "head_dim_264", "f64_operands", "int_operands"])
+@pytest.mark.parametrize("case", ["lse_bf16", "head_dim_0", "f64_operands", "int_operands"])
 def test_check_rejects_other_dtypes_and_head_dims(case):
-    """lse or delta other than f32, a head dim above 256, and f64 or integer
+    """lse or delta other than f32, a head dim below 1, and f64 or integer
     operands raise on a CUDA tensor."""
     q, k, do, lse = _operands(case)
-    match = {"lse_bf16": "f32 lse", "head_dim_264": "head dim"}.get(case, "bf16, f16 or f32 operands")
+    match = {"lse_bf16": "f32 lse", "head_dim_0": "head dim"}.get(case, "bf16, f16 or f32 operands")
     with pytest.raises(ValueError, match=match):
         tfa._check(q, k, k, True, do, lse, lse)
 
