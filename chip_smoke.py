@@ -4,7 +4,11 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. name the card and its power limit (nvidia-smi); turn TF32 off for f32
-     products (matmul and cuDNN); build the four kernel libraries from
+     products (matmul and cuDNN); profile a small kernel up to three times
+     and say whether torch.profiler records device time (where a trace
+     holds none, or fewer kernels than the host launched in it, the device
+     times it would give are printed as "not measured" and the CUDA-event
+     times stand); build the four kernel libraries from
      ray_tpu_torch/ops/csrc with nvcc at once (bf16 operands:
      flash_attention.cu; f16: flash_attention_f16.cu, the same kernels for
      f16; f32: flash_attention_f32.cu; mixed dtypes:
@@ -15,10 +19,14 @@ Phases (any failure exits non-zero and prints no result):
      head dim (16, 32, 64, 128, 256; dK/dV's 256 as its dV and dK passes),
      operand type (bf16, f16) and output type (the operands', f32), and each
      f32 and mixed instance's (all three kernels are 3xTF32 on tf32 wgmma
-     fed by TMA), and each column-window kernel's (head dims above 256,
+     fed by TMA), the f32 and mixed dQ and dK/dV above head dim 256 on
+     clusters of column slices (flash_f32_{dq,dkv}_slices_kernel: HGMMA and
+     UTMALDG too; their registers, spills, shared-memory plans and cluster
+     sizes printed), and each column-window kernel's (head dims above 256,
      csrc/flash_wide.cuh, in every library) mma.sync (HMMA) and cp.async
      (LDGSTS) instructions, and fail if an instance lacks them, an f32,
-     mixed or column-window instance spills or a head dim has no instance;
+     mixed, slices or column-window instance spills or a head dim has no
+     instance;
   2. hold each kernel against its plain PyTorch version on the card, on bf16
      inputs from a seeded generator, at the train step's shape, at head dim
      16, at a ragged T, non-causal with Tk != Tq, and non-causal with Tk
@@ -68,16 +76,21 @@ Phases (any failure exits non-zero and prints no result):
      only mixed instances launched; the mixed route timed at B 8, H 12, Dh
      64 ((q, k, v) bf16/f32/bf16) beside its bound, plain versions and
      SDPA on the operands cast to f32. Then head dims above 256, the
-     column-window kernels (WIDE_CASES): gpt2-small's width as 3 heads of
+     column-window kernels (WIDE_CASES; the f32 and mixed dQ and dK/dV on
+     clusters of column slices up to 1024): gpt2-small's width as 3 heads of
      264, 2 of 384 and 1 of 768 (B 32, T 1024, causal), gpt2-medium's as 2
      of 512 and 1 of 1024 (B 8), f16 at 384, f32 at 384 and 512, a mix at
      320, f32 outputs of bf16 operands at 384, ragged causal, non-causal
-     and wrapping, each held by its operands' gates with one launch of its
-     window instance a call, dQ twice for the same bits, the first ten
-     timed beside their bounds (the function's FLOPs, not the windows'
-     recompute), plain versions and SDPA with the backend it took; and the
-     window check: at Dh 512 with columns 256-511 of q, k, v and dO copied
-     from 0-255, each output's halves bitwise equal;
+     and wrapping, f32 at 768 and 1024 (clusters of 6 and 8 blocks) and at
+     1280 (the windows again), each held by its operands' gates with one
+     launch of its window or cluster instance a call, dQ twice for the same
+     bits, the first ten timed beside their bounds (the function's FLOPs,
+     not the windows' recompute), plain versions, SDPA with the backend it
+     took and (the slices, text only) the column-window kernels' times
+     before them (PERF.md);
+     and the window check: at Dh 512 with columns 256-511 of q, k, v and dO
+     copied from 0-255, each output's halves bitwise equal, in bf16 and in
+     f32 (the slices: the cluster's four blocks sum one S, P and dS);
   3. train gpt2-small at full width through the port's entry points
      (ray_tpu_torch.bench.setup: random init from a seeded generator,
      AdamW, flash attention, fused CE, B=32, T=1024): first hold step 0's
@@ -525,14 +538,21 @@ def _launch_counts() -> tuple:
 
 
 def _device_kernels(prof, what: str) -> list:
-    """The kernels, copies and fills of a torch.profiler trace
-    (``bench.device_kernels``); fails if there are none."""
+    """The kernels, copies and fills of a torch.profiler trace, or [] where
+    the trace does not measure the card (``bench.measured_kernels``: no
+    device time, or kernels lost): says so, and the device time of
+    ``what`` is then not measured."""
     from ray_tpu_torch import bench
 
-    kernels = bench.device_kernels(prof)
-    if not kernels:
-        fail(f"the profiler recorded no device time for {what}")
+    kernels, why = bench.measured_kernels(prof)
+    if why:
+        print(f"the profiler's trace of {what} holds {why}: its device time is not measured", flush=True)
     return kernels
+
+
+def _ms_text(ms: float, digits: int = 4) -> str:
+    """A device time in ms, or "not measured" where it is nan."""
+    return "not measured" if math.isnan(ms) else f"{ms:.{digits}f} ms"
 
 
 # ---------------------------------------------------------------------------
@@ -552,6 +572,10 @@ def identify() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    window = bench.profiler_ready()
+    print(f"torch.profiler: window {window} of 3 over a small kernel measured the card" if window
+          else "torch.profiler: no window of 3 over a small kernel measured the card (each trace below "
+          "is checked again; where it fails, its device time is not measured)", flush=True)
     return smi
 
 
@@ -577,6 +601,12 @@ ELEMENT_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}  # man
 # mixed library's).
 WIDE_KERNEL_NAME = (r"(flash_wide_(?:fwd|dq|dkv)_kernel)I(13__nv_bfloat16|6__half|f)"
                     r"(13__nv_bfloat16|6__half|f|S\d*_)Lb([01])E")
+# The f32 and mixed dQ and dK/dV above head dim 256 on clusters of column
+# slices (F32_SOURCE's flash_f32_{dq,dkv}_slices_kernel): the kernel and its
+# rounding flag (1: the mixed library's).
+SLICES_KERNEL_NAME = r"(flash_f32_(?:dq|dkv)_slices_kernel)ILb([01])E"
+# The head dims whose cluster sizes phase 1 prints (the smoke's slices cases).
+SLICE_DIMS_SHOWN = (320, 384, 512, 520, 768, 1024)
 
 
 def _instance_name(found) -> str:
@@ -609,6 +639,33 @@ def wide_smem_plans(elem: int) -> dict:
     }
 
 
+def slice_tiles() -> dict:
+    """``SliceTiles`` of F32_SOURCE (the f32 and mixed dQ and dK/dV above
+    head dim 256 on clusters of column slices): {NAME: int}."""
+    text = (Path(__file__).resolve().parent / F32_SOURCE).read_text()
+    body = re.search(r"^struct SliceTiles \{(.*?)^\};", text, re.M | re.S)[1]
+    return {name: int(value) for name, value in re.findall(r"(\w+) = (\d+)", body)}
+
+
+def slice_smem_plans() -> dict:
+    """The slices kernels' dynamic shared memory in bytes (SliceDqPlan and
+    SliceDkvPlan of F32_SOURCE, from slice_tiles()): the block's 64 rows
+    split (four [64 x SLICE] f32 tiles), the ring of stages (dQ: six [BK x
+    SLICE] tiles, K, V and K^T split; dK/dV: eight, Q, dO, Q^T and dO^T
+    split), the raw slots, dK/dV's lse and delta, the mbarriers, and 1,024
+    bytes of alignment slack."""
+    t = slice_tiles()
+    tile = lambda rows: rows * t["SLICE"] * 4  # noqa: E731
+    out = {}
+    for name, rows, parts, extra in (("flash_dq", t["DQ_BK"], 6, 0), ("flash_dkv", t["DKV_BQ"], 8, 1)):
+        kind = "DQ" if name == "flash_dq" else "DKV"
+        stages, raw = t[f"{kind}_STAGES"], t[f"{kind}_RAW"]
+        feed = 2 * (raw if raw else stages) + 2 * stages
+        bar_off = 4 * tile(64) + stages * parts * tile(rows) + raw * 2 * tile(rows) + extra * stages * 2 * rows * 4
+        out[name] = 1024 + bar_off + 8 * (2 + feed + 2 * stages)
+    return out
+
+
 def _wide_instance_name(found) -> str:
     """"wide <operands>-><outputs>" of a WIDE_KERNEL_NAME match."""
     ops = "mixed" if found[4] == "1" else ELEMENT_TYPES[found[2]]
@@ -621,6 +678,9 @@ def _kernel_entry(line: str):
     found = re.search(KERNEL_NAME, line)
     if found:
         return found[1], _instance_name(found)
+    found = re.search(SLICES_KERNEL_NAME, line)
+    if found:
+        return found[1], f"slices {'mixed' if found[2] == '1' else 'f32'}->f32"
     found = re.search(WIDE_KERNEL_NAME, line)
     return (found[1], _wide_instance_name(found)) if found else None
 
@@ -660,8 +720,14 @@ def build() -> dict:
     print(f"spills: {'; '.join(spills) if spills else 'none in any instance of any library'}", flush=True)
     print("column-window kernels' shared memory (bytes, 16-bit / f32 operands): " + ", ".join(
         f"{name} {wide_smem_plans(2)[name]} / {wide_smem_plans(4)[name]}" for name in KERNELS), flush=True)
+    t = slice_tiles()
+    print(f"slices kernels (f32 and mixed dQ, dK/dV at Dh 257-{t['SLICE'] * t['MAX_SLICES']}): shared memory "
+          + ", ".join(f"{n} {b} B" for n, b in slice_smem_plans().items())
+          + f" a block; {(t['LOADER_WGS'] + 2) * 128} threads (loading warpgroups and two consumers); a cluster"
+          f" of ceil(Dh / {t['SLICE']}) blocks: "
+          + ", ".join(f"Dh {d} {-(-d // t['SLICE'])}" for d in SLICE_DIMS_SHOWN), flush=True)
     if any(entry.startswith(("flash_f32_", "flash_wide_")) for entry in spills):
-        fail(f"an f32, mixed or column-window instance spills: {spills}")
+        fail(f"an f32, mixed, slices or column-window instance spills: {spills}")
     counts = {name: {} for name in KERNELS}
     with ThreadPoolExecutor(len(paths)) as pool:  # one cuobjdump each, at once
         per_library = list(pool.map(lambda path: sass_counts(path, SASS_OPS), paths.values()))
@@ -682,6 +748,12 @@ def build() -> dict:
         wide = {inst for inst in counts[name] if inst.startswith("wide ")}
         if wide != {f"wide {ops}" for ops in operands}:
             fail(f"{name}: the libraries hold column-window instances {sorted(wide)}; expected {operands}")
+        # the f32 and mixed dQ and dK/dV's clusters of slices (wgmma fed by TMA)
+        slices = {inst for inst in counts[name] if inst.startswith("slices ")}
+        want_slices = {"slices f32->f32", "slices mixed->f32"} if name != "flash_fwd" else set()
+        if slices != want_slices:
+            fail(f"{name}: the libraries hold cluster instances {sorted(slices)}; expected {sorted(want_slices)}")
+        wide |= slices
         # every head dim's instance, in every operand and output type; dK/dV's
         # head dim 256 as its two passes
         want = {f"d{d} {ops}" for d in fa.HEAD_DIMS for ops in operands}
@@ -717,7 +789,7 @@ def sass_counts(lib: Path, ops: dict) -> dict:
         head, _, body = function.partition("\n")
         found = _kernel_entry("Function :" + head)
         if found:
-            name = found[0].replace("_f32", "").replace("_wide", "").removesuffix("_kernel")
+            name = found[0].replace("_f32", "").replace("_wide", "").replace("_slices", "").removesuffix("_kernel")
             current = counts[name].setdefault(found[1], dict.fromkeys(ops, 0))
             for key, pattern in lines_with.items():
                 current[key] += len(pattern.findall(body))
@@ -1069,7 +1141,8 @@ def check_f32_operands(card: str) -> dict:
             "flash_dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
             "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal)}, D)
         print(f"f32 kernels at {where}, CUDA events against the profiler's device time per call: " + ", ".join(
-            f"{n} {timed[n]['ms']:.4f} / {device[n]:.4f} ms" for n in KERNELS) + f" [{card}]", flush=True)
+            f"{n} {timed[n]['ms']:.4f} ms / {_ms_text(device[n])}" for n in KERNELS) + f" [{card}]",
+            flush=True)
         fwd = timed["flash_fwd"]
         print(f"f32 forward at {where}: {fwd['ms']:.4f} ms, SDPA's forward {fwd['library_ms']:.4f} ms "
               f"({fwd['ms'] / fwd['library_ms']:.2f}x), bound {fwd['bound_ms']:.4f} ms; "
@@ -1250,9 +1323,12 @@ def check_refused_dtypes() -> None:
 # 384; f32 at 384 (phase 14's f32 run) and 512 (B 8); a mix at 320; 16-bit
 # operands with f32 outputs (ring attention's block entries) at 384; then
 # ragged causal, non-causal with Tk != Tq and wrapping, at widths the
-# padding copy does not take and does (520; 260 in bf16). Held by the
-# gates of their operands (phase 2's rule, f32's limits, a mix's), timed
-# all but the last three.
+# padding copy does not take and does (520; 260 in bf16); then f32 at 768
+# and 1024 (non-causal and causal), the widest clusters (6 and 8 blocks),
+# and at 1280, where dQ and dK/dV take the column windows again (more
+# slices than a cluster holds). The f32 and mixed dQ and dK/dV up to 1024
+# run on clusters of slices. Held by the gates of their operands (phase 2's
+# rule, f32's limits, a mix's), timed all but the last six.
 BF16, F16, F32 = (torch.bfloat16,) * 3, (torch.float16,) * 3, (torch.float32,) * 3
 WIDE_CASES = (
     ((32, 1024, 1024, 3, 264, True), BF16, False), ((32, 1024, 1024, 2, 384, True), BF16, False),
@@ -1262,10 +1338,18 @@ WIDE_CASES = (
     ((8, 1024, 1024, 2, 320, True), (torch.bfloat16, torch.float32, torch.bfloat16), False),
     ((32, 1024, 1024, 2, 384, True), BF16, True),
     ((2, 1000, 1000, 2, 384, True), BF16, False), ((2, 200, 333, 2, 520, False), F32, False),
-    ((2, 300, 1100, 2, 260, False), BF16, False),
+    ((2, 300, 1100, 2, 260, False), BF16, False), ((2, 256, 256, 1, 768, False), F32, False),
+    ((1, 256, 256, 1, 1024, True), F32, False), ((1, 256, 256, 1, 1280, True), F32, False),
 )
 WIDE_TIMED = 10  # the first ten cases
-WIDE_WINDOW_CASE = (8, 1024, 1024, 2, 512, True)  # the window check's (bf16)
+WIDE_WINDOW_CASE = (8, 1024, 1024, 2, 512, True)  # the window check's (bf16, then f32)
+# The f32 and mixed dQ and dK/dV on the column windows before the clusters
+# of slices took them (ms; chip_smoke.py phase 2 on an NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md section 6): printed in the text line beside this
+# run's, never in the kernels line (not measured here).
+WINDOWS_BEFORE_MS = {"d384 f32": {"flash_dq": 2.3001, "flash_dkv": 3.3137},
+                     "d512 f32": {"flash_dq": 3.0799, "flash_dkv": 4.9401},
+                     "d320 mixed": {"flash_dq": 2.0062, "flash_dkv": 2.7138}}
 
 
 def sdpa_backend(q, k, v, causal: bool) -> str:
@@ -1343,13 +1427,14 @@ def check_wide_head_dims(card: str) -> dict:
         for name in KERNELS:
             _held(name, D, operands, out_f32)
         del o_want, refs, outs
-        if i >= WIDE_TIMED:
-            continue
         again = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, out_f32=out_f32)
         if not torch.equal(dq, again):
             fail(f"two flash_dq calls at {where} differ")
-        print(f"flash_dq at {where}: two calls give the same bits", flush=True)
+        print(f"flash_dq at {where} ({fa.instance('flash_dq', D, operands)}): two calls give the same bits",
+              flush=True)
         del again
+        if i >= WIDE_TIMED:
+            continue
         key = _instance_key(D, dtypes[0]) if not mixed else f"d{D} mixed"
         key += "->f32" if out_f32 else ""
         timed = time_wide(case, q, k, v, do, lse, delta, gaps, card, dtypes, out_f32)
@@ -1394,21 +1479,35 @@ def time_wide(case, q, k, v, do, lse, delta, gaps, card, dtypes, out_f32: bool) 
     library = {"flash_fwd": sdpa_fwd, "flash_dq": sdpa_bwd, "flash_dkv": sdpa_bwd}
     err_of = {"flash_fwd": gaps["o"]["max_abs"], "flash_dq": gaps["dq"]["max_abs"],
               "flash_dkv": max(gaps["dk"]["max_abs"], gaps["dv"]["max_abs"])}
+    operands = "mixed" if len(set(dtypes)) > 1 else dtypes[0]
+    before = WINDOWS_BEFORE_MS.get(f"d{D} {SHORT[operands]}", {})
     results = {}
     for name in KERNELS:
+        sliced = fa.sliced(name, D, operands)
         results[name] = {
             "max_abs_err": err_of[name], "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": bnd[name][0], "bound_by": bnd[name][1], "library_ms": library[name],
             "sdpa_backend": backend, "launches_a_call": fa.kernel_passes(name, D),
-            "windows": fa.windows(name, D),
+            "windows": fa.windows(name, D, operands),
         }
+        route = ""
+        if D > fa.HEAD_DIMS[-1]:
+            route = (f" ({fa.windows(name, D, operands)} {'blocks of a cluster' if sliced else 'windows'}"
+                     f" of {fa.window_width(name, D, operands)} columns)")
         print(f"time {name} at B={B} T={T} Tk={Tk} H={H} Dh={D} causal={causal}, "
-              + "/".join(SHORT[t] for t in dtypes) + (" -> f32" if out_f32 else "")
-              + (f" ({fa.windows(name, D)} windows of {fa.WIDE_WINDOWS[name]})" if D > fa.HEAD_DIMS[-1] else "")
+              + "/".join(SHORT[t] for t in dtypes) + (" -> f32" if out_f32 else "") + route
               + f": kernel {ms[name]:.4f} ms, bound "
               f"{bnd[name][0]:.4f} ms ({bnd[name][1]}), {ms[name] / bnd[name][0]:.1f}x; plain {plain_ms[name]:.4f} ms, "
               f"SDPA ({backend}, {'backward: dq, dk and dv in one call' if name != 'flash_fwd' else 'forward'}) "
-              f"{library[name]:.4f} ms [{card}]", flush=True)
+              f"{library[name]:.4f} ms"
+              + (f"; the column windows before (PERF.md, not this run) {before[name]} ms" if name in before else "")
+              + f" [{card}]", flush=True)
+    if before:
+        new = ms["flash_dq"] + ms["flash_dkv"]
+        old = before["flash_dq"] + before["flash_dkv"]
+        print(f"dQ + dK/dV at Dh={D} {SHORT[operands]}: {new:.4f} ms on the clusters of slices, SDPA's backward "
+              f"{sdpa_bwd:.4f} ms ({new / sdpa_bwd:.2f}x); the column windows' {old:.4f} ms (PERF.md, not this run: "
+              f"{old / new:.2f}x this run's) [{card}]", flush=True)
     del qs, ks, vs, dos, out
     return results
 
@@ -1419,24 +1518,30 @@ def window_check() -> None:
     columns 256-511 of q, k, v and dO copied from 0-255, each output's two
     halves are bitwise equal (every window recomputes S, P and dS over the
     whole head dim in one order, and the copied columns feed the same
-    products in the same places)."""
+    products in the same places). Then the same in f32, where dQ and dK/dV
+    run on a cluster of four 128-column slices: every block sums the four
+    partial scores in rank order into one S, P and dS, and blocks 2 and 3
+    multiply them by the same columns as blocks 0 and 1."""
     from ray_tpu_torch.ops import flash_attention as fa
 
     B, T, Tk, H, D, causal = WIDE_WINDOW_CASE
-    q, k, v, do = _case_inputs(WIDE_WINDOW_CASE, BF16, seed=512)
-    for x in (q, k, v, do):
-        x[..., D // 2:] = x[..., :D // 2]
-    o, lse = fa.flash_fwd(q, k, v, causal)
-    delta = (do.float() * o.float()).sum(-1)
-    dq = fa.flash_dq(q, k, v, do, lse, delta, causal)
-    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal)
-    torch.cuda.synchronize()
-    equal = {n: torch.equal(x[..., :D // 2], x[..., D // 2:]) for n, x in (("o", o), ("dq", dq), ("dk", dk),
-                                                                           ("dv", dv))}
-    print(f"window check at B={B} T={T} H={H} Dh={D}, columns 256-511 of q, k, v, dO copied from 0-255: "
-          f"halves bitwise equal {equal}", flush=True)
-    if not all(equal.values()):
-        fail(f"the windows of the column-window kernels disagree: halves equal {equal}")
+    for dtypes in (BF16, F32):
+        q, k, v, do = _case_inputs(WIDE_WINDOW_CASE, dtypes, seed=512)
+        for x in (q, k, v, do):
+            x[..., D // 2:] = x[..., :D // 2]
+        _zero_launches()
+        o, lse = fa.flash_fwd(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = fa.flash_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        equal = {n: torch.equal(x[..., :D // 2], x[..., D // 2:]) for n, x in (("o", o), ("dq", dq), ("dk", dk),
+                                                                               ("dv", dv))}
+        print(f"window check at B={B} T={T} H={H} Dh={D} {SHORT[dtypes[0]]}, columns 256-511 of q, k, v, dO "
+              f"copied from 0-255: halves bitwise equal {equal}; launches {_instance_counts()}", flush=True)
+        if not all(equal.values()):
+            fail(f"the {SHORT[dtypes[0]]} column-window or cluster kernels disagree: halves equal {equal}")
+        del q, k, v, do, o, lse, delta, dq, dk, dv
 
 
 # The mixed route timed (bf16 q and v, f32 k, dO in q's), the library call
@@ -1470,17 +1575,17 @@ def _device_ms(calls: dict, head_dim: int, rounds: int = 10) -> dict:
     ``head_dim``), from one torch.profiler window of ``rounds`` calls of
     each, which must show exactly the kernels those calls launch
     (fa.kernel_passes: dK/dV's two passes at head dim 256), added up per
-    call."""
-    from torch.profiler import ProfilerActivity, profile
-
+    call; nan (not measured) if the trace does not measure the card."""
+    from ray_tpu_torch import bench
     from ray_tpu_torch.ops import flash_attention as fa
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with bench.card_trace() as prof:
         for _ in range(rounds):
             for call in calls.values():
                 call()
-        torch.cuda.synchronize()
     kernels = _device_kernels(prof, "the f32 kernels")
+    if not kernels:
+        return dict.fromkeys(calls, float("nan"))
     out = {}
     for name in calls:
         kernel = name.replace("flash_", "flash_f32_") + "_kernel"
@@ -1680,7 +1785,7 @@ def remat_policies(card: str) -> dict:
         want = design_launches(run.cfg, policy is not None)
         med = statistics.median(times)
         print(f"remat {label}: step 0 loss {loss:.6f} ({check}); median of {REMAT_STEPS} steps "
-              f"{med:.2f} ms ({', '.join(f'{t:.2f}' for t in times)}); device busy {busy:.2f} ms "
+              f"{med:.2f} ms ({', '.join(f'{t:.2f}' for t in times)}); device busy {_ms_text(busy, 2)} "
               f"of a profiled step ({100 * (1 - busy / med):.1f}% of the median idle); peak memory "
               f"{peak:.2f} GiB; launches per step {per_step} [{card}]", flush=True)
         if per_step != want:
@@ -1831,8 +1936,6 @@ def time_decode_step(model, cfg, lengths: list, card: str) -> None:
     steps, CUDA events per step, and the device's busy time per step from
     torch.profiler, whose share of the wall time says how far the host holds
     the card back (eager PyTorch, one launch per op)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from ray_tpu_torch import bench
     from ray_tpu_torch.models import gpt2_decode as dec
 
@@ -1858,18 +1961,18 @@ def time_decode_step(model, cfg, lengths: list, card: str) -> None:
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / DECODE_TIMED_STEPS
     event_ms = bench.time_ms(step, iters=DECODE_TIMED_STEPS)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with bench.card_trace() as prof:
         t0 = time.perf_counter()
         for _ in range(DECODE_PROFILED_STEPS):
             step()
         torch.cuda.synchronize()
         traced_us = (time.perf_counter() - t0) * 1e6
     kernels = _device_kernels(prof, "the decode step")
-    busy_ms = bench.union_us([(ev.time_range.start, ev.time_range.end) for ev in kernels]) / 1e3
-    busy_ms /= DECODE_PROFILED_STEPS
+    busy_ms = (bench.union_us([(ev.time_range.start, ev.time_range.end) for ev in kernels]) / 1e3
+               / DECODE_PROFILED_STEPS if kernels else float("nan"))
     print(f"decode step ({SERVE_MODEL}, {S} rows, virtual rows of {max_pages * B}): wall "
           f"{wall_ms:.3f} ms ({S / wall_ms * 1e3:.1f} decode tokens/s), CUDA events "
-          f"{event_ms:.3f} ms, device busy {busy_ms:.3f} ms ({100 * (1 - busy_ms / wall_ms):.1f}% "
+          f"{event_ms:.3f} ms, device busy {_ms_text(busy_ms, 3)} ({100 * (1 - busy_ms / wall_ms):.1f}% "
           f"of the wall idle; the profiled steps took {traced_us / DECODE_PROFILED_STEPS / 1e3:.3f} "
           f"ms each), {len(kernels) / DECODE_PROFILED_STEPS:.0f} kernels per step [{card}]",
           flush=True)
@@ -2140,18 +2243,6 @@ def check_f32_blocks(card: str, operands: torch.dtype = torch.bfloat16) -> dict:
     return info
 
 
-def _device_split(fn) -> tuple:
-    """One profiled call of ``fn``: device ms in the three flash kernels, and
-    in everything else (the merges, accumulations, folds and casts), with the
-    largest of the rest by name (``bench.device_split``)."""
-    from ray_tpu_torch import bench
-
-    try:
-        return bench.device_split(fn)
-    except RuntimeError as e:
-        fail(f"{e} for the ring")
-
-
 def check_ring(card: str) -> tuple:
     """The ring of RING_RANKS ranks emulated on the card at RING_SHAPE,
     forward and backward through ring_attention's step functions, against
@@ -2222,9 +2313,9 @@ def time_ring(x: dict, shards: dict, leaves: list, card: str, shape: tuple = RIN
     for label, fn, wall, bound in (("forward", ring_fwd, ms["ring_fwd"], bound_fwd),
                                    ("forward+backward", ring_all, ms["ring_all"],
                                     bound_fwd + bound_bwd)):
-        flash, rest, top = _device_split(fn)
+        flash, rest, top = bench.device_split(fn)
         print(f"{what} {label}: {wall:.3f} ms (CUDA events), device time in the flash "
-              f"kernels {flash:.3f} ms, outside them {rest:.3f} ms ({100 * rest / (flash + rest):.1f}% "
+              f"kernels {_ms_text(flash, 3)}, outside them {_ms_text(rest, 3)} ({100 * rest / (flash + rest):.1f}% "
               f"of the device time; merges, accumulations, folds, casts), bound {bound:.3f} ms "
               f"[{card}]", flush=True)
         print("  largest outside the kernels (ms): " + "; ".join(
@@ -2448,9 +2539,9 @@ def sharded_step(card: str, unsharded: tuple) -> None:
             del got
             times, per_step, peak, busy = bench.timed_steps(run, run.batches[1:], warmup=0)
             print(f"sharded step: median of {SHARD_STEPS} steps {statistics.median(times):.2f} ms "
-                  f"({', '.join(f'{t:.2f}' for t in times)}), device busy {busy:.2f} ms, peak memory "
+                  f"({', '.join(f'{t:.2f}' for t in times)}), device busy {_ms_text(busy, 2)}, peak memory "
                   f"{peak:.2f} GiB; unsharded (phase 3, no remat): {unsharded[0]:.2f} ms, device busy "
-                  f"{unsharded[2]:.2f} ms, {unsharded[1]:.2f} GiB; launches per step {per_step} "
+                  f"{_ms_text(unsharded[2], 2)}, {unsharded[1]:.2f} GiB; launches per step {per_step} "
                   f"[{card}]", flush=True)
             if per_step != design:
                 fail(f"the sharded step launched {per_step} per step; the design says {design}")
@@ -5032,6 +5123,10 @@ def main() -> None:
                      tune_trial_launches_a_step=[t[name] for t in libs["trials"]],
                      job_task_launches_a_step=libs["job"][name],
                      autoscaled_domain_launches_a_step=libs["domain"][name])
+        if name != "flash_fwd":  # the f32 and mixed dQ and dK/dV above 256: clusters of column slices
+            entry["slices"] = dict(
+                source=F32_SOURCE, kernel=f"flash_f32_{name.removeprefix('flash_')}_slices_kernel",
+                instances={inst: sass[name][inst] for inst in sorted(sass[name]) if inst.startswith("slices ")})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,12 +20,15 @@ Also how a run of that step is timed and its launches counted
 agreement rule that ``chip_smoke.py`` and the CUDA tests hold a kernel to
 against its plain version (``disagreement``), the timer of a call on the
 card (``time_ms``), its device busy time under torch.profiler
-(``busy_ms``) and that time split between named kernels and the rest
-(``device_split``).
+(``busy_ms``), that time split between named kernels and the rest
+(``device_split``), whether a trace measures the card
+(``measured_kernels``) and whether the profiler records device time at all
+(``profiler_ready``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -424,18 +427,79 @@ def device_kernels(prof) -> list:
     return [ev for ev in events if ev.device_type == DeviceType.CUDA and ev.name not in host]
 
 
-def busy_ms(fn: Callable[[], object]) -> float:
-    """Device busy time of one call of ``fn`` on the card: the union of its
-    kernels' intervals under torch.profiler, in ms. Raises if the trace
-    holds no device time."""
+# Launches of a kernel of the trace's own (torch.cuda._sleep's spin kernel)
+# that open each ``card_trace`` window before the work it measures.
+PAD_KERNELS = 16
+PAD_KERNEL = "spin_kernel"
+
+
+@contextlib.contextmanager
+def card_trace():
+    """A torch.profiler window (host and card) around its body, opened by
+    PAD_KERNELS launches of the pad kernel, which ``measured_kernels``
+    leaves out. Traces on some H100 machines lost the first 7-9 kernels of
+    every window, whether or not the card had idled 50 ms in it first: the
+    pads are there to be what is lost."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(PAD_KERNELS):
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
-    kernels = device_kernels(prof)
+        yield prof
+        torch.cuda.synchronize()
+
+
+def measured_kernels(prof) -> Tuple[list, str]:
+    """(the kernels, copies and fills of a ``card_trace`` window but its
+    pads, "") where the trace measures the card: it holds a pad and a
+    kernel for every other kernel launch the host made in it. Else ([],
+    why not). On some H100 machines a process's profiler has recorded no
+    device time, or lost some of a window's kernels; a caller then writes
+    "not measured" where it would give a device time, and its CUDA-event
+    times stand."""
+    from torch.autograd import DeviceType
+
+    traced = device_kernels(prof)
+    kernels = [ev for ev in traced if PAD_KERNEL not in ev.name]
+    if len(kernels) == len(traced):
+        return [], "no pad kernel" if kernels else "no device time"
+    launched = sorted(ev.time_range.start for ev in prof.events()
+                      if ev.device_type == DeviceType.CPU and "LaunchKernel" in ev.name)[PAD_KERNELS:]
+    ran = [ev.time_range.start for ev in kernels if not ev.name.startswith(("Memcpy", "Memset"))]
+    if len(ran) < len(launched):
+        return [], (f"{len(ran)} kernels for {len(launched)} launches (the first kernel starts "
+                    f"{(min(ran, default=0) - launched[0]) / 1e3:.3f} ms after the first launch)")
+    return kernels, ""
+
+
+def device_trace(fn: Callable[[], object]) -> list:
+    """The kernels, copies and fills of one call of ``fn`` on the card under
+    torch.profiler (``card_trace``), or [] where the trace does not measure
+    the card (``measured_kernels``)."""
+    with card_trace() as prof:
+        fn()
+    return measured_kernels(prof)[0]
+
+
+def profiler_ready(windows: int = 3, device: DeviceLike = "cuda") -> int:
+    """Profile one small kernel up to ``windows`` times, until a trace
+    measures the card (``measured_kernels``): the number of that window (1
+    for the first), or 0 if none did."""
+    x = torch.ones(1024, device=device)
+    for window in range(1, windows + 1):
+        if device_trace(lambda: x.mul_(1.0)):
+            return window
+    return 0
+
+
+def busy_ms(fn: Callable[[], object]) -> float:
+    """Device busy time of one call of ``fn`` on the card: the union of its
+    kernels' intervals under torch.profiler, in ms; nan (not measured) if
+    the trace does not measure the card (``measured_kernels``)."""
+    kernels = device_trace(fn)
     if not kernels:
-        raise RuntimeError("the profiler recorded no device time")
+        return float("nan")
     return union_us([(ev.time_range.start, ev.time_range.end) for ev in kernels]) / 1e3
 
 
@@ -446,16 +510,12 @@ FLASH_KERNELS = r"flash_(f32_)?(fwd|dq|dkv)_kernel"
 def device_split(fn: Callable[[], object], pattern: str = FLASH_KERNELS) -> tuple:
     """One call of ``fn`` on the card under torch.profiler: (device ms in the
     kernels whose name matches ``pattern``, device ms in every other kernel,
-    copy and fill, the four largest of those as (name, ms)). Raises if the
-    trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof)
+    copy and fill, the four largest of those as (name, ms)); (nan, nan, [])
+    (not measured) if the trace does not measure the card
+    (``measured_kernels``)."""
+    kernels = device_trace(fn)
     if not kernels:
-        raise RuntimeError("the profiler recorded no device time")
+        return float("nan"), float("nan"), []
     matched, by_name = 0.0, {}
     for ev in kernels:
         ms = ev.time_range.elapsed_us() / 1e3

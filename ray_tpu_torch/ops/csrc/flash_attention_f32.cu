@@ -113,6 +113,7 @@
 #include <stdint.h>
 
 #include <type_traits>
+#include <utility>
 
 #include "flash_wide.cuh"
 #include "hopper.cuh"
@@ -465,13 +466,13 @@ __device__ __forceinline__ void meet(float (&acc)[N], float* park, int c, int ti
   }
 }
 
-// A warpgroup's [64 x D] f32 accumulator to rows [row0, row0 + 64) of a
-// contiguous [T, dh] matrix (dh <= D, even), rows past T and columns past dh
-// not written.
+// A warpgroup's [64 x D] f32 accumulator to rows [row0, row0 + 64) and
+// columns [col0, col0 + D) of a contiguous [T, dh] matrix (dh even; col0
+// a slice's first column), rows past T and columns past dh not written.
 template <int D>
 __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 2], int row0, int T, int dh,
-                                           int tid) {
-  const int lane = tid % 32, r = row0 + 16 * (tid / 32) + (lane >> 2), c = 2 * (lane & 3);
+                                           int tid, int col0 = 0) {
+  const int lane = tid % 32, r = row0 + 16 * (tid / 32) + (lane >> 2), c = col0 + 2 * (lane & 3);
   float* p = dst + (size_t)r * dh + c;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -1180,14 +1181,621 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
   }
 }
 
+// ---------------------------------------------------------------------------
+// dQ and dK/dV above head dim 256: a cluster of column slices. Replaces
+// _dq_kernel and _dkv_kernel (ray_tpu/ops/flash_attention.py:135, :168) on
+// f32 inputs (and mixes) at head dims 257-1024, where a [64 x Dh] f32
+// accumulator no longer fits a warpgroup's registers. A cluster of W =
+// ceil(Dh / SLICE) blocks (3 to MAX_SLICES) serves one (head, 64 rows);
+// block w (its rank in the cluster) owns the columns [w SLICE, (w + 1)
+// SLICE) of every operand and of its results, and is the head dim 128
+// kernel above on that slice: its 64 rows split once in shared memory,
+// stages of 16 keys (dQ) or 8 q rows (dK/dV) loaded by TMA at the slice's
+// column offset (columns past Dh arrive as zeros) and split, with way (a)'s
+// transposed copies, two consumer warpgroups on alternate stages, 3xTF32
+// wgmma. Per stage a consumer contracts the scores (S and dP, or S^T and
+// dP^T) over its own slice only, writes those partial sums to an exchange
+// slot of its shared memory and arrives on the matching barrier of every
+// block of the cluster (one arrival per warp and block, released at
+// cluster scope); once all W blocks' partials of that stage are in, it
+// reads them through distributed shared memory and adds them in rank order
+// w = 0 .. W - 1, so every block holds bitwise the same S, P and dS, with
+// no atomics and the same bits on every call (a block's own partial is
+// itself a sum in f32 of SCORE_STEPS k-steps' products at a time: the
+// tensor cores' accumulator rounds toward zero). Then each block applies dQ
+// += dS K (or dV += P^T dO and dK += dS^T Q) on its slice: the slice a
+// block contracts is the slice it writes, so each column of Q, K, V and dO
+// is loaded once a stage across the cluster and the products are the
+// function's own 6 (dQ) or 8 (dK/dV) FLOPs per kept pair and head-dim
+// element, with no recompute. A stage's exchange slot is its natural small
+// tile of V (dQ) or dO (dK/dV), which only the score products read and
+// which holds exactly the two [64 x N] partials: no shared memory of its
+// own, so dQ keeps 16-key stages. Each block's readers arrive on the
+// slot's second barrier once they have read it, and the split pass waits
+// for all of them (cluster scope) before it writes that tile for the
+// stage's next round. The clusters of one launch are (bh x W, row blocks)
+// blocks along x. Bound: the function's FLOPs at 165 TFLOP/s (3xTF32), as
+// the instances'; the exchange's reads of the other blocks' partials cost
+// a quarter of dQ's time at Dh 384 (PERF.md). Above 1024 (more slices than
+// a portable cluster holds), dQ and dK/dV take the column-window kernels
+// of flash_wide.cuh: a choice of shape by head dim.
+// ---------------------------------------------------------------------------
+
+// The slices' traits: the columns a block owns, the cluster's portable
+// limit, per kernel the stage rows, ring depth and raw slots, the loading
+// warpgroups, the blocks whose partials a consumer reads at once (their
+// loads in flight together), and the k-steps of a partial of the scores
+// before it is added in f32 (slice_scores). Chosen by timing variants on an
+// H100 (python3 -m ray_tpu_torch.sweep_flash_f32 --variants slices,
+// PERF.md; f32 Dh 384): dQ's 16-key stages beat 8 keys with three or four
+// stages (0.74 against 0.95 and 0.98 ms); dK/dV's third stage, TMA writing
+// it in place, beats two with raw slots (1.07 against 1.17 ms): the split
+// pass waits for the cluster's reads of a stage before it writes the
+// stage's exchange tile again, and a third stage hides that; four blocks'
+// partials read at once beat two (0.74 against 0.78 ms for dQ). Scores
+// added every two k-steps cost no time against one chain a slice and take
+// the mix's dk gap at Dh 320 from 9.8e-5 to 5.4e-5 (f32's limit: 1e-4).
+// tests/test_torch_flash_f32_split.py reads this block.
+struct SliceTiles {
+  static constexpr int SLICE = 128, MAX_SLICES = 8;
+  static constexpr int DQ_BK = 16, DQ_STAGES = 2, DQ_RAW = 0, DKV_BQ = 8, DKV_STAGES = 3, DKV_RAW = 0;
+  static constexpr int LOADER_WGS = 2, READ_BLOCKS = 4, SCORE_STEPS = 2;
+};
+
+// The blocks of a cluster at head dim d: W = ceil(d / SLICE); 0 where the
+// slices do not serve d (d <= 256 or W > MAX_SLICES).
+__host__ __device__ constexpr int slice_blocks(int d) {
+  return d > 256 && d <= SliceTiles::SLICE * SliceTiles::MAX_SLICES ? (d + SliceTiles::SLICE - 1) / SliceTiles::SLICE
+                                                                    : 0;
+}
+
+// A consumer's partial scores over its slice, two products at once (S
+// and dP, or S^T and dP^T): d0 = A0 B0 and d1 = A1 B1 over the slice's
+// SLICE / 8 k-steps, A and B split in shared memory (mma3_ss's operands
+// and order), SCORE_STEPS k-steps into a partial the first product
+// overwrites, which is then added to d0 or d1 in f32. The tensor cores
+// round their accumulator toward zero, and chained over a slice's 16
+// k-steps those roundings pile up one way: in the mixed library a dS a
+// few f32 ulps off rounds to another bf16 in more places (flash_wide.cuh's
+// product_rows adds each k-step's products the same way). One group's
+// products run while the last group's are added; nothing is left in
+// flight.
+template <int N, class TA, class TB>
+__device__ __forceinline__ void slice_scores(float (&d0)[N / 2], uint64_t a0_big, uint64_t a0_small, uint64_t b0_big,
+                                             uint64_t b0_small, float (&d1)[N / 2], uint64_t a1_big,
+                                             uint64_t a1_small, uint64_t b1_big, uint64_t b1_small) {
+  constexpr int G = SliceTiles::SCORE_STEPS, GROUPS = SliceTiles::SLICE / 8 / G;
+  static_assert(GROUPS * G * 8 == SliceTiles::SLICE, "whole groups of k-steps");
+  float p[2][2][N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d0[i] = d1[i] = 0.f;
+#pragma unroll
+  for (int g = 0; g <= GROUPS; ++g) {
+    if (g < GROUPS) {
+      float(&p0)[N / 2] = p[g & 1][0];
+      float(&p1)[N / 2] = p[g & 1][1];
+      hopper::fence_regs(p0);
+      hopper::fence_regs(p1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < G; ++kk) {
+        const uint64_t ka = TA::k_step(g * G + kk), kb = TB::k_step(g * G + kk);
+        hopper::WgmmaTF32<N>::ss(p0, a0_big + ka, b0_small + kb, kk > 0);
+        hopper::WgmmaTF32<N>::ss(p0, a0_small + ka, b0_big + kb, 1);
+        hopper::WgmmaTF32<N>::ss(p0, a0_big + ka, b0_big + kb, 1);
+        hopper::WgmmaTF32<N>::ss(p1, a1_big + ka, b1_small + kb, kk > 0);
+        hopper::WgmmaTF32<N>::ss(p1, a1_small + ka, b1_big + kb, 1);
+        hopper::WgmmaTF32<N>::ss(p1, a1_big + ka, b1_big + kb, 1);
+      }
+      hopper::wgmma_commit();
+    }
+    if (g > 0) {
+      if (g < GROUPS)
+        hopper::wgmma_wait<1>();
+      else
+        hopper::wgmma_wait<0>();
+      float(&q0)[N / 2] = p[(g - 1) & 1][0];
+      float(&q1)[N / 2] = p[(g - 1) & 1][1];
+      hopper::fence_regs(q0);
+      hopper::fence_regs(q1);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) d0[i] += q0[i], d1[i] += q1[i];
+    }
+  }
+}
+
+// A stage's exchange: the consumer's [64 x N] partial scores (S or S^T)
+// and dP (or dP^T), each thread's N / 2 accumulator values as N / 8
+// float4s, thread-major (a warp reads 512 contiguous bytes), in a dead
+// [N x SLICE] tile of the stage (as many bytes); two barriers a stage
+// (every block's partials are in; every block has read this one's).
+template <int N>
+struct Exchange {
+  static constexpr int F4 = N / 8;
+  static constexpr int BYTES = 2 * F4 * WG_THREADS * 16;
+  static_assert(BYTES == N * SliceTiles::SLICE * 4, "the partials fill one [N x SLICE] f32 tile");
+};
+
+// A consumer's exchange of the stage whose slot is `slot_f` (this block's
+// shared address; the same offset in every block), in the barriers' round
+// of parity `parity`: this block's partials a and b into the slot, one
+// arrival per warp on the stage's `full` barrier in every block of the
+// cluster, the wait for every block's (4 x blocks arrivals), a and b :=
+// the blocks' partials summed in rank order, then one arrival per warp on
+// every block's `done` barrier: this block has read its slot.
+template <int N>
+__device__ __forceinline__ void exchange(float (&a)[N / 2], float (&b)[N / 2], float* slot_f, uint64_t* full,
+                                         uint64_t* done, uint32_t parity, int tid, uint32_t blocks) {
+  constexpr int F4 = Exchange<N>::F4, G = SliceTiles::READ_BLOCKS;  // G blocks' loads in flight at a time
+  float4* slot = reinterpret_cast<float4*>(slot_f);
+#pragma unroll
+  for (int j = 0; j < F4; ++j) {
+    slot[j * WG_THREADS + tid] = make_float4(a[4 * j], a[4 * j + 1], a[4 * j + 2], a[4 * j + 3]);
+    slot[(F4 + j) * WG_THREADS + tid] = make_float4(b[4 * j], b[4 * j + 1], b[4 * j + 2], b[4 * j + 3]);
+  }
+  __syncwarp();  // the warp's writes, ordered before its lanes' releases
+  const uint32_t lane = tid % 32;
+  if (lane < blocks) hopper::mbar_arrive_cluster(hopper::cluster_map(full, lane));
+  hopper::mbar_wait_cluster(full, parity);
+#pragma unroll
+  for (int r0 = 0; r0 < SliceTiles::MAX_SLICES; r0 += G) {
+    if (r0 < (int)blocks) {
+      float4 va[G][F4], vb[G][F4];
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        if (r0 + i < (int)blocks) {
+          const uint32_t at = hopper::cluster_map(slot, r0 + i);
+#pragma unroll
+          for (int j = 0; j < F4; ++j) {
+            va[i][j] = hopper::ld_cluster_f4(at + (j * WG_THREADS + tid) * 16);
+            vb[i][j] = hopper::ld_cluster_f4(at + ((F4 + j) * WG_THREADS + tid) * 16);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        if (r0 + i < (int)blocks) {
+#pragma unroll
+          for (int j = 0; j < F4; ++j) {
+            const float4 u = va[i][j], v = vb[i][j];
+            if (r0 + i == 0) {
+              a[4 * j] = u.x, a[4 * j + 1] = u.y, a[4 * j + 2] = u.z, a[4 * j + 3] = u.w;
+              b[4 * j] = v.x, b[4 * j + 1] = v.y, b[4 * j + 2] = v.z, b[4 * j + 3] = v.w;
+            } else {
+              a[4 * j] += u.x, a[4 * j + 1] += u.y, a[4 * j + 2] += u.z, a[4 * j + 3] += u.w;
+              b[4 * j] += v.x, b[4 * j + 1] += v.y, b[4 * j + 2] += v.z, b[4 * j + 3] += v.w;
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncwarp();  // the warp's reads, ordered before its lanes' releases
+  if (lane < blocks) hopper::mbar_arrive_cluster(hopper::cluster_map(done, lane));
+}
+
+// The split pass, before it writes a stage's exchange slot for tile j:
+// every block has read the slot's partials of tile j - STAGES.
+template <int STAGES>
+__device__ __forceinline__ void slot_free(uint64_t* done, int j) {
+  if (j >= STAGES) hopper::mbar_wait_cluster(&done[j % STAGES], ((j / STAGES) & 1) ^ 1);
+}
+
+// dQ's slices: Q, Q small, dO, dO small of the block's 64 rows (its slice);
+// the ring, a stage being K, K small, V, V small (then the exchange slot),
+// K^T, K^T small of 16 keys; the raw slots; the mbarriers (Q/dO's full and
+// ready, the feed's, the exchange's full and done a stage).
+struct SliceDqPlan {
+  static constexpr int D = SliceTiles::SLICE, BK = SliceTiles::DQ_BK, STAGES = SliceTiles::DQ_STAGES,
+                       RAW = SliceTiles::DQ_RAW;
+  using TA = hopper::TileF<D, ROWS_OWNED>;
+  using TK = hopper::TileF<D, BK>;
+  using TT = hopper::TileF<BK, D>;
+  using F = Feed<STAGES, RAW>;
+  static constexpr int A_BYTES = 4 * TA::BYTES;
+  static constexpr int STAGE_BYTES = 4 * TK::BYTES + 2 * TT::BYTES;
+  static constexpr int RAW_OFF = A_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = RAW_OFF + RAW * 2 * TK::BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + F::BARRIERS + 2 * STAGES);  // + alignment slack
+  static_assert(Exchange<BK>::BYTES == TK::BYTES, "a stage's V small holds the exchange");
+  static_assert(STAGES >= 2 && (RAW == 0 || RAW >= 2), "TMA rings of at least two stages");
+  static_assert(BYTES <= SMEM_LIMIT, "dQ's slices' shared memory does not fit");
+};
+
+template <bool ROUND>
+__global__ void __launch_bounds__(Roles<SliceTiles::LOADER_WGS>::THREADS, 1)
+flash_f32_dq_slices_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
+                           int Tq, int Tk, int dh, float scale, int causal, int round_ds) {
+  using P = SliceDqPlan;
+  using TA = P::TA;
+  using TK = P::TK;
+  using TT = P::TT;
+  using R = Roles<SliceTiles::LOADER_WGS>;
+  constexpr int D = P::D, BK = P::BK, STAGES = P::STAGES, NT = R::SPLIT_THREADS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_base(smem_raw);
+  float* sq = reinterpret_cast<float*>(base);
+  float* sq_s = sq + TA::BYTES / 4;
+  float* sdo = sq + 2 * TA::BYTES / 4;
+  float* sdo_s = sdo + TA::BYTES / 4;
+  auto ring = [&](int s, int part) {  // K, K small, V, V small, K^T, K^T small
+    const int at = part < 4 ? part * TK::BYTES : 4 * TK::BYTES + (part - 4) * TT::BYTES;
+    return reinterpret_cast<float*>(base + P::A_BYTES + s * P::STAGE_BYTES + at);
+  };
+  auto loaded = [&](int i, int part) {
+    return P::RAW > 0 ? reinterpret_cast<float*>(base + P::RAW_OFF + ((i % P::RAW) * 2 + part / 2) * TK::BYTES)
+                      : ring(i % STAGES, part);
+  };
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(base + P::BAR_OFF);
+  uint64_t* ready_a = full_a + 1;
+  const P::F feed(ready_a + 1);
+  uint64_t* xfull = ready_a + 1 + P::F::BARRIERS;  // a stage's: every block's partials are in
+  uint64_t* xdone = xfull + STAGES;                // every block has read this one's
+  const uint32_t blocks = hopper::cluster_size();
+  const int bh = blockIdx.x / blocks, col0 = hopper::cluster_rank() * D;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * ROWS_OWNED, n_k = key_tiles<BK>(q0 + ROWS_OWNED - 1, Tk, causal);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_a, 1);
+    hopper::mbar_init(ready_a, NT);
+    feed.init(NT, WG_THREADS / 32);
+    for (int x = 0; x < 2 * STAGES; ++x) hopper::mbar_init(&xfull[x], 4 * blocks);
+    hopper::fence_barrier_init();
+  }
+  hopper::cluster_sync();  // every block's barriers exist before another block arrives on them
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg < R::LOADER_WGS) {
+    hopper::setmaxnreg_dec<R::LOADER_REGS>();
+    if (threadIdx.x == 0) {  // TMA
+      hopper::mbar_arrive_expect_tx(full_a, 2 * TA::BYTES);
+      hopper::tma_load_tile<TA>(sq, &tm_q, full_a, q0, bh, col0);
+      hopper::tma_load_tile<TA>(sdo, &tm_do, full_a, q0, bh, col0);
+      for (int i = 0; i < n_k; ++i) {
+        uint64_t* bar = feed.load_slot(i, 2 * TK::BYTES);
+        hopper::tma_load_tile<TK>(loaded(i, 0), &tm_k, bar, i * BK, bh, col0);
+        hopper::tma_load_tile<TK>(loaded(i, 2), &tm_v, bar, i * BK, bh, col0);
+      }
+    } else if (threadIdx.x >= 32) {  // the split pass
+      const int u = threadIdx.x - 32;
+      hopper::mbar_wait(full_a, 0);
+      split_tile<TA::BYTES, NT>(sq, sq, sq_s, u);
+      split_tile<TA::BYTES, NT>(sdo, sdo, sdo_s, u);
+      split_done(ready_a);
+      for (int i = 0; i < n_k; ++i) {
+        const int s = i % STAGES;
+        feed.split_begin(i);
+        split_tile_t<TK, NT>(loaded(i, 0), ring(s, 0), ring(s, 1), ring(s, 4), ring(s, 5), u);
+        slot_free<STAGES>(xdone, i);
+        split_tile<TK::BYTES, NT>(loaded(i, 2), ring(s, 2), ring(s, 3), u);
+        feed.split_end(i);
+      }
+    }
+    hopper::cluster_sync();  // no block leaves while another may still read its exchange slots
+  } else {  // consumers: both own the 64 rows, c takes key tiles c, c + 2, ...
+    hopper::setmaxnreg_inc<R::CONSUMER_REGS>();
+    const int c = wg - R::LOADER_WGS, tid = threadIdx.x - wg * WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+    const int row_a = q0 + 16 * warp + g, row_b = row_a + 8;
+    const float sl2 = scale * LOG2E;
+    const float* lse_bh = lse + (size_t)bh * Tq;
+    const float* delta_bh = delta + (size_t)bh * Tq;
+    const float l2_a = row_a < Tq ? lse_bh[row_a] * LOG2E : 0.f;
+    const float l2_b = row_b < Tq ? lse_bh[row_b] * LOG2E : 0.f;
+    const float dl_a = row_a < Tq ? delta_bh[row_a] * scale : 0.f;
+    const float dl_b = row_b < Tq ? delta_bh[row_b] * scale : 0.f;
+    float acc[D / 2];
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) acc[r] = 0.f;
+
+    hopper::mbar_wait(ready_a, 0);
+    const uint64_t q_b = TA::desc(sq), q_s = TA::desc(sq_s), do_b = TA::desc(sdo), do_s = TA::desc(sdo_s);
+    auto ktile = [&](auto masked, int i) {
+      const int s = i % STAGES, k0 = i * BK;
+      hopper::mbar_wait(&feed.ready[s], (i / STAGES) & 1);
+      float sc[BK / 2], dp[BK / 2];  // this slice's S and dP, then the cluster's; S -> P, dP -> dS
+      hopper::fence_regs(acc);
+      slice_scores<BK, TA, TK>(sc, q_b, q_s, TK::desc(ring(s, 0)), TK::desc(ring(s, 1)), dp, do_b, do_s,
+                               TK::desc(ring(s, 2)), TK::desc(ring(s, 3)));
+      exchange<BK>(sc, dp, ring(s, 3), &xfull[s], &xdone[s], (i / STAGES) & 1, tid, blocks);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * j + 2 * t + e;
+          float pa = hopper::ex2(fmaf(sc[4 * j + e], sl2, -l2_a));
+          float pb = hopper::ex2(fmaf(sc[4 * j + 2 + e], sl2, -l2_b));
+          if constexpr (decltype(masked)::value) {
+            if (col >= Tk || (causal && col > row_a)) pa = 0.f;
+            if (col >= Tk || (causal && col > row_b)) pb = 0.f;
+          }
+          dp[4 * j + e] = pa * fmaf(dp[4 * j + e], scale, -dl_a);  // dS
+          dp[4 * j + 2 + e] = pb * fmaf(dp[4 * j + 2 + e], scale, -dl_b);
+        }
+      }
+      uint32_t ds_b[BK / 8][4], ds_s[BK / 8][4];
+      split_a_frags<BK, ROUND>(ds_b, ds_s, dp, round_ds);
+      hopper::fence_regs(acc);
+      hopper::fence_regs(ds_b);
+      hopper::fence_regs(ds_s);
+      hopper::wgmma_fence();
+      mma3_rs<D, BK / 8, TT>(acc, ds_b, ds_s, TT::desc(ring(s, 4)), TT::desc(ring(s, 5)));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(ds_b);
+      hopper::fence_regs(ds_s);
+      warp_release(&feed.empty[s]);
+    };
+    const int n_plain = min(plain_tiles<BK>(q0, Tk, causal), n_k);
+    int i = c;
+    for (; i < n_plain; i += 2) ktile(std::false_type{}, i);
+    for (; i < n_k; i += 2) ktile(std::true_type{}, i);
+    meet(acc, sq, c, tid);  // Q's tile: no product reads it now
+    if (c == 0) store_rows<D>(dq + (size_t)bh * Tq * dh, acc, q0, Tq, dh, tid, col0);
+    hopper::cluster_sync();
+  }
+}
+
+// dK/dV's slices: K, K small, V, V small of the block's 64 keys (its
+// slice); the ring, a stage being Q, Q small, dO, dO small (then the
+// exchange slot), Q^T, Q^T small, dO^T, dO^T small of 8 q rows; the raw
+// slots, Q and dO as loaded; each stage's lse and delta; the mbarriers.
+struct SliceDkvPlan {
+  static constexpr int D = SliceTiles::SLICE, BQ = SliceTiles::DKV_BQ, STAGES = SliceTiles::DKV_STAGES,
+                       RAW = SliceTiles::DKV_RAW;
+  using TA = hopper::TileF<D, ROWS_OWNED>;
+  using TQ = hopper::TileF<D, BQ>;
+  using TT = hopper::TileF<BQ, D>;
+  using F = Feed<STAGES, RAW>;
+  static constexpr int A_BYTES = 4 * TA::BYTES;
+  static constexpr int STAGE_BYTES = 4 * TQ::BYTES + 4 * TT::BYTES;
+  static constexpr int RAW_OFF = A_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int ROWS_OFF = RAW_OFF + RAW * 2 * TQ::BYTES;
+  static constexpr int BAR_OFF = ROWS_OFF + STAGES * 2 * BQ * 4;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + F::BARRIERS + 2 * STAGES);  // + alignment slack
+  static_assert(Exchange<BQ>::BYTES == TQ::BYTES, "a stage's dO small holds the exchange");
+  static_assert(STAGES >= 2 && (RAW == 0 || RAW >= 2), "TMA rings of at least two stages");
+  static_assert(BYTES <= SMEM_LIMIT, "dK/dV's slices' shared memory does not fit");
+};
+
+template <bool ROUND>
+__global__ void __launch_bounds__(Roles<SliceTiles::LOADER_WGS>::THREADS, 1)
+flash_f32_dkv_slices_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                            const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
+                            float* __restrict__ dv, int Tq, int Tk, int dh, float scale, int causal, int round_p,
+                            int round_ds) {
+  using P = SliceDkvPlan;
+  using TA = P::TA;
+  using TQ = P::TQ;
+  using TT = P::TT;
+  using R = Roles<SliceTiles::LOADER_WGS>;
+  constexpr int D = P::D, BQ = P::BQ, STAGES = P::STAGES, NT = R::SPLIT_THREADS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_base(smem_raw);
+  float* sk = reinterpret_cast<float*>(base);
+  float* sk_s = sk + TA::BYTES / 4;
+  float* sv = sk + 2 * TA::BYTES / 4;
+  float* sv_s = sv + TA::BYTES / 4;
+  auto ring = [&](int s, int part) {  // Q, Q small, dO, dO small, Q^T, Q^T small, dO^T, dO^T small
+    const int at = part < 4 ? part * TQ::BYTES : 4 * TQ::BYTES + (part - 4) * TT::BYTES;
+    return reinterpret_cast<float*>(base + P::A_BYTES + s * P::STAGE_BYTES + at);
+  };
+  auto loaded = [&](int j, int part) {
+    return P::RAW > 0 ? reinterpret_cast<float*>(base + P::RAW_OFF + ((j % P::RAW) * 2 + part / 2) * TQ::BYTES)
+                      : ring(j % STAGES, part);
+  };
+  float* slse = reinterpret_cast<float*>(base + P::ROWS_OFF);  // [STAGES][BQ], log2 units
+  float* sdelta = slse + STAGES * BQ;                          // [STAGES][BQ], times scale
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(base + P::BAR_OFF);
+  uint64_t* ready_a = full_a + 1;
+  const P::F feed(ready_a + 1);
+  uint64_t* xfull = ready_a + 1 + P::F::BARRIERS;  // a stage's: every block's partials are in
+  uint64_t* xdone = xfull + STAGES;                // every block has read this one's
+  const uint32_t blocks = hopper::cluster_size();
+  const int bh = blockIdx.x / blocks, col0 = hopper::cluster_rank() * D;
+  const int k0 = blockIdx.y * ROWS_OWNED;  // causal: key tile 0 sees the most rows
+  const int n_qs = (Tq + BQ - 1) / BQ, i_begin = causal ? k0 / BQ : 0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_a, 1);
+    hopper::mbar_init(ready_a, NT);
+    feed.init(NT, WG_THREADS / 32);
+    for (int x = 0; x < 2 * STAGES; ++x) hopper::mbar_init(&xfull[x], 4 * blocks);
+    hopper::fence_barrier_init();
+  }
+  hopper::cluster_sync();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg < R::LOADER_WGS) {
+    hopper::setmaxnreg_dec<R::LOADER_REGS>();
+    if (threadIdx.x == 0) {  // TMA
+      hopper::mbar_arrive_expect_tx(full_a, 2 * TA::BYTES);
+      hopper::tma_load_tile<TA>(sk, &tm_k, full_a, k0, bh, col0);
+      hopper::tma_load_tile<TA>(sv, &tm_v, full_a, k0, bh, col0);
+      for (int i = i_begin; i < n_qs; ++i) {
+        const int j = i - i_begin;
+        uint64_t* bar = feed.load_slot(j, 2 * TQ::BYTES);
+        hopper::tma_load_tile<TQ>(loaded(j, 0), &tm_q, bar, i * BQ, bh, col0);
+        hopper::tma_load_tile<TQ>(loaded(j, 2), &tm_do, bar, i * BQ, bh, col0);
+      }
+    } else if (threadIdx.x >= 32) {  // the split pass
+      const int u = threadIdx.x - 32;
+      const float* lse_bh = lse + (size_t)bh * Tq;
+      const float* delta_bh = delta + (size_t)bh * Tq;
+      hopper::mbar_wait(full_a, 0);
+      split_tile<TA::BYTES, NT>(sk, sk, sk_s, u);
+      split_tile<TA::BYTES, NT>(sv, sv, sv_s, u);
+      split_done(ready_a);
+      for (int i = i_begin; i < n_qs; ++i) {
+        const int j = i - i_begin, s = j % STAGES;
+        feed.split_begin(j);
+        split_tile_t<TQ, NT>(loaded(j, 0), ring(s, 0), ring(s, 1), ring(s, 4), ring(s, 5), u);
+        slot_free<STAGES>(xdone, j);
+        split_tile_t<TQ, NT>(loaded(j, 2), ring(s, 2), ring(s, 3), ring(s, 6), ring(s, 7), u);
+        for (int r = u; r < BQ; r += NT) {  // zero past Tq, where Q and dO are zero-filled
+          const int row = i * BQ + r;
+          slse[s * BQ + r] = row < Tq ? lse_bh[row] * LOG2E : 0.f;
+          sdelta[s * BQ + r] = row < Tq ? delta_bh[row] * scale : 0.f;
+        }
+        feed.split_end(j);
+      }
+    }
+    hopper::cluster_sync();
+  } else {  // consumers: both own the 64 keys, c takes q tiles i_begin + c, + 2, ...
+    hopper::setmaxnreg_inc<R::CONSUMER_REGS>();
+    const int c = wg - R::LOADER_WGS, tid = threadIdx.x - wg * WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+    const int key_a = k0 + 16 * warp + g, key_b = key_a + 8;
+    const float sl2 = scale * LOG2E;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) dk_acc[r] = dv_acc[r] = 0.f;
+
+    hopper::mbar_wait(ready_a, 0);
+    const uint64_t k_b = TA::desc(sk), k_s = TA::desc(sk_s), v_b = TA::desc(sv), v_s = TA::desc(sv_s);
+    auto qtile = [&](auto masked, int i) {
+      const int j = i - i_begin, s = j % STAGES, q0 = i * BQ;
+      const float* ls = slse + s * BQ;
+      const float* ds = sdelta + s * BQ;
+      hopper::mbar_wait(&feed.ready[s], (j / STAGES) & 1);
+      float st[BQ / 2], dpt[BQ / 2];  // this slice's S^T and dP^T, then the cluster's; -> P^T, dS^T
+      hopper::fence_regs(dk_acc);
+      hopper::fence_regs(dv_acc);
+      slice_scores<BQ, TA, TQ>(st, k_b, k_s, TQ::desc(ring(s, 0)), TQ::desc(ring(s, 1)), dpt, v_b, v_s,
+                               TQ::desc(ring(s, 2)), TQ::desc(ring(s, 3)));
+      exchange<BQ>(st, dpt, ring(s, 3), &xfull[s], &xdone[s], (j / STAGES) & 1, tid, blocks);
+#pragma unroll
+      for (int jj = 0; jj < BQ / 8; ++jj) {
+        const float2 L2 = *reinterpret_cast<const float2*>(ls + 8 * jj + 2 * t);
+        const float2 dl2 = *reinterpret_cast<const float2*>(ds + 8 * jj + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qcol = q0 + 8 * jj + 2 * t + e;
+          const float L = e ? L2.y : L2.x, dls = e ? dl2.y : dl2.x;
+          float pa = hopper::ex2(fmaf(st[4 * jj + e], sl2, -L));
+          float pb = hopper::ex2(fmaf(st[4 * jj + 2 + e], sl2, -L));
+          if constexpr (decltype(masked)::value) {
+            if (qcol >= Tq || (causal && key_a > qcol)) pa = 0.f;
+            if (qcol >= Tq || (causal && key_b > qcol)) pb = 0.f;
+          }
+          st[4 * jj + e] = pa;  // P^T
+          st[4 * jj + 2 + e] = pb;
+          dpt[4 * jj + e] = pa * fmaf(dpt[4 * jj + e], scale, -dls);  // dS^T
+          dpt[4 * jj + 2 + e] = pb * fmaf(dpt[4 * jj + 2 + e], scale, -dls);
+        }
+      }
+      uint32_t p_b[BQ / 8][4], p_s[BQ / 8][4], ds_b[BQ / 8][4], ds_s[BQ / 8][4];
+      split_a_frags<BQ, ROUND>(p_b, p_s, st, round_p);
+      split_a_frags<BQ, ROUND>(ds_b, ds_s, dpt, round_ds);
+      hopper::fence_regs(dk_acc);
+      hopper::fence_regs(dv_acc);
+      hopper::fence_regs(p_b);
+      hopper::fence_regs(p_s);
+      hopper::fence_regs(ds_b);
+      hopper::fence_regs(ds_s);
+      hopper::wgmma_fence();
+      mma3_rs<D, BQ / 8, TT>(dv_acc, p_b, p_s, TT::desc(ring(s, 6)), TT::desc(ring(s, 7)));
+      mma3_rs<D, BQ / 8, TT>(dk_acc, ds_b, ds_s, TT::desc(ring(s, 4)), TT::desc(ring(s, 5)));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dk_acc);
+      hopper::fence_regs(dv_acc);
+      hopper::fence_regs(p_b);
+      hopper::fence_regs(p_s);
+      hopper::fence_regs(ds_b);
+      hopper::fence_regs(ds_s);
+      warp_release(&feed.empty[s]);
+    };
+    const int diag_end = causal ? min(n_qs, (k0 + ROWS_OWNED - 1) / BQ + 1) : i_begin;
+    const int plain_end = max(diag_end, Tq / BQ);
+    int i = i_begin + c;
+    for (; i < diag_end; i += 2) qtile(std::true_type{}, i);
+    for (; i < plain_end; i += 2) qtile(std::false_type{}, i);
+    for (; i < n_qs; i += 2) qtile(std::true_type{}, i);
+    meet(dk_acc, sk, c, tid);  // K's tiles park the partial sums: no product reads them now
+    meet(dv_acc, sk_s, c, tid);
+    if (c == 0) {
+      store_rows<D>(dk + (size_t)bh * Tk * dh, dk_acc, k0, Tk, dh, tid, col0);
+      store_rows<D>(dv + (size_t)bh * Tk * dh, dv_acc, k0, Tk, dh, tid, col0);
+    }
+    hopper::cluster_sync();
+  }
+}
+
+// One launch of a slices kernel: a grid of (bh x blocks, row blocks), in
+// clusters of `blocks` along x (cudaLaunchKernelEx; a cluster it refuses
+// returns its error and never runs).
+template <class... Params, class... Args>
+int launch_clusters(void (*kernel)(Params...), int bh, int rows, int blocks, int smem, cudaStream_t st,
+                    Args&&... args) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bh * blocks, (rows + ROWS_OWNED - 1) / ROWS_OWNED);
+  cfg.blockDim = dim3(Roles<SliceTiles::LOADER_WGS>::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = blocks;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <bool ROUND>
+int launch_dq_slices(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                     const void* delta, void* dq, int bh, int tq, int tk, int dh, float scale, int causal,
+                     int round_ds, cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mdo;
+  constexpr int bk = SliceDqPlan::BK;
+  constexpr int S = SliceTiles::SLICE;
+  constexpr CUtensorMapDataType f32 = hopper::tma_type<float>();
+  if (!hopper::rows_map(&mq, q, bh, tq, dh, S, ROWS_OWNED, f32, true) ||
+      !hopper::rows_map(&mk, k, bh, tk, dh, S, bk, f32, true) || !hopper::rows_map(&mv, v, bh, tk, dh, S, bk, f32, true) ||
+      !hopper::rows_map(&mdo, dout, bh, tq, dh, S, ROWS_OWNED, f32, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_clusters(flash_f32_dq_slices_kernel<ROUND>, bh, tq, slice_blocks(dh), SliceDqPlan::BYTES, st, mq,
+                         mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+                         static_cast<float*>(dq), tq, tk, dh, scale, causal, round_ds);
+}
+
+template <bool ROUND>
+int launch_dkv_slices(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                      const void* delta, void* dk, void* dv, int bh, int tq, int tk, int dh, float scale, int causal,
+                      int round_p, int round_ds, cudaStream_t st) {
+  CUtensorMap mq, mk, mv, mdo;
+  constexpr int bq = SliceDkvPlan::BQ;
+  constexpr int S = SliceTiles::SLICE;
+  constexpr CUtensorMapDataType f32 = hopper::tma_type<float>();
+  if (!hopper::rows_map(&mq, q, bh, tq, dh, S, bq, f32, true) ||
+      !hopper::rows_map(&mk, k, bh, tk, dh, S, ROWS_OWNED, f32, true) ||
+      !hopper::rows_map(&mv, v, bh, tk, dh, S, ROWS_OWNED, f32, true) ||
+      !hopper::rows_map(&mdo, dout, bh, tq, dh, S, bq, f32, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_clusters(flash_f32_dkv_slices_kernel<ROUND>, bh, tk, slice_blocks(dh), SliceDkvPlan::BYTES, st, mq,
+                         mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+                         static_cast<float*>(dk), static_cast<float*>(dv), tq, tk, dh, scale, causal, round_p,
+                         round_ds);
+}
+
 // Calls launch(instance head dim) with the head dim, as an
 // std::integral_constant, of the instance that serves head dim d (the
-// narrowest of 16, 32, 64, 128 and 256 that holds it, or WIDE above 256:
-// the column-window kernels of flash_wide.cuh; d a multiple of 4);
-// cudaErrorInvalidValue for a d none takes, or for a rounding type that is
-// not a hopper::Round, or not ROUND_NONE where this library does not round.
-constexpr int WIDE = 0;
-template <class F>
+// narrowest of 16, 32, 64, 128 and 256 that holds it; above 256, with
+// SLICED (dQ and dK/dV), SLICES up to SLICE x MAX_SLICES: a cluster of
+// column slices; else WIDE: the column-window kernels of flash_wide.cuh; d
+// a multiple of 4); cudaErrorInvalidValue for a d none takes, or for a
+// rounding type that is not a hopper::Round, or not ROUND_NONE where this
+// library does not round.
+constexpr int WIDE = 0, SLICES = -1;
+template <bool SLICED = false, class F>
 static int by_head_dim(int d, int round_p, int round_ds, F launch) {
   for (int r : {round_p, round_ds})
     if (r < hopper::ROUND_NONE || r > hopper::ROUND_F16 || (!RT_ROUNDED && r != hopper::ROUND_NONE))
@@ -1198,6 +1806,8 @@ static int by_head_dim(int d, int round_p, int round_ds, F launch) {
   if (d <= 64) return launch(std::integral_constant<int, 64>{});
   if (d <= 128) return launch(std::integral_constant<int, 128>{});
   if (d <= 256) return launch(std::integral_constant<int, 256>{});
+  if constexpr (SLICED)
+    if (slice_blocks(d) > 0) return launch(std::integral_constant<int, SLICES>{});
   return launch(std::integral_constant<int, WIDE>{});
 }
 
@@ -1277,7 +1887,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 // C entry points (loaded with ctypes): flash_attention.cu's signatures, on
 // contiguous f32 [bh, T, d] operands and f32 [bh, Tq] lse/delta, with the
 // rounding types of P and dS (Round) after out_f32; d, a multiple of 4, runs
-// on the instance that holds it, or above 256 on the column-window kernels.
+// on the instance that holds it, or above 256 on the clusters of slices (dQ
+// and dK/dV up to 1024) or the column-window kernels.
 // ---------------------------------------------------------------------------
 extern "C" const char* rt_cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
@@ -1298,9 +1909,11 @@ extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o
 extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
                            int d, float scale, int causal, int, int round_p, int round_ds, void* stream) {
-  return by_head_dim(d, round_p, round_ds, [&](auto dd) {
+  return by_head_dim<true>(d, round_p, round_ds, [&](auto dd) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if constexpr (decltype(dd)::value == WIDE)
+    if constexpr (decltype(dd)::value == SLICES)
+      return launch_dq_slices<ROUNDED>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, causal, round_ds, st);
+    else if constexpr (decltype(dd)::value == WIDE)
       return wide::launch_dq<float, float, ROUNDED>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, causal,
                                                     round_ds, st);
     else
@@ -1313,9 +1926,12 @@ extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v, const v
                             const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
                             int tk, int d, float scale, int causal, int, int round_p, int round_ds,
                             void* stream) {
-  return by_head_dim(d, round_p, round_ds, [&](auto dd) {
+  return by_head_dim<true>(d, round_p, round_ds, [&](auto dd) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if constexpr (decltype(dd)::value == WIDE)
+    if constexpr (decltype(dd)::value == SLICES)
+      return launch_dkv_slices<ROUNDED>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, causal, round_p,
+                                        round_ds, st);
+    else if constexpr (decltype(dd)::value == WIDE)
       return wide::launch_dkv<float, float, ROUNDED>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale,
                                                      causal, round_p, round_ds, st);
     else

@@ -139,6 +139,59 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // ---------------------------------------------------------------------------
+// Thread block clusters: a block's rank in its cluster, the cluster's size,
+// and distributed shared memory (another block's shared memory, named by
+// mapa from the same offset in this block's).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+// The shared::cluster address of this block's shared address `p` in block `rank`.
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// One arrival on the mbarrier at shared::cluster address `bar` (any block of
+// the cluster), releasing this thread's earlier memory accesses at cluster
+// scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// mbar_wait, acquiring at cluster scope: what the other blocks' arrivals
+// released is visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// Every thread of every block of the cluster (that has not exited) meets
+// here; release before, acquire after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
 // Register budget of a warp-specialised block (one if/else on the role).
 // ---------------------------------------------------------------------------
 
@@ -210,12 +263,15 @@ struct Tile {
 };
 
 // One thread's TMA loads of a whole tile T (Tile or TileF, E its element
-// type; one box per sub-tile), rows [row, row + ROWS) of head bh; `bar` is
-// told of all of its bytes at once.
+// type; one box per sub-tile), rows [row, row + ROWS) of head bh, columns
+// from col0 on (a slice of a wider row: rows_map); `bar` is told of
+// all of its bytes at once.
 template <class T, class E>
-__device__ __forceinline__ void tma_load_tile(E* dst, const CUtensorMap* map, uint64_t* bar, int row, int bh) {
+__device__ __forceinline__ void tma_load_tile(E* dst, const CUtensorMap* map, uint64_t* bar, int row, int bh,
+                                              int col0 = 0) {
 #pragma unroll
-  for (int h = 0; h < T::SUB; ++h) tma_load_rows(dst + h * T::SUB_BYTES / sizeof(E), map, bar, row, bh, h * T::W);
+  for (int h = 0; h < T::SUB; ++h)
+    tma_load_rows(dst + h * T::SUB_BYTES / sizeof(E), map, bar, row, bh, col0 + h * T::W);
 }
 
 // The TMA stores of a whole tile, rows [row, row + ROWS) of head bh.
@@ -843,17 +899,19 @@ constexpr CUtensorMapDataType tma_type() {
 // past `width` when the tensor is narrower than the instance (a head dim
 // between two instances runs on the wider one: a box may lie wholly past
 // the row's end, and TMA still writes its zeros and counts its bytes;
-// stores through such a map write only the `width` columns). The row
-// stride, width * elem_bytes, must be a multiple of 16 bytes. Swizzled by
-// the box's row length: 32B, 64B or 128B.
+// stores through such a map write only the `width` columns). A tensor
+// wider than D is refused, but with `column_slices`: then it is read a
+// column slice at a time (tma_load_tile's col0: the f32 clusters of
+// slices). The row stride, width * elem_bytes, must be a multiple of 16
+// bytes. Swizzled by the box's row length: 32B, 64B or 128B.
 inline bool rows_map(CUtensorMap* map, const void* ptr, int bh, int T, int width, int D, int box_rows,
-                     CUtensorMapDataType type) {
+                     CUtensorMapDataType type, bool column_slices = false) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
   const int elem_bytes = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4
                          : type == CU_TENSOR_MAP_DATA_TYPE_FLOAT16 || type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2
                                                                                                                 : 0;
   if (!encode || (D != 16 && D != 32 && D != 64 && D != 128 && D != 256) || elem_bytes == 0 || width < 1 ||
-      width > D || (width * elem_bytes) % 16 != 0)
+      (width > D && !column_slices) || (width * elem_bytes) % 16 != 0)
     return false;
   const int W = D * elem_bytes > 128 ? 128 / elem_bytes : D, row_bytes = W * elem_bytes;
   const cuuint64_t dims[3] = {(cuuint64_t)width, (cuuint64_t)T, (cuuint64_t)bh};

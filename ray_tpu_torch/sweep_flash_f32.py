@@ -1,6 +1,7 @@
 """Time design variants of the f32-operand flash kernels on the card.
 
     python3 -m ray_tpu_torch.sweep_flash_f32 [--rounds 2] [--variants NAME ...]
+    python3 -m ray_tpu_torch.sweep_flash_f32 --variants slices
 
 ``csrc/flash_attention_f32.cu`` splits every f32 operand into two tf32
 parts in shared memory before its 3xTF32 products; the split pass runs on
@@ -23,6 +24,19 @@ device time of the kernels alone from ``torch.profiler``, side by side.
 given ("chosen" always runs; "raw" picks head dim 256's). Each variant
 runs in a process of its own with a time limit, so a variant that hangs
 the card is reported, not waited for. Needs one NVIDIA card; the builds run at once (about 15 s).
+
+The variants named from "slices" on edit the dQ and dK/dV above head dim
+256 (``SliceTiles``: clusters of 128-column slices that sum their partial
+scores through distributed shared memory). They build the mixed library
+too and run at ``SLICE_SHAPES`` instead (the chosen source with them):
+each held there against the plain versions (f32 outputs at 1e-4
+relative norm, 16-bit ones by the bf16 rule, each output's gap printed),
+dQ's bits twice, then dQ and dK/dV timed beside SDPA's backward on the
+same inputs (cast to f32 for a mix); at ``SLICE_CHECKS`` (the widest
+clusters) checked only. Those that take a part of the exchange out are
+timed only (``TIMING_ONLY``); "slices off" runs the column windows of
+``flash_wide.cuh`` at every head dim above 256, the route before the
+slices, on the same inputs.
 """
 
 from __future__ import annotations
@@ -40,12 +54,13 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from ray_tpu_torch import bench
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as fa
 
-SOURCE, HEADER = "flash_attention_f32.cu", "hopper.cuh"
+SOURCE, HEADER, MIXED_SOURCE = "flash_attention_f32.cu", "hopper.cuh", "flash_attention_mixed.cu"
 TRAITS = {  # F32Tiles<D> as the .cu has them, the text the variants edit
     16: "DQ_BK = 64, DQ_STAGES = 4, DQ_RAW = 2, DKV_BQ = 32, DKV_STAGES = 4, DKV_RAW = 2;\n"
         "  static constexpr int LOADER_WGS = 3;\n"
@@ -98,6 +113,22 @@ def _every(**values) -> list:
     return _edits(**{f"d{d}": values for d in SPLIT_DIMS})
 
 
+# SliceTiles as the .cu has it (the slices above head dim 256), the text
+# the "slices" variants edit; and the exchange's wait and reads.
+SLICE_TRAITS = ("  static constexpr int DQ_BK = 16, DQ_STAGES = 2, DQ_RAW = 0, DKV_BQ = 8, DKV_STAGES = 3, DKV_RAW = 0;\n"
+                "  static constexpr int LOADER_WGS = 2, READ_BLOCKS = 4, SCORE_STEPS = 2;")
+SLICE_WAIT = "  hopper::mbar_wait_cluster(full, parity);\n"
+SLICE_READS = "  for (int r0 = 0; r0 < SliceTiles::MAX_SLICES; r0 += G) {"
+
+
+def _slices(**values) -> list:
+    """An edit of SliceTiles' traits: each NAME to its value."""
+    text = SLICE_TRAITS
+    for name, value in values.items():
+        text = re.sub(rf"\b{name} = \d+", f"{name} = {value}", text)
+    return [(SOURCE, SLICE_TRAITS, text)]
+
+
 # name: (what it tries, [(file, old text, new text), ...])
 VARIANTS = {
     "chosen": ("the .cu as it is", []),
@@ -137,7 +168,25 @@ VARIANTS = {
     "raw rows, loaders at 48 registers": ("one loading warpgroup (head dim 256) at the others' 48 registers",
                                           [(SOURCE, "LOADER_REGS = LOADER_WGS == 1 ? 56 : 48;",
                                             "LOADER_REGS = 48;")]),
+    "slices dQ 8 keys a stage": ("dQ's stages of 8 keys (score products of N 8), three of them",
+                                 _slices(DQ_BK=8, DQ_STAGES=3)),
+    "slices dQ 8 keys a stage, four stages": ("... and four: two a consumer", _slices(DQ_BK=8, DQ_STAGES=4)),
+    "slices dK/dV two stages behind raw slots": ("dK/dV's ring two deep, TMA landing in two raw slots",
+                                                 _slices(DKV_STAGES=2, DKV_RAW=2)),
+    "slices two blocks read at once": ("a consumer reads two blocks' partials at a time, not four",
+                                       _slices(READ_BLOCKS=2)),
+    "slices scores a k-step a partial": ("the partial scores added in f32 every k-step", _slices(SCORE_STEPS=1)),
+    "slices scores 4 k-steps a partial": ("... every four", _slices(SCORE_STEPS=4)),
+    "slices scores chained": ("the partial scores chained in the tensor cores' accumulator over the whole slice",
+                              _slices(SCORE_STEPS=16)),
+    "slices no wait": ("timing only: the partials read without waiting for the other blocks'",
+                       [(SOURCE, SLICE_WAIT, "")]),
+    "slices no reads": ("timing only: each block keeps its own partial (no distributed shared memory read)",
+                        [(SOURCE, SLICE_READS, "  for (int r0 = 0; r0 < 0; r0 += G) {")]),
+    "slices off": ("the column windows at every head dim above 256 (the route before the slices)",
+                   [(SOURCE, "SLICE = 128, MAX_SLICES = 8;", "SLICE = 128, MAX_SLICES = 2;")]),
 }
+TIMING_ONLY = ("slices no wait", "slices no reads")
 # (B, T, H, Dh, causal): gpt2-small in f32 at B 8 (phase 14's attention),
 # its width as 6 heads of 128, the f32 ring's Dh 32 diagonal and earlier
 # blocks, and its width as 3 heads of 256 (phase 14's f32 Dh 256 run).
@@ -145,6 +194,14 @@ SHAPES = [(8, 1024, 12, 64, True), (8, 1024, 6, 128, True), (2, 1024, 4, 32, Tru
           (8, 1024, 3, 256, True)]
 CHECK_SHAPES = [(1, 200, 2, 64, True), (1, 200, 2, 128, True), (1, 130, 2, 32, False), (1, 130, 4, 16, True),
                 (2, 16, 4, 32, True), (1, 200, 2, 256, True)]
+F32, MIX = (torch.float32,) * 3, (torch.bfloat16, torch.float32, torch.bfloat16)
+# (B, T, H, Dh, causal, (q, k, v) dtypes with dO in q's) of the "slices"
+# variants: chip_smoke.py's timed WIDE_CASES that reach the slices (f32 at
+# 384 and 512, the mix at 320), and f32 at 320 (the mix's width unrounded);
+# checked only: clusters of 5, 6 and 8 blocks.
+SLICE_SHAPES = [(8, 1024, 2, 384, True, F32), (8, 1024, 2, 512, True, F32), (8, 1024, 2, 320, True, MIX),
+                (8, 1024, 2, 320, True, F32)]
+SLICE_CHECKS = [(2, 200, 2, 520, False, F32), (2, 256, 1, 768, False, F32), (1, 256, 1, 1024, True, F32)]
 GRAD_RELNORM = 1e-4
 FWD_RELNORM, LSE_TOL = 1e-5, 1e-5
 VARIANT_SECONDS = 180
@@ -153,7 +210,8 @@ VARIANT_SECONDS = 180
 def sources(name: str) -> dict:
     """The variant's source files {file name: text}; raises KeyError on an
     edit that does not apply to the current sources."""
-    files = {f.name: f.read_text() for f in [_build.CSRC / SOURCE, *sorted(_build.CSRC.glob("*.cuh"))]}
+    files = {f.name: f.read_text() for f in [_build.CSRC / SOURCE, _build.CSRC / MIXED_SOURCE,
+                                             *sorted(_build.CSRC.glob("*.cuh"))]}
     for f, old, new in VARIANTS[name][1]:
         if old not in files[f]:
             raise KeyError(f"{name}: the text to edit is not in {f}: {old[:60]!r}")
@@ -162,23 +220,36 @@ def sources(name: str) -> dict:
 
 
 def _dir(name: str) -> Path:
-    return _build.BUILD_DIR / "sweep_f32" / name.replace(" ", "_").replace(".", "_")
+    return _build.BUILD_DIR / "sweep_f32" / re.sub(r"[^\w-]", "_", name)
 
 
-def build(name: str) -> str:
-    """Compile the variant into its own directory; returns nvcc's spill
-    lines (or its error)."""
+def build(name: str, mixed: bool = False) -> str:
+    """Compile the variant into its own directory (lib.so, and with
+    ``mixed`` the mixed library as mixed.so, at once); returns nvcc's spill
+    lines (or its error), and with ``mixed`` the slices kernels' register
+    lines."""
     d = _dir(name)
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
     for f, text in sources(name).items():
         (d / f).write_text(text)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        return "build failed: " + (proc.stdout + proc.stderr)[-2000:]
-    return "; ".join(line.strip() for line in (proc.stdout + proc.stderr).splitlines()
-                     if ("spill" in line and " 0 bytes spill stores" not in line) or "C751" in line)
+    targets = [("lib.so", SOURCE)] + ([("mixed.so", MIXED_SOURCE)] if mixed else [])
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / so), str(d / src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for so, src in targets]
+    outs = [proc.communicate()[0] for proc in procs]
+    for proc, out in zip(procs, outs):
+        if proc.returncode:
+            return "build failed: " + out[-2000:]
+    lines, kernel = [], None
+    for (so, _), out in zip(targets, outs):
+        for line in out.splitlines():
+            if "Compiling entry" in line or "Function properties for" in line:
+                kernel = re.search(r"flash_f32_(dq|dkv)_slices_kernel", line)
+            if ("spill" in line and " 0 bytes spill stores" not in line) or "C751" in line:
+                lines.append(line.strip())
+            elif mixed and kernel and "registers" in line:
+                lines.append(f"{so} {kernel[1]} slices: {line.split(':', 1)[-1].strip()}")
+    return "; ".join(lines)
 
 
 def _inputs(B, T, H, D, causal, seed=5):
@@ -188,11 +259,75 @@ def _inputs(B, T, H, D, causal, seed=5):
     return q, k, v, do, lse, (do * o).sum(-1)
 
 
+def _device_ms(calls: dict, kernel_names: str) -> dict:
+    """Device ms per call of each of ``calls`` ({kernel: call}) from one
+    torch.profiler window of 10 rounds: the kernels whose names match
+    ``kernel_names`` (a pattern with {kernel} in it), added up per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rounds = 10
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for call in calls.values():
+                call()
+        torch.cuda.synchronize()
+    totals = dict.fromkeys(calls, 0.0)  # a call's kernels added up (dK/dV's two passes at Dh 256)
+    for ev in prof.key_averages():
+        for kernel in calls:
+            if re.search(kernel_names.format(kernel=kernel), ev.key):
+                totals[kernel] += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+    return {kernel: total / rounds / 1e3 for kernel, total in totals.items()}
+
+
+def measure_slices(name: str) -> dict:
+    """In this process: the variant's dQ and dK/dV above head dim 256
+    against the plain versions at SLICE_CHECKS and SLICE_SHAPES (each
+    output's relative norm under "gaps"), dQ's bits twice, then at
+    SLICE_SHAPES their event and device ms and SDPA's backward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = {lib: ctypes.CDLL(str(_dir(name) / so))
+            for lib, so in (("flash_attention_f32", "lib.so"), ("flash_attention_mixed", "mixed.so"))}
+    real = _build.load
+    _build.load = lambda n, defines=(): libs.get(n) or real(n, defines)
+    out = {"relnorm": 0.0, "fwd relnorm": 0.0, "lse": 0.0, "rule": True, "gaps": {}}
+    for B, T, H, D, causal, dtypes in SLICE_CHECKS + SLICE_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(D)
+        q, k, v, do = (torch.randn(B * H, T, D, device="cuda", generator=g).to(t) for t in (*dtypes, dtypes[0]))
+        o, lse = fa.flash_fwd_reference(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        got = [fa.flash_dq(q, k, v, do, lse, delta, causal), *fa.flash_dkv(q, k, v, do, lse, delta, causal)]
+        out["rule"] &= torch.equal(got[0], fa.flash_dq(q, k, v, do, lse, delta, causal))
+        key = f"d{D} {'mixed' if len(set(dtypes)) > 1 else 'f32'}{'' if causal else ' full'}"
+        out["gaps"][key] = {}
+        for n, a, b in zip(("dq", "dk", "dv"), got, fa.flash_bwd_reference(q, k, v, do, lse, delta, causal)):
+            gap = bench.disagreement(a, b)
+            out["gaps"][key][n] = gap["relnorm"]
+            if a.dtype == torch.float32:
+                out["relnorm"] = max(out["relnorm"], gap["relnorm"])
+            else:
+                out["rule"] &= gap["ok"]
+        if (B, T, H, D, causal, dtypes) in SLICE_CHECKS:
+            continue
+        calls = {"dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, causal),
+                 "dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal)}
+        for kernel, call in calls.items():
+            out[f"{kernel} {key} ms"] = bench.time_ms(call)
+        for kernel, ms in _device_ms(calls, r"flash_(f32|wide)_{kernel}_(slices_)?kernel").items():
+            out[f"{kernel} {key} device ms"] = ms
+        out[f"dq + dkv {key} ms"] = out[f"dq {key} ms"] + out[f"dkv {key} ms"]
+        qs, ks, vs = (x.float().view(B, H, T, D).detach().requires_grad_() for x in (q, k, v))
+        att = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        dos = do.float().view(B, H, T, D)
+        out[f"SDPA backward {key} ms"] = bench.time_ms(
+            lambda: torch.autograd.grad(att, (qs, ks, vs), dos, retain_graph=True))
+        del q, k, v, do, lse, delta, got, qs, ks, vs, att, dos
+    _build.load = real
+    return out
+
+
 def measure(name: str) -> dict:
     """In this process: the variant's forward and gradients against the
     plain versions, then each kernel's event and device ms at SHAPES."""
-    from torch.profiler import ProfilerActivity, profile
-
     torch.backends.cuda.matmul.allow_tf32 = False
     lib = ctypes.CDLL(str(_dir(name) / "lib.so"))
     real = _build.load
@@ -214,25 +349,22 @@ def measure(name: str) -> dict:
                  "dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal)}
         for kernel, call in calls.items():
             out[f"{kernel} Dh {D}{'' if causal else ' full'} ms"] = bench.time_ms(call)
-        rounds = 10
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(rounds):
-                for call in calls.values():
-                    call()
-            torch.cuda.synchronize()
-        totals = dict.fromkeys(calls, 0.0)  # a call's kernels added up (dK/dV's two passes at Dh 256)
-        for ev in prof.key_averages():
-            for kernel in calls:
-                if f"flash_f32_{kernel}_kernel" in ev.key:
-                    totals[kernel] += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
-        for kernel, total in totals.items():
-            out[f"{kernel} Dh {D}{'' if causal else ' full'} device ms"] = total / rounds / 1e3
+        for kernel, ms in _device_ms(calls, "flash_f32_{kernel}_kernel").items():
+            out[f"{kernel} Dh {D}{'' if causal else ' full'} device ms"] = ms
         del q, k, v, do, lse, delta
     return out
 
 
+CHECKS = ("relnorm", "fwd relnorm", "lse", "rule", "gaps")
+
+
 def _ok(res: dict) -> bool:
-    return res["relnorm"] <= GRAD_RELNORM and res["fwd relnorm"] <= FWD_RELNORM and res["lse"] <= LSE_TOL
+    return (res["relnorm"] <= GRAD_RELNORM and res["fwd relnorm"] <= FWD_RELNORM and res["lse"] <= LSE_TOL
+            and res.get("rule", True))
+
+
+def _family(name: str) -> str:
+    return "slices" if name.startswith("slices") else "instances"
 
 
 def main(argv=None) -> None:
@@ -241,27 +373,32 @@ def main(argv=None) -> None:
     ap.add_argument("--variants", nargs="*", default=None,
                     help="run only the variants whose names start with one of these (and the chosen one)")
     ap.add_argument("--measure", help=argparse.SUPPRESS)  # one variant, in a child process
+    ap.add_argument("--family", default="instances", help=argparse.SUPPRESS)  # its shapes: "instances", "slices"
     args = ap.parse_args(argv)
     if args.measure:
-        print(json.dumps(measure(args.measure)), flush=True)
+        res = measure_slices(args.measure) if args.family == "slices" else measure(args.measure)
+        print(json.dumps(res), flush=True)
         return
     if not torch.cuda.is_available():
         sys.exit("sweep_flash_f32 needs an NVIDIA card")
     print(", ".join(bench.card()), flush=True)
     names = [n for n in VARIANTS if n == "chosen" or args.variants is None
              or any(n.startswith(prefix) for prefix in args.variants)]
+    families = sorted({_family(n) for n in names if n != "chosen"}) or ["instances"]
+    runs = [(n, f) for n in names for f in families if n == "chosen" or f == _family(n)]
+    mixed = {n: any(f == "slices" for m, f in runs if m == n) for n in names}
     with ThreadPoolExecutor(len(names)) as pool:
-        reports = dict(zip(names, pool.map(build, names)))
+        reports = dict(zip(names, pool.map(lambda n: build(n, mixed[n]), names)))
     for name, report in reports.items():
         print(f"build {name!r} ({VARIANTS[name][0]}): {report or 'no spill'}", flush=True)
     best = {}
     for rnd in range(args.rounds):
-        for name, report in reports.items():
-            if report.startswith("build failed"):
+        for name, family in runs:
+            if reports[name].startswith("build failed"):
                 continue
             try:
-                proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch.sweep_flash_f32", "--measure", name],
-                                      capture_output=True, text=True, timeout=VARIANT_SECONDS)
+                proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch.sweep_flash_f32", "--measure", name,
+                                       "--family", family], capture_output=True, text=True, timeout=VARIANT_SECONDS)
                 res = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.returncode == 0 else None
             except subprocess.TimeoutExpired:
                 print(f"round {rnd} {name!r}: no answer in {VARIANT_SECONDS} s", flush=True)
@@ -270,12 +407,16 @@ def main(argv=None) -> None:
                 print(f"round {rnd} {name!r}: failed: {proc.stderr[-1500:]}", flush=True)
                 continue
             ok = _ok(res)
-            checks = ("relnorm", "fwd relnorm", "lse")
-            print(f"round {rnd} {name!r}: max relnorm dq/dk/dv {res['relnorm']:.3e}, o {res['fwd relnorm']:.3e}, "
-                  f"lse max abs {res['lse']:.3e} ({'ok' if ok else 'WRONG'}); "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in res.items() if k not in checks), flush=True)
+            verdict = "timing only" if name in TIMING_ONLY else "ok" if ok else "WRONG"
+            gaps = "; ".join(f"{case} " + ", ".join(f"{n} {g:.3e}" for n, g in per.items())
+                             for case, per in res.get("gaps", {}).items())
+            print(f"round {rnd} {name!r}: max relnorm of f32 outputs {res['relnorm']:.3e}, o {res['fwd relnorm']:.3e}, "
+                  f"lse max abs {res['lse']:.3e}" + (f", relnorm {gaps}" if gaps else "")
+                  + (f", 16-bit outputs by the rule and dQ's bits twice {res['rule']}" if "rule" in res else "")
+                  + f" ({verdict}); " + ", ".join(f"{k} {v:.4f}" for k, v in res.items() if k not in CHECKS),
+                  flush=True)
             for k, v in res.items():
-                if ok and k not in checks:
+                if (ok or name in TIMING_ONLY) and k not in CHECKS:
                     best[(name, k)] = min(best.get((name, k), math.inf), v)
     for name in reports:
         row = {k: v for (n, k), v in best.items() if n == name}

@@ -123,3 +123,119 @@ def test_timed_steps_counts_from_zero_on_the_cpu():
     assert per_step == dict.fromkeys(fa.launches, 0.0)
     assert math.isnan(peak) and math.isnan(busy)
     assert not any(torch.equal(a, p) for a, p in zip(before, run.model.parameters()))
+
+
+class _Range:
+    def __init__(self, start, end):
+        self.start, self.end = start, end
+
+    def elapsed_us(self):
+        return self.end - self.start
+
+
+class _Event:
+    def __init__(self, name, device_type, start=0, end=0):
+        self.name, self.device_type, self.time_range = name, device_type, _Range(start, end)
+
+
+def _pads(kernels_kept: int) -> list:
+    """A card_trace window's pad launches on the host, then ``kernels_kept``
+    of their kernels on the card (the first ones lost)."""
+    from torch.autograd import DeviceType
+
+    return ([_Event("cudaLaunchKernel", DeviceType.CPU, -100 + i, -99 + i) for i in range(bench.PAD_KERNELS)]
+            + [_Event("void at::cuda::spin_kernel(long)", DeviceType.CUDA, -50 + i, -49 + i)
+               for i in range(bench.PAD_KERNELS - kernels_kept, bench.PAD_KERNELS)])
+
+
+def _fake_profiler(monkeypatch, events):
+    """torch.profiler.profile replaced by a window whose trace holds
+    ``events``, and the card's synchronize and the pads' kernel by nothing;
+    returns the list that counts the windows opened."""
+    opened = []
+
+    class Window:
+        def __init__(self, *args, **kwargs):
+            opened.append(1)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return events
+
+    monkeypatch.setattr(torch.profiler, "profile", Window)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    return opened
+
+
+@pytest.mark.parametrize("pads_kept,device_events,why", [
+    pytest.param(0, [], "no device time", id="no_device_time"),
+    pytest.param(0, [("flash_dq_kernel<float>", 10, 30), ("elementwise", 30, 40)], "no pad kernel",
+                 id="no_pad_kernel"),
+    pytest.param(8, [("flash_dq_kernel<float>", 10, 30)],
+                 "1 kernels for 2 launches (the first kernel starts 0.009 ms after the first launch)",
+                 id="a_kernel_lost")])
+def test_a_trace_that_does_not_measure_the_card_is_not_measured(monkeypatch, pads_kept, device_events, why):
+    """A trace without device events, without a pad kernel, or with fewer
+    kernels than the host launched in it besides the pads, gives nan device
+    times, no split, and no window in profiler_ready."""
+    from torch.autograd import DeviceType
+
+    events = [*_pads(pads_kept), _Event("aten::mul_", DeviceType.CPU, 0, 5),
+              _Event("cudaLaunchKernel", DeviceType.CPU, 1, 2), _Event("cudaLaunchKernelExC", DeviceType.CPU, 3, 4),
+              *(_Event(name, DeviceType.CUDA, a, b) for name, a, b in device_events)]
+    opened = _fake_profiler(monkeypatch, events)
+    assert bench.measured_kernels(torch.profiler.profile()) == ([], why)
+    assert bench.device_trace(lambda: None) == []
+    assert math.isnan(bench.busy_ms(lambda: None))
+    flash, rest, top = bench.device_split(lambda: None)
+    assert math.isnan(flash) and math.isnan(rest) and top == []
+    opened.clear()
+    assert bench.profiler_ready(3, device="cpu") == 0 and len(opened) == 3
+
+
+def test_a_trace_with_device_time_is_split_and_unioned(monkeypatch):
+    """A kernel for every launch but the pads (some of whose kernels were
+    lost) gives the union of the device intervals, the split between the
+    flash kernels and the rest, and the first window in profiler_ready; the
+    pads and a host range mirrored on the device are left out."""
+    from torch.autograd import DeviceType
+
+    events = [*_pads(9), _Event("step", DeviceType.CPU, 0, 100),
+              _Event("cudaLaunchKernel", DeviceType.CPU, 1, 2),
+              _Event("cuLaunchKernelEx", DeviceType.CPU, 3, 4),
+              _Event("cudaMemcpyAsync", DeviceType.CPU, 5, 6),
+              _Event("step", DeviceType.CUDA, 0, 100),
+              _Event("flash_dq_kernel<float>", DeviceType.CUDA, 10, 30),
+              _Event("elementwise", DeviceType.CUDA, 20, 50),
+              _Event("Memcpy DtoD (Device -> Device)", DeviceType.CUDA, 60, 70)]
+    opened = _fake_profiler(monkeypatch, events)
+    assert [ev.name for ev in bench.device_trace(lambda: None)] == [
+        "flash_dq_kernel<float>", "elementwise", "Memcpy DtoD (Device -> Device)"]
+    assert bench.busy_ms(lambda: None) == pytest.approx(0.05)
+    flash, rest, top = bench.device_split(lambda: None)
+    assert flash == pytest.approx(0.02) and rest == pytest.approx(0.04)
+    assert top == [("elementwise", pytest.approx(0.03)),
+                   ("Memcpy DtoD (Device -> Device)", pytest.approx(0.01))]
+    opened.clear()
+    assert bench.profiler_ready(3, device="cpu") == 1 and len(opened) == 1
+
+
+def test_smoke_device_times_are_not_measured_without_device_time(monkeypatch, capsys):
+    """chip_smoke.py's profiled f32 kernel times read nan, printed as "not
+    measured", where the trace does not measure the card; the run goes on."""
+    import chip_smoke
+
+    _fake_profiler(monkeypatch, [])
+    calls = {name: (lambda: None) for name in ("flash_fwd", "flash_dq", "flash_dkv")}
+    got = chip_smoke._device_ms(calls, 384, rounds=2)
+    assert list(got) == list(calls) and all(math.isnan(ms) for ms in got.values())
+    assert ("trace of the f32 kernels holds no device time: its device time is not measured"
+            in capsys.readouterr().out)
+    assert chip_smoke._ms_text(float("nan")) == "not measured"
+    assert chip_smoke._ms_text(1.23456) == "1.2346 ms"

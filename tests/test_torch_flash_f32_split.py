@@ -662,3 +662,311 @@ def test_sweep_variants_apply_to_the_source():
     for d, text in sweep.TRAITS.items():
         traits = {name: int(v) for name, v in re.findall(r"(\w+) = (\d+)", text)}
         assert traits == {k: v for k, v in TILES[d].items() if k != "ROWS_OWNED"}, d
+
+
+# ---------------------------------------------------------------------------
+# Above head dim 256: dQ and dK/dV on a cluster of column slices
+# ---------------------------------------------------------------------------
+
+
+def cu_slice_tiles(source: str) -> dict:
+    """``SliceTiles`` of flash_attention_f32.cu, {NAME: int}, with the
+    global ``ROWS_OWNED`` beside it."""
+    body = re.search(r"^struct SliceTiles \{(.*?)^\};", source, re.M | re.S)[1]
+    out = {name: int(v) for name, v in re.findall(r"(\w+) = (\d+)", body)}
+    out["ROWS_OWNED"] = int(re.search(r"^constexpr int ROWS_OWNED = (\d+);", source, re.M)[1])
+    return out
+
+
+SLICES = cu_slice_tiles(CU.read_text())
+# Head dims the smoke times (384, 512; the mix at 320), on two short shapes:
+# causal over several stages, and non-causal with Tk != Tq and both ends
+# ragged.
+SLICE_DIMS = (320, 384, 512)
+SLICE_SHAPES = [(2, 128, 128, True), (1, 40, 72, False)]
+# (q, k, v) dtypes; dO takes q's. The mix rounds dK/dV's P to dO's dtype
+# and dS to q's; dQ's dS to k's (f32 here: no rounding on dq's path).
+SLICE_DTYPES = {"f32": (torch.float32,) * 3, "bf16_f32_bf16": (torch.bfloat16, torch.float32, torch.bfloat16)}
+SLICE_CASES = [(*shape, d, "f32") for d in SLICE_DIMS for shape in SLICE_SHAPES] + \
+    [(*shape, 320, "bf16_f32_bf16") for shape in SLICE_SHAPES]
+
+
+def slice_columns(D: int, t: dict = SLICES) -> list:
+    """The column slices of the cluster that serves head dim D: block w's
+    [w SLICE, (w + 1) SLICE), W = ceil(D / SLICE) of them (the last one's
+    columns past D are the zeros TMA fills)."""
+    S = t["SLICE"]
+    return [(w * S, (w + 1) * S) for w in range(_ceil(D, S))]
+
+
+def cluster_sum(parts: list) -> torch.Tensor:
+    """The blocks' partial sums added in rank order, w = 0 .. W - 1."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def slice_partial(a: torch.Tensor, b: torch.Tensor, t: dict = SLICES) -> torch.Tensor:
+    """A block's partial scores over its slice, a [.., M, SLICE] @ b [..,
+    SLICE, N], as slice_scores takes them: SCORE_STEPS k-steps at a time in
+    3xTF32 into a fresh partial, the partials added in f32 in column
+    order."""
+    step = 8 * t["SCORE_STEPS"]
+    total = mma3(a[..., :step], b[..., :step, :])
+    for c in range(step, a.shape[-1], step):
+        total = total + mma3(a[..., c:c + step], b[..., c:c + step, :])
+    return total
+
+
+def _pad_cols(x: torch.Tensor, cols: int) -> torch.Tensor:
+    return torch.nn.functional.pad(x, (0, cols - x.shape[-1]))
+
+
+def _rounded(x: torch.Tensor, dtype) -> torch.Tensor:
+    """P or dS rounded to an operand's dtype before the product (the mixed
+    library's Round; f32: unchanged)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def dq_slices_model(q, k, v, do, lse, delta, causal, round_ds=torch.float32):
+    """dQ by flash_f32_dq_slices_kernel: dq_model's schedule at SliceTiles'
+    stage, each block's S and dP contracted over its own slice in 3xTF32
+    (slice_partial),
+    the W partials summed in rank order, P and dS from the sums, dS rounded
+    to k's dtype, dQ += dS K on every slice; the two warpgroups' partial
+    sums added (warpgroup 0's first)."""
+    BH, Tq, D = q.shape
+    Tk, t = k.shape[1], SLICES
+    R, BK = t["ROWS_OWNED"], t["DQ_BK"]
+    cols = slice_columns(D)
+    scale = 1.0 / math.sqrt(D)
+    width = cols[-1][1]
+    qp, dop = (_pad_cols(_pad_rows(x, _ceil(Tq, R) * R), width) for x in (q, do))
+    kp, vp = (_pad_cols(_pad_rows(x, _ceil(Tk, BK) * BK), width) for x in (k, v))
+    rows_in = torch.arange(_ceil(Tq, R) * R) < Tq
+    l2 = torch.where(rows_in, _pad_rows(lse[..., None], len(rows_in))[..., 0] * LOG2E, 0.0)
+    dl = torch.where(rows_in, _pad_rows(delta[..., None], len(rows_in))[..., 0] * scale, 0.0)
+    dq = torch.zeros(BH, Tq, D)
+    for q0, per_wg in dq_schedule(Tq, Tk, causal, t):
+        rows = torch.arange(q0, q0 + R)
+        sums = []
+        for tiles in per_wg:
+            acc = torch.zeros(BH, R, width)
+            for i, _ in tiles:
+                ks = slice(i * BK, (i + 1) * BK)
+                s = cluster_sum([slice_partial(qp[:, q0:q0 + R, a:b], kp[:, ks, a:b].transpose(1, 2)) for a, b in cols])
+                dp = cluster_sum([slice_partial(dop[:, q0:q0 + R, a:b], vp[:, ks, a:b].transpose(1, 2)) for a, b in cols])
+                p = torch.exp2(s * (scale * LOG2E) - l2[:, q0:q0 + R, None])
+                keys = torch.arange(i * BK, (i + 1) * BK)
+                p = p.masked_fill((keys[None, :] >= Tk) | (causal & (keys[None, :] > rows[:, None])), 0.0)
+                ds = _rounded(p * (dp * scale - dl[:, q0:q0 + R, None]), round_ds)
+                acc = acc + mma3(ds, kp[:, ks])
+            sums.append(acc)
+        n = min(R, Tq - q0)
+        dq[:, q0:q0 + n] = (sums[0] + sums[1])[:, :n, :D]
+    return dq
+
+
+def dkv_slices_model(q, k, v, do, lse, delta, causal, round_p=torch.float32, round_ds=torch.float32):
+    """(dK, dV) by flash_f32_dkv_slices_kernel: dkv_model's schedule at
+    SliceTiles' stage, each block's S^T and dP^T over its own slice
+    (slice_partial), the W
+    partials summed in rank order, P^T rounded to dO's dtype and dS^T to
+    q's, dV += P^T dO and dK += dS^T Q on every slice."""
+    BH, Tq, D = q.shape
+    Tk, t = k.shape[1], SLICES
+    R, BQ = t["ROWS_OWNED"], t["DKV_BQ"]
+    cols = slice_columns(D)
+    scale = 1.0 / math.sqrt(D)
+    width = cols[-1][1]
+    n_rows = _ceil(Tq, BQ) * BQ
+    qp, dop = (_pad_cols(_pad_rows(x, n_rows), width) for x in (q, do))
+    kp, vp = (_pad_cols(_pad_rows(x, _ceil(Tk, R) * R), width) for x in (k, v))
+    rows_in = torch.arange(n_rows) < Tq
+    l2 = torch.where(rows_in, _pad_rows(lse[..., None], n_rows)[..., 0] * LOG2E, 0.0)
+    dl = torch.where(rows_in, _pad_rows(delta[..., None], n_rows)[..., 0] * scale, 0.0)
+    dk, dv = torch.zeros(BH, Tk, D), torch.zeros(BH, Tk, D)
+    for k0, per_wg in dkv_schedule(Tq, Tk, causal, t):
+        keys = torch.arange(k0, k0 + R)
+        sums_k, sums_v = [], []
+        for tiles in per_wg:
+            acc_k, acc_v = torch.zeros(BH, R, width), torch.zeros(BH, R, width)
+            for i, _ in tiles:
+                qs = slice(i * BQ, (i + 1) * BQ)
+                st = cluster_sum([slice_partial(kp[:, k0:k0 + R, a:b], qp[:, qs, a:b].transpose(1, 2)) for a, b in cols])
+                dpt = cluster_sum([slice_partial(vp[:, k0:k0 + R, a:b], dop[:, qs, a:b].transpose(1, 2))
+                                   for a, b in cols])
+                pt = torch.exp2(st * (scale * LOG2E) - l2[:, None, qs])
+                qcols = torch.arange(i * BQ, (i + 1) * BQ)
+                pt = pt.masked_fill((qcols[None, :] >= Tq) | (causal & (keys[:, None] > qcols[None, :])), 0.0)
+                dst = pt * (dpt * scale - dl[:, None, qs])
+                acc_v = acc_v + mma3(_rounded(pt, round_p), dop[:, qs])
+                acc_k = acc_k + mma3(_rounded(dst, round_ds), qp[:, qs])
+            sums_k.append(acc_k)
+            sums_v.append(acc_v)
+        n = min(R, Tk - k0)
+        dk[:, k0:k0 + n] = (sums_k[0] + sums_k[1])[:, :n, :D]
+        dv[:, k0:k0 + n] = (sums_v[0] + sums_v[1])[:, :n, :D]
+    return dk, dv
+
+
+def _slice_id(case):
+    B, Tq, Tk, causal, d, dtypes = case
+    return f"B{B}_Tq{Tq}_Tk{Tk}_{'causal' if causal else 'full'}_D{d}_{dtypes}"
+
+
+@pytest.mark.parametrize("case", SLICE_CASES, ids=_slice_id)
+def test_slices_model_matches_jax_and_plain(cpu_mesh_devices, one_jax_tile, case):
+    """The 3xTF32 model of the slices kernels (per-slice partial scores
+    summed in rank order) against the JAX package's backward (the Pallas
+    kernels in interpret mode, f32 outputs, on the operands in their own
+    dtypes) and the port's plain versions: an output with no 16-bit
+    rounding on its path within 1e-4 in relative norm; one whose P or dS
+    the mix rounds to bf16 (dk, dv) by the kernels' rule
+    (bench.disagreement), as chip_smoke.py's check_mixed_operands holds
+    the card."""
+    B, Tq, Tk, causal, D, dtypes = case
+    qd, kd, vd = SLICE_DTYPES[dtypes]
+    q, k, v, do = _inputs(B, Tq, Tk, D, seed=D + Tk)
+    q, k, v, do = (x.to(t).float() for x, t in zip((q, k, v, do), (qd, kd, vd, qd)))  # exact casts
+    lse, delta = _lse_delta(q, k, v, do, causal)
+    got = (dq_slices_model(q, k, v, do, lse, delta, causal, round_ds=kd),
+           *dkv_slices_model(q, k, v, do, lse, delta, causal, round_p=qd, round_ds=qd))
+    ops = [x.to(t) for x, t in zip((q, k, v, do), (qd, kd, vd, qd))]
+    plain = tfa.flash_bwd_reference(*ops, lse, delta, causal, out_f32=True)
+
+    one_jax_tile(Tq, Tk)
+    BH = q.shape[0]
+    rows = lambda x: jnp.broadcast_to(jnp.asarray(x.numpy())[:, None], (BH, 8, Tq))  # noqa: E731
+    as_jax = lambda x: jnp.asarray(x.float().numpy()).astype(str(x.dtype).removeprefix("torch."))  # noqa: E731
+    jax_grads = jfa._bwd_kernels(*(as_jax(x) for x in ops), rows(lse), rows(delta), causal,
+                                 jnp.float32, jnp.float32, jnp.float32)
+    through = {"dq": kd, "dk": qd, "dv": qd}  # the dtype dS or P is rounded to on each output's path
+    for name, g, p, j in zip(("dq", "dk", "dv"), got, plain, jax_grads):
+        for what, want in (("plain", p), ("jax", torch.from_numpy(np.array(j)))):
+            if through[name] == torch.float32:
+                assert _relnorm(g, want) <= GRAD_RELNORM, (name, what, _relnorm(g, want))
+            else:
+                gap = bench.disagreement(g, want)
+                assert gap["ok"], (name, what, gap)
+
+
+def test_slices_model_sums_in_rank_order():
+    """The cluster's sum is the rank-order chain ((p0 + p1) + p2) + ...,
+    and a partial over zero columns (the last slice past Dh) adds zeros."""
+    rng = np.random.default_rng(11)
+    parts = [torch.from_numpy(rng.standard_normal((4, 8), dtype=np.float32)) for _ in range(5)]
+    want = parts[0]
+    for p in parts[1:]:
+        want = want + p
+    assert torch.equal(cluster_sum(parts), want)
+    a = torch.from_numpy(rng.standard_normal((2, 16, 520), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, 8, 520), dtype=np.float32))
+    ap, bp = _pad_cols(a, 640), _pad_cols(b, 640)
+    partials = [mma3(ap[..., x:y], bp[..., x:y].transpose(1, 2)) for x, y in slice_columns(520)]
+    assert torch.equal(partials[-1], mma3(a[..., 512:], b[..., 512:].transpose(1, 2)))
+
+
+@pytest.mark.parametrize("steps", [1, 2, 4, 16])
+def test_slices_partial_sums_groups_of_k_steps(steps):
+    """A slice's partial scores are SCORE_STEPS k-steps' 3xTF32 products at
+    a time, added in f32 in column order: the groups tile the slice's
+    SLICE / 8 k-steps (the static_assert of slice_scores; the source's own
+    SCORE_STEPS among those swept), and one group over the whole slice is
+    the single chain mma3 takes."""
+    t = dict(SLICES, SCORE_STEPS=steps)
+    S = t["SLICE"]
+    assert S % (8 * steps) == 0 and SLICES["SCORE_STEPS"] in (1, 2, 4, 16)
+    rng = np.random.default_rng(steps)
+    a = torch.from_numpy(rng.standard_normal((2, 16, S), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, S, 8), dtype=np.float32))
+    want = mma3(a[..., :8 * steps], b[..., :8 * steps, :])
+    for c in range(8 * steps, S, 8 * steps):
+        want = want + mma3(a[..., c:c + 8 * steps], b[..., c:c + 8 * steps, :])
+    assert torch.equal(slice_partial(a, b, t), want)
+    if steps == S // 8:
+        assert torch.equal(slice_partial(a, b, t), mma3(a, b))
+    assert _relnorm(slice_partial(a, b, t), a.double() @ b.double()) <= 1e-6
+
+
+@pytest.mark.parametrize("d", [260, 300, 320, 384, 512, 516, 520, 768, 1020, 1024, 1028, 1280])
+def test_slices_tile_the_head_dim(d):
+    """At every kernel width above 256 (a multiple of 4) up to SLICE x
+    MAX_SLICES, the cluster's blocks own slices of SLICE columns from w
+    SLICE that cover each column of the head dim exactly once, no block
+    lies wholly past it, and the cluster fits the portable limit; the
+    wrapper counts that many slices (fa.windows) and routes wider head
+    dims to the column windows."""
+    S, M = SLICES["SLICE"], SLICES["MAX_SLICES"]
+    assert (S, M) == (tfa.SLICE, tfa.MAX_SLICES)
+    for dtype in (torch.float32, "mixed"):
+        for kernel in tfa.SLICED_KERNELS:
+            assert tfa.sliced(kernel, d, dtype) == (d <= S * M), (kernel, d)
+            if d > S * M:
+                assert tfa.windows(kernel, d, dtype) == -(-d // tfa.WIDE_WINDOWS[kernel])
+                continue
+            cols = slice_columns(d)
+            assert tfa.windows(kernel, d, dtype) == len(cols) <= M
+            seen = torch.zeros(len(cols) * S, dtype=torch.int32)
+            for w, (a, b) in enumerate(cols):
+                assert (a, b) == (w * S, (w + 1) * S) and a < d
+                seen[a:b] += 1
+            assert torch.equal(seen[:d], torch.ones(d, dtype=torch.int32)) and cols[-1][1] - d < S
+        assert not tfa.sliced("flash_fwd", d, dtype)
+    assert not tfa.sliced("flash_dq", d, torch.bfloat16) and not tfa.sliced("flash_dkv", d, torch.float16)
+
+
+def test_slices_shared_memory_fits():
+    """Each slices kernel's shared memory (chip_smoke.slice_smem_plans,
+    from SliceTiles: the block's split rows, the ring, raw slots, lse and
+    delta, barriers, alignment slack) fits an H100 block (232,448 bytes);
+    the stage tile that holds the exchange has the partials' bytes (2 x [64
+    x N] f32); the .cu asserts the same plans."""
+    import chip_smoke
+
+    plans = chip_smoke.slice_smem_plans()
+    assert set(plans) == {"flash_dq", "flash_dkv"}
+    for name, nbytes in plans.items():
+        assert nbytes <= SMEM_LIMIT, (name, nbytes)
+    t = SLICES
+    for n in (t["DQ_BK"], t["DKV_BQ"]):
+        assert 2 * t["ROWS_OWNED"] * n * 4 == n * t["SLICE"] * 4
+        assert n % 8 == 0 and f"m64n{n}k8.f32.tf32.tf32" in (CU.parent / "hopper.cuh").read_text()
+    assert min(t["DQ_STAGES"], t["DKV_STAGES"]) >= 2 and t["LOADER_WGS"] in (1, 2, 3)
+    source = CU.read_text()
+    for kernel in ("dQ's slices'", "dK/dV's slices'"):
+        assert f"static_assert(BYTES <= SMEM_LIMIT, \"{kernel} shared memory does not fit\");" in source
+    assert "if (slice_blocks(d) > 0) return launch(std::integral_constant<int, SLICES>{});" in source
+    assert len(re.findall(r"by_head_dim<true>\(", source)) == 2  # dQ and dK/dV; the forward keeps the windows
+
+
+def test_slices_sweep_variants_apply_to_the_source():
+    """Every "slices" variant of ``python3 -m ray_tpu_torch.sweep_flash_f32``
+    still applies to the current source (an edit that no longer matches
+    would be refused on the card): those of SliceTiles change exactly the
+    traits they name, the exchange's timing-only edits and "slices off"
+    (the column windows at every head dim above 256) leave SliceTiles'
+    stage traits as they are; the sweep's SliceTiles text is the .cu's and
+    its shapes reach the slices."""
+    from ray_tpu_torch import sweep_flash_f32 as sweep
+
+    source = CU.read_text()
+    assert sweep.SLICE_TRAITS in source and sweep.sources("chosen")[sweep.SOURCE] == source
+    slices = [name for name in sweep.VARIANTS if sweep._family(name) == "slices"]
+    assert set(sweep.TIMING_ONLY) < set(slices) and "slices off" in slices
+    for name in slices:
+        edited = sweep.sources(name)[sweep.SOURCE]
+        assert edited != source, name
+        traits = {k: int(v) for k, v in re.findall(r"(\w+) = (\d+)", sweep.VARIANTS[name][1][0][2])}
+        if name in sweep.TIMING_ONLY:
+            assert cu_slice_tiles(edited) == SLICES, name
+        elif name == "slices off":
+            assert cu_slice_tiles(edited) == dict(SLICES, MAX_SLICES=2), name
+        else:
+            assert cu_slice_tiles(edited) == dict(SLICES, **traits), name
+            assert sum(SLICES[t] != v for t, v in traits.items()) >= 1, name
+    for B, T, H, D, causal, dtypes in sweep.SLICE_SHAPES + sweep.SLICE_CHECKS:
+        for kernel in tfa.SLICED_KERNELS:
+            assert tfa.sliced(kernel, D, "mixed" if len(set(dtypes)) > 1 else dtypes[0]), (kernel, D)
+    assert {-(-D // SLICES["SLICE"]) for *_, D, _, _ in sweep.SLICE_CHECKS} == {5, 6, 8}
