@@ -75,19 +75,21 @@ Phases (any failure exits non-zero and prints no result):
      (o by the bf16 rule where v is 16-bit: see MIXES), lse within 1e-5,
      only mixed instances launched; the mixed route timed at B 8, H 12, Dh
      64 ((q, k, v) bf16/f32/bf16) beside its bound, plain versions and
-     SDPA on the operands cast to f32. Then head dims above 256, the
-     column-window kernels (WIDE_CASES; the f32 and mixed dQ and dK/dV on
-     clusters of column slices up to 1024): gpt2-small's width as 3 heads of
-     264, 2 of 384 and 1 of 768 (B 32, T 1024, causal), gpt2-medium's as 2
-     of 512 and 1 of 1024 (B 8), f16 at 384, f32 at 384 and 512, a mix at
-     320, f32 outputs of bf16 operands at 384, ragged causal, non-causal
-     and wrapping, f32 at 768 and 1024 (clusters of 6 and 8 blocks) and at
-     1280 (the windows again), each held by its operands' gates with one
-     launch of its window or cluster instance a call, dQ twice for the same
-     bits, the first ten timed beside their bounds (the function's FLOPs,
-     not the windows' recompute), plain versions, SDPA with the backend it
-     took and (the slices, text only) the column-window kernels' times
-     before them (PERF.md);
+     SDPA on the operands cast to f32. Then head dims above 256
+     (WIDE_CASES): the forward in every library, and the f32 and mixed dQ
+     and dK/dV, on clusters of column slices up to their limit (1024), the
+     16-bit dQ and dK/dV and everything wider on the column-window kernels:
+     gpt2-small's width as 3 heads of 264, 2 of 384 and 1 of 768 (B 32, T
+     1024, causal), gpt2-medium's as 2 of 512 and 1 of 1024 (B 8), f16 at
+     384, f32 at 384 and 512, a mix at 320, f32 outputs of bf16 operands at
+     384, ragged causal, non-causal and wrapping, f32 at 768 and 1024
+     (clusters of 6 and 8 blocks) and at 1280 (the windows again), bf16 at
+     1032 (the forward's windows again), each held by its operands' gates
+     with one launch of its window or cluster instance a call, o and dQ
+     twice for the same bits, all timed beside their bounds (the function's
+     FLOPs, not the windows' recompute), plain versions, SDPA with the
+     backend it took and (text only) the column-window kernels' times
+     before the clusters (PERF.md's column-window table);
      and the window check: at Dh 512 with columns 256-511 of q, k, v and dO
      copied from 0-255, each output's halves bitwise equal, in bf16 and in
      f32 (the slices: the cluster's four blocks sum one S, P and dS);
@@ -601,12 +603,17 @@ ELEMENT_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}  # man
 # mixed library's).
 WIDE_KERNEL_NAME = (r"(flash_wide_(?:fwd|dq|dkv)_kernel)I(13__nv_bfloat16|6__half|f)"
                     r"(13__nv_bfloat16|6__half|f|S\d*_)Lb([01])E")
-# The f32 and mixed dQ and dK/dV above head dim 256 on clusters of column
-# slices (F32_SOURCE's flash_f32_{dq,dkv}_slices_kernel): the kernel and its
-# rounding flag (1: the mixed library's).
-SLICES_KERNEL_NAME = r"(flash_f32_(?:dq|dkv)_slices_kernel)ILb([01])E"
+# The f32 and mixed forward, dQ and dK/dV above head dim 256 on clusters of
+# column slices (F32_SOURCE's flash_f32_{fwd,dq,dkv}_slices_kernel): the
+# kernel and its rounding flag (1: the mixed library's).
+SLICES_KERNEL_NAME = r"(flash_f32_(?:fwd|dq|dkv)_slices_kernel)ILb([01])E"
+# The 16-bit forward above head dim 256 on clusters of column slices
+# (SOURCE's flash_fwd_slices_kernel, in the bf16 and f16 libraries): the
+# kernel, its operand type and its output type (a back-reference when it is
+# the operand type).
+FWD16_SLICES_KERNEL_NAME = r"(flash_fwd_slices_kernel)I(13__nv_bfloat16|6__half)(13__nv_bfloat16|6__half|f|S\d*_)E"
 # The head dims whose cluster sizes phase 1 prints (the smoke's slices cases).
-SLICE_DIMS_SHOWN = (320, 384, 512, 520, 768, 1024)
+SLICE_DIMS_SHOWN = (264, 320, 384, 512, 520, 768, 1024)
 
 
 def _instance_name(found) -> str:
@@ -666,6 +673,31 @@ def slice_smem_plans() -> dict:
     return out
 
 
+def fwd_slice_tiles() -> dict:
+    """``FwdSliceTiles`` of SOURCE (16-bit operands) and F32_SOURCE (f32
+    and mixed): {"16-bit" | "f32": {NAME: int}}."""
+    out = {}
+    for key, path in (("16-bit", SOURCE), ("f32", F32_SOURCE)):
+        text = (Path(__file__).resolve().parent / path).read_text()
+        body = re.search(r"^struct FwdSliceTiles \{(.*?)^\};", text, re.M | re.S)[1]
+        out[key] = {name: int(value) for name, value in re.findall(r"(\w+) = (\d+)", body)}
+    return out
+
+
+def fwd_slice_smem(paths: dict) -> dict:
+    """Each built library's forward slices' dynamic shared memory a block in
+    bytes, as the build states it (rt_fwd_slices_smem_bytes: SliceFwdSmem of
+    SOURCE, SliceFwdPlan of F32_SOURCE; {library: bytes})."""
+    import ctypes
+
+    out = {}
+    for lib, path in paths.items():
+        fn = ctypes.CDLL(str(path)).rt_fwd_slices_smem_bytes
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        out[lib] = fn()
+    return out
+
+
 def _wide_instance_name(found) -> str:
     """"wide <operands>-><outputs>" of a WIDE_KERNEL_NAME match."""
     ops = "mixed" if found[4] == "1" else ELEMENT_TYPES[found[2]]
@@ -681,6 +713,10 @@ def _kernel_entry(line: str):
     found = re.search(SLICES_KERNEL_NAME, line)
     if found:
         return found[1], f"slices {'mixed' if found[2] == '1' else 'f32'}->f32"
+    found = re.search(FWD16_SLICES_KERNEL_NAME, line)
+    if found:
+        ops = ELEMENT_TYPES[found[2]]
+        return found[1], f"slices {ops}->{ELEMENT_TYPES.get(found[3], ops)}"
     found = re.search(WIDE_KERNEL_NAME, line)
     return (found[1], _wide_instance_name(found)) if found else None
 
@@ -726,7 +762,20 @@ def build() -> dict:
           + f" a block; {(t['LOADER_WGS'] + 2) * 128} threads (loading warpgroups and two consumers); a cluster"
           f" of ceil(Dh / {t['SLICE']}) blocks: "
           + ", ".join(f"Dh {d} {-(-d // t['SLICE'])}" for d in SLICE_DIMS_SHOWN), flush=True)
-    if any(entry.startswith(("flash_f32_", "flash_wide_")) for entry in spills):
+    plans = fwd_slice_smem(paths)
+    for key, ft in fwd_slice_tiles().items():
+        libs = LIBRARIES[:2] if key == "16-bit" else LIBRARIES[2:]  # bf16 and f16; f32 and mixed
+        print(f"forward clusters ({key} operands, Dh 257-{ft['SLICE'] * ft['MAX_SLICES']}): shared memory "
+              + ", ".join(f"{lib} {plans[lib]} B" for lib in libs)
+              + f" a block (the build's); {ft.get('ROWS', 64)} q rows a block, {ft['BK']} keys a stage, "
+              f"{ft['STAGES']} stages; "
+              + (f"{(ft['LOADER_WGS'] + 2) * 128} threads (loading warpgroups and two consumers on alternate stages)"
+                 if key == "f32" else f"{(ft['ROWS'] // 64 + 1) * 128} threads (a producer and {ft['ROWS'] // 64}"
+                 " consumers)")
+              + f"; a cluster of ceil(Dh / {ft['SLICE']}) blocks: "
+              + ", ".join(f"Dh {d} {-(-d // ft['SLICE'])}" for d in SLICE_DIMS_SHOWN if d <= ft["SLICE"] * ft["MAX_SLICES"]),
+              flush=True)
+    if any(entry.startswith(("flash_f32_", "flash_wide_", "flash_fwd_slices")) for entry in spills):
         fail(f"an f32, mixed, slices or column-window instance spills: {spills}")
     counts = {name: {} for name in KERNELS}
     with ThreadPoolExecutor(len(paths)) as pool:  # one cuobjdump each, at once
@@ -748,9 +797,11 @@ def build() -> dict:
         wide = {inst for inst in counts[name] if inst.startswith("wide ")}
         if wide != {f"wide {ops}" for ops in operands}:
             fail(f"{name}: the libraries hold column-window instances {sorted(wide)}; expected {operands}")
-        # the f32 and mixed dQ and dK/dV's clusters of slices (wgmma fed by TMA)
+        # the clusters of slices (wgmma fed by TMA): the forward in every
+        # library and output type, the f32 and mixed dQ and dK/dV
         slices = {inst for inst in counts[name] if inst.startswith("slices ")}
-        want_slices = {"slices f32->f32", "slices mixed->f32"} if name != "flash_fwd" else set()
+        want_slices = {f"slices {ops}" for ops in operands} if name == "flash_fwd" else {
+            "slices f32->f32", "slices mixed->f32"}
         if slices != want_slices:
             fail(f"{name}: the libraries hold cluster instances {sorted(slices)}; expected {sorted(want_slices)}")
         wide |= slices
@@ -1325,10 +1376,13 @@ def check_refused_dtypes() -> None:
 # ragged causal, non-causal with Tk != Tq and wrapping, at widths the
 # padding copy does not take and does (520; 260 in bf16); then f32 at 768
 # and 1024 (non-causal and causal), the widest clusters (6 and 8 blocks),
-# and at 1280, where dQ and dK/dV take the column windows again (more
-# slices than a cluster holds). The f32 and mixed dQ and dK/dV up to 1024
-# run on clusters of slices. Held by the gates of their operands (phase 2's
-# rule, f32's limits, a mix's), timed all but the last six.
+# and at 1280, where the f32 kernels take the column windows again (more
+# slices than a cluster holds); then bf16 just above the 16-bit forward's
+# clusters (WIDE_FWD16_WINDOW_DIM), where it takes the column windows. The
+# forward in every library, and the f32 and mixed dQ and dK/dV, run on
+# clusters of slices up to their limit (fa.CLUSTERS). Held by the gates of
+# their operands (phase 2's rule, f32's limits, a mix's), o's and dQ's bits
+# twice, every case timed.
 BF16, F16, F32 = (torch.bfloat16,) * 3, (torch.float16,) * 3, (torch.float32,) * 3
 WIDE_CASES = (
     ((32, 1024, 1024, 3, 264, True), BF16, False), ((32, 1024, 1024, 2, 384, True), BF16, False),
@@ -1341,15 +1395,23 @@ WIDE_CASES = (
     ((2, 300, 1100, 2, 260, False), BF16, False), ((2, 256, 256, 1, 768, False), F32, False),
     ((1, 256, 256, 1, 1024, True), F32, False), ((1, 256, 256, 1, 1280, True), F32, False),
 )
-WIDE_TIMED = 10  # the first ten cases
+WIDE_FWD16_WINDOW_DIM = 1032  # 8 past the 16-bit forward's clusters (SLICE x MAX_SLICES of FwdSliceTiles)
+WIDE_CASES += (((1, 256, 256, 1, WIDE_FWD16_WINDOW_DIM, True), BF16, False),)
+WIDE_TIMED = len(WIDE_CASES)
 WIDE_WINDOW_CASE = (8, 1024, 1024, 2, 512, True)  # the window check's (bf16, then f32)
-# The f32 and mixed dQ and dK/dV on the column windows before the clusters
-# of slices took them (ms; chip_smoke.py phase 2 on an NVIDIA H100 80GB
-# HBM3 at 700 W, PERF.md section 6): printed in the text line beside this
-# run's, never in the kernels line (not measured here).
-WINDOWS_BEFORE_MS = {"d384 f32": {"flash_dq": 2.3001, "flash_dkv": 3.3137},
-                     "d512 f32": {"flash_dq": 3.0799, "flash_dkv": 4.9401},
-                     "d320 mixed": {"flash_dq": 2.0062, "flash_dkv": 2.7138}}
+# The kernels on the column windows before the clusters of slices took them
+# (ms, the lower end of the windows' range; chip_smoke.py phase 2 on an
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6's column-window table):
+# the f32 and mixed dQ and dK/dV and the forward in every library;
+# printed in the text line beside this run's, never in the kernels line
+# (not measured here).
+WINDOWS_BEFORE_MS = {"d384 f32": {"flash_fwd": 1.1319, "flash_dq": 2.3001, "flash_dkv": 3.3137},
+                     "d512 f32": {"flash_fwd": 1.5298, "flash_dq": 3.0799, "flash_dkv": 4.9401},
+                     "d320 mixed": {"flash_fwd": 1.0238, "flash_dq": 2.0062, "flash_dkv": 2.7138},
+                     "d264 bf16": {"flash_fwd": 0.9493}, "d384 bf16": {"flash_fwd": 0.7978},
+                     "d768 bf16": {"flash_fwd": 1.0009}, "d512 bf16": {"flash_fwd": 0.3487},
+                     "d1024 bf16": {"flash_fwd": 0.5246}, "d384 f16": {"flash_fwd": 0.7990},
+                     "d384 bf16->f32": {"flash_fwd": 0.7953}}
 
 
 def sdpa_backend(q, k, v, causal: bool) -> str:
@@ -1375,9 +1437,9 @@ def check_wide_head_dims(card: str) -> dict:
     outputs by phase 2's rule, f32 outputs of f32 operands at F32_FWD_RELNORM
     and F32_GRAD_RELNORM in relative norm, a mix's by check_mixed_operands'
     limits; lse within LSE_TOL, F32_LSE_TOL for the f32 kernels), only the
-    case's window instances launched (one launch a call); dQ twice for the
-    same bits and each kernel timed (time_wide) at the first
-    WIDE_TIMED cases, with the backend SDPA took; then the window check
+    case's window or cluster instances launched (one launch a call); o
+    and dQ twice for the same bits and each kernel timed (time_wide) at the
+    first WIDE_TIMED cases, with the backend SDPA took; then the window check
     (window_check). Returns {kernel: {"d<D> <operands>[->f32]": the kernel
     line's numbers}}."""
     from ray_tpu_torch import bench
@@ -1430,9 +1492,12 @@ def check_wide_head_dims(card: str) -> dict:
         again = fa.flash_dq(q, k, v, do, lse_ref, delta, causal, out_f32=out_f32)
         if not torch.equal(dq, again):
             fail(f"two flash_dq calls at {where} differ")
-        print(f"flash_dq at {where} ({fa.instance('flash_dq', D, operands)}): two calls give the same bits",
-              flush=True)
-        del again
+        o_again, lse_again = fa.flash_fwd(q, k, v, causal, out_f32=out_f32)
+        if not (torch.equal(o, o_again) and torch.equal(lse, lse_again)):
+            fail(f"two flash_fwd calls at {where} differ")
+        print(f"flash_fwd and flash_dq at {where} ({fa.instance('flash_fwd', D, operands)}, "
+              f"{fa.instance('flash_dq', D, operands)}): two calls each give the same bits", flush=True)
+        del again, o_again, lse_again
         if i >= WIDE_TIMED:
             continue
         key = _instance_key(D, dtypes[0]) if not mixed else f"d{D} mixed"
@@ -1480,7 +1545,7 @@ def time_wide(case, q, k, v, do, lse, delta, gaps, card, dtypes, out_f32: bool) 
     err_of = {"flash_fwd": gaps["o"]["max_abs"], "flash_dq": gaps["dq"]["max_abs"],
               "flash_dkv": max(gaps["dk"]["max_abs"], gaps["dv"]["max_abs"])}
     operands = "mixed" if len(set(dtypes)) > 1 else dtypes[0]
-    before = WINDOWS_BEFORE_MS.get(f"d{D} {SHORT[operands]}", {})
+    before = WINDOWS_BEFORE_MS.get(f"d{D} {SHORT[operands]}" + ("->f32" if out_f32 else ""), {})
     results = {}
     for name in KERNELS:
         sliced = fa.sliced(name, D, operands)
@@ -1502,7 +1567,12 @@ def time_wide(case, q, k, v, do, lse, delta, gaps, card, dtypes, out_f32: bool) 
               f"{library[name]:.4f} ms"
               + (f"; the column windows before (PERF.md, not this run) {before[name]} ms" if name in before else "")
               + f" [{card}]", flush=True)
-    if before:
+    if "flash_fwd" in before and fa.sliced("flash_fwd", D, operands):
+        print(f"flash_fwd at Dh={D} {SHORT[operands]}{' -> f32' if out_f32 else ''}: {ms['flash_fwd']:.4f} ms on the "
+              f"clusters of slices, SDPA's forward {sdpa_fwd:.4f} ms ({ms['flash_fwd'] / sdpa_fwd:.2f}x); the column "
+              f"windows' {before['flash_fwd']:.4f} ms (PERF.md, not this run: {before['flash_fwd'] / ms['flash_fwd']:.2f}x"
+              f" this run's) [{card}]", flush=True)
+    if "flash_dq" in before:
         new = ms["flash_dq"] + ms["flash_dkv"]
         old = before["flash_dq"] + before["flash_dkv"]
         print(f"dQ + dK/dV at Dh={D} {SHORT[operands]}: {new:.4f} ms on the clusters of slices, SDPA's backward "
@@ -5123,10 +5193,14 @@ def main() -> None:
                      tune_trial_launches_a_step=[t[name] for t in libs["trials"]],
                      job_task_launches_a_step=libs["job"][name],
                      autoscaled_domain_launches_a_step=libs["domain"][name])
-        if name != "flash_fwd":  # the f32 and mixed dQ and dK/dV above 256: clusters of column slices
-            entry["slices"] = dict(
-                source=F32_SOURCE, kernel=f"flash_f32_{name.removeprefix('flash_')}_slices_kernel",
-                instances={inst: sass[name][inst] for inst in sorted(sass[name]) if inst.startswith("slices ")})
+        # above 256: clusters of column slices (the forward in every library,
+        # the f32 and mixed dQ and dK/dV)
+        short = name.removeprefix("flash_")
+        entry["slices"] = dict(
+            source=F32_SOURCE, kernel=f"flash_f32_{short}_slices_kernel",
+            instances={inst: sass[name][inst] for inst in sorted(sass[name]) if inst.startswith("slices ")})
+        if name == "flash_fwd":
+            entry["slices"].update(source_16_bit=SOURCE, kernel_16_bit="flash_fwd_slices_kernel")
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

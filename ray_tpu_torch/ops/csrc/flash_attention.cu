@@ -1209,6 +1209,268 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   }
 }
 
+// ---------------------------------------------------------------------------
+// The forward above head dim 256: a cluster of column slices. Replaces
+// _fwd_kernel (ray_tpu/ops/flash_attention.py:72) on bf16 or f16 inputs at
+// head dims 257 to SLICE x MAX_SLICES, where a [64 x Dh] f32 accumulator no
+// longer fits a warpgroup's registers. A cluster of W = ceil(Dh / SLICE)
+// blocks serves one (head, ROWS q rows); block w (its rank) owns the
+// columns [w SLICE, (w + 1) SLICE) of Q, K, V and O. TMA loads its Q slice
+// once and streams its K and V slices (zero-filled past Dh) through a ring
+// of STAGES stages (full and empty mbarriers per stage), one producer warp
+// issuing; each consumer warpgroup owns 64 of the block's rows and reads
+// every stage. Per stage a consumer contracts S = Q K^T over its own slice
+// only (wgmma, f32 accumulator, both operands K-major in shared memory),
+// hands that partial to the same warpgroup of every block of the cluster
+// and sums the W partials in rank order (hopper::cluster_sum), so every
+// block holds bitwise the same S; the exchange slot is the stage's K tile,
+// which no product reads once both warpgroups' score products are in (a
+// [64 x BK] f32 partial each: the tile's bytes at a slice of 256 columns),
+// and the producer loads that tile again only once every block has read
+// it. Then the online softmax in exp2 units of the instanced forward
+// (fwd_max, fwd_exp: masked at the diagonal and past Tk), P rounded to E
+// as the register A operand, and O += P V on the block's own slice with V
+// read MN-major through the transpose bit. Each column of Q, K and V is
+// loaded once a stage across the cluster and the products are the
+// function's own 4 FLOPs per kept pair and head-dim element, with no
+// recompute of S (the column windows computed S once a window). Each block
+// writes its own columns of O (E, or f32 for the ring's block entries)
+// from its registers; block 0 writes lse; no atomics, so two calls give the
+// same bits. Bound on an H100: the bytes (q, k, v in, o out) at 3.35 TB/s
+// or the FLOPs at 989 TFLOP/s, whichever is larger; the exchange (the
+// other blocks' partials read a stage, and the wait for them) is on every
+// stage's path. Above SLICE x MAX_SLICES the forward takes the column
+// windows of flash_wide.cuh.
+// ---------------------------------------------------------------------------
+
+// The slices' traits: the columns a block owns (a wgmma N of the value
+// product) and the cluster's portable limit, the q rows of a block (64 a
+// consumer warpgroup), keys a stage, ring depth, the blocks whose partials
+// a consumer reads at once (four float4s of each at a time, of a thread's
+// BK / 8, hopper::cluster_sum). Clusters of up to four blocks (Dh 1024;
+// wider head dims take the column windows): with up to eight, the
+// exchange's reads unrolled beside the [64 x 256] accumulator spilled 12
+// bytes (all eight float4s at once); with four, two or four float4s at
+// once do not spill and take the same time, eight spill 12.
+// Chosen by timing variants on an H100
+// (python3 -m ray_tpu_torch.sweep_flash_f32 --variants fwd16, PERF.md;
+// bf16, T 1024, causal, Dh 264 / 384 / 768 / 512 / 1024): 64 keys a stage
+// in slices of 256 columns, the partials in K, took 0.568 / 0.374 / 0.412 /
+// 0.125 / 0.176 ms, where 32 keys (three or four stages) took 0.745-0.765 /
+// 0.501-0.518 / 0.520-0.527 / 0.135-0.144 / 0.207-0.216: half the
+// exchanges a key; slices of 128 columns took 1.015-1.017 / 0.684-0.697 /
+// 1.655-1.658 (64 keys, slots of their own; twice the blocks, each reading
+// twice the partials) and 1.508 / 1.002 / 2.056 with one warpgroup of 64
+// rows; reduce-scatter 0.932-0.938 / 0.632-0.634 and starting the second
+// warpgroup a tile behind the first 0.741 / 0.504 (32 keys); two blocks
+// read at once within 2%, with 168-188 bytes of spills.
+// tests/test_torch_flash_fwd_slices.py reads this block.
+struct FwdSliceTiles {
+  static constexpr int SLICE = 256, MAX_SLICES = 4;
+  static constexpr int ROWS = 128, BK = 64, STAGES = 2, READ_BLOCKS = 1;
+};
+
+// Q of the block's rows; the ring of K and V stages (K then holding the
+// stage's exchange: a [64 x BK] f32 partial per consumer warpgroup); the
+// mbarriers (Q's full; per stage K's and V's full and empty; the exchange's
+// full and done per consumer warpgroup and stage).
+struct SliceFwdSmem {
+  using T = FwdSliceTiles;
+  static constexpr int D = T::SLICE, ROWS = T::ROWS, BK = T::BK, STAGES = T::STAGES, WGS = ROWS / 64;
+  using TQ = hopper::Tile<D, ROWS>;
+  using TK = hopper::Tile<D, BK>;
+  static constexpr int X_BYTES = 64 * BK * 4;  // a warpgroup's partial scores
+  static constexpr int K_OFF = TQ::BYTES, V_OFF = K_OFF + STAGES * TK::BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * TK::BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (1 + 3 * STAGES + 2 * WGS * STAGES);  // + alignment slack
+  static_assert(D == 128 || D == 256, "slices of 128 or 256 columns");
+  static_assert(ROWS == 64 || ROWS == 128, "one or two consumer warpgroups");
+  static_assert(WGS * X_BYTES <= TK::BYTES, "a stage's K tile holds the partials of its warpgroups");
+  static_assert(STAGES >= 2, "a ring of at least two stages");
+  static_assert(BYTES <= SMEM_LIMIT, "the forward's slices' shared memory does not fit");
+};
+
+// A warpgroup's [64 x D] f32 accumulator, scaled per row, to rows [row0,
+// row0 + 64) and columns [col0, col0 + D) of a contiguous [T, dh] matrix of
+// OutT (E, rounded to nearest even, or f32), rows past T and columns past dh
+// not written (dh even).
+template <int D, typename OutT>
+__device__ __forceinline__ void store_slice(OutT* dst, const float (&acc)[D / 2], float mul_a, float mul_b, int row0,
+                                            int T, int dh, int col0, int tid) {
+  const int lane = tid % 32, r = row0 + 16 * (tid / 32) + (lane >> 2), c = col0 + 2 * (lane & 3);
+  OutT* p = dst + (size_t)r * dh + c;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (8 * j + c >= dh) continue;
+    if constexpr (std::is_same<OutT, float>::value) {
+      if (r < T) *reinterpret_cast<float2*>(p + 8 * j) = make_float2(acc[4 * j] * mul_a, acc[4 * j + 1] * mul_a);
+      if (r + 8 < T)
+        *reinterpret_cast<float2*>(p + 8 * dh + 8 * j) = make_float2(acc[4 * j + 2] * mul_b, acc[4 * j + 3] * mul_b);
+    } else {
+      if (r < T) *reinterpret_cast<uint32_t*>(p + 8 * j) = hopper::pack2<OutT>(acc[4 * j] * mul_a, acc[4 * j + 1] * mul_a);
+      if (r + 8 < T)
+        *reinterpret_cast<uint32_t*>(p + 8 * dh + 8 * j) =
+            hopper::pack2<OutT>(acc[4 * j + 2] * mul_b, acc[4 * j + 3] * mul_b);
+    }
+  }
+}
+
+// The key tiles warpgroup c of a block at q0 computes (its rows' diagonal;
+// none for rows all past Tq): the same in every block of the cluster.
+template <int BK>
+__device__ __forceinline__ int own_tiles(int q0, int c, int Tq, int Tk, int causal) {
+  const int r0 = q0 + 64 * c;
+  return r0 < Tq ? key_tiles<BK>(r0 + 63, Tk, causal) : 0;
+}
+
+template <typename E, typename OutT>
+__global__ void __launch_bounds__(Roles<FwdSliceTiles::ROWS / 64>::THREADS, 1)
+flash_fwd_slices_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, OutT* __restrict__ o, float* __restrict__ lse,
+                        int Tq, int Tk, int dh, float scale, int causal) {
+  using S = SliceFwdSmem;
+  using TQ = S::TQ;
+  using TK = S::TK;
+  using R = Roles<S::WGS>;
+  constexpr int D = S::D, BK = S::BK, STAGES = S::STAGES, ROWS = S::ROWS, WGS = S::WGS, W = TQ::W;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_base(smem_raw);
+  E* sq = reinterpret_cast<E*>(base);
+  E* sk = reinterpret_cast<E*>(base + S::K_OFF);
+  E* sv = reinterpret_cast<E*>(base + S::V_OFF);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(base + S::BAR_OFF);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty = full_v + STAGES;
+  uint64_t* xfull = empty + STAGES;       // [WGS][STAGES]: every block's partials are in
+  uint64_t* xdone = xfull + WGS * STAGES;  // [WGS][STAGES]: every block has read this one's
+  const uint32_t blocks = hopper::cluster_size(), rank = hopper::cluster_rank();
+  const int bh = blockIdx.x / blocks, col0 = rank * D;
+  // Causal: the longest rows first (blocks start in order of blockIdx.y).
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * ROWS, n_k = key_tiles<BK>(q0 + ROWS - 1, Tk, causal);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full_k[s], 1);
+      hopper::mbar_init(&full_v[s], 1);
+      hopper::mbar_init(&empty[s], R::CONSUMER_WARPS);
+    }
+    for (int x = 0; x < 2 * WGS * STAGES; ++x) hopper::mbar_init(&xfull[x], 4 * blocks);
+    hopper::fence_barrier_init();
+  }
+  hopper::cluster_sync();  // every block's barriers exist before another block arrives on them
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 0) {  // producer
+    hopper::setmaxnreg_dec<R::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(full_q, TQ::BYTES);
+      hopper::tma_load_tile<TQ>(sq, &tm_q, full_q, q0, bh, col0);
+      for (int i = 0; i < n_k; ++i) {
+        const int s = i % STAGES;
+        hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        // K is the stage's exchange slot: every block has read the
+        // partials each warpgroup left there for tile i - STAGES
+        for (int c = 0; c < WGS; ++c)
+          if (i >= STAGES && i - STAGES < own_tiles<BK>(q0, c, Tq, Tk, causal))
+            hopper::mbar_wait_cluster(&xdone[c * STAGES + s], ((i / STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full_k[s], TK::BYTES);
+        hopper::tma_load_tile<TK>(sk + s * BK * D, &tm_k, &full_k[s], i * BK, bh, col0);
+        hopper::mbar_arrive_expect_tx(&full_v[s], TK::BYTES);
+        hopper::tma_load_tile<TK>(sv + s * BK * D, &tm_v, &full_v[s], i * BK, bh, col0);
+      }
+    }
+    hopper::cluster_sync();  // no block leaves while another may still read its exchange slots
+  } else {  // consumers: 64 q rows each, every stage
+    hopper::setmaxnreg_inc<R::CONSUMER_REGS>();
+    const int c = wg - 1, tid = threadIdx.x - wg * WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+    const int wq0 = q0 + 64 * c;  // this warpgroup's first row
+    const int row_a = wq0 + 16 * warp + g, row_b = row_a + 8;
+    const float sl2 = scale * LOG2E;
+    const int n_own = own_tiles<BK>(q0, c, Tq, Tk, causal);
+    // The tiles every warpgroup computes: warpgroup 0's under a causal mask,
+    // none where warpgroup 1's rows all lie past Tq.
+    const int n_both = min(own_tiles<BK>(q0, 0, Tq, Tk, causal), own_tiles<BK>(q0, WGS - 1, Tq, Tk, causal));
+    const int n_plain = min(plain_tiles<BK>(wq0, Tk, causal), n_own);
+    float m_a = -INFINITY, m_b = -INFINITY;  // running max of s * scale * log2(e)
+    float l_a = 0.f, l_b = 0.f;              // this thread's share of the normaliser
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    hopper::mbar_wait(full_q, 0);
+    auto tile = [&](auto masked, int i) {
+      const int s = i % STAGES, x = c * STAGES + s;
+      float sp[1][BK / 2], alpha_a, alpha_b;  // this slice's S, then the cluster's; -> P
+      float(&sc)[BK / 2] = sp[0];
+      hopper::mbar_wait(&full_k[s], (i / STAGES) & 1);
+      E* ks = sk + s * BK * D;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::Wgmma<BK, E>::ss(sc, TQ::desc(sq + 64 * c * W) + TQ::k_step(kk), TK::desc(ks) + TK::k_step(kk),
+                                 kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      // every warpgroup's score product has read K before K holds partials
+      if (WGS > 1 && i < n_both) hopper::bar_sync(1, WGS * WG_THREADS);
+      hopper::cluster_sum<BK, 1, FwdSliceTiles::READ_BLOCKS, FwdSliceTiles::MAX_SLICES>(
+          sp, reinterpret_cast<uint8_t*>(ks) + c * S::X_BYTES, &xfull[x], &xdone[x], (i / STAGES) & 1, tid, blocks,
+          rank);
+      fwd_max<decltype(masked)::value, BK>(sc, m_a, m_b, alpha_a, alpha_b, i * BK, Tk, row_a, t, sl2, causal);
+      fwd_exp<BK>(sc, m_a, m_b, l_a, l_b, alpha_a, alpha_b, sl2);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j] *= alpha_a;
+        acc[4 * j + 1] *= alpha_a;
+        acc[4 * j + 2] *= alpha_b;
+        acc[4 * j + 3] *= alpha_b;
+      }
+      uint32_t pa[BK / 16][4];  // P in E (cast before p@v, as in JAX)
+      pack_a_frags<BK, E>(pa, sc);
+      hopper::mbar_wait(&full_v[s], (i / STAGES) & 1);
+      hopper::fence_regs(acc);
+      hopper::fence_regs(pa);
+      hopper::wgmma_fence();
+      const E* vs = sv + s * BK * D;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) hopper::Wgmma<D, E>::rs(acc, pa[kk], TK::mn(vs, kk * 16));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(pa);
+      warp_release(&empty[s]);
+    };
+    int i = 0;
+    for (; i < n_plain; ++i) tile(std::false_type{}, i);
+    for (; i < n_own; ++i) tile(std::true_type{}, i);
+    // Key tiles past this warpgroup's rows (causal, the other warpgroup's
+    // diagonal): released once they have landed, with no exchange.
+    for (; i < n_k; ++i) {
+      const int s = i % STAGES;
+      hopper::mbar_wait(&full_v[s], (i / STAGES) & 1);
+      warp_release(&empty[s]);
+    }
+    if (n_own > 0) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+        l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+      }
+      store_slice<D, OutT>(o + (size_t)bh * Tq * dh, acc, 1.f / l_a, 1.f / l_b, wq0, Tq, dh, col0, tid);
+      if (rank == 0 && t == 0) {  // lse in natural log: (m + log2 l) ln 2
+        float* lse_bh = lse + (size_t)bh * Tq;
+        if (row_a < Tq) lse_bh[row_a] = (m_a + log2f(l_a)) * LN2;
+        if (row_b < Tq) lse_bh[row_b] = (m_b + log2f(l_b)) * LN2;
+      }
+    }
+    hopper::cluster_sync();
+  }
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -1217,7 +1479,8 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 // of that type, or f32 when out_f32 is set) and f32 [bh, Tq] lse/delta; the stream is the caller's
 // cudaStream_t. d is the tensors' head dim, a multiple of 8: up to 256 it
 // runs on the instance of the narrowest head dim of 16, 32, 64, 128 and 256
-// that holds it, above 256 on the column-window kernels of flash_wide.cuh;
+// that holds it, above 256 on the forward's clusters of column slices (up
+// to FwdSliceTiles' limit) or the column-window kernels of flash_wide.cuh;
 // scale is the caller's (1 / sqrt(d)). Each returns cudaGetLastError() after
 // the launch (cudaErrorInvalidValue for a head dim no kernel takes, or a
 // tensor map cuTensorMapEncodeTiled refuses).
@@ -1237,15 +1500,18 @@ static int persistent_grid(int n_units) {
 
 // Calls launch(instance head dim, output type) with the instance's head dim
 // as an std::integral_constant and the output type (the operands' E, or
-// f32) as a Type tag, for the instance that serves head dim d (WIDE above
-// 256: the column-window kernels); cudaErrorInvalidValue for a d none takes.
-constexpr int WIDE = 0;
+// f32) as a Type tag, for the instance that serves head dim d (above 256,
+// SLICES where the kernel's clusters take d (`slices`, its blocks there:
+// the forward up to FwdSliceTiles' limit; 0 for dQ and dK/dV), a cluster of
+// column slices; else WIDE, the column-window kernels);
+// cudaErrorInvalidValue for a d none takes.
+constexpr int WIDE = 0, SLICES = -1;
 template <class T>
 struct Type {
   using type = T;
 };
 template <class E, class F>
-static int by_head_dim(int d, int out_f32, F launch) {
+static int by_head_dim(int d, int slices, int out_f32, F launch) {
   auto with = [&](auto dd) { return out_f32 ? launch(dd, Type<float>{}) : launch(dd, Type<E>{}); };
   if (d < 1 || d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (d <= 16) return with(std::integral_constant<int, 16>{});
@@ -1253,6 +1519,7 @@ static int by_head_dim(int d, int out_f32, F launch) {
   if (d <= 64) return with(std::integral_constant<int, 64>{});
   if (d <= 128) return with(std::integral_constant<int, 128>{});
   if (d <= 256) return with(std::integral_constant<int, 256>{});
+  if (slices > 0) return with(std::integral_constant<int, SLICES>{});
   return with(std::integral_constant<int, WIDE>{});
 }
 
@@ -1288,13 +1555,33 @@ static int launch_fwd(const void* q, const void* k, const void* v, void* o, void
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename E, typename OutT>
+static int launch_fwd_slices(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int tq,
+                             int tk, int dh, float scale, int causal, cudaStream_t st) {
+  using S = SliceFwdSmem;
+  CUtensorMap tq_map, tk_map, tv_map;
+  if (!hopper::rows_map(&tq_map, q, bh, tq, dh, S::D, S::ROWS, hopper::tma_type<E>(), true) ||
+      !hopper::rows_map(&tk_map, k, bh, tk, dh, S::D, S::BK, hopper::tma_type<E>(), true) ||
+      !hopper::rows_map(&tv_map, v, bh, tk, dh, S::D, S::BK, hopper::tma_type<E>(), true) || dh % 2 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = hopper::slice_blocks<FwdSliceTiles>(dh);
+  return hopper::launch_cluster(flash_fwd_slices_kernel<E, OutT>, dim3(bh * blocks, (tq + S::ROWS - 1) / S::ROWS),
+                                Roles<S::WGS>::THREADS, blocks, S::BYTES, st, tq_map, tk_map, tv_map,
+                                static_cast<OutT*>(o), static_cast<float*>(lse), tq, tk, dh, scale, causal);
+}
+
+// The forward slices' dynamic shared memory a block (SliceFwdSmem::BYTES).
+extern "C" int rt_fwd_slices_smem_bytes() { return SliceFwdSmem::BYTES; }
+
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                             int tq, int tk, int d, float scale, int causal, int out_f32,
                             void* stream) {
-  return by_head_dim<RT_OPERAND>(d, out_f32, [&](auto dd, auto out) {
+  return by_head_dim<RT_OPERAND>(d, hopper::slice_blocks<FwdSliceTiles>(d), out_f32, [&](auto dd, auto out) {
     using OutT = typename decltype(out)::type;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if constexpr (decltype(dd)::value == WIDE)
+    if constexpr (decltype(dd)::value == SLICES)
+      return launch_fwd_slices<RT_OPERAND, OutT>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, st);
+    else if constexpr (decltype(dd)::value == WIDE)
       return wide::launch_fwd<RT_OPERAND, OutT, false>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, 0, st);
     else
       return launch_fwd<decltype(dd)::value, RT_OPERAND, OutT>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, st);
@@ -1326,10 +1613,10 @@ static int launch_dq(const void* q, const void* k, const void* v, const void* do
 extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
                            int d, float scale, int causal, int out_f32, void* stream) {
-  return by_head_dim<RT_OPERAND>(d, out_f32, [&](auto dd, auto out) {
+  return by_head_dim<RT_OPERAND>(d, 0, out_f32, [&](auto dd, auto out) {
     using OutT = typename decltype(out)::type;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if constexpr (decltype(dd)::value == WIDE)
+    if constexpr (decltype(dd)::value <= WIDE)  // windows; slices 0: never SLICES
       return wide::launch_dq<RT_OPERAND, OutT, false>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, causal,
                                                        0, st);
     else
@@ -1381,10 +1668,10 @@ static int launch_dkv(const void* q, const void* k, const void* v, const void* d
 extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
                             int tk, int d, float scale, int causal, int out_f32, void* stream) {
-  return by_head_dim<RT_OPERAND>(d, out_f32, [&](auto dd, auto out) {
+  return by_head_dim<RT_OPERAND>(d, 0, out_f32, [&](auto dd, auto out) {
     using OutT = typename decltype(out)::type;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if constexpr (decltype(dd)::value == WIDE)
+    if constexpr (decltype(dd)::value <= WIDE)  // windows; slices 0: never SLICES
       return wide::launch_dkv<RT_OPERAND, OutT, false>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale,
                                                         causal, 0, 0, st);
     else

@@ -466,6 +466,105 @@ __device__ __forceinline__ void meet(float (&acc)[N], float* park, int c, int ti
   }
 }
 
+// The forward's online softmax of one key tile (from k0) for this thread's
+// rows a and a + 8 (its S accumulator sc, [64 q x BK keys]): s = S scale
+// log2 e, masked to -inf (kMask: causal, past Tk); the running max m (log2
+// units) across the row's four threads, and base (0 while a row has seen
+// no key); P = exp2(s - base) in place; l = l alpha + this thread's sum of
+// P, and O (acc) rescaled by alpha = exp2(m_old - base).
+template <bool kMask, int BK, int D>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&acc)[D / 2], float& m_a, float& m_b,
+                                             float& l_a, float& l_b, int k0, int Tk, int row_a, int t, float sl2,
+                                             int causal) {
+  const int row_b = row_a + 8;
+  float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float sa = sc[4 * j + e] * sl2, sb = sc[4 * j + 2 + e] * sl2;
+      if constexpr (kMask) {
+        const int col = k0 + 8 * j + 2 * t + e;
+        if (col >= Tk || (causal && col > row_a)) sa = -INFINITY;
+        if (col >= Tk || (causal && col > row_b)) sb = -INFINITY;
+      }
+      sc[4 * j + e] = sa;
+      sc[4 * j + 2 + e] = sb;
+      mx_a = fmaxf(mx_a, sa);
+      mx_b = fmaxf(mx_b, sb);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {  // the row's four threads
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+  }
+  const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+  const float base_a = mn_a == -INFINITY ? 0.f : mn_a;  // a row with no key seen yet
+  const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+  const float al_a = hopper::ex2(m_a - base_a), al_b = hopper::ex2(m_b - base_b);
+  m_a = mn_a;
+  m_b = mn_b;
+  float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float pa = hopper::ex2(sc[4 * j + e] - base_a), pb = hopper::ex2(sc[4 * j + 2 + e] - base_b);
+      sc[4 * j + e] = pa;
+      sc[4 * j + 2 + e] = pb;
+      sum_a += pa;
+      sum_b += pb;
+    }
+  }
+  l_a = l_a * al_a + sum_a;
+  l_b = l_b * al_b + sum_b;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    acc[4 * j] *= al_a;
+    acc[4 * j + 1] *= al_a;
+    acc[4 * j + 2] *= al_b;
+    acc[4 * j + 3] *= al_b;
+  }
+}
+
+// The forward's two consumer warpgroups, each with a partial (O, m, l) of
+// the same 64 rows (on alternate stages), meet: c = 1 parks its own in
+// `park` (room for (D / 2 + 4) x 128 floats no product reads any more),
+// c = 0 merges it into its own, in that order. Named barrier 1, both
+// consumer warpgroups.
+template <int D>
+__device__ __forceinline__ void merge_rows(float (&acc)[D / 2], float& m_a, float& m_b, float& l_a, float& l_b,
+                                           float* park, int c, int tid) {
+  hopper::bar_sync(1, 2 * WG_THREADS);  // every product of both warpgroups is in
+  if (c == 1) {
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) park[r * WG_THREADS + tid] = acc[r];
+    park[(D / 2) * WG_THREADS + tid] = m_a;
+    park[(D / 2 + 1) * WG_THREADS + tid] = m_b;
+    park[(D / 2 + 2) * WG_THREADS + tid] = l_a;
+    park[(D / 2 + 3) * WG_THREADS + tid] = l_b;
+  }
+  hopper::bar_sync(1, 2 * WG_THREADS);
+  if (c == 1) return;
+  const float m1_a = park[(D / 2) * WG_THREADS + tid], m1_b = park[(D / 2 + 1) * WG_THREADS + tid];
+  const float mn_a = fmaxf(m_a, m1_a), mn_b = fmaxf(m_b, m1_b);
+  const float base_a = mn_a == -INFINITY ? 0.f : mn_a, base_b = mn_b == -INFINITY ? 0.f : mn_b;
+  const float a0 = hopper::ex2(m_a - base_a), a1 = hopper::ex2(m1_a - base_a);
+  const float b0 = hopper::ex2(m_b - base_b), b1 = hopper::ex2(m1_b - base_b);
+  l_a = l_a * a0 + park[(D / 2 + 2) * WG_THREADS + tid] * a1;
+  l_b = l_b * b0 + park[(D / 2 + 3) * WG_THREADS + tid] * b1;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    acc[4 * j] = acc[4 * j] * a0 + park[(4 * j) * WG_THREADS + tid] * a1;
+    acc[4 * j + 1] = acc[4 * j + 1] * a0 + park[(4 * j + 1) * WG_THREADS + tid] * a1;
+    acc[4 * j + 2] = acc[4 * j + 2] * b0 + park[(4 * j + 2) * WG_THREADS + tid] * b1;
+    acc[4 * j + 3] = acc[4 * j + 3] * b0 + park[(4 * j + 3) * WG_THREADS + tid] * b1;
+  }
+  m_a = mn_a;
+  m_b = mn_b;
+}
+
 // A warpgroup's [64 x D] f32 accumulator to rows [row0, row0 + 64) and
 // columns [col0, col0 + D) of a contiguous [T, dh] matrix (dh even; col0
 // a slice's first column), rows past T and columns past dh not written.
@@ -479,6 +578,34 @@ __device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 2]
     if (r < T && 8 * j + c < dh) *reinterpret_cast<float2*>(p + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
     if (r + 8 < T && 8 * j + c < dh)
       *reinterpret_cast<float2*>(p + 8 * dh + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// The forward's end for a warpgroup's 64 rows from row0: each row's sum l
+// over its four threads, o = O / l to rows [row0, row0 + 64) and columns
+// from col0 of a contiguous [T, dh] o (store_rows), and with `write_lse`
+// lse = (m + log2 l) / log2 e (natural log) for the rows before T.
+template <int D>
+__device__ __forceinline__ void finish_rows(float (&acc)[D / 2], float m_a, float m_b, float l_a, float l_b, float* o,
+                                            float* lse, int row0, int T, int dh, int tid, int col0, bool write_lse) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    acc[4 * j] *= inv_a;
+    acc[4 * j + 1] *= inv_a;
+    acc[4 * j + 2] *= inv_b;
+    acc[4 * j + 3] *= inv_b;
+  }
+  store_rows<D>(o, acc, row0, T, dh, tid, col0);
+  const int lane = tid % 32, row_a = row0 + 16 * (tid / 32) + (lane >> 2);
+  if (write_lse && lane % 4 == 0) {
+    if (row_a < T) lse[row_a] = (m_a + log2f(l_a)) / LOG2E;
+    if (row_a + 8 < T) lse[row_a + 8] = (m_b + log2f(l_b)) / LOG2E;
   }
 }
 
@@ -1021,7 +1148,7 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
     const int c = wg - R::LOADER_WGS, tid = threadIdx.x - wg * WG_THREADS;
     const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
     const int r0 = q0 + (P::SHARED ? c * ROWS_OWNED : 0);  // this warpgroup's first row
-    const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
+    const int row_a = r0 + 16 * warp + g;
     const float sl2 = scale * LOG2E;
     // O, and per row the running max (log2 units) and this thread's part of
     // the running sum (its columns; the four threads of a row add theirs at
@@ -1048,56 +1175,8 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
                                     lane);
       }
       hopper::fence_regs(sc);
-      float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float sa = sc[4 * j + e] * sl2, sb = sc[4 * j + 2 + e] * sl2;
-          if constexpr (decltype(masked)::value) {
-            const int col = k0 + 8 * j + 2 * t + e;
-            if (col >= Tk || (causal && col > row_a)) sa = -INFINITY;
-            if (col >= Tk || (causal && col > row_b)) sb = -INFINITY;
-          }
-          sc[4 * j + e] = sa;
-          sc[4 * j + 2 + e] = sb;
-          mx_a = fmaxf(mx_a, sa);
-          mx_b = fmaxf(mx_b, sb);
-        }
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {  // the row's four threads
-        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-      }
-      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-      const float base_a = mn_a == -INFINITY ? 0.f : mn_a;  // a row with no key seen yet
-      const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
-      const float al_a = hopper::ex2(m_a - base_a), al_b = hopper::ex2(m_b - base_b);
-      m_a = mn_a;
-      m_b = mn_b;
-      float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float pa = hopper::ex2(sc[4 * j + e] - base_a), pb = hopper::ex2(sc[4 * j + 2 + e] - base_b);
-          sc[4 * j + e] = pa;
-          sc[4 * j + 2 + e] = pb;
-          sum_a += pa;
-          sum_b += pb;
-        }
-      }
-      l_a = l_a * al_a + sum_a;
-      l_b = l_b * al_b + sum_b;
-      // The last tile's P V is in (its wait ended the last call): rescale O.
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        acc[4 * j] *= al_a;
-        acc[4 * j + 1] *= al_a;
-        acc[4 * j + 2] *= al_b;
-        acc[4 * j + 3] *= al_b;
-      }
+      // The last tile's P V is in (its wait ended the last call): O is rescaled.
+      softmax_tile<decltype(masked)::value, BK, D>(sc, acc, m_a, m_b, l_a, l_b, k0, Tk, row_a, t, sl2, causal);
       uint32_t p_b[BK / 8][4], p_s[BK / 8][4];
       split_a_frags<BK, ROUND>(p_b, p_s, sc, round_p);
       hopper::fence_regs(acc);
@@ -1128,56 +1207,13 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_cons
     for (; i < n_mine; i += STEP) ktile(std::true_type{}, i);
     for (; i < n_k; i += STEP) skip(i);
     if constexpr (!P::SHARED) {
-      // The two partial results of the rows meet: c = 1 parks (O, m, l) in
-      // Q's tiles (no product reads them now), c = 0 merges, in that order.
-      float* park = sq;
-      hopper::bar_sync(1, 2 * WG_THREADS);  // every product of both warpgroups is in
-      if (c == 1) {
-#pragma unroll
-        for (int r = 0; r < D / 2; ++r) park[r * WG_THREADS + tid] = acc[r];
-        park[(D / 2) * WG_THREADS + tid] = m_a;
-        park[(D / 2 + 1) * WG_THREADS + tid] = m_b;
-        park[(D / 2 + 2) * WG_THREADS + tid] = l_a;
-        park[(D / 2 + 3) * WG_THREADS + tid] = l_b;
-      }
-      hopper::bar_sync(1, 2 * WG_THREADS);
+      // The two partial results of the rows meet in Q's tiles (no product
+      // reads them now).
+      merge_rows<D>(acc, m_a, m_b, l_a, l_b, sq, c, tid);
       if (c == 1) return;
-      const float m1_a = park[(D / 2) * WG_THREADS + tid], m1_b = park[(D / 2 + 1) * WG_THREADS + tid];
-      const float mn_a = fmaxf(m_a, m1_a), mn_b = fmaxf(m_b, m1_b);
-      const float base_a = mn_a == -INFINITY ? 0.f : mn_a, base_b = mn_b == -INFINITY ? 0.f : mn_b;
-      const float a0 = hopper::ex2(m_a - base_a), a1 = hopper::ex2(m1_a - base_a);
-      const float b0 = hopper::ex2(m_b - base_b), b1 = hopper::ex2(m1_b - base_b);
-      l_a = l_a * a0 + park[(D / 2 + 2) * WG_THREADS + tid] * a1;
-      l_b = l_b * b0 + park[(D / 2 + 3) * WG_THREADS + tid] * b1;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        acc[4 * j] = acc[4 * j] * a0 + park[(4 * j) * WG_THREADS + tid] * a1;
-        acc[4 * j + 1] = acc[4 * j + 1] * a0 + park[(4 * j + 1) * WG_THREADS + tid] * a1;
-        acc[4 * j + 2] = acc[4 * j + 2] * b0 + park[(4 * j + 2) * WG_THREADS + tid] * b1;
-        acc[4 * j + 3] = acc[4 * j + 3] * b0 + park[(4 * j + 3) * WG_THREADS + tid] * b1;
-      }
-      m_a = mn_a;
-      m_b = mn_b;
     }
-    // The row's sum over its four threads, then o = O / l and lse.
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-      l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
-    }
-    const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[4 * j] *= inv_a;
-      acc[4 * j + 1] *= inv_a;
-      acc[4 * j + 2] *= inv_b;
-      acc[4 * j + 3] *= inv_b;
-    }
-    store_rows<D>(o + (size_t)bh * Tq * dh, acc, r0, Tq, dh, tid);
-    if (t == 0) {
-      if (row_a < Tq) lse[(size_t)bh * Tq + row_a] = (m_a + log2f(l_a)) / LOG2E;
-      if (row_b < Tq) lse[(size_t)bh * Tq + row_b] = (m_b + log2f(l_b)) / LOG2E;
-    }
+    finish_rows<D>(acc, m_a, m_b, l_a, l_b, o + (size_t)bh * Tq * dh, lse + (size_t)bh * Tq, r0, Tq, dh, tid, 0,
+                   true);
   }
 }
 
@@ -1242,50 +1278,43 @@ struct SliceTiles {
   static constexpr int LOADER_WGS = 2, READ_BLOCKS = 4, SCORE_STEPS = 2;
 };
 
-// The blocks of a cluster at head dim d: W = ceil(d / SLICE); 0 where the
-// slices do not serve d (d <= 256 or W > MAX_SLICES).
-__host__ __device__ constexpr int slice_blocks(int d) {
-  return d > 256 && d <= SliceTiles::SLICE * SliceTiles::MAX_SLICES ? (d + SliceTiles::SLICE - 1) / SliceTiles::SLICE
-                                                                    : 0;
-}
-
-// A consumer's partial scores over its slice, two products at once (S
-// and dP, or S^T and dP^T): d0 = A0 B0 and d1 = A1 B1 over the slice's
-// SLICE / 8 k-steps, A and B split in shared memory (mma3_ss's operands
-// and order), SCORE_STEPS k-steps into a partial the first product
-// overwrites, which is then added to d0 or d1 in f32. The tensor cores
+// A consumer's partial scores over its slice, PARTS products at once (the
+// forward's S; dQ's S and dP, or dK/dV's S^T and dP^T): d[x] = A[x] B[x]
+// over the slice's SLICE / 8 k-steps, A and B split in shared memory
+// (mma3_ss's operands and order), STEPS k-steps into a partial the first
+// product overwrites, which is then added to d[x] in f32. The tensor cores
 // round their accumulator toward zero, and chained over a slice's 16
 // k-steps those roundings pile up one way: in the mixed library a dS a
 // few f32 ulps off rounds to another bf16 in more places (flash_wide.cuh's
 // product_rows adds each k-step's products the same way). One group's
 // products run while the last group's are added; nothing is left in
 // flight.
-template <int N, class TA, class TB>
-__device__ __forceinline__ void slice_scores(float (&d0)[N / 2], uint64_t a0_big, uint64_t a0_small, uint64_t b0_big,
-                                             uint64_t b0_small, float (&d1)[N / 2], uint64_t a1_big,
-                                             uint64_t a1_small, uint64_t b1_big, uint64_t b1_small) {
-  constexpr int G = SliceTiles::SCORE_STEPS, GROUPS = SliceTiles::SLICE / 8 / G;
-  static_assert(GROUPS * G * 8 == SliceTiles::SLICE, "whole groups of k-steps");
-  float p[2][2][N / 2];
+template <int N, int PARTS, int SLICE, int STEPS, class TA, class TB>
+__device__ __forceinline__ void slice_scores(float (&d)[PARTS][N / 2], const uint64_t (&a_big)[PARTS],
+                                             const uint64_t (&a_small)[PARTS], const uint64_t (&b_big)[PARTS],
+                                             const uint64_t (&b_small)[PARTS]) {
+  constexpr int G = STEPS, GROUPS = SLICE / 8 / G;
+  static_assert(GROUPS * G * 8 == SLICE, "whole groups of k-steps");
+  float p[2][PARTS][N / 2];
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) d0[i] = d1[i] = 0.f;
+  for (int x = 0; x < PARTS; ++x)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) d[x][i] = 0.f;
 #pragma unroll
   for (int g = 0; g <= GROUPS; ++g) {
     if (g < GROUPS) {
-      float(&p0)[N / 2] = p[g & 1][0];
-      float(&p1)[N / 2] = p[g & 1][1];
-      hopper::fence_regs(p0);
-      hopper::fence_regs(p1);
+#pragma unroll
+      for (int x = 0; x < PARTS; ++x) hopper::fence_regs(p[g & 1][x]);
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < G; ++kk) {
         const uint64_t ka = TA::k_step(g * G + kk), kb = TB::k_step(g * G + kk);
-        hopper::WgmmaTF32<N>::ss(p0, a0_big + ka, b0_small + kb, kk > 0);
-        hopper::WgmmaTF32<N>::ss(p0, a0_small + ka, b0_big + kb, 1);
-        hopper::WgmmaTF32<N>::ss(p0, a0_big + ka, b0_big + kb, 1);
-        hopper::WgmmaTF32<N>::ss(p1, a1_big + ka, b1_small + kb, kk > 0);
-        hopper::WgmmaTF32<N>::ss(p1, a1_small + ka, b1_big + kb, 1);
-        hopper::WgmmaTF32<N>::ss(p1, a1_big + ka, b1_big + kb, 1);
+#pragma unroll
+        for (int x = 0; x < PARTS; ++x) {
+          hopper::WgmmaTF32<N>::ss(p[g & 1][x], a_big[x] + ka, b_small[x] + kb, kk > 0);
+          hopper::WgmmaTF32<N>::ss(p[g & 1][x], a_small[x] + ka, b_big[x] + kb, 1);
+          hopper::WgmmaTF32<N>::ss(p[g & 1][x], a_big[x] + ka, b_big[x] + kb, 1);
+        }
       }
       hopper::wgmma_commit();
     }
@@ -1294,84 +1323,25 @@ __device__ __forceinline__ void slice_scores(float (&d0)[N / 2], uint64_t a0_big
         hopper::wgmma_wait<1>();
       else
         hopper::wgmma_wait<0>();
-      float(&q0)[N / 2] = p[(g - 1) & 1][0];
-      float(&q1)[N / 2] = p[(g - 1) & 1][1];
-      hopper::fence_regs(q0);
-      hopper::fence_regs(q1);
 #pragma unroll
-      for (int i = 0; i < N / 2; ++i) d0[i] += q0[i], d1[i] += q1[i];
+      for (int x = 0; x < PARTS; ++x) {
+        float(&q)[N / 2] = p[(g - 1) & 1][x];
+        hopper::fence_regs(q);
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) d[x][i] += q[i];
+      }
     }
   }
 }
 
-// A stage's exchange: the consumer's [64 x N] partial scores (S or S^T)
-// and dP (or dP^T), each thread's N / 2 accumulator values as N / 8
-// float4s, thread-major (a warp reads 512 contiguous bytes), in a dead
-// [N x SLICE] tile of the stage (as many bytes); two barriers a stage
-// (every block's partials are in; every block has read this one's).
-template <int N>
-struct Exchange {
-  static constexpr int F4 = N / 8;
-  static constexpr int BYTES = 2 * F4 * WG_THREADS * 16;
-  static_assert(BYTES == N * SliceTiles::SLICE * 4, "the partials fill one [N x SLICE] f32 tile");
-};
-
-// A consumer's exchange of the stage whose slot is `slot_f` (this block's
-// shared address; the same offset in every block), in the barriers' round
-// of parity `parity`: this block's partials a and b into the slot, one
-// arrival per warp on the stage's `full` barrier in every block of the
-// cluster, the wait for every block's (4 x blocks arrivals), a and b :=
-// the blocks' partials summed in rank order, then one arrival per warp on
-// every block's `done` barrier: this block has read its slot.
-template <int N>
-__device__ __forceinline__ void exchange(float (&a)[N / 2], float (&b)[N / 2], float* slot_f, uint64_t* full,
-                                         uint64_t* done, uint32_t parity, int tid, uint32_t blocks) {
-  constexpr int F4 = Exchange<N>::F4, G = SliceTiles::READ_BLOCKS;  // G blocks' loads in flight at a time
-  float4* slot = reinterpret_cast<float4*>(slot_f);
-#pragma unroll
-  for (int j = 0; j < F4; ++j) {
-    slot[j * WG_THREADS + tid] = make_float4(a[4 * j], a[4 * j + 1], a[4 * j + 2], a[4 * j + 3]);
-    slot[(F4 + j) * WG_THREADS + tid] = make_float4(b[4 * j], b[4 * j + 1], b[4 * j + 2], b[4 * j + 3]);
-  }
-  __syncwarp();  // the warp's writes, ordered before its lanes' releases
-  const uint32_t lane = tid % 32;
-  if (lane < blocks) hopper::mbar_arrive_cluster(hopper::cluster_map(full, lane));
-  hopper::mbar_wait_cluster(full, parity);
-#pragma unroll
-  for (int r0 = 0; r0 < SliceTiles::MAX_SLICES; r0 += G) {
-    if (r0 < (int)blocks) {
-      float4 va[G][F4], vb[G][F4];
-#pragma unroll
-      for (int i = 0; i < G; ++i) {
-        if (r0 + i < (int)blocks) {
-          const uint32_t at = hopper::cluster_map(slot, r0 + i);
-#pragma unroll
-          for (int j = 0; j < F4; ++j) {
-            va[i][j] = hopper::ld_cluster_f4(at + (j * WG_THREADS + tid) * 16);
-            vb[i][j] = hopper::ld_cluster_f4(at + ((F4 + j) * WG_THREADS + tid) * 16);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < G; ++i) {
-        if (r0 + i < (int)blocks) {
-#pragma unroll
-          for (int j = 0; j < F4; ++j) {
-            const float4 u = va[i][j], v = vb[i][j];
-            if (r0 + i == 0) {
-              a[4 * j] = u.x, a[4 * j + 1] = u.y, a[4 * j + 2] = u.z, a[4 * j + 3] = u.w;
-              b[4 * j] = v.x, b[4 * j + 1] = v.y, b[4 * j + 2] = v.z, b[4 * j + 3] = v.w;
-            } else {
-              a[4 * j] += u.x, a[4 * j + 1] += u.y, a[4 * j + 2] += u.z, a[4 * j + 3] += u.w;
-              b[4 * j] += v.x, b[4 * j + 1] += v.y, b[4 * j + 2] += v.z, b[4 * j + 3] += v.w;
-            }
-          }
-        }
-      }
-    }
-  }
-  __syncwarp();  // the warp's reads, ordered before its lanes' releases
-  if (lane < blocks) hopper::mbar_arrive_cluster(hopper::cluster_map(done, lane));
+// The partial scores of the slices, exchanged through the cluster
+// (hopper::cluster_sum at this file's traits): a consumer's PARTS [64 x N]
+// partials in a dead [N x SLICE] tile of the stage (as many bytes).
+template <int N, int PARTS>
+__device__ __forceinline__ void exchange(float (&p)[PARTS][N / 2], float* slot, uint64_t* full, uint64_t* done,
+                                         uint32_t parity, int tid, uint32_t blocks) {
+  hopper::cluster_sum<N, PARTS, SliceTiles::READ_BLOCKS, SliceTiles::MAX_SLICES>(p, slot, full, done, parity, tid,
+                                                                                blocks, hopper::cluster_rank());
 }
 
 // The split pass, before it writes a stage's exchange slot for tile j:
@@ -1397,7 +1367,7 @@ struct SliceDqPlan {
   static constexpr int RAW_OFF = A_BYTES + STAGES * STAGE_BYTES;
   static constexpr int BAR_OFF = RAW_OFF + RAW * 2 * TK::BYTES;
   static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + F::BARRIERS + 2 * STAGES);  // + alignment slack
-  static_assert(Exchange<BK>::BYTES == TK::BYTES, "a stage's V small holds the exchange");
+  static_assert(2 * ROWS_OWNED * BK * 4 == TK::BYTES, "a stage's V small holds the exchange");
   static_assert(STAGES >= 2 && (RAW == 0 || RAW >= 2), "TMA rings of at least two stages");
   static_assert(BYTES <= SMEM_LIMIT, "dQ's slices' shared memory does not fit");
 };
@@ -1496,11 +1466,14 @@ flash_f32_dq_slices_kernel(const __grid_constant__ CUtensorMap tm_q, const __gri
     auto ktile = [&](auto masked, int i) {
       const int s = i % STAGES, k0 = i * BK;
       hopper::mbar_wait(&feed.ready[s], (i / STAGES) & 1);
-      float sc[BK / 2], dp[BK / 2];  // this slice's S and dP, then the cluster's; S -> P, dP -> dS
+      float sd[2][BK / 2];  // this slice's S and dP, then the cluster's; S -> P, dP -> dS
+      float(&sc)[BK / 2] = sd[0];
+      float(&dp)[BK / 2] = sd[1];
       hopper::fence_regs(acc);
-      slice_scores<BK, TA, TK>(sc, q_b, q_s, TK::desc(ring(s, 0)), TK::desc(ring(s, 1)), dp, do_b, do_s,
-                               TK::desc(ring(s, 2)), TK::desc(ring(s, 3)));
-      exchange<BK>(sc, dp, ring(s, 3), &xfull[s], &xdone[s], (i / STAGES) & 1, tid, blocks);
+      slice_scores<BK, 2, D, SliceTiles::SCORE_STEPS, TA, TK>(
+          sd, {q_b, do_b}, {q_s, do_s}, {TK::desc(ring(s, 0)), TK::desc(ring(s, 2))},
+          {TK::desc(ring(s, 1)), TK::desc(ring(s, 3))});
+      exchange<BK, 2>(sd, ring(s, 3), &xfull[s], &xdone[s], (i / STAGES) & 1, tid, blocks);
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
@@ -1557,7 +1530,7 @@ struct SliceDkvPlan {
   static constexpr int ROWS_OFF = RAW_OFF + RAW * 2 * TQ::BYTES;
   static constexpr int BAR_OFF = ROWS_OFF + STAGES * 2 * BQ * 4;
   static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + F::BARRIERS + 2 * STAGES);  // + alignment slack
-  static_assert(Exchange<BQ>::BYTES == TQ::BYTES, "a stage's dO small holds the exchange");
+  static_assert(2 * ROWS_OWNED * BQ * 4 == TQ::BYTES, "a stage's dO small holds the exchange");
   static_assert(STAGES >= 2 && (RAW == 0 || RAW >= 2), "TMA rings of at least two stages");
   static_assert(BYTES <= SMEM_LIMIT, "dK/dV's slices' shared memory does not fit");
 };
@@ -1663,12 +1636,15 @@ flash_f32_dkv_slices_kernel(const __grid_constant__ CUtensorMap tm_q, const __gr
       const float* ls = slse + s * BQ;
       const float* ds = sdelta + s * BQ;
       hopper::mbar_wait(&feed.ready[s], (j / STAGES) & 1);
-      float st[BQ / 2], dpt[BQ / 2];  // this slice's S^T and dP^T, then the cluster's; -> P^T, dS^T
+      float sd[2][BQ / 2];  // this slice's S^T and dP^T, then the cluster's; -> P^T, dS^T
+      float(&st)[BQ / 2] = sd[0];
+      float(&dpt)[BQ / 2] = sd[1];
       hopper::fence_regs(dk_acc);
       hopper::fence_regs(dv_acc);
-      slice_scores<BQ, TA, TQ>(st, k_b, k_s, TQ::desc(ring(s, 0)), TQ::desc(ring(s, 1)), dpt, v_b, v_s,
-                               TQ::desc(ring(s, 2)), TQ::desc(ring(s, 3)));
-      exchange<BQ>(st, dpt, ring(s, 3), &xfull[s], &xdone[s], (j / STAGES) & 1, tid, blocks);
+      slice_scores<BQ, 2, D, SliceTiles::SCORE_STEPS, TA, TQ>(
+          sd, {k_b, v_b}, {k_s, v_s}, {TQ::desc(ring(s, 0)), TQ::desc(ring(s, 2))},
+          {TQ::desc(ring(s, 1)), TQ::desc(ring(s, 3))});
+      exchange<BQ, 2>(sd, ring(s, 3), &xfull[s], &xdone[s], (j / STAGES) & 1, tid, blocks);
 #pragma unroll
       for (int jj = 0; jj < BQ / 8; ++jj) {
         const float2 L2 = *reinterpret_cast<const float2*>(ls + 8 * jj + 2 * t);
@@ -1727,27 +1703,216 @@ flash_f32_dkv_slices_kernel(const __grid_constant__ CUtensorMap tm_q, const __gr
   }
 }
 
-// One launch of a slices kernel: a grid of (bh x blocks, row blocks), in
-// clusters of `blocks` along x (cudaLaunchKernelEx; a cluster it refuses
-// returns its error and never runs).
-template <class... Params, class... Args>
-int launch_clusters(void (*kernel)(Params...), int bh, int rows, int blocks, int smem, cudaStream_t st,
-                    Args&&... args) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(bh * blocks, (rows + ROWS_OWNED - 1) / ROWS_OWNED);
-  cfg.blockDim = dim3(Roles<SliceTiles::LOADER_WGS>::THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = blocks;
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+// ---------------------------------------------------------------------------
+// The forward above head dim 256: a cluster of column slices. Replaces
+// _fwd_kernel (ray_tpu/ops/flash_attention.py:72) on f32 inputs (and
+// mixes) at head dims 257-1024, as the slices above replace dQ and dK/dV:
+// a cluster of W = ceil(Dh / SLICE) blocks serves one (head, 64 q rows),
+// block w owns the columns [w SLICE, (w + 1) SLICE) of Q, K, V and O, and
+// is the head dim 128 forward on that slice with 64-row blocks (both
+// consumer warpgroups own the rows and take alternate stages, their (m, l,
+// O) merged in a fixed order at the end): its Q slice is loaded by TMA once
+// and split; each stage holds BK keys of its K and V slices, loaded by TMA
+// at the slice's column offset (columns past Dh arrive as zeros), K split
+// in place and V's transposed split written beside V as loaded. Per stage
+// a consumer contracts S over its own slice only (3xTF32, SCORE_STEPS
+// k-steps a partial), and the cluster's partials meet through distributed
+// shared memory (hopper::cluster_sum: summed in rank order, so every block
+// holds bitwise the same S); the exchange slot is the stage's V as loaded,
+// which the split pass has read by then, and the TMA thread loads that
+// tile again only once every block has read it. Each stage's exchange runs
+// beside the other consumer's products on the other stage. Then every
+// block runs the same online softmax in exp2 units (masked at the diagonal
+// and past Tk), rounds P to v's dtype (ROUND) and adds P V on its own
+// slice: each column of Q, K and V is loaded once a stage across the
+// cluster, and the products are the function's own 4 FLOPs per kept pair
+// and head-dim element, with no recompute of S (the column windows
+// computed S once per window). Each block writes its own columns of O;
+// block 0 writes lse; no atomics, so two calls give the same bits. Bound:
+// as the instances', the FLOPs at 165 TFLOP/s. Above SLICE x MAX_SLICES the
+// forward takes the column windows.
+// ---------------------------------------------------------------------------
+
+// The forward slices' traits: the columns a block owns and the cluster's
+// portable limit, keys a stage, ring depth, loading warpgroups, the blocks
+// whose partials a consumer reads at once, and the k-steps of a partial of
+// S before it is added in f32. Chosen by timing variants on an H100
+// (python3 -m ray_tpu_torch.sweep_flash_f32 --variants fwd32, PERF.md; T
+// 1024, causal, B 8, H 2, f32 Dh 384 / 512 and the mix at 320): 32 keys a
+// stage took 0.389 / 0.541 / 0.441 ms against 0.554 / 0.749 / 0.607 with
+// 16 (0.450 / 0.615 / 0.504 with 16 keys and three stages); 128-row blocks,
+// both consumers on every stage of 16 keys, 0.461-0.468 / 0.619-0.627 /
+// 0.516-0.525; reduce-scatter (64-row blocks of 16 keys) 0.638-0.643 /
+// 0.827-0.830 / 0.685; SCORE_STEPS 1 and 4, READ_BLOCKS 2 and 8 within 5%
+// or slower. tests/test_torch_flash_fwd_slices.py reads this block.
+struct FwdSliceTiles {
+  static constexpr int SLICE = 128, MAX_SLICES = 8;
+  static constexpr int BK = 32, STAGES = 2, LOADER_WGS = 2, READ_BLOCKS = 4, SCORE_STEPS = 2;
+};
+
+// The forward's slices: Q and Q small of the block's 64 rows; the ring, a
+// stage being K, K small, V^T, V^T small of BK keys and V as loaded (then
+// the exchange slot: a [64 x BK] partial); the mbarriers (Q's full and
+// ready, the feed's, the exchange's full and done per stage).
+struct SliceFwdPlan {
+  using T = FwdSliceTiles;
+  static constexpr int D = T::SLICE, BK = T::BK, STAGES = T::STAGES;
+  using TA = hopper::TileF<D, ROWS_OWNED>;
+  using TK = hopper::TileF<D, BK>;
+  using TT = hopper::TileF<BK, D>;
+  using F = Feed<STAGES, 0>;
+  static constexpr int A_BYTES = 2 * TA::BYTES;
+  static constexpr int STAGE_BYTES = 5 * TK::BYTES;
+  static constexpr int BAR_OFF = A_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 + F::BARRIERS + 2 * STAGES);  // + alignment slack
+  static_assert(ROWS_OWNED * BK * 4 <= TK::BYTES, "a stage's V as loaded holds the exchange");
+  static_assert(TK::BYTES == TT::BYTES, "a stage's tiles are of one size");
+  static_assert(STAGES >= 2, "a TMA ring of at least two stages");
+  static_assert(BYTES <= SMEM_LIMIT, "the forward's slices' shared memory does not fit");
+};
+
+template <bool ROUND>
+__global__ void __launch_bounds__(Roles<FwdSliceTiles::LOADER_WGS>::THREADS, 1)
+flash_f32_fwd_slices_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
+                            float* __restrict__ lse, int Tq, int Tk, int dh, float scale, int causal, int round_p) {
+  using P = SliceFwdPlan;
+  using TA = P::TA;
+  using TK = P::TK;
+  using TT = P::TT;
+  using R = Roles<FwdSliceTiles::LOADER_WGS>;
+  constexpr int D = P::D, BK = P::BK, STAGES = P::STAGES, NT = R::SPLIT_THREADS;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_base(smem_raw);
+  float* sq = reinterpret_cast<float*>(base);
+  float* sq_s = sq + TA::BYTES / 4;
+  // Stage s: K, K small, V^T, V^T small, V as loaded (the exchange slot).
+  auto ring = [&](int s, int part) {
+    return reinterpret_cast<float*>(base + P::A_BYTES + s * P::STAGE_BYTES + part * TK::BYTES);
+  };
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(base + P::BAR_OFF);
+  uint64_t* ready_a = full_a + 1;
+  const P::F feed(ready_a + 1);
+  uint64_t* xfull = ready_a + 1 + P::F::BARRIERS;  // a stage's: every block's partials are in
+  uint64_t* xdone = xfull + STAGES;                // every block has read this one's
+  const uint32_t blocks = hopper::cluster_size(), rank = hopper::cluster_rank();
+  const int bh = blockIdx.x / blocks, col0 = rank * D;
+  // Causal: the longest rows first (blocks start in order of blockIdx.y).
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * ROWS_OWNED, n_k = key_tiles<BK>(q0 + ROWS_OWNED - 1, Tk, causal);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full_a, 1);
+    hopper::mbar_init(ready_a, NT);
+    feed.init(NT, WG_THREADS / 32);  // a stage is released by the warps of the one warpgroup that took it
+    for (int x = 0; x < 2 * STAGES; ++x) hopper::mbar_init(&xfull[x], 4 * blocks);
+    hopper::fence_barrier_init();
+  }
+  hopper::cluster_sync();  // every block's barriers exist before another block arrives on them
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg < R::LOADER_WGS) {
+    hopper::setmaxnreg_dec<R::LOADER_REGS>();
+    if (threadIdx.x == 0) {  // TMA
+      hopper::mbar_arrive_expect_tx(full_a, TA::BYTES);
+      hopper::tma_load_tile<TA>(sq, &tm_q, full_a, q0, bh, col0);
+      for (int i = 0; i < n_k; ++i) {
+        const int s = i % STAGES;
+        // V as loaded is the stage's exchange slot: every block has read
+        // the partials of tile i - STAGES in it
+        if (i >= STAGES) hopper::mbar_wait_cluster(&xdone[s], ((i / STAGES) & 1) ^ 1);
+        uint64_t* bar = feed.load_slot(i, 2 * TK::BYTES);
+        hopper::tma_load_tile<TK>(ring(s, 0), &tm_k, bar, i * BK, bh, col0);
+        hopper::tma_load_tile<TK>(ring(s, 4), &tm_v, bar, i * BK, bh, col0);
+      }
+    } else if (threadIdx.x >= 32) {  // the split pass
+      const int u = threadIdx.x - 32;
+      hopper::mbar_wait(full_a, 0);
+      split_tile<TA::BYTES, NT>(sq, sq, sq_s, u);
+      split_done(ready_a);
+      for (int i = 0; i < n_k; ++i) {
+        const int s = i % STAGES;
+        feed.split_begin(i);
+        split_tile<TK::BYTES, NT>(ring(s, 0), ring(s, 0), ring(s, 1), u);
+        split_tile_t<TK, NT, false>(ring(s, 4), nullptr, nullptr, ring(s, 2), ring(s, 3), u);
+        feed.split_end(i);
+      }
+    }
+    hopper::cluster_sync();  // no block leaves while another may still read its exchange slots
+  } else {  // consumers: both own the 64 rows, c takes key tiles c, c + 2, ...
+    hopper::setmaxnreg_inc<R::CONSUMER_REGS>();
+    const int c = wg - R::LOADER_WGS, tid = threadIdx.x - wg * WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+    const int row_a = q0 + 16 * warp + g;
+    const float sl2 = scale * LOG2E;
+    float acc[D / 2], m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) acc[r] = 0.f;
+
+    hopper::mbar_wait(ready_a, 0);
+    const uint64_t q_b = TA::desc(sq), q_s = TA::desc(sq_s);
+    auto ktile = [&](auto masked, int i) {
+      const int s = i % STAGES, k0 = i * BK;
+      hopper::mbar_wait(&feed.ready[s], (i / STAGES) & 1);
+      float sp[1][BK / 2];  // this slice's S, then the cluster's; -> P
+      float(&sc)[BK / 2] = sp[0];
+      hopper::fence_regs(acc);
+      slice_scores<BK, 1, D, FwdSliceTiles::SCORE_STEPS, TA, TK>(sp, {q_b}, {q_s}, {TK::desc(ring(s, 0))},
+                                                                 {TK::desc(ring(s, 1))});
+      hopper::cluster_sum<BK, 1, FwdSliceTiles::READ_BLOCKS, FwdSliceTiles::MAX_SLICES>(
+          sp, ring(s, 4), &xfull[s], &xdone[s], (i / STAGES) & 1, tid, blocks, rank);
+      softmax_tile<decltype(masked)::value, BK, D>(sc, acc, m_a, m_b, l_a, l_b, k0, Tk, row_a, t, sl2, causal);
+      uint32_t p_b[BK / 8][4], p_s[BK / 8][4];
+      split_a_frags<BK, ROUND>(p_b, p_s, sc, round_p);
+      hopper::fence_regs(acc);
+      hopper::fence_regs(p_b);
+      hopper::fence_regs(p_s);
+      hopper::wgmma_fence();
+      mma3_rs<D, BK / 8, TT>(acc, p_b, p_s, TT::desc(ring(s, 2)), TT::desc(ring(s, 3)));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(p_b);
+      hopper::fence_regs(p_s);
+      warp_release(&feed.empty[s]);
+    };
+    const int n_plain = min(plain_tiles<BK>(q0, Tk, causal), n_k);
+    int i = c;
+    for (; i < n_plain; i += 2) ktile(std::false_type{}, i);
+    for (; i < n_k; i += 2) ktile(std::true_type{}, i);
+    // The two partial results of the rows meet in Q's tiles (no product
+    // reads them now).
+    merge_rows<D>(acc, m_a, m_b, l_a, l_b, sq, c, tid);
+    if (c == 0)  // o = O / l on this slice; lse from block 0
+      finish_rows<D>(acc, m_a, m_b, l_a, l_b, o + (size_t)bh * Tq * dh, lse + (size_t)bh * Tq, q0, Tq, dh, tid, col0,
+                     rank == 0);
+    hopper::cluster_sync();
+  }
+}
+
+// One launch of a slices kernel: a grid of (bh x blocks, row blocks of
+// `rows_a_block`), in clusters of `blocks` along x.
+template <int LOADER_WGS, class... Params, class... Args>
+int launch_clusters(void (*kernel)(Params...), int bh, int rows, int rows_a_block, int blocks, int smem,
+                    cudaStream_t st, Args&&... args) {
+  return hopper::launch_cluster(kernel, dim3(bh * blocks, (rows + rows_a_block - 1) / rows_a_block),
+                                Roles<LOADER_WGS>::THREADS, blocks, smem, st, std::forward<Args>(args)...);
+}
+
+template <bool ROUND>
+int launch_fwd_slices(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int tq, int tk,
+                      int dh, float scale, int causal, int round_p, cudaStream_t st) {
+  using P = SliceFwdPlan;
+  CUtensorMap mq, mk, mv;
+  constexpr CUtensorMapDataType f32 = hopper::tma_type<float>();
+  if (!hopper::rows_map(&mq, q, bh, tq, dh, P::D, ROWS_OWNED, f32, true) ||
+      !hopper::rows_map(&mk, k, bh, tk, dh, P::D, P::BK, f32, true) ||
+      !hopper::rows_map(&mv, v, bh, tk, dh, P::D, P::BK, f32, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = hopper::slice_blocks<FwdSliceTiles>(dh);
+  return launch_clusters<FwdSliceTiles::LOADER_WGS>(flash_f32_fwd_slices_kernel<ROUND>, bh, tq, ROWS_OWNED, blocks,
+                                                    P::BYTES, st, mq, mk, mv, static_cast<float*>(o),
+                                                    static_cast<float*>(lse), tq, tk, dh, scale, causal, round_p);
 }
 
 template <bool ROUND>
@@ -1762,9 +1927,11 @@ int launch_dq_slices(const void* q, const void* k, const void* v, const void* do
       !hopper::rows_map(&mk, k, bh, tk, dh, S, bk, f32, true) || !hopper::rows_map(&mv, v, bh, tk, dh, S, bk, f32, true) ||
       !hopper::rows_map(&mdo, dout, bh, tq, dh, S, ROWS_OWNED, f32, true))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_clusters(flash_f32_dq_slices_kernel<ROUND>, bh, tq, slice_blocks(dh), SliceDqPlan::BYTES, st, mq,
-                         mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
-                         static_cast<float*>(dq), tq, tk, dh, scale, causal, round_ds);
+  const int blocks = hopper::slice_blocks<SliceTiles>(dh);
+  return launch_clusters<SliceTiles::LOADER_WGS>(flash_f32_dq_slices_kernel<ROUND>, bh, tq, ROWS_OWNED, blocks,
+                                                 SliceDqPlan::BYTES, st, mq, mk, mv, mdo,
+                                                 static_cast<const float*>(lse), static_cast<const float*>(delta),
+                                                 static_cast<float*>(dq), tq, tk, dh, scale, causal, round_ds);
 }
 
 template <bool ROUND>
@@ -1780,23 +1947,26 @@ int launch_dkv_slices(const void* q, const void* k, const void* v, const void* d
       !hopper::rows_map(&mv, v, bh, tk, dh, S, ROWS_OWNED, f32, true) ||
       !hopper::rows_map(&mdo, dout, bh, tq, dh, S, bq, f32, true))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_clusters(flash_f32_dkv_slices_kernel<ROUND>, bh, tk, slice_blocks(dh), SliceDkvPlan::BYTES, st, mq,
-                         mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
-                         static_cast<float*>(dk), static_cast<float*>(dv), tq, tk, dh, scale, causal, round_p,
-                         round_ds);
+  const int blocks = hopper::slice_blocks<SliceTiles>(dh);
+  return launch_clusters<SliceTiles::LOADER_WGS>(flash_f32_dkv_slices_kernel<ROUND>, bh, tk, ROWS_OWNED, blocks,
+                                                 SliceDkvPlan::BYTES, st, mq, mk, mv, mdo,
+                                                 static_cast<const float*>(lse), static_cast<const float*>(delta),
+                                                 static_cast<float*>(dk), static_cast<float*>(dv), tq, tk, dh, scale,
+                                                 causal, round_p, round_ds);
 }
 
 // Calls launch(instance head dim) with the head dim, as an
 // std::integral_constant, of the instance that serves head dim d (the
-// narrowest of 16, 32, 64, 128 and 256 that holds it; above 256, with
-// SLICED (dQ and dK/dV), SLICES up to SLICE x MAX_SLICES: a cluster of
-// column slices; else WIDE: the column-window kernels of flash_wide.cuh; d
-// a multiple of 4); cudaErrorInvalidValue for a d none takes, or for a
-// rounding type that is not a hopper::Round, or not ROUND_NONE where this
-// library does not round.
+// narrowest of 16, 32, 64, 128 and 256 that holds it; above 256, SLICES
+// where the kernel's clusters take d (`slices`, its blocks there: the
+// forward up to FwdSliceTiles' limit, dQ and dK/dV up to SliceTiles'): a
+// cluster of column slices; else WIDE: the column-window kernels of
+// flash_wide.cuh; d a multiple of 4); cudaErrorInvalidValue for a d none
+// takes, or for a rounding type that is not a hopper::Round, or not
+// ROUND_NONE where this library does not round.
 constexpr int WIDE = 0, SLICES = -1;
-template <bool SLICED = false, class F>
-static int by_head_dim(int d, int round_p, int round_ds, F launch) {
+template <class F>
+static int by_head_dim(int d, int slices, int round_p, int round_ds, F launch) {
   for (int r : {round_p, round_ds})
     if (r < hopper::ROUND_NONE || r > hopper::ROUND_F16 || (!RT_ROUNDED && r != hopper::ROUND_NONE))
       return static_cast<int>(cudaErrorInvalidValue);
@@ -1806,8 +1976,7 @@ static int by_head_dim(int d, int round_p, int round_ds, F launch) {
   if (d <= 64) return launch(std::integral_constant<int, 64>{});
   if (d <= 128) return launch(std::integral_constant<int, 128>{});
   if (d <= 256) return launch(std::integral_constant<int, 256>{});
-  if constexpr (SLICED)
-    if (slice_blocks(d) > 0) return launch(std::integral_constant<int, SLICES>{});
+  if (slices > 0) return launch(std::integral_constant<int, SLICES>{});
   return launch(std::integral_constant<int, WIDE>{});
 }
 
@@ -1887,19 +2056,24 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 // C entry points (loaded with ctypes): flash_attention.cu's signatures, on
 // contiguous f32 [bh, T, d] operands and f32 [bh, Tq] lse/delta, with the
 // rounding types of P and dS (Round) after out_f32; d, a multiple of 4, runs
-// on the instance that holds it, or above 256 on the clusters of slices (dQ
-// and dK/dV up to 1024) or the column-window kernels.
+// on the instance that holds it, or above 256 on the clusters of slices (the
+// three functions up to 1024) or the column-window kernels.
 // ---------------------------------------------------------------------------
 extern "C" const char* rt_cuda_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
+// The forward slices' dynamic shared memory a block (SliceFwdPlan::BYTES).
+extern "C" int rt_fwd_slices_smem_bytes() { return SliceFwdPlan::BYTES; }
+
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                             int tq, int tk, int d, float scale, int causal, int, int round_p, int round_ds,
                             void* stream) {
-  return by_head_dim(d, round_p, round_ds, [&](auto dd) {
+  return by_head_dim(d, hopper::slice_blocks<FwdSliceTiles>(d), round_p, round_ds, [&](auto dd) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if constexpr (decltype(dd)::value == WIDE)
+    if constexpr (decltype(dd)::value == SLICES)
+      return launch_fwd_slices<ROUNDED>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, round_p, st);
+    else if constexpr (decltype(dd)::value == WIDE)
       return wide::launch_fwd<float, float, ROUNDED>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, round_p, st);
     else
       return launch_fwd<decltype(dd)::value>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, round_p, st);
@@ -1909,7 +2083,7 @@ extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o
 extern "C" int rt_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
                            int d, float scale, int causal, int, int round_p, int round_ds, void* stream) {
-  return by_head_dim<true>(d, round_p, round_ds, [&](auto dd) {
+  return by_head_dim(d, hopper::slice_blocks<SliceTiles>(d), round_p, round_ds, [&](auto dd) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if constexpr (decltype(dd)::value == SLICES)
       return launch_dq_slices<ROUNDED>(q, k, v, dout, lse, delta, dq, bh, tq, tk, d, scale, causal, round_ds, st);
@@ -1926,7 +2100,7 @@ extern "C" int rt_flash_dkv(const void* q, const void* k, const void* v, const v
                             const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
                             int tk, int d, float scale, int causal, int, int round_p, int round_ds,
                             void* stream) {
-  return by_head_dim<true>(d, round_p, round_ds, [&](auto dd) {
+  return by_head_dim(d, hopper::slice_blocks<SliceTiles>(d), round_p, round_ds, [&](auto dd) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if constexpr (decltype(dd)::value == SLICES)
       return launch_dkv_slices<ROUNDED>(q, k, v, dout, lse, delta, dk, dv, bh, tq, tk, d, scale, causal, round_p,

@@ -1,12 +1,14 @@
 // Flash attention at head dims above 256 (sm_90a): forward, dQ and dK/dV
 // by column windows. Included by flash_attention.cu (16-bit operands E, bf16
 // or f16) and flash_attention_f32.cu (f32 operands, and with ROUND the mixed
-// dtypes), whose entry points send every head dim above 256 here, but for
-// the f32 library's dQ and dK/dV up to 1024 columns, which run on clusters
-// of column slices (flash_attention_f32.cu, SliceTiles: no recompute,
-// 3xTF32 wgmma); each of the four libraries so holds the three kernels for
-// its operands, the f32 and mixed ones reaching dQ and dK/dV here only
-// above 1024.
+// dtypes), whose entry points send every head dim above 256 here but where
+// a cluster of column slices serves it (no recompute, wgmma fed by TMA):
+// the forward in every library up to its FwdSliceTiles' limit (1024:
+// flash_attention.cu for 16-bit operands, flash_attention_f32.cu for f32
+// and mixes), and the f32 and mixed dQ and dK/dV up to 1024
+// (SliceTiles). Each of the four libraries so holds the three kernels for
+// its operands; the forward reaches them only above its clusters' limit,
+// the f32 and mixed dQ and dK/dV only above 1024.
 //
 // They replace the Pallas kernels _fwd_kernel, _dq_kernel and _dkv_kernel
 // (ray_tpu/ops/flash_attention.py:72, :135, :168), which take any head dim

@@ -28,6 +28,7 @@
 #include <stdint.h>
 
 #include <type_traits>
+#include <utility>
 
 namespace hopper {
 
@@ -189,6 +190,116 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity
 // here; release before, acquire after.
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The blocks of a cluster of column slices at head dim d, for the traits T
+// of its kernel (T::SLICE columns a block, at most T::MAX_SLICES blocks):
+// ceil(d / SLICE) above head dim 256, 0 where the slices do not serve d.
+template <class T>
+__host__ __device__ constexpr int slice_blocks(int d) {
+  return d > 256 && d <= T::SLICE * T::MAX_SLICES ? (d + T::SLICE - 1) / T::SLICE : 0;
+}
+
+// The clusters of column slices (head dims above 256): each block of a
+// cluster contracts a product's scores over its own columns only, and the
+// blocks' partial sums meet here. A warpgroup (128 threads) hands PARTS
+// [64 x N] partials, each thread's N / 2 accumulator values of each, to the
+// same warpgroup of every block of its cluster through `slot`, PARTS x N x
+// 256 bytes of its block's shared memory at the same offset in every block:
+// the partials go into the slot as N / 8 float4s a part, thread-major (a
+// warp writes 512 contiguous bytes; ordered before later TMA writes of the
+// slot by the async proxy); each warp arrives once on `full` of every block
+// (released at cluster scope) and the warpgroup waits for all 4 x blocks
+// arrivals of its own (acquired); then each part := the blocks' partials
+// added in rank order 0 .. blocks - 1 (so every block holds bitwise the
+// same sum, with no atomics), the other blocks' read through distributed
+// shared memory and this block's own from its shared memory, READ blocks at
+// a time and at most four float4s of each (their loads in flight together,
+// 4 registers a float4; MAX_BLOCKS bounds the cluster);
+// then each warp arrives once on `done` of every block: this block has read
+// the others' slots, and a block writes a slot again only after its `done`
+// has completed the round. `full` and `done` count 4 x blocks arrivals;
+// `parity` is the round's; `rank` is this block's. (Reduce-scatter, each
+// block summing a share and gathering the rest, moved fewer bytes but
+// waited twice: slower in every library, PERF.md.)
+template <int N, int PARTS, int READ, int MAX_BLOCKS>
+__device__ __forceinline__ void cluster_sum(float (&p)[PARTS][N / 2], void* slot_v, uint64_t* full, uint64_t* done,
+                                            uint32_t parity, int tid, uint32_t blocks, uint32_t rank) {
+  constexpr int F4 = N / 8, THREADS = 128;
+  float4* slot = reinterpret_cast<float4*>(slot_v);
+#pragma unroll
+  for (int x = 0; x < PARTS; ++x)
+#pragma unroll
+    for (int j = 0; j < F4; ++j)
+      slot[(x * F4 + j) * THREADS + tid] = make_float4(p[x][4 * j], p[x][4 * j + 1], p[x][4 * j + 2], p[x][4 * j + 3]);
+  fence_proxy_async();
+  __syncwarp();  // the warp's writes, ordered before its lanes' releases
+  const uint32_t lane = tid % 32;
+  if (lane < blocks) mbar_arrive_cluster(cluster_map(full, lane));
+  mbar_wait_cluster(full, parity);
+  constexpr int E4 = PARTS * F4, CH = E4 < 4 ? E4 : 4;  // a thread's float4s; loaded at once
+  // Blocks r0 .. r0 + READ - 1, in rank order.
+  auto add_group = [&](int r0) {
+#pragma unroll
+    for (int e0 = 0; e0 < E4; e0 += CH) {
+      float4 got[READ][CH];
+#pragma unroll
+      for (int i = 0; i < READ; ++i) {
+        if (r0 + i == (int)rank) {
+#pragma unroll
+          for (int e = 0; e < CH; ++e) got[i][e] = slot[(e0 + e) * THREADS + tid];
+        } else if (r0 + i < (int)blocks) {
+          const uint32_t at = cluster_map(slot, r0 + i);
+#pragma unroll
+          for (int e = 0; e < CH; ++e) got[i][e] = ld_cluster_f4(at + ((e0 + e) * THREADS + tid) * 16);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < READ; ++i) {
+        if (r0 + i < (int)blocks) {
+#pragma unroll
+          for (int e = 0; e < CH; ++e) {
+            const float4 u = got[i][e];
+            float* d = &p[(e0 + e) / F4][4 * ((e0 + e) % F4)];
+            if (r0 + i == 0) {
+              d[0] = u.x, d[1] = u.y, d[2] = u.z, d[3] = u.w;
+            } else {
+              d[0] += u.x, d[1] += u.y, d[2] += u.z, d[3] += u.w;
+            }
+          }
+        }
+      }
+    }
+  };
+#pragma unroll
+  for (int r0 = 0; r0 < MAX_BLOCKS; r0 += READ)
+    if (r0 < (int)blocks) add_group(r0);
+  __syncwarp();  // the warp's reads, ordered before its lanes' releases
+  if (lane < blocks) mbar_arrive_cluster(cluster_map(done, lane));
+}
+
+// One launch of a cluster kernel: `grid` blocks in clusters of `blocks`
+// along x (cudaLaunchKernelEx with the cluster dimension; a cluster the card
+// refuses returns its error and never runs), `threads` a block, `smem`
+// bytes of dynamic shared memory, on stream `st`. Returns the launch's error.
+template <class... Params, class... Args>
+inline int launch_cluster(void (*kernel)(Params...), dim3 grid, int threads, int blocks, int smem, cudaStream_t st,
+                          Args&&... args) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = blocks;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------

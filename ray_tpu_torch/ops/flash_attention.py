@@ -7,13 +7,16 @@ CUDA C++ kernels here, instantiated for head dims 16, 32, 64, 128 and 256
 between two instances runs on the next one up (``instance_head_dim``), the
 tensors at their own width, TMA filling the columns past it with zeros in
 shared memory and the outputs written at the true width; a head dim above
-256 runs on the column-window kernels (``csrc/flash_wide.cuh``, in every
+256 runs on a cluster of blocks, each contracting and writing its own
+slice of columns and summing the scores with the others' through
+distributed shared memory (``sliced``, ``CLUSTERS``): the forward in every
+library (slices of 256 columns for bf16 and f16, of 128 for f32 and
+mixes, up to 1024) and the f32 and mixed dQ and dK/dV (128 up to 1024);
+the rest above 256 (the 16-bit dQ and dK/dV, and every wider head
+dim) runs on the column-window kernels (``csrc/flash_wide.cuh``, in every
 library), which write their results as windows of at most 256 columns
 (128 for dK/dV, ``WIDE_WINDOWS``), each window a grid slice of its own
-that recomputes the scores over the whole head dim (``windows``), but for
-the f32 and mixed dQ and dK/dV up to 1024 columns: a cluster of blocks,
-each contracting and writing its own 128-column slice and summing the
-scores with the others' through distributed shared memory (``sliced``); a head
+that recomputes the scores over the whole head dim (``windows``); a head
 dim whose rows are not 16-byte strided (not a multiple of 8 in bf16, of 4
 in f32) is first copied into zero-padded tensors of the next such width
 (``kernel_head_dim``) and its outputs sliced back. The scale is always 1 /
@@ -43,12 +46,14 @@ kernels instantiated with rounding (``csrc/flash_attention_mixed.cu``);
     pass and a dK pass (one [64 x 256] accumulator each).
 The f32 library at head dim 256 keeps a block's own rows raw in shared
 memory and splits them into register fragments four k-steps at a time.
-Above 256, all three functions in every library: blocks of (head, 64 rows,
-a window of output columns), the contraction over the head dim streamed
-in 128-byte chunks by cp.async, mma.sync (bf16/f16, or 3xTF32 on f32);
-the f32 library's dQ and dK/dV (and the mixed one's) up to 1024 instead
-run the head dim 128 kernels' structure on one 128-column slice a block,
-a cluster of blocks a (head, 64 rows), 3xTF32 wgmma fed by TMA.
+Above 256, the clusters of slices: the forward a cluster a (head, 128 q
+rows) in 16 bits (a producer warp, two consumer warpgroups, bf16/f16
+wgmma) or a (head, 64 q rows) in f32 (the head dim 128 forward's
+structure, 3xTF32 wgmma), the f32 and mixed dQ and dK/dV a cluster a
+(head, 64 rows), all fed by TMA; every other kernel above 256 on the
+column windows: blocks of (head, 64 rows, a window of output columns),
+the contraction over the head dim streamed in 128-byte chunks by
+cp.async, mma.sync (bf16/f16, or 3xTF32 on f32).
 
 Neither backward kernel uses atomics, so the gradients do not depend on
 run order. Each kernel has a plain PyTorch version of the same function
@@ -95,11 +100,14 @@ HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the kernels are instantiated
 # Above the widest instance, the column-window kernels' output columns a
 # window (FWD_WIN, DQ_WIN and DKV_WIN of csrc/flash_wide.cuh).
 WIDE_WINDOWS = {"flash_fwd": 256, "flash_dq": 256, "flash_dkv": 128}
-# The f32 and mixed dQ and dK/dV above the widest instance, up to SLICE x
-# MAX_SLICES: a cluster of blocks, each owning SLICE columns (SliceTiles of
-# csrc/flash_attention_f32.cu); wider head dims take the column windows.
-SLICE, MAX_SLICES = 128, 8
-SLICED_KERNELS = ("flash_dq", "flash_dkv")
+# Above the widest instance, up to SLICE x MAX_SLICES columns: a cluster of
+# blocks, each owning SLICE columns, per (kernel, operand bits: 16 for bf16
+# and f16, 32 for f32 and mixes): the forward in every library
+# (FwdSliceTiles of csrc/flash_attention.cu and csrc/flash_attention_f32.cu),
+# the f32 and mixed dQ and dK/dV (SliceTiles of csrc/flash_attention_f32.cu);
+# wider head dims, and the 16-bit dQ and dK/dV, take the column windows.
+CLUSTERS = {("flash_fwd", 16): (256, 4), ("flash_fwd", 32): (128, 8),
+            ("flash_dq", 32): (128, 8), ("flash_dkv", 32): (128, 8)}
 # The kernel library of each operand dtype, and of a mix of them.
 OPERAND_DTYPES = {torch.bfloat16: "flash_attention", torch.float16: "flash_attention_f16",
                   torch.float32: "flash_attention_f32"}
@@ -132,21 +140,28 @@ def instance_head_dim(head_dim: int) -> int:
     return next((w for w in HEAD_DIMS if head_dim <= w), head_dim)
 
 
+def clusters(kernel: str, dtype):
+    """(SLICE, MAX_SLICES) of the clusters that serve ``kernel`` on operands
+    of ``dtype`` (a torch dtype, or "mixed") above the widest instance, or
+    None where the column windows serve every such head dim."""
+    return CLUSTERS.get((kernel, 16 if dtype in (torch.bfloat16, torch.float16) else 32))
+
+
 def sliced(kernel: str, head_dim: int, dtype) -> bool:
     """Whether ``kernel`` at ``head_dim`` on operands of ``dtype`` (a torch
-    dtype, or "mixed") runs on a cluster of column slices: dQ and dK/dV of
-    the f32 kernels (f32 operands, or a mix) above the widest instance, up
-    to ``SLICE * MAX_SLICES`` columns (the route of the f32 library's
-    ``by_head_dim``)."""
-    return (kernel in SLICED_KERNELS and dtype in (torch.float32, "mixed")
-            and HEAD_DIMS[-1] < instance_head_dim(head_dim) <= SLICE * MAX_SLICES)
+    dtype, or "mixed") runs on a cluster of column slices: above the widest
+    instance, up to SLICE x MAX_SLICES columns of its ``clusters`` (the
+    forward in every library, dQ and dK/dV of the f32 kernels: f32
+    operands, or a mix; the route of the libraries' ``by_head_dim``)."""
+    c = clusters(kernel, dtype)
+    return c is not None and HEAD_DIMS[-1] < instance_head_dim(head_dim) <= c[0] * c[1]
 
 
 def window_width(kernel: str, head_dim: int, dtype) -> int:
     """The output columns of one window (or slice) of ``kernel`` above the
-    widest instance: ``SLICE`` on a cluster of slices, else the column
+    widest instance: the slice's on a cluster of slices, else the column
     window's (``WIDE_WINDOWS``)."""
-    return SLICE if sliced(kernel, head_dim, dtype) else WIDE_WINDOWS[kernel]
+    return clusters(kernel, dtype)[0] if sliced(kernel, head_dim, dtype) else WIDE_WINDOWS[kernel]
 
 
 def windows(kernel: str, head_dim: int, dtype) -> int:
@@ -179,10 +194,10 @@ def instance(kernel: str, head_dim: int, dtype) -> str:
     ``head_dim`` on operands of ``dtype`` (a torch dtype, or "mixed"):
     "flash_fwd d128 bfloat16" at an instance's own width, "flash_fwd d96 on
     d128 bfloat16" for a head dim that runs on a wider instance, "flash_fwd
-    d384 on d256x2 bfloat16" above the widest (the column-window kernel,
-    two windows of 256 columns), "flash_dq d384 on d128x3 cluster float32"
-    on a cluster of three slices of 128 columns, "flash_fwd d64 mixed" for
-    operands of several dtypes."""
+    d384 on d128x3 cluster bfloat16" above the widest on a cluster of three
+    slices of 128 columns, "flash_dq d384 on d256x2 bfloat16" on the
+    column-window kernel (two windows of 256 columns), "flash_fwd d64
+    mixed" for operands of several dtypes."""
     width = instance_head_dim(head_dim)
     if width > HEAD_DIMS[-1]:
         on = f" on d{window_width(kernel, head_dim, dtype)}x{windows(kernel, head_dim, dtype)}"

@@ -2,6 +2,7 @@
 
     python3 -m ray_tpu_torch.sweep_flash_f32 [--rounds 2] [--variants NAME ...]
     python3 -m ray_tpu_torch.sweep_flash_f32 --variants slices
+    python3 -m ray_tpu_torch.sweep_flash_f32 --variants fwd32 fwd16
 
 ``csrc/flash_attention_f32.cu`` splits every f32 operand into two tf32
 parts in shared memory before its 3xTF32 products; the split pass runs on
@@ -37,6 +38,22 @@ clusters) checked only. Those that take a part of the exchange out are
 timed only (``TIMING_ONLY``); "slices off" runs the column windows of
 ``flash_wide.cuh`` at every head dim above 256, the route before the
 slices, on the same inputs.
+
+The variants named from "fwd32" on edit the forward above head dim 256
+(``FwdSliceTiles`` of the f32 source: clusters of 128-column slices that
+sum their partial scores S through distributed shared memory), those from
+"fwd16" on the 16-bit forward's (``FwdSliceTiles`` of
+``flash_attention.cu``, its counterpart for bf16 and f16 operands). They
+build the f32 and mixed libraries, or the bf16 and f16 ones, and run at
+``FWD32_SHAPES`` or ``FWD16_SHAPES`` (the cases of the forward that
+chip_smoke.py times, in PERF.md's column-window table): each variant's
+forward held there and at ``FWD_CHECKS`` (ragged, non-causal, the widest
+clusters) against the plain version (f32 outputs of f32 operands at 1e-5
+relative norm, others by the bf16 rule; lse; o's bits twice), then timed
+beside SDPA's forward on the same inputs (cast to f32 for a mix). Those
+that take a part of the exchange out are timed only; "fwd32 off" and
+"fwd16 off" run the column windows of ``flash_wide.cuh`` (the route before
+the clusters) on the same inputs.
 """
 
 from __future__ import annotations
@@ -61,6 +78,7 @@ from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as fa
 
 SOURCE, HEADER, MIXED_SOURCE = "flash_attention_f32.cu", "hopper.cuh", "flash_attention_mixed.cu"
+SOURCE16, F16_SOURCE = "flash_attention.cu", "flash_attention_f16.cu"  # the 16-bit forward's
 TRAITS = {  # F32Tiles<D> as the .cu has them, the text the variants edit
     16: "DQ_BK = 64, DQ_STAGES = 4, DQ_RAW = 2, DKV_BQ = 32, DKV_STAGES = 4, DKV_RAW = 2;\n"
         "  static constexpr int LOADER_WGS = 3;\n"
@@ -117,8 +135,8 @@ def _every(**values) -> list:
 # the "slices" variants edit; and the exchange's wait and reads.
 SLICE_TRAITS = ("  static constexpr int DQ_BK = 16, DQ_STAGES = 2, DQ_RAW = 0, DKV_BQ = 8, DKV_STAGES = 3, DKV_RAW = 0;\n"
                 "  static constexpr int LOADER_WGS = 2, READ_BLOCKS = 4, SCORE_STEPS = 2;")
-SLICE_WAIT = "  hopper::mbar_wait_cluster(full, parity);\n"
-SLICE_READS = "  for (int r0 = 0; r0 < SliceTiles::MAX_SLICES; r0 += G) {"
+SLICE_WAIT = "  mbar_wait_cluster(full, parity);\n"
+SLICE_READS = "  auto add_group = [&](int r0) {"
 
 
 def _slices(**values) -> list:
@@ -127,6 +145,23 @@ def _slices(**values) -> list:
     for name, value in values.items():
         text = re.sub(rf"\b{name} = \d+", f"{name} = {value}", text)
     return [(SOURCE, SLICE_TRAITS, text)]
+
+
+# FwdSliceTiles as the f32 and the 16-bit sources have them (the forward's
+# clusters above head dim 256), the text the "fwd32" and "fwd16" variants edit.
+FWD32_TRAITS = ("  static constexpr int SLICE = 128, MAX_SLICES = 8;\n"
+                "  static constexpr int BK = 32, STAGES = 2, LOADER_WGS = 2, READ_BLOCKS = 4, SCORE_STEPS = 2;")
+FWD16_TRAITS = ("  static constexpr int SLICE = 256, MAX_SLICES = 4;\n"
+                "  static constexpr int ROWS = 128, BK = 64, STAGES = 2, READ_BLOCKS = 1;")
+
+
+def _fwd(bits: int, **values) -> list:
+    """An edit of the f32 (bits 32) or 16-bit forward's FwdSliceTiles: each NAME to its value."""
+    old = FWD32_TRAITS if bits == 32 else FWD16_TRAITS
+    text = old
+    for name, value in values.items():
+        text = re.sub(rf"\b{name} = \d+", f"{name} = {value}", text)
+    return [(SOURCE if bits == 32 else SOURCE16, old, text)]
 
 
 # name: (what it tries, [(file, old text, new text), ...])
@@ -180,13 +215,36 @@ VARIANTS = {
     "slices scores chained": ("the partial scores chained in the tensor cores' accumulator over the whole slice",
                               _slices(SCORE_STEPS=16)),
     "slices no wait": ("timing only: the partials read without waiting for the other blocks'",
-                       [(SOURCE, SLICE_WAIT, "")]),
+                       [(HEADER, SLICE_WAIT, "")]),
     "slices no reads": ("timing only: each block keeps its own partial (no distributed shared memory read)",
-                        [(SOURCE, SLICE_READS, "  for (int r0 = 0; r0 < 0; r0 += G) {")]),
+                        [(HEADER, SLICE_READS, "  auto add_group = [&](int r0) {\n    return;")]),
     "slices off": ("the column windows at every head dim above 256 (the route before the slices)",
-                   [(SOURCE, "SLICE = 128, MAX_SLICES = 8;", "SLICE = 128, MAX_SLICES = 2;")]),
+                   [(SOURCE, "struct SliceTiles {\n  static constexpr int SLICE = 128, MAX_SLICES = 8;",
+                     "struct SliceTiles {\n  static constexpr int SLICE = 128, MAX_SLICES = 2;")]),
+    "fwd32 16 keys a stage, three stages": ("stages of 16 keys, the ring three deep", _fwd(32, BK=16, STAGES=3)),
+    "fwd32 two blocks read at once": ("a consumer reads two blocks' partials at a time, not four",
+                                      _fwd(32, READ_BLOCKS=2)),
+    "fwd32 scores 4 k-steps a partial": ("the partial scores added in f32 every four k-steps, not two",
+                                         _fwd(32, SCORE_STEPS=4)),
+    "fwd32 no wait": ("timing only: the partials read without waiting for the other blocks'",
+                      [(HEADER, SLICE_WAIT, "")]),
+    "fwd32 no reads": ("timing only: each block keeps its own partial (no distributed shared memory read)",
+                       [(HEADER, SLICE_READS, "  auto add_group = [&](int r0) {\n    return;")]),
+    "fwd32 off": ("the column windows at every head dim above 256 (their earlier route)", _fwd(32, MAX_SLICES=2)),
+    "fwd16 32 keys a stage, three stages": ("stages of 32 keys, the ring three deep", _fwd(16, BK=32, STAGES=3)),
+    "fwd16 32 keys a stage, four stages": ("... four deep", _fwd(16, BK=32, STAGES=4)),
+    "fwd16 slices of 128": ("blocks of 128 columns (twice the blocks and reads), one consumer warpgroup of 64 rows "
+                            "(K holds one partial), clusters of up to eight", _fwd(16, SLICE=128, ROWS=64, MAX_SLICES=8)),
+    "fwd16 two blocks read at once": ("a consumer reads two blocks' partials at a time, not one",
+                                      _fwd(16, READ_BLOCKS=2)),
+    "fwd16 no wait": ("timing only: the partials read without waiting for the other blocks'",
+                      [(HEADER, SLICE_WAIT, "")]),
+    "fwd16 no reads": ("timing only: each block keeps its own partial (no distributed shared memory read)",
+                       [(HEADER, SLICE_READS, "  auto add_group = [&](int r0) {\n    return;")]),
+    "fwd16 off": ("the column windows at every head dim above 256 (their earlier route)", _fwd(16, MAX_SLICES=1)),
 }
-TIMING_ONLY = ("slices no wait", "slices no reads")
+TIMING_ONLY = ("slices no wait", "slices no reads", "fwd32 no wait", "fwd32 no reads", "fwd16 no wait",
+               "fwd16 no reads")
 # (B, T, H, Dh, causal): gpt2-small in f32 at B 8 (phase 14's attention),
 # its width as 6 heads of 128, the f32 ring's Dh 32 diagonal and earlier
 # blocks, and its width as 3 heads of 256 (phase 14's f32 Dh 256 run).
@@ -202,6 +260,21 @@ F32, MIX = (torch.float32,) * 3, (torch.bfloat16, torch.float32, torch.bfloat16)
 SLICE_SHAPES = [(8, 1024, 2, 384, True, F32), (8, 1024, 2, 512, True, F32), (8, 1024, 2, 320, True, MIX),
                 (8, 1024, 2, 320, True, F32)]
 SLICE_CHECKS = [(2, 200, 2, 520, False, F32), (2, 256, 1, 768, False, F32), (1, 256, 1, 1024, True, F32)]
+BF16, F16 = (torch.bfloat16,) * 3, (torch.float16,) * 3
+# (B, T, Tk, H, Dh, causal, (q, k, v) dtypes, f32 outputs) of the forward
+# variants: the forward cases chip_smoke.py times (PERF.md's column-window table),
+# f32 and mixed, or 16-bit; checked only: ragged, non-causal and the widest
+# clusters.
+FWD32_SHAPES = [(8, 1024, 1024, 2, 384, True, F32, False), (8, 1024, 1024, 2, 512, True, F32, False),
+                (8, 1024, 1024, 2, 320, True, MIX, False)]
+FWD16_SHAPES = [(32, 1024, 1024, 3, 264, True, BF16, False), (32, 1024, 1024, 2, 384, True, BF16, False),
+                (32, 1024, 1024, 1, 768, True, BF16, False), (8, 1024, 1024, 2, 512, True, BF16, False),
+                (8, 1024, 1024, 1, 1024, True, BF16, False), (32, 1024, 1024, 2, 384, True, F16, False),
+                (32, 1024, 1024, 2, 384, True, BF16, True)]
+FWD_CHECKS = {32: [(2, 200, 333, 2, 520, False, F32, False), (1, 256, 256, 1, 1024, True, F32, False),
+                   (1, 300, 300, 2, 768, True, MIX, False)],
+              16: [(2, 200, 333, 2, 384, False, BF16, False), (1, 256, 256, 1, 1024, True, BF16, False),
+                   (2, 1000, 1000, 2, 264, True, F16, True), (2, 300, 1100, 2, 264, False, BF16, False)]}
 GRAD_RELNORM = 1e-4
 FWD_RELNORM, LSE_TOL = 1e-5, 1e-5
 VARIANT_SECONDS = 180
@@ -210,8 +283,7 @@ VARIANT_SECONDS = 180
 def sources(name: str) -> dict:
     """The variant's source files {file name: text}; raises KeyError on an
     edit that does not apply to the current sources."""
-    files = {f.name: f.read_text() for f in [_build.CSRC / SOURCE, _build.CSRC / MIXED_SOURCE,
-                                             *sorted(_build.CSRC.glob("*.cuh"))]}
+    files = {f.name: f.read_text() for f in [*sorted(_build.CSRC.glob("*.cu")), *sorted(_build.CSRC.glob("*.cuh"))]}
     for f, old, new in VARIANTS[name][1]:
         if old not in files[f]:
             raise KeyError(f"{name}: the text to edit is not in {f}: {old[:60]!r}")
@@ -223,17 +295,24 @@ def _dir(name: str) -> Path:
     return _build.BUILD_DIR / "sweep_f32" / re.sub(r"[^\w-]", "_", name)
 
 
-def build(name: str, mixed: bool = False) -> str:
-    """Compile the variant into its own directory (lib.so, and with
-    ``mixed`` the mixed library as mixed.so, at once); returns nvcc's spill
-    lines (or its error), and with ``mixed`` the slices kernels' register
-    lines."""
+# The libraries a variant of each family builds: (file, source, library name).
+TARGETS = {"instances": [("lib.so", SOURCE, "flash_attention_f32")],
+           "slices": [("lib.so", SOURCE, "flash_attention_f32"), ("mixed.so", MIXED_SOURCE, "flash_attention_mixed")],
+           "fwd32": [("lib.so", SOURCE, "flash_attention_f32"), ("mixed.so", MIXED_SOURCE, "flash_attention_mixed")],
+           "fwd16": [("bf16.so", SOURCE16, "flash_attention"), ("f16.so", F16_SOURCE, "flash_attention_f16")]}
+
+
+def build(name: str, families=("instances",)) -> str:
+    """Compile the variant into its own directory, the libraries of its
+    ``families`` at once (TARGETS); returns nvcc's spill lines (or its
+    error), and the slices kernels' register lines."""
     d = _dir(name)
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
     for f, text in sources(name).items():
         (d / f).write_text(text)
-    targets = [("lib.so", SOURCE)] + ([("mixed.so", MIXED_SOURCE)] if mixed else [])
+    targets = list(dict.fromkeys((so, src) for fam in families for so, src, _ in TARGETS[fam]))
+    slices = any(fam != "instances" for fam in families)
     procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / so), str(d / src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for so, src in targets]
     outs = [proc.communicate()[0] for proc in procs]
@@ -244,10 +323,10 @@ def build(name: str, mixed: bool = False) -> str:
     for (so, _), out in zip(targets, outs):
         for line in out.splitlines():
             if "Compiling entry" in line or "Function properties for" in line:
-                kernel = re.search(r"flash_f32_(dq|dkv)_slices_kernel", line)
+                kernel = re.search(r"flash_(?:f32_)?(fwd|dq|dkv)_slices_kernel", line)
             if ("spill" in line and " 0 bytes spill stores" not in line) or "C751" in line:
                 lines.append(line.strip())
-            elif mixed and kernel and "registers" in line:
+            elif slices and kernel and "registers" in line:
                 lines.append(f"{so} {kernel[1]} slices: {line.split(':', 1)[-1].strip()}")
     return "; ".join(lines)
 
@@ -325,6 +404,51 @@ def measure_slices(name: str) -> dict:
     return out
 
 
+def measure_fwd(name: str, bits: int) -> dict:
+    """In this process: the variant's forward above head dim 256 against
+    the plain version at FWD_CHECKS and the FWD<bits>_SHAPES, o's bits
+    twice, then at the shapes its event and device ms and SDPA's forward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    family = f"fwd{bits}"
+    libs = {lib: ctypes.CDLL(str(_dir(name) / so)) for so, _, lib in TARGETS[family]}
+    real = _build.load
+    _build.load = lambda n, defines=(): libs.get(n) or real(n, defines)
+    shapes = FWD32_SHAPES if bits == 32 else FWD16_SHAPES
+    # lse: the f32 kernels' limit, or the 16-bit ones' (chip_smoke.py's)
+    out = {"relnorm": 0.0, "fwd relnorm": 0.0, "lse": 0.0, "lse_tol": LSE_TOL if bits == 32 else 1e-4, "rule": True,
+           "gaps": {}}
+    for B, T, Tk, H, D, causal, dtypes, out_f32 in FWD_CHECKS[bits] + shapes:
+        g = torch.Generator(device="cuda").manual_seed(D)
+        q = torch.randn(B * H, T, D, device="cuda", generator=g).to(dtypes[0])
+        k, v = (torch.randn(B * H, Tk, D, device="cuda", generator=g).to(t) for t in dtypes[1:])
+        o, lse = fa.flash_fwd(q, k, v, causal, out_f32=out_f32)
+        again = fa.flash_fwd(q, k, v, causal, out_f32=out_f32)[0]
+        out["rule"] &= torch.equal(o, again)
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, out_f32)
+        gap = bench.disagreement(o, o_ref)
+        key = (f"d{D} {'mixed' if len(set(dtypes)) > 1 else str(dtypes[0]).removeprefix('torch.')}"
+               f"{'->f32' if out_f32 else ''}{'' if causal else ' full'} B{B} H{H}")
+        out["gaps"][key] = {"o": gap["relnorm"]}
+        if o.dtype == torch.float32 and dtypes[2] == torch.float32:
+            out["fwd relnorm"] = max(out["fwd relnorm"], gap["relnorm"])
+        else:
+            out["rule"] &= gap["ok"]
+        out["lse"] = max(out["lse"], (lse - lse_ref).abs().max().item())
+        if (B, T, Tk, H, D, causal, dtypes, out_f32) in FWD_CHECKS[bits]:
+            continue
+        call = lambda: fa.flash_fwd(q, k, v, causal, out_f32=out_f32)  # noqa: E731
+        out[f"fwd {key} ms"] = bench.time_ms(call)
+        out[f"fwd {key} device ms"] = _device_ms({"fwd": call}, r"flash_(f32_|wide_)?{kernel}_(slices_)?kernel")["fwd"]
+        like = torch.float32 if len(set(dtypes)) > 1 else dtypes[0]
+        qs, ks, vs = (x.to(like).view(B, H, -1, D) for x in (q, k, v))
+        with torch.no_grad():
+            out[f"SDPA forward {key} ms"] = bench.time_ms(
+                lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal))
+        del q, k, v, o, again, o_ref, lse, lse_ref, qs, ks, vs
+    _build.load = real
+    return out
+
+
 def measure(name: str) -> dict:
     """In this process: the variant's forward and gradients against the
     plain versions, then each kernel's event and device ms at SHAPES."""
@@ -355,16 +479,16 @@ def measure(name: str) -> dict:
     return out
 
 
-CHECKS = ("relnorm", "fwd relnorm", "lse", "rule", "gaps")
+CHECKS = ("relnorm", "fwd relnorm", "lse", "lse_tol", "rule", "gaps")
 
 
 def _ok(res: dict) -> bool:
-    return (res["relnorm"] <= GRAD_RELNORM and res["fwd relnorm"] <= FWD_RELNORM and res["lse"] <= LSE_TOL
-            and res.get("rule", True))
+    return (res["relnorm"] <= GRAD_RELNORM and res["fwd relnorm"] <= FWD_RELNORM
+            and res["lse"] <= res.get("lse_tol", LSE_TOL) and res.get("rule", True))
 
 
 def _family(name: str) -> str:
-    return "slices" if name.startswith("slices") else "instances"
+    return next((f for f in ("slices", "fwd32", "fwd16") if name.startswith(f)), "instances")
 
 
 def main(argv=None) -> None:
@@ -376,7 +500,10 @@ def main(argv=None) -> None:
     ap.add_argument("--family", default="instances", help=argparse.SUPPRESS)  # its shapes: "instances", "slices"
     args = ap.parse_args(argv)
     if args.measure:
-        res = measure_slices(args.measure) if args.family == "slices" else measure(args.measure)
+        if args.family in ("fwd32", "fwd16"):
+            res = measure_fwd(args.measure, int(args.family[3:]))
+        else:
+            res = measure_slices(args.measure) if args.family == "slices" else measure(args.measure)
         print(json.dumps(res), flush=True)
         return
     if not torch.cuda.is_available():
@@ -386,9 +513,9 @@ def main(argv=None) -> None:
              or any(n.startswith(prefix) for prefix in args.variants)]
     families = sorted({_family(n) for n in names if n != "chosen"}) or ["instances"]
     runs = [(n, f) for n in names for f in families if n == "chosen" or f == _family(n)]
-    mixed = {n: any(f == "slices" for m, f in runs if m == n) for n in names}
+    built = {n: [f for m, f in runs if m == n] for n in names}
     with ThreadPoolExecutor(len(names)) as pool:
-        reports = dict(zip(names, pool.map(lambda n: build(n, mixed[n]), names)))
+        reports = dict(zip(names, pool.map(lambda n: build(n, built[n]), names)))
     for name, report in reports.items():
         print(f"build {name!r} ({VARIANTS[name][0]}): {report or 'no spill'}", flush=True)
     best = {}

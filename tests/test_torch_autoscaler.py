@@ -27,6 +27,7 @@ from ray_tpu_torch.autoscaler import (
 )
 from ray_tpu_torch.core import cluster_utils
 from ray_tpu_torch.core.cluster_utils import Cluster
+from ray_tpu_torch.utils.rpc import RpcClient, RpcError
 
 CARD = "NVIDIA H100 80GB HBM3"
 DOMAIN = domain_type(CARD, 2)  # "H100-80GB-HBM3-2"
@@ -59,6 +60,31 @@ def _wait_alive(n: int, timeout_s: float = 60.0) -> list:
         time.sleep(0.2)
         alive = _alive()
     return alive
+
+
+def _wait_idle(node_ids, deadline: float) -> None:
+    """Wait, until ``deadline`` (``time.monotonic()``), for the agents of
+    ``node_ids`` to hold no lease and no bundle, asked as the autoscaler
+    asks before it drains a node (``get_state``); an agent that no longer
+    answers has been reaped, idle. This is the teardown of killed actors
+    and of a removed group, which the autoscaler does not drive: a failure
+    here, not in the drain after it, says that teardown ran out the time."""
+    addrs = {n["node_id"]: n["address"] for n in _alive() if n["node_id"] in node_ids}
+    busy = set(addrs)
+    while busy and time.monotonic() < deadline:
+        for nid in sorted(busy):
+            probe = RpcClient(addrs[nid], name="test-idle-probe")
+            try:
+                st = probe.call("get_state", timeout_s=5.0)
+            except RpcError:
+                st = {}
+            finally:
+                probe.close()
+            if not st.get("leases") and not st.get("bundles"):
+                busy.discard(nid)
+        if busy:
+            time.sleep(0.2)
+    assert not busy, f"the domains {sorted(busy)} still hold leases or bundles at the deadline"
 
 
 def _stop(scaler) -> None:
@@ -120,7 +146,9 @@ def test_domain_provider_scales_domains_for_gang(cluster):
     num_slices=2)``, one STRICT_PACK group a domain) makes the provider
     spawn exactly two agents, one a domain; the gang is reserved on them
     and a worker pinned to each domain's bundle runs there on a card of
-    its own; after ``remove()`` both domains are drained and terminated."""
+    its own; within 30 s of ``remove()`` the killed workers' leases and
+    the removed gang's bundles are gone (``_wait_idle``) and both domains
+    are drained and terminated."""
     from ray_tpu_torch.accelerators import slice_placement_group
 
     provider = GpuDomainProvider(cluster.address, cluster.session_id, domain=DOMAIN)
@@ -161,6 +189,7 @@ def test_domain_provider_scales_domains_for_gang(cluster):
         procs = [proc for members in provider._slices.values() for _, proc in members]
         spg.remove()
         deadline = time.monotonic() + 30.0
+        _wait_idle(domain_nodes, deadline)
         while ((provider._slices or any(p.poll() is None for p in procs))
                and time.monotonic() < deadline):
             time.sleep(0.2)

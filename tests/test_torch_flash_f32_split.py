@@ -897,11 +897,12 @@ def test_slices_tile_the_head_dim(d):
     SLICE that cover each column of the head dim exactly once, no block
     lies wholly past it, and the cluster fits the portable limit; the
     wrapper counts that many slices (fa.windows) and routes wider head
-    dims to the column windows."""
+    dims to the column windows; the forward's clusters (FwdSliceTiles)
+    have the same slices and limit."""
     S, M = SLICES["SLICE"], SLICES["MAX_SLICES"]
-    assert (S, M) == (tfa.SLICE, tfa.MAX_SLICES)
+    assert tfa.CLUSTERS[("flash_dq", 32)] == tfa.CLUSTERS[("flash_dkv", 32)] == (S, M)
     for dtype in (torch.float32, "mixed"):
-        for kernel in tfa.SLICED_KERNELS:
+        for kernel in tfa.launches:
             assert tfa.sliced(kernel, d, dtype) == (d <= S * M), (kernel, d)
             if d > S * M:
                 assert tfa.windows(kernel, d, dtype) == -(-d // tfa.WIDE_WINDOWS[kernel])
@@ -913,7 +914,7 @@ def test_slices_tile_the_head_dim(d):
                 assert (a, b) == (w * S, (w + 1) * S) and a < d
                 seen[a:b] += 1
             assert torch.equal(seen[:d], torch.ones(d, dtype=torch.int32)) and cols[-1][1] - d < S
-        assert not tfa.sliced("flash_fwd", d, dtype)
+        assert tfa.clusters("flash_fwd", dtype) == (S, M)
     assert not tfa.sliced("flash_dq", d, torch.bfloat16) and not tfa.sliced("flash_dkv", d, torch.float16)
 
 
@@ -937,8 +938,9 @@ def test_slices_shared_memory_fits():
     source = CU.read_text()
     for kernel in ("dQ's slices'", "dK/dV's slices'"):
         assert f"static_assert(BYTES <= SMEM_LIMIT, \"{kernel} shared memory does not fit\");" in source
-    assert "if (slice_blocks(d) > 0) return launch(std::integral_constant<int, SLICES>{});" in source
-    assert len(re.findall(r"by_head_dim<true>\(", source)) == 2  # dQ and dK/dV; the forward keeps the windows
+    assert "if (slices > 0) return launch(std::integral_constant<int, SLICES>{});" in source
+    assert source.count("by_head_dim(d, hopper::slice_blocks<SliceTiles>(d),") == 2  # dQ and dK/dV
+    assert source.count("by_head_dim(d, hopper::slice_blocks<FwdSliceTiles>(d),") == 1  # the forward's own clusters
 
 
 def test_slices_sweep_variants_apply_to_the_source():
@@ -954,10 +956,12 @@ def test_slices_sweep_variants_apply_to_the_source():
     source = CU.read_text()
     assert sweep.SLICE_TRAITS in source and sweep.sources("chosen")[sweep.SOURCE] == source
     slices = [name for name in sweep.VARIANTS if sweep._family(name) == "slices"]
-    assert set(sweep.TIMING_ONLY) < set(slices) and "slices off" in slices
+    assert {n for n in sweep.TIMING_ONLY if sweep._family(n) == "slices"} < set(slices) and "slices off" in slices
+    chosen = sweep.sources("chosen")
     for name in slices:
-        edited = sweep.sources(name)[sweep.SOURCE]
-        assert edited != source, name
+        files = sweep.sources(name)
+        assert files != chosen, name
+        edited = files[sweep.SOURCE]
         traits = {k: int(v) for k, v in re.findall(r"(\w+) = (\d+)", sweep.VARIANTS[name][1][0][2])}
         if name in sweep.TIMING_ONLY:
             assert cu_slice_tiles(edited) == SLICES, name
@@ -967,6 +971,6 @@ def test_slices_sweep_variants_apply_to_the_source():
             assert cu_slice_tiles(edited) == dict(SLICES, **traits), name
             assert sum(SLICES[t] != v for t, v in traits.items()) >= 1, name
     for B, T, H, D, causal, dtypes in sweep.SLICE_SHAPES + sweep.SLICE_CHECKS:
-        for kernel in tfa.SLICED_KERNELS:
+        for kernel in tfa.launches:
             assert tfa.sliced(kernel, D, "mixed" if len(set(dtypes)) > 1 else dtypes[0]), (kernel, D)
     assert {-(-D // SLICES["SLICE"]) for *_, D, _, _ in sweep.SLICE_CHECKS} == {5, 6, 8}

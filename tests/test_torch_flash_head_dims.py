@@ -264,9 +264,10 @@ def test_dkv_passes_are_the_cu_traits(head_dim):
 @pytest.mark.parametrize("head_dim", [257, 264, 512])
 def test_head_dims_above_256_raise_and_launch_nothing(monkeypatch, head_dim):
     """A CUDA tensor wider than the widest instance no longer raises: each
-    wrapper launches the column-window kernel of its library once (the
-    width it is given is the padding copy's at 257), counted under the
-    window kernel's instance; on the CPU the plain versions take it."""
+    wrapper launches its library's kernel above 256 once (the width it is
+    given is the padding copy's at 257), counted under that kernel's
+    instance: dQ's and dK/dV's column windows, the forward's cluster of
+    256-column slices; on the CPU the plain versions take it."""
     calls = []
 
     def load(name):
@@ -292,9 +293,9 @@ def test_head_dims_above_256_raise_and_launch_nothing(monkeypatch, head_dim):
                                                                               "rt_flash_dkv")]
     assert all(args[n_ptrs + 3] == width for (_, _, args), n_ptrs in zip(calls, (5, 7, 8)))
     assert tfa.launches == dict.fromkeys(tfa.launches, 1)
-    assert tfa.launches_by_instance == {
-        f"{name} d{head_dim} on d{tfa.WIDE_WINDOWS[name]}x{-(-head_dim // tfa.WIDE_WINDOWS[name])} bfloat16": 1
-        for name in tfa.launches}
+    on = {name: f"d{tfa.WIDE_WINDOWS[name]}x{-(-head_dim // tfa.WIDE_WINDOWS[name])}" for name in tfa.launches}
+    on["flash_fwd"] = f"d256x{-(-head_dim // 256)} cluster"
+    assert tfa.launches_by_instance == {f"{name} d{head_dim} on {on[name]} bfloat16": 1 for name in tfa.launches}
     assert tfa.flash_fwd(x, x, x, True)[0].shape == x.shape
 
 

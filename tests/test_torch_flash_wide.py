@@ -256,8 +256,9 @@ def _recording_loads(monkeypatch):
 
 # head dim -> the width the kernel is given: 16-bit operands, f32 (and a
 # mix, cast to f32); its windows of 256 (forward, dQ) and 128 (dK/dV)
-# columns; the f32 and mixed dQ and dK/dV up to 1024 instead run on a
-# cluster of slices of 128 columns (fa.sliced), above on the windows.
+# columns; the forward in every library, and the f32 and mixed dQ and dK/dV,
+# up to their clusters' limit (fa.CLUSTERS: 1024) instead run on a cluster
+# of slices (fa.sliced), above on the windows.
 WIDE_ROUTES = {257: (264, 260, 2, 3), 260: (264, 260, 2, 3), 264: (264, 264, 2, 3), 384: (384, 384, 2, 3),
                512: (512, 512, 2, 4), 768: (768, 768, 3, 6), 1024: (1024, 1024, 4, 8), 1280: (1280, 1280, 5, 10)}
 ROUTE_DTYPES = {"bf16": (torch.bfloat16,) * 3, "f16": (torch.float16,) * 3, "f32": (torch.float32,) * 3,
@@ -272,20 +273,23 @@ def test_routes_wide_head_dims_to_the_window_kernels(monkeypatch, head_dim, dtyp
     padding copy's at 257, and at 260 in 16 bits), that width as ``d`` and
     1 / sqrt(the true head dim) as the scale, returns outputs of the true
     head dim in their operands' dtypes, and counts one launch a call under
-    the window kernel's instance key (the f32 and mixed dQ and dK/dV up to
-    1024: the cluster of slices')."""
+    the window kernel's instance key (the forward in every library, and
+    the f32 and mixed dQ and dK/dV, up to their clusters' limit: the
+    cluster of slices')."""
     calls = _recording_loads(monkeypatch)
     qd, kd, vd = ROUTE_DTYPES[dtypes]
     mixed = dtypes == "mixed"
     width = WIDE_ROUTES[head_dim][1 if qd == torch.float32 or mixed else 0]
     assert tfa.kernel_head_dim(head_dim, torch.float32 if mixed else qd) == width
     assert tfa.instance_head_dim(head_dim) == head_dim
-    bf = torch.bfloat16  # the column windows' counts (16-bit operands)
-    assert (tfa.windows("flash_fwd", head_dim, bf), tfa.windows("flash_dq", head_dim, bf),
-            tfa.windows("flash_dkv", head_dim, bf)) == (WIDE_ROUTES[head_dim][2],) * 2 + (WIDE_ROUTES[head_dim][3],)
+    bf = torch.bfloat16  # the column windows' counts of dQ and dK/dV (16-bit operands)
+    assert (tfa.windows("flash_dq", head_dim, bf),
+            tfa.windows("flash_dkv", head_dim, bf)) == (WIDE_ROUTES[head_dim][2], WIDE_ROUTES[head_dim][3])
     f32_kernels = qd == torch.float32 or mixed
     sliced = f32_kernels and head_dim <= 1024
     slices = -(-head_dim // 128)
+    fwd_slice, fwd_max = tfa.CLUSTERS[("flash_fwd", 32 if f32_kernels else 16)]
+    fwd_sliced = head_dim <= fwd_slice * fwd_max
     BH, T = 2, 24
     q, k, v, do = (_cuda_like(torch.zeros(BH, T, head_dim, dtype=d)) for d in (qd, kd, vd, qd))
     lse = _cuda_like(torch.zeros(BH, T))
@@ -305,26 +309,34 @@ def test_routes_wide_head_dims_to_the_window_kernels(monkeypatch, head_dim, dtyp
     assert tfa.launches == dict.fromkeys(tfa.launches, 1)
     assert tfa.launches_f32 == dict.fromkeys(tfa.launches, int(qd == torch.float32 or mixed))
     key = "mixed" if mixed else str(qd).removeprefix("torch.")
-    on = {name: f"d{tfa.WIDE_WINDOWS[name]}x{tfa.windows(name, head_dim, bf)}" for name in tfa.launches}
+    fwd_windows = -(-head_dim // fwd_slice) if fwd_sliced else WIDE_ROUTES[head_dim][2]
+    on = {"flash_fwd": f"d{fwd_slice}x{fwd_windows} cluster" if fwd_sliced else f"d256x{fwd_windows}",
+          "flash_dq": f"d256x{WIDE_ROUTES[head_dim][2]}", "flash_dkv": f"d128x{WIDE_ROUTES[head_dim][3]}"}
     if sliced:
         on.update({name: f"d128x{slices} cluster" for name in ("flash_dq", "flash_dkv")})
     assert tfa.launches_by_instance == {f"{name} d{head_dim} on {on[name]} {key}": 1 for name in tfa.launches}
     dtype = "mixed" if mixed else qd
     assert [tfa.windows(name, head_dim, dtype) for name in tfa.launches] == (
-        [WIDE_ROUTES[head_dim][2], slices, slices] if sliced else
-        [WIDE_ROUTES[head_dim][2]] * 2 + [WIDE_ROUTES[head_dim][3]])
+        [fwd_windows, slices, slices] if sliced else
+        [fwd_windows, WIDE_ROUTES[head_dim][2], WIDE_ROUTES[head_dim][3]])
 
 
 def test_instance_keys_above_256():
     """The instance keys phase 14 of chip_smoke.py counts: the head dim
-    asked, then the window kernel's window width and count (the f32 and
-    mixed dQ and dK/dV up to 1024: the slice width, the cluster's blocks
-    and "cluster")."""
+    asked, then the window kernel's window width and count (the forward in
+    every library, and the f32 and mixed dQ and dK/dV, up to their
+    clusters' limit: the slice width, the cluster's blocks and
+    "cluster")."""
     bf = torch.bfloat16
-    assert tfa.instance("flash_fwd", 384, bf) == "flash_fwd d384 on d256x2 bfloat16"
+    s16 = tfa.CLUSTERS[("flash_fwd", 16)][0]
+    assert tfa.instance("flash_fwd", 384, bf) == f"flash_fwd d384 on d{s16}x{-(-384 // s16)} cluster bfloat16"
+    assert tfa.instance("flash_fwd", 768, torch.float16) == f"flash_fwd d768 on d{s16}x{768 // s16} cluster float16"
+    assert tfa.instance("flash_fwd", 1032, bf) == "flash_fwd d1032 on d256x5 bfloat16"
+    assert tfa.instance("flash_dq", 384, bf) == "flash_dq d384 on d256x2 bfloat16"
     assert tfa.instance("flash_dq", 768, torch.float32) == "flash_dq d768 on d128x6 cluster float32"
     assert tfa.instance("flash_dkv", 384, "mixed") == "flash_dkv d384 on d128x3 cluster mixed"
-    assert tfa.instance("flash_fwd", 384, torch.float32) == "flash_fwd d384 on d256x2 float32"
+    assert tfa.instance("flash_fwd", 384, torch.float32) == "flash_fwd d384 on d128x3 cluster float32"
+    assert tfa.instance("flash_fwd", 1280, torch.float32) == "flash_fwd d1280 on d256x5 float32"
     assert tfa.instance("flash_dq", 1280, torch.float32) == "flash_dq d1280 on d256x5 float32"
     assert tfa.instance("flash_dkv", 768, bf) == "flash_dkv d768 on d128x6 bfloat16"
     assert tfa.instance("flash_fwd", 256, bf) == "flash_fwd d256 bfloat16"
